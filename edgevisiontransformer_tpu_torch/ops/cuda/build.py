@@ -1,0 +1,115 @@
+"""Build the port's CUDA kernels into one shared library and load it.
+
+``edgevisiontransformer_tpu_torch/csrc/*.cu`` compile with ``nvcc`` into a
+single ``.so`` with a plain C interface, loaded with :mod:`ctypes` (no
+PyTorch headers, so a build takes seconds).  The library lands in
+``build/torch_kernels/`` at the repository root, named by a hash of the
+sources and the compile command, so a changed source rebuilds and an
+unchanged one loads the cached file.  Nothing here runs on import: the first
+kernel launch calls :func:`load`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every exported function: (name, restype, argtypes).
+_SIGNATURES = (
+    ("evt_ln_rows", _I, (_P, _P, _P, _P, _I, _I, _F, _P)),
+    ("evt_linear", _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    ("evt_attention_rows", _I, (_P, _P, _I, _I, _I, _I, _I, _F, _P)),
+    ("evt_error_string", ctypes.c_char_p, (_I,)),
+)
+
+_lib = None
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libevt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def compile_library(out: Path) -> None:
+    """Run nvcc on every ``csrc/*.cu`` into ``out``; raise with nvcc's
+    stderr on failure.  Writes to a temporary name first so a concurrent
+    build never loads a half-written file."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load() -> ctypes.CDLL:
+    """Return the kernel library, building it first if its cached file is
+    missing.  Raises :class:`KernelBuildError` on a failed build or load."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = library_path()
+    if not path.exists():
+        compile_library(path)
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelBuildError(f"loading {path} failed: {e}") from e
+    for name, restype, argtypes in _SIGNATURES:
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+    _lib = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = load().evt_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
