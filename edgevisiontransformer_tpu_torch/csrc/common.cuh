@@ -1,5 +1,6 @@
 // Shared device helpers for the encoder kernels (ln_rows.cu, linear.cu,
-// attention_rows.cu).  Plain CUDA C++ for sm_90a; no PyTorch headers, so the
+// attention_rows.cu, quant_rows.cu, linear_i8.cu).  Plain CUDA C++ for
+// sm_90a; no PyTorch headers, so the
 // library builds in seconds and binds through a C interface (ctypes).
 #pragma once
 
@@ -28,6 +29,20 @@ __device__ __forceinline__ uint4 pack8(const float f[8]) {
   return v;
 }
 
+// 8 consecutive values of a vector that is fp32 (f32 != 0) or bf16, from
+// element 8 * chunk on: an LN affine or a bias, which the int8 stacks keep
+// in fp32.  The address must be 16-byte aligned.
+__device__ __forceinline__ void load8_either(const void* p, int chunk, int f32, float f[8]) {
+  if (f32) {
+    const float4* v = reinterpret_cast<const float4*>(static_cast<const float*>(p) + chunk * 8);
+    const float4 a = v[0], b = v[1];
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  } else {
+    unpack8(*reinterpret_cast<const uint4*>(static_cast<const bf16*>(p) + chunk * 8), f);
+  }
+}
+
 // Round an fp32 value to bf16 and back (a cast point of the reference).
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -36,6 +51,12 @@ __device__ __forceinline__ float round_bf16(float x) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 

@@ -3,7 +3,9 @@
 // Replaces: the LayerNorm inside the TPU whole-encoder kernels,
 //   edgevisiontransformer_tpu/ops/pallas/fused_encoder.py `_ln` (:54-62), as
 //   called by `_encoder_kernel` (K1, encoder_forward) and
-//   `_encoder_kernel_pipelined` (K2, encoder_forward_pipelined).
+//   `_encoder_kernel_pipelined` (K2, encoder_forward_pipelined), and by the
+//   int8 kernels K4 / K5 (`_encoder_kernel_int8[_pipelined]`), whose stacks
+//   keep the affine g, b in fp32: they are read as bf16 or fp32 (affine_f32).
 //
 // Bound on the card: device-memory bytes.  Per row it reads dim bf16 values
 // and writes dim (2 + 2 bytes per element) and does ~10 flops per element, far
@@ -22,8 +24,8 @@ namespace {
 constexpr int kWarps = 8;
 
 __global__ __launch_bounds__(kWarps * 32) void ln_rows_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ g, const bf16* __restrict__ b,
-    bf16* __restrict__ y, int rows, int dim, float eps) {
+    const bf16* __restrict__ x, const void* __restrict__ g, const void* __restrict__ b,
+    bf16* __restrict__ y, int rows, int dim, float eps, int affine_f32) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -55,8 +57,8 @@ __global__ __launch_bounds__(kWarps * 32) void ln_rows_kernel(
   float gf[8], bf[8];
   for (int c = lane; c < chunks; c += 32) {
     unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-    unpack8(*reinterpret_cast<const uint4*>(g + c * 8), gf);
-    unpack8(*reinterpret_cast<const uint4*>(b + c * 8), bf);
+    load8_either(g, c, affine_f32, gf);
+    load8_either(b, c, affine_f32, bf);
 #pragma unroll
     for (int i = 0; i < 8; ++i) f[i] = (f[i] - mean) * rs * gf[i] + bf[i];
     *reinterpret_cast<uint4*>(yr + c * 8) = pack8(f);
@@ -66,12 +68,11 @@ __global__ __launch_bounds__(kWarps * 32) void ln_rows_kernel(
 }  // namespace
 
 extern "C" int evt_ln_rows(const void* x, const void* g, const void* b, void* y, int rows,
-                           int dim, float eps, void* stream) {
+                           int dim, float eps, int affine_f32, void* stream) {
   if (rows == 0) return 0;
   const dim3 grid((rows + kWarps - 1) / kWarps);
   ln_rows_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const bf16*>(b),
-      static_cast<bf16*>(y), rows, dim, eps);
+      static_cast<const bf16*>(x), g, b, static_cast<bf16*>(y), rows, dim, eps, affine_f32);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,13 +5,15 @@ applied as ``x @ w``), so ``named_parameters()`` matches the Flax
 ``variables["params"]`` tree leaf for leaf: ``block_0.attn.qkv_kernel`` is
 ``params["block_0"]["attn"]["qkv_kernel"]``.  :meth:`ViT.params` returns that
 tree.  ``ViT.forward`` has ``model.apply``'s eager semantics;
-:func:`fused_vit_apply` runs the encoder on the hand-written kernels.
+:func:`fused_vit_apply` runs the encoder on the hand-written kernels, and
+:func:`fused_vit_apply_int8` runs it in int8 (dynamic or static scales).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -269,6 +271,45 @@ def prepare_vit_fused(model: ViT) -> dict:
     return {k: v.to(cfg.dtype).contiguous() for k, v in stacked.items()}
 
 
+def _check_fused(cfg: ViTConfig) -> int:
+    """The heads of the one encoder segment of a model the fused encoders
+    take; raise for anything else."""
+    if cfg.norm_mode != "layernorm" or cfg.act != "gelu":
+        # transitions-compiled (NoNorm / ReLU) models: the kernels compute
+        # real LayerNorm + GELU
+        raise ValueError(
+            "fused encoder supports norm_mode='layernorm' + act='gelu' only; "
+            f"got norm_mode={cfg.norm_mode!r}, act={cfg.act!r} (use model(img))"
+        )
+    segments = encoder_segments(cfg)
+    if len(segments) != 1:
+        raise NotImplementedError(
+            f"{len(segments)} encoder segments: layerwise-pruned models are not "
+            "ported to the fused path yet (use model(img))")
+    return segments[0][2]
+
+
+def _fused_embed(cfg: ViTConfig, p: dict, img: torch.Tensor) -> torch.Tensor:
+    dt = cfg.dtype
+    x = patch_embed(img.to(dt), p["patch_kernel"].to(dt), p["patch_bias"].to(dt),
+                    cfg.patch_size)
+    cls = p["cls_token"].to(dt).expand(x.shape[0], 1, cfg.dim)
+    return torch.cat([cls, x], dim=1) + p["pos_embedding"].to(dt)
+
+
+def _fused_head(cfg: ViTConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    dt = cfg.dtype
+    if cfg.final_norm:
+        x = layer_norm(x, p["final_norm"]["scale"], p["final_norm"]["bias"],
+                       cfg.layernorm_eps)
+    x = x[:, 0]
+    if cfg.mlp_head:
+        h = x @ p["head_fc1"]["kernel"].to(dt) + p["head_fc1"]["bias"].to(dt)
+        h = get_gelu(cfg.gelu_approx)(h)
+        return h @ p["head_fc2"]["kernel"].to(dt) + p["head_fc2"]["bias"].to(dt)
+    return x @ p["head"]["kernel"].to(dt) + p["head"]["bias"].to(dt)
+
+
 def fused_vit_apply(model: ViT, img: torch.Tensor, *, stacked: dict | None = None,
                     plain: bool = False) -> torch.Tensor:
     """Forward pass with the encoder on the hand-written kernels
@@ -284,38 +325,144 @@ def fused_vit_apply(model: ViT, img: torch.Tensor, *, stacked: dict | None = Non
     from ..ops.cuda.fused_encoder import encoder_forward, encoder_forward_plain
 
     cfg = model.config
-    if cfg.norm_mode != "layernorm" or cfg.act != "gelu":
-        # transitions-compiled (NoNorm / ReLU) models: the kernels compute
-        # real LayerNorm + GELU
-        raise ValueError(
-            "fused encoder supports norm_mode='layernorm' + act='gelu' only; "
-            f"got norm_mode={cfg.norm_mode!r}, act={cfg.act!r} (use model(img))"
-        )
-    segments = encoder_segments(cfg)
-    if len(segments) != 1:
-        raise NotImplementedError(
-            f"{len(segments)} encoder segments: layerwise-pruned models are not "
-            "ported to the fused path yet (use model(img))")
+    heads = _check_fused(cfg)
     p = model.params()
-    dt = cfg.dtype
-    x = patch_embed(img.to(dt), p["patch_kernel"].to(dt), p["patch_bias"].to(dt),
-                    cfg.patch_size)
-    cls = p["cls_token"].to(dt).expand(x.shape[0], 1, cfg.dim)
-    x = torch.cat([cls, x], dim=1) + p["pos_embedding"].to(dt)
-
+    x = _fused_embed(cfg, p, img)
     if stacked is None:
         stacked = prepare_vit_fused(model)
     encoder = encoder_forward_plain if plain else encoder_forward
-    x = encoder(x, stacked, heads=segments[0][2], head_dim=cfg.resolved_head_dim,
+    x = encoder(x, stacked, heads=heads, head_dim=cfg.resolved_head_dim,
                 eps=cfg.layernorm_eps, reference_residual=cfg.reference_residual,
                 approx_gelu=cfg.gelu_approx)
+    return _fused_head(cfg, p, x)
 
-    if cfg.final_norm:
-        x = layer_norm(x, p["final_norm"]["scale"], p["final_norm"]["bias"],
-                       cfg.layernorm_eps)
-    x = x[:, 0]
-    if cfg.mlp_head:
-        h = x @ p["head_fc1"]["kernel"].to(dt) + p["head_fc1"]["bias"].to(dt)
-        h = get_gelu(cfg.gelu_approx)(h)
-        return h @ p["head_fc2"]["kernel"].to(dt) + p["head_fc2"]["bias"].to(dt)
-    return x @ p["head"]["kernel"].to(dt) + p["head"]["bias"].to(dt)
+
+# ---------------------------------------------------------------------------
+# Int8
+# ---------------------------------------------------------------------------
+
+# fused_vit_apply_int8's variants: the reference picks its TPU kernel by
+# VMEM size; one CUDA encoder serves all three.
+INT8_VARIANTS = ("auto", "streamed", "pipelined")
+
+
+def prepare_vit_int8(model: ViT, variables: dict | None = None) -> dict:
+    """Quantize the encoder stack to int8 once (per-layer, per-output-channel
+    scales) for :func:`fused_vit_apply_int8`.  The LN affines and biases stay
+    in the params' dtype (fp32), as in the reference.
+
+    ``variables`` defaults to ``model.params()``.  Layerwise-pruned models
+    return ``{"segments": [stack, ...]}``, one per uniform run of layers."""
+    from ..ops.cuda.fused_encoder import quantize_stacked_int8, stack_vit_layer_params
+
+    cfg = model.config
+    p = model.params() if variables is None else variables.get("params", variables)
+    segs = encoder_segments(cfg)
+    stacks = [quantize_stacked_int8(stack_vit_layer_params(p, d, cfg.qkv_bias, start=s))
+              for s, d, _, _ in segs]
+    return stacks[0] if len(stacks) == 1 else {"segments": stacks}
+
+
+def prepare_vit_int8_static(model: ViT, variables: dict | None = None, act_scales=None,
+                            calib_batches=None, percentile: float | None = None,
+                            method: str = "absmax") -> dict:
+    """Static int8 prep: calibrate the activation scales on representative
+    data (``ops/quant.calibrate_vit``, unless ``act_scales [depth, 4]`` is
+    given) and fold them into the quantized stack, which then carries
+    ``act_inv``.  Same shapes of result as :func:`prepare_vit_int8`."""
+    from ..ops.cuda.fused_encoder import (quantize_stacked_int8_static,
+                                          stack_vit_layer_params)
+    from ..ops.quant import calibrate_vit
+
+    cfg = model.config
+    p = model.params() if variables is None else variables.get("params", variables)
+    if act_scales is None:
+        act_scales = calibrate_vit(model, p, batches=calib_batches,
+                                   percentile=percentile, method=method)
+    act_scales = np.asarray(act_scales, np.float32)
+    segs = encoder_segments(cfg)
+    stacks = [quantize_stacked_int8_static(
+        stack_vit_layer_params(p, d, cfg.qkv_bias, start=s), act_scales[s:s + d])
+        for s, d, _, _ in segs]
+    return stacks[0] if len(stacks) == 1 else {"segments": stacks}
+
+
+def stacks_from_quantized_tree(cfg: ViTConfig, qtree: dict) -> dict:
+    """Rebuild the int8 stacks from a quantized param tree
+    (``ops/quant.quantize_vit_params_int8[_static]`` output): pure
+    re-stacking, as in the reference.  Like the reference, the float glue
+    (LN affines, biases) is cast to ``cfg.dtype``, so the result equals
+    :func:`prepare_vit_int8[_static]`'s bit for bit only for fp32 configs."""
+    p = qtree.get("params", qtree)
+    mats = (("qkv_w", "attn", "qkv_kernel"), ("out_w", "attn", "out_kernel"),
+            ("fc1_w", "ffn", "fc1_kernel"), ("fc2_w", "ffn", "fc2_kernel"))
+
+    def one_segment(start: int, depth: int) -> dict:
+        blocks = [p[f"block_{i}"] for i in range(start, start + depth)]
+
+        def stack(getter):
+            out = torch.stack([torch.as_tensor(getter(b)) for b in blocks])
+            return out[:, None, :] if out.dim() == 2 else out
+
+        q0 = torch.as_tensor(blocks[0]["attn"]["qkv_kernel"]["q"])
+        stacked = {
+            "ln1_g": stack(lambda b: b["ln1"]["scale"]),
+            "ln1_b": stack(lambda b: b["ln1"]["bias"]),
+            "qkv_b": stack(lambda b: b["attn"]["qkv_bias"]) if cfg.qkv_bias
+            else torch.zeros((depth, 1, q0.shape[1]), dtype=torch.float32, device=q0.device),
+            "out_b": stack(lambda b: b["attn"]["out_bias"]),
+            "ln2_g": stack(lambda b: b["ln2"]["scale"]),
+            "ln2_b": stack(lambda b: b["ln2"]["bias"]),
+            "fc1_b": stack(lambda b: b["ffn"]["fc1_bias"]),
+            "fc2_b": stack(lambda b: b["ffn"]["fc2_bias"]),
+        }
+        static = "act_scale" in blocks[0]["attn"]["qkv_kernel"]
+        act_inv = np.ones((depth, 4), np.float32)
+        for j, (key, sub, leaf) in enumerate(mats):
+            stacked[key] = stack(lambda b: b[sub][leaf]["q"]).to(torch.int8)
+            stacked[key.replace("_w", "_s")] = stack(lambda b: b[sub][leaf]["scale"]).float()
+            if static:
+                for li, b in enumerate(blocks):
+                    act_inv[li, j] = 1.0 / float(b[sub][leaf]["act_scale"])
+        if static:
+            stacked["act_inv"] = torch.from_numpy(act_inv).to(q0.device)
+        for k in ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "qkv_b", "out_b", "fc1_b", "fc2_b"):
+            stacked[k] = stacked[k].to(cfg.dtype)
+        return stacked
+
+    segs = encoder_segments(cfg)
+    if len(segs) == 1:
+        return one_segment(0, cfg.depth)
+    return {"segments": [one_segment(s, d) for s, d, _, _ in segs]}
+
+
+def fused_vit_apply_int8(model: ViT, img: torch.Tensor, *, stacked_q: dict | None = None,
+                         variant: str = "auto", plain: bool = False) -> torch.Tensor:
+    """Forward pass with the int8 encoder on the hand-written kernels
+    (``ops/cuda/fused_encoder.encoder_forward_int8``).
+
+    With a :func:`prepare_vit_int8` stack: dynamic-range semantics (per-row
+    activation scales, per-channel weight scales, ``ops/quant.int8_vit_apply``).
+    With a :func:`prepare_vit_int8_static` stack: calibrated per-tensor
+    activation scales.  Embedding and head stay float, in ``cfg.dtype``.
+    ``stacked_q`` is built with :func:`prepare_vit_int8` when omitted.
+    ``variant`` is one of :data:`INT8_VARIANTS` (all take the one encoder);
+    ``plain=True`` runs the kernels' plain twins on any device."""
+    from ..ops.cuda.fused_encoder import encoder_forward_int8, encoder_forward_int8_plain
+
+    cfg = model.config
+    if variant not in INT8_VARIANTS:
+        raise ValueError(f"unknown int8 variant {variant!r}; one of {INT8_VARIANTS}")
+    heads = _check_fused(cfg)
+    if stacked_q is None:
+        stacked_q = prepare_vit_int8(model)
+    if "segments" in stacked_q:
+        raise ValueError(f"stacked_q has {len(stacked_q['segments'])} segments but the "
+                         "config has one: re-run prepare_vit_int8[_static] for this model")
+    p = model.params()
+    x = _fused_embed(cfg, p, img)
+    encoder = encoder_forward_int8_plain if plain else encoder_forward_int8
+    x = encoder(x, stacked_q, heads=heads, head_dim=cfg.resolved_head_dim,
+                eps=cfg.layernorm_eps, reference_residual=cfg.reference_residual,
+                approx_gelu=cfg.gelu_approx)
+    return _fused_head(cfg, p, x)

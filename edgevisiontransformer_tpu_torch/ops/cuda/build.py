@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
-``edgevisiontransformer_tpu_torch/csrc/*.cu`` compile with ``nvcc`` into a
-single ``.so`` with a plain C interface, loaded with :mod:`ctypes` (no
-PyTorch headers, so a build takes seconds).  The library lands in
+``edgevisiontransformer_tpu_torch/csrc/*.cu`` compile with ``nvcc``, one
+process per source, all started together, and link into a single ``.so``
+with a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so
+a build takes seconds).  The library lands in
 ``build/torch_kernels/`` at the repository root, named by a hash of the
 sources and the compile command, so a changed source rebuilds and an
 unchanged one loads the cached file.  Nothing here runs on import: the first
@@ -22,16 +23,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every exported function: (name, restype, argtypes).
 _SIGNATURES = (
-    ("evt_ln_rows", _I, (_P, _P, _P, _P, _I, _I, _F, _P)),
+    ("evt_ln_rows", _I, (_P, _P, _P, _P, _I, _I, _F, _I, _P)),
     ("evt_linear", _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     ("evt_attention_rows", _I, (_P, _P, _I, _I, _I, _I, _I, _F, _P)),
+    ("evt_quant_rows", _I, (_P, _P, _P, _P, _I, _I, _I, _P)),
+    ("evt_linear_i8", _I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     ("evt_error_string", ctypes.c_char_p, (_I,)),
 )
 
@@ -68,23 +71,33 @@ def library_path() -> Path:
 
 
 def compile_library(out: Path) -> None:
-    """Run nvcc on every ``csrc/*.cu`` into ``out``; raise with nvcc's
-    stderr on failure.  Writes to a temporary name first so a concurrent
-    build never loads a half-written file."""
+    """Compile every ``csrc/*.cu`` to an object, one ``nvcc`` process per
+    source running side by side, then link them into ``out``; raise with
+    nvcc's stderr on failure.  Works in a temporary directory beside ``out``
+    so a concurrent build never loads a half-written file."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    try:
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if errors:
+            raise KernelBuildError("\n".join(errors))
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *(str(j[1]) for j in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(lib, out)
 
 
 def load() -> ctypes.CDLL:

@@ -1,5 +1,5 @@
-"""The pre-norm ViT encoder on hand-written Hopper kernels (port of the bf16
-half of ``edgevisiontransformer_tpu/ops/pallas/fused_encoder.py``).
+"""The pre-norm ViT encoder on hand-written Hopper kernels (port of
+``edgevisiontransformer_tpu/ops/pallas/fused_encoder.py``, bf16 and int8).
 
 The TPU kernels ``encoder_forward`` (grid over batch blocks and layers) and
 ``encoder_forward_pipelined`` (one program, double-buffered weight DMA) keep
@@ -19,6 +19,16 @@ One implementation serves every batch, so it is the counterpart of both TPU
 kernels.  Activations are ``[b*n, dim]`` rows with no token padding: the
 attention kernel masks keys at and past ``seq_len`` itself.
 
+The int8 kernels ``encoder_forward_int8`` and ``encoder_forward_int8_pipelined``
+become :func:`encoder_forward_int8`, the same chain with every matmul split
+into an activation quantization and an int8 GEMM::
+
+    q, s = quant_rows(h[, act_inv[i, j]])                  # kernel D
+    y    = linear_i8(q, s, Wq, w_s, b, epilogue[, res])    # kernel E
+
+dynamic (per-row absmax scales ``s``) or static (calibrated per-tensor
+``act_inv``, folded into ``w_s``), as the stack says.
+
 Each kernel wrapper has a plain PyTorch twin (``*_plain``) that computes in
 fp32 with the kernel's cast points.  A wrapper takes its twin for a CPU
 tensor only; for a CUDA tensor it launches the kernel or raises.  Every
@@ -36,7 +46,8 @@ from .common import softmax_unnorm
 from .mathlib import gelu_kernel
 
 # Kernel launches since the last reset_launches(), by kernel.
-LAUNCHES = {"ln_rows": 0, "linear": 0, "attention_rows": 0}
+LAUNCHES = {"ln_rows": 0, "linear": 0, "attention_rows": 0, "quant_rows": 0,
+            "linear_i8": 0}
 
 # linear() epilogues, with the kernel's cast points (acc is the fp32 sum):
 #   CAST_THEN_BIAS       bf16(bf16(acc) + b)
@@ -49,6 +60,19 @@ BIAS_RESIDUAL = "bias_residual"
 _EPI_CODES = {(CAST_THEN_BIAS, False): 0, (CAST_THEN_BIAS, True): 0,
               (CAST_THEN_BIAS_GELU, True): 1, (CAST_THEN_BIAS_GELU, False): 2,
               (BIAS_RESIDUAL, False): 3, (BIAS_RESIDUAL, True): 3}
+# linear_i8() epilogues on the dequantized fp32 product ``deq``: they round
+# once where CAST_THEN_BIAS rounds twice (fused_encoder.py:926-951).
+#   BIAS                 bf16(deq + f32(b))
+#   BIAS_GELU            bf16(gelu_f32(bf16(deq + f32(b))))
+#   BIAS_RESIDUAL        bf16(deq + f32(b) + f32(res))
+BIAS = "bias"
+BIAS_GELU = "bias_gelu"
+# Epilogue codes of csrc/linear_i8.cu.
+_I8_EPI_CODES = {(BIAS, False): 0, (BIAS, True): 0, (BIAS_GELU, True): 1,
+                 (BIAS_GELU, False): 2, (BIAS_RESIDUAL, False): 3,
+                 (BIAS_RESIDUAL, True): 3}
+# The int8 stacks' matmul weights, in act_inv's column order.
+INT8_KEYS = ("qkv_w", "out_w", "fc1_w", "fc2_w")
 
 _LOG2E = 1.4426950408889634
 
@@ -66,18 +90,27 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _on_cpu(what: str, *tensors: torch.Tensor) -> bool:
+_BF16 = (torch.bfloat16,)
+# what an LN affine or a bias may be: the int8 stacks keep them in fp32
+_BF16_F32 = (torch.bfloat16, torch.float32)
+
+
+def _on_cpu(what: str, *tensors: torch.Tensor, dtypes: dict | None = None) -> bool:
     """True when every tensor is on the CPU (take the twin), False when all
-    are on one CUDA device in bf16 and contiguous (launch); raise otherwise."""
+    are on one CUDA device, contiguous and 16-byte aligned, in bf16 or the
+    dtypes that ``dtypes`` (tensor position -> allowed dtypes) names for a
+    tensor (launch); raise otherwise."""
     devs = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devs):
         return True
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"{what}: tensors must all be on the CPU or all on one "
                          f"CUDA device, got {sorted(map(str, devs))}")
-    for t in tensors:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the CUDA kernel takes bfloat16 only, "
+    for i, t in enumerate(tensors):
+        allowed = (dtypes or {}).get(i, _BF16)
+        if t.dtype not in allowed:
+            names = " or ".join(str(d).removeprefix("torch.") for d in allowed)
+            raise TypeError(f"{what}: the CUDA kernel takes {names} here, "
                             f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: the CUDA kernel needs contiguous tensors")
@@ -104,19 +137,22 @@ def ln_rows_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
             eps: float) -> torch.Tensor:
-    """LayerNorm of each row of ``x [rows, dim]`` (csrc/ln_rows.cu)."""
-    if _on_cpu("ln_rows", x, g, b):
+    """LayerNorm of each row of ``x [rows, dim]`` (csrc/ln_rows.cu).  On the
+    GPU ``x`` is bf16 and the affine ``g``, ``b`` bf16 or fp32 (both alike)."""
+    if _on_cpu("ln_rows", x, g, b, dtypes={1: _BF16_F32, 2: _BF16_F32}):
         return ln_rows_plain(x, g, b, eps)
     if x.dim() != 2 or g.shape != (x.shape[1],) or b.shape != (x.shape[1],):
         raise ValueError(f"ln_rows: bad shapes x{tuple(x.shape)} "
                          f"g{tuple(g.shape)} b{tuple(b.shape)}")
+    if g.dtype != b.dtype:
+        raise TypeError(f"ln_rows: g and b differ in dtype ({g.dtype}, {b.dtype})")
     rows, dim = x.shape
     if dim % 8:
         raise ValueError(f"ln_rows: dim must be a multiple of 8, got {dim}")
     y = torch.empty_like(x)
     lib = build.load()
     rc = lib.evt_ln_rows(_ptr(x), _ptr(g), _ptr(b), _ptr(y), rows, dim,
-                         ctypes.c_float(eps), _stream(x))
+                         ctypes.c_float(eps), int(g.dtype == torch.float32), _stream(x))
     build.check(rc, "ln_rows")
     LAUNCHES["ln_rows"] += 1
     return y
@@ -226,6 +262,129 @@ def attention_rows(qkv: torch.Tensor, *, heads: int, head_dim: int,
 
 
 # ---------------------------------------------------------------------------
+# Kernel D: int8 quantization of rows
+# ---------------------------------------------------------------------------
+
+# f32(1/127): the Pallas kernel's ``a / 127.0`` is evaluated as this product
+# (fused_encoder.py:851; the JAX package's interpret mode gives it bit for bit)
+_INV127 = 1.0 / 127.0
+
+
+def quant_rows_plain(h: torch.Tensor, act_inv: torch.Tensor | None = None,
+                     index: int = 0):
+    """Symmetric int8 quantization of each row of ``h [M, K]``, in fp32.
+
+    Dynamic (``act_inv`` None): ``s = a > 0 ? a * f32(1/127) : 1`` from the
+    row absmax ``a``, ``q = clip(rint(h * (1/s)), +-127)``; returns ``(q, s)``
+    with ``s [M]`` fp32 (``_quant_rows_kernel``, fused_encoder.py:844).
+    Static: ``q = clip(rint(h * inv_a), +-127)`` with the calibrated scalar
+    ``inv_a = act_inv.view(-1)[index]``; returns ``(q, None)``
+    (``_int8_mm_static``, :873-877)."""
+    hf = h.float()
+    if act_inv is not None:
+        inv = act_inv.reshape(-1)[index].float()
+        return torch.clamp(torch.round(hf * inv), -127, 127).to(torch.int8), None
+    a = hf.abs().amax(dim=-1)
+    s = torch.where(a > 0, a * _INV127, torch.ones_like(a))
+    q = torch.clamp(torch.round(hf * (1.0 / s)[:, None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quant_rows(h: torch.Tensor, act_inv: torch.Tensor | None = None, index: int = 0):
+    """:func:`quant_rows_plain` as one kernel (csrc/quant_rows.cu).  Static
+    mode reads ``inv_a`` from ``act_inv`` on the device (flat ``index``:
+    ``layer * 4 + matmul``), so a forward needs no host sync."""
+    tensors = (h,) + ((act_inv,) if act_inv is not None else ())
+    if _on_cpu("quant_rows", *tensors, dtypes={1: (torch.float32,)}):
+        return quant_rows_plain(h, act_inv, index)
+    if h.dim() != 2 or h.shape[1] % 16:
+        raise ValueError(f"quant_rows: h must be [M, K] with K % 16 == 0, got {tuple(h.shape)}")
+    if act_inv is not None and not 0 <= index < act_inv.numel():
+        raise IndexError(f"quant_rows: index {index} outside act_inv{tuple(act_inv.shape)}")
+    m, k = h.shape
+    q = torch.empty((m, k), dtype=torch.int8, device=h.device)
+    s = None if act_inv is not None else torch.empty(m, dtype=torch.float32, device=h.device)
+    lib = build.load()
+    rc = lib.evt_quant_rows(_ptr(h), _ptr(q), _ptr(s) if s is not None else None,
+                            _ptr(act_inv) if act_inv is not None else None, index,
+                            m, k, _stream(h))
+    build.check(rc, "quant_rows")
+    LAUNCHES["quant_rows"] += 1
+    return q, s
+
+
+# ---------------------------------------------------------------------------
+# Kernel E: int8 GEMM with the dequant and the int8 epilogues
+# ---------------------------------------------------------------------------
+
+
+def linear_i8_plain(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
+                    w_s: torch.Tensor, b: torch.Tensor, *, epilogue: str,
+                    out_dtype: torch.dtype, res: torch.Tensor | None = None,
+                    approx_gelu: bool = False) -> torch.Tensor:
+    """``q [M, K] @ w_q [K, N]`` exactly, dequantized and finished in fp32.
+
+    The product runs in float64, where every partial sum of int8 products
+    (below 127^2 * K < 2^53) is exact, and is rounded once to fp32 as the
+    int32 -> f32 cast rounds.  Dequant ``(acc * s_row) * w_s`` (dynamic) or
+    ``acc * w_s`` (static, ``s_row`` None, ``w_s`` the combined scale)."""
+    acc = (q.double() @ w_q.double()).float()
+    deq = acc * s_row[:, None] * w_s if s_row is not None else acc * w_s
+    y = deq + b.float()
+    if epilogue == BIAS_RESIDUAL:
+        return (y + res.float()).to(out_dtype)
+    y = y.to(out_dtype)
+    if epilogue == BIAS_GELU:
+        y = gelu_kernel(y, approx_gelu)
+    return y
+
+
+def linear_i8(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
+              w_s: torch.Tensor, b: torch.Tensor, *, epilogue: str,
+              out_dtype: torch.dtype, res: torch.Tensor | None = None,
+              approx_gelu: bool = False) -> torch.Tensor:
+    """:func:`linear_i8_plain` as one kernel (csrc/linear_i8.cu): int8 WMMA
+    with int32 accumulation.  On the GPU the output and ``res`` are bf16,
+    ``b`` bf16 or fp32, and K and N multiples of 16."""
+    if (epilogue, approx_gelu) not in _I8_EPI_CODES:
+        raise ValueError(f"linear_i8: unknown epilogue {epilogue!r}")
+    if (res is not None) != (epilogue == BIAS_RESIDUAL):
+        raise ValueError("linear_i8: res is given exactly for BIAS_RESIDUAL")
+    tensors = [q, w_q, w_s, b]
+    dtypes = {0: (torch.int8,), 1: (torch.int8,), 2: (torch.float32,), 3: _BF16_F32}
+    if s_row is not None:
+        dtypes[len(tensors)] = (torch.float32,)
+        tensors.append(s_row)
+    if res is not None:
+        tensors.append(res)
+    if _on_cpu("linear_i8", *tensors, dtypes=dtypes):
+        return linear_i8_plain(q, s_row, w_q, w_s, b, epilogue=epilogue,
+                               out_dtype=out_dtype, res=res, approx_gelu=approx_gelu)
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"linear_i8: the CUDA kernel writes bfloat16 only, got {out_dtype}")
+    if q.dim() != 2 or w_q.dim() != 2 or q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"linear_i8: bad shapes q{tuple(q.shape)} w{tuple(w_q.shape)}")
+    m, k = q.shape
+    n = w_q.shape[1]
+    if (w_s.shape != (n,) or b.shape != (n,)
+            or (s_row is not None and s_row.shape != (m,))
+            or (res is not None and res.shape != (m, n))):
+        raise ValueError(f"linear_i8: bad scale/bias/residual shape for M={m} N={n}")
+    if k % 16 or n % 16:
+        raise ValueError(f"linear_i8: K and N must be multiples of 16, got K={k} N={n}")
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=q.device)
+    lib = build.load()
+    rc = lib.evt_linear_i8(_ptr(q), _ptr(s_row) if s_row is not None else None,
+                           _ptr(w_q), _ptr(w_s), _ptr(b),
+                           _ptr(res) if res is not None else None, _ptr(y), m, n, k,
+                           _I8_EPI_CODES[(epilogue, approx_gelu)],
+                           int(b.dtype == torch.float32), _stream(q))
+    build.check(rc, "linear_i8")
+    LAUNCHES["linear_i8"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
 # The encoder
 # ---------------------------------------------------------------------------
 
@@ -304,3 +463,87 @@ def encoder_forward_plain(x: torch.Tensor, stacked: dict, *, heads: int,
                     attention_rows_plain, heads=heads, head_dim=head_dim,
                     eps=eps, reference_residual=reference_residual,
                     approx_gelu=approx_gelu)
+
+
+# ---------------------------------------------------------------------------
+# The int8 encoder
+# ---------------------------------------------------------------------------
+
+
+def quantize_stacked_int8(stacked: dict, keys=INT8_KEYS) -> dict:
+    """Quantize the ``[L, in, out]`` weights of a stack to int8 with
+    per-(layer, output-channel) fp32 scales ``*_s [L, 1, out]``
+    (``ops/quant.quantize_weight_int8`` per layer); the rest is kept as it
+    is.  The divisions are IEEE quotients, as JAX's eager ones are."""
+    out = dict(stacked)
+    for key in keys:
+        w = stacked[key].float()
+        absmax = w.abs().amax(dim=1, keepdim=True)
+        s = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                        torch.ones_like(absmax))
+        out[key] = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+        out[key.replace("_w", "_s")] = s
+    return out
+
+
+def quantize_stacked_int8_static(stacked: dict, act_scales, keys=INT8_KEYS) -> dict:
+    """:func:`quantize_stacked_int8` with the calibrated per-(layer, matmul)
+    activation scales ``act_scales [L, len(keys)]`` folded into the weight
+    scales, and exported inverted as ``act_inv [L, len(keys)]`` fp32."""
+    out = quantize_stacked_int8(stacked, keys)
+    act = torch.as_tensor(act_scales, dtype=torch.float32, device=stacked[keys[0]].device)
+    for j, key in enumerate(keys):
+        skey = key.replace("_w", "_s")
+        out[skey] = out[skey] * act[:, j][:, None, None]
+    out["act_inv"] = 1.0 / act
+    return out
+
+
+def _encoder_int8(x, sq, ln, quant, lin, attn, *, heads, head_dim, eps,
+                  reference_residual, approx_gelu):
+    b, n, dim = x.shape
+    dt = x.dtype
+    depth = sq["qkv_w"].shape[0]
+    act_inv = sq.get("act_inv")
+
+    def mm(h, i, j, epilogue, res=None):
+        key = INT8_KEYS[j]
+        skey, bkey = key.replace("_w", "_s"), key.replace("_w", "_b")
+        q, s = quant(h, act_inv, i * len(INT8_KEYS) + j)
+        return lin(q, s, sq[key][i], sq[skey][i, 0], sq[bkey][i, 0], epilogue=epilogue,
+                   out_dtype=dt, res=res, approx_gelu=approx_gelu)
+
+    x = x.reshape(b * n, dim).contiguous()
+    for i in range(depth):
+        h = ln(x, sq["ln1_g"][i, 0], sq["ln1_b"][i, 0], eps)
+        qkv = mm(h, i, 0, BIAS)
+        a = attn(qkv, heads=heads, head_dim=head_dim, tokens=n)
+        x = mm(a, i, 1, BIAS_RESIDUAL, res=h if reference_residual else x)
+        h2 = ln(x, sq["ln2_g"][i, 0], sq["ln2_b"][i, 0], eps)
+        t = mm(h2, i, 2, BIAS_GELU)
+        x = mm(t, i, 3, BIAS_RESIDUAL, res=h2 if reference_residual else x)
+    return x.reshape(b, n, dim)
+
+
+def encoder_forward_int8(x: torch.Tensor, stacked_q: dict, *, heads: int,
+                         head_dim: int, eps: float, reference_residual: bool = False,
+                         approx_gelu: bool = False) -> torch.Tensor:
+    """Run the int8 encoder on ``x [b, n, dim]`` with a
+    :func:`quantize_stacked_int8` stack (dynamic per-row activation scales)
+    or a :func:`quantize_stacked_int8_static` one (``act_inv`` present:
+    calibrated per-tensor scales): the kernels on a CUDA tensor, their twins
+    on a CPU tensor.  The counterpart of both TPU kernels
+    ``encoder_forward_int8`` and ``encoder_forward_int8_pipelined``."""
+    return _encoder_int8(x, stacked_q, ln_rows, quant_rows, linear_i8, attention_rows,
+                         heads=heads, head_dim=head_dim, eps=eps,
+                         reference_residual=reference_residual, approx_gelu=approx_gelu)
+
+
+def encoder_forward_int8_plain(x: torch.Tensor, stacked_q: dict, *, heads: int,
+                               head_dim: int, eps: float,
+                               reference_residual: bool = False,
+                               approx_gelu: bool = False) -> torch.Tensor:
+    """:func:`encoder_forward_int8` through the plain twins on any device."""
+    return _encoder_int8(x, stacked_q, ln_rows_plain, quant_rows_plain, linear_i8_plain,
+                         attention_rows_plain, heads=heads, head_dim=head_dim, eps=eps,
+                         reference_residual=reference_residual, approx_gelu=approx_gelu)

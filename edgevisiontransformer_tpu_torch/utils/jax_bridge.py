@@ -67,3 +67,13 @@ def stacked_from_params(params_np: dict, depth: int, qkv_bias: bool,
                 for k, v in tree.items()}
 
     return stack_vit_layer_params(convert(params_np), depth, qkv_bias, start=start)
+
+
+def quantized_stack_from_jax(stacked_q_np: dict) -> dict:
+    """The port's int8 stack from a JAX one (``quantize_stacked_int8[_static]``
+    or ``prepare_vit_int8[_static]`` output, leaves as numpy): int8 weights,
+    fp32 scales and ``act_inv``, float glue, all copied exactly.  A
+    ``{"segments": [...]}`` stack keeps that form."""
+    if "segments" in stacked_q_np:
+        return {"segments": [quantized_stack_from_jax(s) for s in stacked_q_np["segments"]]}
+    return {k: to_torch(v) for k, v in stacked_q_np.items()}

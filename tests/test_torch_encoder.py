@@ -1,7 +1,9 @@
 """The port's encoder_forward (on the CPU: the kernels' plain twins) against
-the JAX whole-encoder kernels K1 (encoder_forward) and K2
-(encoder_forward_pipelined), run in interpret mode as the JAX package's own
-tests run them, at deit_tiny widths, depth 2, b=2, n=197."""
+the JAX whole-encoder kernels K1 (encoder_forward), K2
+(encoder_forward_pipelined), K6 (encoder_forward_blocked, its MLP in two
+384-wide chunks) and K17 (encoder_forward_resident), run in interpret mode
+as the JAX package's own tests run them, at deit_tiny widths, depth 2, b=2,
+n=197.  The port's one encoder_forward covers all four."""
 
 import functools
 
@@ -21,6 +23,14 @@ from edgevisiontransformer_tpu_torch.utils.jax_bridge import stacked_from_params
 torch.set_num_threads(1)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# The JAX kernels the port's encoder_forward stands for, with their options:
+# mlp_chunk=384 runs deit_tiny's 768-wide MLP in two chunks.
+JAX_KERNELS = {
+    "encoder_forward": jfe.encoder_forward,
+    "encoder_forward_pipelined": jfe.encoder_forward_pipelined,
+    "encoder_forward_blocked": functools.partial(jfe.encoder_forward_blocked, mlp_chunk=384),
+    "encoder_forward_resident": jfe.encoder_forward_resident,
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,10 +63,10 @@ def _run(style, dtype):
 
 
 @pytest.mark.parametrize("style", ["standard", "reference"])
-@pytest.mark.parametrize("jax_kernel", ["encoder_forward", "encoder_forward_pipelined"])
+@pytest.mark.parametrize("jax_kernel", list(JAX_KERNELS))
 def test_encoder_forward_fp32_matches_jax_kernels(style, jax_kernel):
     cfg, jst, jx, _, _, got = _run(style, "float32")
-    ref = np.asarray(getattr(jfe, jax_kernel)(jx, jst, **_kw(cfg)))
+    ref = np.asarray(JAX_KERNELS[jax_kernel](jx, jst, **_kw(cfg)))
     assert got.shape == ref.shape == (2, 197, 192)
     # same fp32 math; summation order and erf (the TPU kernel's polynomial
     # erf, |err| <= 7.2e-7) differ
@@ -64,10 +74,10 @@ def test_encoder_forward_fp32_matches_jax_kernels(style, jax_kernel):
 
 
 @pytest.mark.parametrize("style", ["standard", "reference"])
-@pytest.mark.parametrize("jax_kernel", ["encoder_forward", "encoder_forward_pipelined"])
+@pytest.mark.parametrize("jax_kernel", list(JAX_KERNELS))
 def test_encoder_forward_bf16_matches_jax_kernels(style, jax_kernel):
     cfg, jst, jx, _, _, got = _run(style, "bfloat16")
-    ref = np.asarray(getattr(jfe, jax_kernel)(jx, jst, **_kw(cfg)).astype(jnp.float32))
+    ref = np.asarray(JAX_KERNELS[jax_kernel](jx, jst, **_kw(cfg)).astype(jnp.float32))
     # both round at the same points; a one-spacing bf16 flip (2^-8..2^-7
     # relative) anywhere in a layer spreads through the next matmuls, so
     # two layers are held to 3% of the output's largest magnitude, and the

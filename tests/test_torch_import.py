@@ -19,6 +19,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.ops.activations",
     "edgevisiontransformer_tpu_torch.ops.layers",
     "edgevisiontransformer_tpu_torch.ops.attention",
+    "edgevisiontransformer_tpu_torch.ops.quant",
     "edgevisiontransformer_tpu_torch.ops.cuda",
     "edgevisiontransformer_tpu_torch.ops.cuda.common",
     "edgevisiontransformer_tpu_torch.ops.cuda.mathlib",

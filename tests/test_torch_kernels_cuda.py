@@ -11,7 +11,9 @@ This file imports no JAX.
 import pytest
 import torch
 
-from edgevisiontransformer_tpu_torch.models.vit import ViT, deit_config, fused_vit_apply
+from edgevisiontransformer_tpu_torch.models.vit import (ViT, deit_config, fused_vit_apply,
+                                                         fused_vit_apply_int8, prepare_vit_int8,
+                                                         prepare_vit_int8_static)
 from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
 
 pytestmark = pytest.mark.gpu
@@ -95,7 +97,8 @@ def test_encoder_forward_kernels_match_twins_and_count(dev, reference_residual, 
               approx_gelu=approx)
     fe.reset_launches()
     got = fe.encoder_forward(x, stacked, **kw)
-    assert fe.LAUNCHES == {"ln_rows": 4, "linear": 8, "attention_rows": 2}
+    assert fe.LAUNCHES == {"ln_rows": 4, "linear": 8, "attention_rows": 2, "quant_rows": 0,
+                           "linear_i8": 0}
     ref = fe.encoder_forward_plain(x, stacked, **kw)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max()
@@ -131,3 +134,126 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         fe.attention_rows(torch.zeros(10, 3 * 48, device=dev, dtype=torch.bfloat16),
                           heads=1, head_dim=48, tokens=5)
+
+
+# ---------------------------------------------------------------------------
+# int8: quant_rows and linear_i8
+# ---------------------------------------------------------------------------
+
+
+def _int8(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+def _uniform(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand(*shape, generator=g, device=dev) + 0.5
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("rows,k", [(1, 16), (197, 192), (197, 768), (1576, 3072),
+                                    (25216, 192), (9, 48)])
+def test_quant_rows_kernel_equals_twin(dev, rows, k, static):
+    h = _rnd(dev, rows, k, scale=3.0)
+    h[0] = 0  # absmax 0: s = 1
+    act_inv = (30.0 * _uniform(dev, 3, 4, seed=1)).contiguous() if static else None
+    q, s = fe.quant_rows(h, act_inv, 7)
+    q_p, s_p = fe.quant_rows_plain(h, act_inv, 7)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and torch.equal(q, q_p)
+    assert (s is None) == static and (static or torch.equal(s, s_p))
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("m,k,n", [(1, 16, 16), (197, 192, 576), (197, 768, 3072),
+                                   (1576, 3072, 768), (300, 208, 144)])
+@pytest.mark.parametrize("epilogue,approx", [
+    (fe.BIAS, False), (fe.BIAS_GELU, False), (fe.BIAS_GELU, True), (fe.BIAS_RESIDUAL, False)])
+def test_linear_i8_kernel_matches_twin(dev, m, k, n, epilogue, approx, static):
+    """Bit for bit, except the GELU epilogue (erff / tanhf against torch's)."""
+    unit = 1.0 / (73.0 * 73.0 * k ** 0.5)
+    q, w_q = _int8(dev, m, k), _int8(dev, k, n, seed=1)
+    s_row = None if static else _uniform(dev, m, seed=2) * 0.05
+    w_s = _uniform(dev, n, seed=3) * (unit if static else unit / 0.05)
+    b = torch.randn(n, device=dev)
+    res = _rnd(dev, m, n, seed=4) if epilogue == fe.BIAS_RESIDUAL else None
+    kw = dict(epilogue=epilogue, out_dtype=torch.bfloat16, res=res, approx_gelu=approx)
+    got = fe.linear_i8(q, s_row, w_q, w_s, b, **kw)
+    ref = fe.linear_i8_plain(q, s_row, w_q, w_s, b, **kw)
+    if epilogue == fe.BIAS_GELU:
+        _close(got, ref)
+    else:
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
+
+
+def test_bf16_glue_matches_twin(dev):
+    """A bf16 bias (stacks_from_quantized_tree of a bf16 model) and an fp32
+    LayerNorm affine (the int8 stacks)."""
+    q, w_q = _int8(dev, 197, 192), _int8(dev, 192, 576, seed=1)
+    w_s = _uniform(dev, 576, seed=2) * 1e-5
+    b = _rnd(dev, 576, seed=3)
+    kw = dict(epilogue=fe.BIAS, out_dtype=torch.bfloat16)
+    got = fe.linear_i8(q, None, w_q, w_s, b, **kw)
+    assert torch.equal(got, fe.linear_i8_plain(q, None, w_q, w_s, b, **kw))
+    x = _rnd(dev, 197, 192, scale=3.0)
+    g, bb = torch.randn(192, device=dev) + 1, torch.randn(192, device=dev)
+    _close(fe.ln_rows(x, g, bb, 1e-6), fe.ln_rows_plain(x, g, bb, 1e-6))
+
+
+@pytest.mark.parametrize("static,reference_residual,approx", [
+    (False, False, False), (True, False, False), (True, True, True)])
+def test_encoder_forward_int8_kernels_match_twins_and_count(dev, static, reference_residual,
+                                                            approx):
+    cfg = deit_config("tiny", depth=2, dtype=torch.bfloat16)
+    model = ViT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    batches = [torch.randn(1, 3, 224, 224, generator=torch.Generator().manual_seed(i)).numpy()
+               for i in range(2)]
+    sq = (prepare_vit_int8_static(model, calib_batches=batches) if static
+          else prepare_vit_int8(model))
+    x = _rnd(dev, 3, 197, 192)
+    kw = dict(heads=3, head_dim=64, eps=1e-6, reference_residual=reference_residual,
+              approx_gelu=approx)
+    fe.reset_launches()
+    got = fe.encoder_forward_int8(x, sq, **kw)
+    assert fe.LAUNCHES == {"ln_rows": 4, "linear": 0, "attention_rows": 2, "quant_rows": 8,
+                           "linear_i8": 8}
+    ref = fe.encoder_forward_int8_plain(x, sq, **kw)
+    torch.cuda.synchronize()
+    # a bf16 flip before a quantization moves a value into the next bucket
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_fused_vit_apply_int8_on_kernels_matches_plain(dev, static):
+    model = ViT(deit_config("tiny", depth=2, dtype=torch.bfloat16), device=dev,
+                generator=torch.Generator().manual_seed(1))
+    img = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        sq = (prepare_vit_int8_static(model, calib_batches=[img[:1].cpu().numpy()]) if static
+              else prepare_vit_int8(model))
+        got = fused_vit_apply_int8(model, img, stacked_q=sq)
+        ref = fused_vit_apply_int8(model, img, stacked_q=sq, plain=True)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    h = _rnd(dev, 8, 24)
+    with pytest.raises(ValueError, match="K % 16"):
+        fe.quant_rows(h)
+    with pytest.raises(TypeError, match="float32"):
+        fe.quant_rows(_rnd(dev, 8, 32), torch.ones(2, 4, device=dev, dtype=torch.float64))
+    q, w_q = _int8(dev, 8, 32), _int8(dev, 32, 24)
+    ones = torch.ones(24, device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fe.linear_i8(q, None, w_q, ones, ones, epilogue=fe.BIAS, out_dtype=torch.bfloat16)
+    w_q = _int8(dev, 32, 32)
+    ones = torch.ones(32, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fe.linear_i8(q, None, w_q, ones, ones, epilogue=fe.BIAS, out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="int8"):
+        fe.linear_i8(q.float(), None, w_q, ones, ones, epilogue=fe.BIAS,
+                     out_dtype=torch.bfloat16)

@@ -246,7 +246,11 @@ def test_cpu_wrappers_take_the_twins_and_count_no_launch():
     w = torch.randn(16, 24)
     tfe.linear(x, w, torch.zeros(24), epilogue=tfe.CAST_THEN_BIAS)
     tfe.attention_rows(torch.randn(10, 3 * 2 * 8), heads=2, head_dim=8, tokens=5)
-    assert tfe.LAUNCHES == {"ln_rows": 0, "linear": 0, "attention_rows": 0}
+    q, sc = tfe.quant_rows(x)
+    tfe.linear_i8(q, sc, torch.ones(16, 16, dtype=torch.int8), torch.ones(16), torch.zeros(16),
+                  epilogue=tfe.BIAS, out_dtype=torch.float32)
+    assert tfe.LAUNCHES == {"ln_rows": 0, "linear": 0, "attention_rows": 0,
+                            "quant_rows": 0, "linear_i8": 0}
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
@@ -262,4 +266,5 @@ def test_build_names_library_by_source_hash():
     assert path.parent == build.BUILD_DIR
     assert path == build.library_path()
     assert {p.name for p in build.sources()} >= {"ln_rows.cu", "linear.cu",
-                                                 "attention_rows.cu", "common.cuh"}
+                                                 "attention_rows.cu", "quant_rows.cu",
+                                                 "linear_i8.cu", "common.cuh"}
