@@ -10,22 +10,30 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build the kernels from ``edgevisiontransformer_tpu_torch/csrc`` into
    ``build/torch_kernels/`` and print the build time;
 3. check each kernel against its plain PyTorch twin at deit_tiny shapes
-   (b1 and b128) and deit_base shapes (b8), and time both: the bf16 kernels
+   (b1 and b128), deit_base shapes (b8) and t2t_vit_14 shapes (b1 and b32,
+   reference style: residual h, no qkv bias), and time both: the bf16 kernels
    within a tolerance; ``quant_rows`` (dynamic and static) and the non-GELU
    ``linear_i8`` epilogues bit for bit, its GELU epilogue within the
-   tolerance;
+   tolerance; ``stage1_kqv`` (the T2T stage-1 tokenizer) at b1 and b4 on
+   random-normal and constant images, within the tolerance;
 4. run the slices: ``build_model("deit_tiny")`` at full width and depth with
    seeded random weights through ``fused_vit_apply`` on the kernels — three
    b1 requests and one b128 in standard style, one b1 in reference style,
    then one deit_base b8 request — and through ``fused_vit_apply_int8`` —
    static int8 (calibrated on 8 representative batches) three b1 and one
    b128, dynamic int8 one b1, reference-style static one b1, deit_base
-   static one b8 — checking for each the logits against the plain twins on
-   the card, the exact kernel launch counts, and finiteness;
-5. time deit_base b1, int8 static against bf16 device p50; then the
-   deit_tiny slices (kernel path and plain path) at b1 and b128, bf16 and
-   int8 static and dynamic: eager p50, device p50 (CUDA-graph replay), peak
-   memory, and device time by kernel from ``torch.profiler``.
+   static one b8 — then ``build_model("t2t_vit_14")`` (reference style, full
+   width and depth) through ``fused_t2t_apply`` and, static int8 calibrated
+   on 8 representative batches, ``fused_t2t_apply_int8``, b1 (the stage-1
+   kernel) and b32 (the plain-unfold tokenizer) each — checking for each
+   the logits against the plain twins on the card, the exact kernel launch
+   counts, and finiteness;
+5. time t2t_vit_14 b1 and b32, bf16 and int8 static (eager p50, device p50,
+   device time by kernel at b1) and its two tokenizer forms at b1, b8 and b32;
+   deit_base b1, int8 static against bf16 device p50; then the deit_tiny
+   slices (kernel path and plain path) at b1 and b128, bf16 and int8 static
+   and dynamic: eager p50, device p50 (CUDA-graph replay), peak memory, and
+   device time by kernel from ``torch.profiler``.
 
 The line before last is the card's name and power limit; the one before it
 a JSON object with every kernel's launches, error and times; the last line
@@ -53,16 +61,31 @@ KERNEL_ATOL = 1e-2
 LOGIT_REL = 0.05
 DEVICE = "cuda"
 TPU = "edgevisiontransformer_tpu/ops/pallas/fused_encoder.py"
-# The kernels, the TPU code each replaces, and the launches one layer makes.
-KERNELS = {"ln_rows": f"{TPU}:54", "linear": f"{TPU}:202", "attention_rows": f"{TPU}:101",
-           "quant_rows": f"{TPU}:844", "linear_i8": f"{TPU}:856"}
+# The kernels: the source of each, the TPU code it replaces.
+KERNELS = {"ln_rows": ("ln_rows.cu", f"{TPU}:54"),
+           "linear": ("linear.cu", f"{TPU}:202"),
+           "attention_rows": ("attention_rows.cu", f"{TPU}:101"),
+           "quant_rows": ("quant_rows.cu", f"{TPU}:844"),
+           "linear_i8": ("linear_i8.cu", f"{TPU}:856"),
+           "stage1_kqv": ("t2t_stage1.cu", "edgevisiontransformer_tpu/ops/pallas/t2t_stage1.py:82")}
+# The launches one encoder layer makes; stage1_kqv launches once per forward
+# that takes the stage-1 tokenizer (a T2T-ViT batch below 8).
 BF16_LAUNCHES = {"ln_rows": 2, "linear": 4, "attention_rows": 1, "quant_rows": 0, "linear_i8": 0}
 INT8_LAUNCHES = {"ln_rows": 2, "linear": 0, "attention_rows": 1, "quant_rows": 4, "linear_i8": 4}
-# deit_tiny b1, deit_tiny b128, deit_base b8: (rows, dim, mlp, heads)
+# t2t_vit_14 batches: the stage-1 kernel path (b1) and the plain-unfold
+# tokenizer (b32) in phases 4 and 5; the tokenizer forms are timed at b1,
+# b8 and b32
+T2T_BATCHES = (1, 32)
+TOKENIZER_BATCHES = (1, 8, 32)
+# The encoder kernels' shapes on the main path: (rows, dim, mlp, heads,
+# reference style).  In the reference style (t2t_vit_14) the out / fc2
+# residual is the LayerNorm output h and the qkv projection has no bias.
 SHAPES = {
-    "deit_tiny b1": (197, 192, 768, 3),
-    "deit_tiny b128": (128 * 197, 192, 768, 3),
-    "deit_base b8": (8 * 197, 768, 3072, 12),
+    "deit_tiny b1": (197, 192, 768, 3, False),
+    "deit_tiny b128": (128 * 197, 192, 768, 3, False),
+    "deit_base b8": (8 * 197, 768, 3072, 12, False),
+    "t2t_vit_14 b1": (197, 384, 1152, 6, True),
+    "t2t_vit_14 b32": (32 * 197, 384, 1152, 6, True),
 }
 
 
@@ -111,6 +134,42 @@ def within(got, ref, rtol, atol):
     return float(err.max()), bool((err <= bound).all())
 
 
+class Launches:
+    """The launch counts of every kernel wrapper module, read and reset as one."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def reset(self) -> None:
+        for m in self.modules:
+            m.reset_launches()
+
+    def read(self) -> dict:
+        return {k: v for m in self.modules for k, v in m.LAUNCHES.items()}
+
+
+def want_launches(per_layer: dict, depth: int, stage1: int = 0) -> dict:
+    return {**{k: v * depth for k, v in per_layer.items()}, "stage1_kqv": stage1}
+
+
+def check_logits(tag, logits, ref, batch, classes):
+    """Shape, finiteness and max |kernels - twins| <= LOGIT_REL * max|twins|;
+    returns (deviation / max|twins|, max deviation, max|twins|, top-1
+    agreement)."""
+    import torch
+
+    if tuple(logits.shape) != (batch, classes):
+        fail(f"{tag}: logits shape {tuple(logits.shape)}")
+    if not torch.isfinite(logits.float()).all():
+        fail(f"{tag}: non-finite logits")
+    err = float((logits.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    if err > LOGIT_REL * scale:
+        fail(f"{tag}: max |kernels - twins| {err:.4g} > {LOGIT_REL} * {scale:.4g}")
+    agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    return err / scale, err, scale, agree
+
+
 def phase_kernels(torch, fe, harness):
     """Each kernel against its twin at the main path's shapes; returns
     ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} for one deit_tiny b128
@@ -123,21 +182,24 @@ def phase_kernels(torch, fe, harness):
 
     errs = {"ln_rows": 0.0, "linear": 0.0, "attention_rows": 0.0}
     layer_ms = {}
-    for shape_name, (m, dim, mlp, heads) in SHAPES.items():
+    for shape_name, (m, dim, mlp, heads, reference) in SHAPES.items():
         x = rnd(m, dim, scale=2.0)
         g, b = rnd(dim, scale=0.5) + 1, rnd(dim, scale=0.5)
         calls = {"ln_rows": [(fe.ln_rows, fe.ln_rows_plain, (x, g, b, 1e-6), {})]}
+        res = fe.ln_rows_plain(x, g, b, 1e-6) if reference else x
         lin = []
-        for name, k, n, epi, approx, res in (
+        for name, k, n, epi, approx, r in (
                 ("qkv", dim, 3 * dim, fe.CAST_THEN_BIAS, False, None),
-                ("out", dim, dim, fe.BIAS_RESIDUAL, False, x),
+                ("out", dim, dim, fe.BIAS_RESIDUAL, False, res),
                 ("fc1 erf", dim, mlp, fe.CAST_THEN_BIAS_GELU, False, None),
                 ("fc1 tanh", dim, mlp, fe.CAST_THEN_BIAS_GELU, True, None),
-                ("fc2", mlp, dim, fe.BIAS_RESIDUAL, False, x)):
+                ("fc2", mlp, dim, fe.BIAS_RESIDUAL, False, res)):
             a = rnd(m, k)
             w, bias = rnd(k, n, scale=k ** -0.5), rnd(n, scale=0.5)
+            if reference and name == "qkv":
+                bias = torch.zeros_like(bias)
             lin.append((fe.linear, fe.linear_plain, (a, w, bias),
-                        dict(epilogue=epi, res=res, approx_gelu=approx), name))
+                        dict(epilogue=epi, res=r, approx_gelu=approx), name))
         calls["linear"] = [c[:4] for c in lin]
         qkv = rnd(m, 3 * dim)
         calls["attention_rows"] = [(fe.attention_rows, fe.attention_rows_plain, (qkv,),
@@ -193,7 +255,7 @@ def phase_kernels_int8(torch, fe, harness):
     act_inv = (127.0 / (4.0 * uniform(12, 4))).contiguous()
     errs = {"quant_rows": 0.0, "linear_i8": 0.0}
     layer_ms = {"quant_rows": (0.0, 0.0), "linear_i8": (0.0, 0.0)}
-    for shape_name, (m, dim, mlp, _) in SHAPES.items():
+    for shape_name, (m, dim, mlp, _, reference) in SHAPES.items():
         b128 = shape_name == "deit_tiny b128"
         for k, reps in ((dim, 3), (mlp, 1)):  # a layer quantizes 3 dim-wide, 1 mlp-wide input
             h = (torch.randn(m, k, generator=gen, device=dev) * 2.0).to(torch.bfloat16)
@@ -214,6 +276,9 @@ def phase_kernels_int8(torch, fe, harness):
                     tk, tp = layer_ms["quant_rows"]
                     layer_ms["quant_rows"] = (tk + reps * t_k, tp + reps * t_p)
         res = (torch.randn(m, dim, generator=gen, device=dev)).to(torch.bfloat16)
+        if reference:  # the residual is h, a LayerNorm output
+            res = fe.ln_rows_plain(res * 2.0, uniform(dim), uniform(dim, lo=-0.5, hi=0.5),
+                                   1e-6)
         for name, k, n, epi, approx, r in (
                 ("qkv", dim, 3 * dim, fe.BIAS, False, None),
                 ("out", dim, dim, fe.BIAS_RESIDUAL, False, res),
@@ -223,6 +288,8 @@ def phase_kernels_int8(torch, fe, harness):
             unit = 1.0 / (73.0 * 73.0 * k ** 0.5)  # a dequantized sum of order 1
             q, w_q = int8(m, k), int8(k, n)
             bias = torch.randn(n, generator=gen, device=dev) * 0.5
+            if reference and name == "qkv":
+                bias = torch.zeros_like(bias)
             for mode in ("dynamic", "static"):
                 s_row = uniform(m) * 0.05 if mode == "dynamic" else None
                 w_s = uniform(n) * (unit / 0.05 if mode == "dynamic" else unit)
@@ -250,6 +317,144 @@ def phase_kernels_int8(torch, fe, harness):
     return errs, layer_ms
 
 
+def phase_kernel_stage1(torch, ts, harness):
+    """``stage1_kqv`` against its twin at t2t_vit_14's shapes (d = 192) on
+    random-normal and all-ones images, b1 and b4; returns (max_abs_err,
+    (ms, plain_ms) at b1)."""
+    import numpy as np
+
+    from edgevisiontransformer_tpu_torch.models.t2t_vit import build_stage1_weights
+
+    dev = DEVICE
+    rng = np.random.RandomState(3)
+    d = 192
+    w = build_stage1_weights(rng.randn(147, d) * 147 ** -0.5, rng.randn(d) * 0.1,
+                             1.0 + 0.1 * rng.randn(147), 0.1 * rng.randn(147))
+    w = (w[0].to(dev, torch.bfloat16), w[1].to(dev), w[2].to(dev), w[3].to(dev))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst, b1_ms = 0.0, None
+    for batch in (1, 4):
+        for kind in ("normal", "ones"):
+            img = (torch.randn(batch, 3, 224, 224, generator=gen, device=dev)
+                   if kind == "normal" else torch.ones(batch, 3, 224, 224, device=dev))
+            img = img.to(torch.bfloat16)
+            got = ts.stage1_kqv(img, *w)
+            torch.cuda.synchronize()
+            ref = ts.stage1_kqv_plain(img, *w)
+            err, ok = within(got, ref, KERNEL_RTOL, KERNEL_ATOL)
+            label = f"stage1_kqv {kind} image"
+            if not ok or not torch.isfinite(got.float()).all():
+                fail(f"{label} at t2t_vit_14 b{batch}: max |kernel - twin| {err:.4g} "
+                     f"over {KERNEL_ATOL} + {KERNEL_RTOL:.4g}|twin|")
+            worst = max(worst, err)
+            times = time_pair(harness, f"t2t_vit_14 b{batch}", label, err,
+                              lambda: ts.stage1_kqv(img, *w), lambda: ts.stage1_kqv_plain(img, *w))
+            if batch == 1 and kind == "normal":
+                b1_ms = times
+    return worst, b1_ms
+
+
+def phase_slice_t2t(torch, counter):
+    """t2t_vit_14 (reference style, full width and depth) through
+    ``fused_t2t_apply`` and, with a static stack calibrated on 8
+    representative batches, ``fused_t2t_apply_int8``, at b1 (the stage-1
+    kernel) and b32 (the plain-unfold tokenizer); returns (launches, worst
+    deviation, the model state for phase 5)."""
+    from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+    from edgevisiontransformer_tpu_torch.models.vit import prepare_vit_fused
+    from edgevisiontransformer_tpu_torch.ops.quant import representative_batches
+
+    model, shape = build_model("t2t_vit_14", style="reference", dtype=torch.bfloat16,
+                               device=DEVICE, generator=torch.Generator().manual_seed(0))
+    cfg = model.config
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        prepared, stacked = t2t.prepare_t2t_fused(model), prepare_vit_fused(model)
+        sq = t2t.prepare_t2t_int8_static(model,
+                                         calib_batches=representative_batches(n=8, shape=shape))
+    torch.cuda.synchronize()
+    print(f"  t2t_vit_14 (dim {cfg.dim}, depth {cfg.depth}, heads {cfg.heads}, mlp "
+          f"{cfg.mlp_dim}): stage-1 weights, bf16 stack and static int8 stack prepared in "
+          f"{time.perf_counter() - t0:.2f} s")
+    slices = {
+        "bf16": (BF16_LAUNCHES, lambda img, plain: t2t.fused_t2t_apply(
+            model, img, prepared=prepared, stacked=stacked, plain=plain)),
+        "int8 static": (INT8_LAUNCHES, lambda img, plain: t2t.fused_t2t_apply_int8(
+            model, img, stacked_q=sq, prepared=prepared, plain=plain)),
+    }
+    launches = {k: 0 for k in counter.read()}
+    worst = 0.0
+    for slice_name, (per_layer, apply) in slices.items():
+        for batch, seed in zip(T2T_BATCHES, (1000, 1100)):
+            tag = f"t2t_vit_14 {slice_name} b{batch}"
+            img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(seed))
+            img = img.to(DEVICE)
+            with torch.no_grad():
+                counter.reset()
+                logits = apply(img, False)
+                torch.cuda.synchronize()
+                counts = counter.read()
+                ref = apply(img, True)
+            want = want_launches(per_layer, cfg.depth, stage1=int(batch < 8))
+            if counts != want:
+                fail(f"{tag}: launch counts {counts}, expected {want}")
+            for k, v in counts.items():
+                launches[k] += v
+            rel, err, scale, agree = check_logits(tag, logits, ref, batch, cfg.num_classes)
+            worst = max(worst, rel)
+            print(f"  {tag:28s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} "
+                  f"(max|logit| {scale:.4g}), top-1 agreement {agree:.3f}, launches {counts}")
+    return launches, worst, (model, shape, prepared, stacked, sq)
+
+
+def phase_time_t2t(torch, harness, state):
+    """t2t_vit_14 b1 and b32, bf16 and int8 static: eager and device p50
+    (device time by kernel at b1); then the two tokenizer forms at b1, b8
+    and b32."""
+    from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
+
+    model, shape, prepared, stacked, sq = state
+    slices = {
+        "bf16": lambda img: t2t.fused_t2t_apply(model, img, prepared=prepared, stacked=stacked),
+        "int8 static": lambda img: t2t.fused_t2t_apply_int8(model, img, stacked_q=sq,
+                                                             prepared=prepared),
+    }
+    with torch.no_grad():
+        for slice_name, apply in slices.items():
+            for batch in T2T_BATCHES:
+                img = torch.randn(batch, *shape,
+                                  generator=torch.Generator().manual_seed(batch)).to(DEVICE)
+                fn = lambda: apply(img)  # noqa: E731
+                e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+                d = harness.measure_graph_time(fn, iters=10, repeats=5)
+                print(f"  t2t_vit_14 {slice_name} b{batch}: eager p50 {e['p50_ms']:.4f} ms "
+                      f"(std {e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device "
+                      f"p50 {d['p50_ms']:.4f} ms (std {d['std_ms']:.4f})")
+                if batch == 1:
+                    prof = harness.device_time_by_kernel(fn)
+                    busy = sum(r[2] for r in prof)
+                    print(f"      traced kernel time {busy:.4f} ms (device idle "
+                          f"{max(0.0, 1 - busy / e['p50_ms']):.1%} of the eager call)")
+                    for name, calls, ms in prof[:8]:
+                        print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
+        forms = {
+            "stage-1 kernel": lambda img: t2t.t2t_tokenize(model, img, prepared=prepared,
+                                                            fast=True, stage1_impl="kernel"),
+            "plain unfold": lambda img: t2t.t2t_tokenize(model, img, fast=False),
+        }
+        for batch in TOKENIZER_BATCHES:
+            img = torch.randn(batch, *shape,
+                              generator=torch.Generator().manual_seed(batch)).to(DEVICE)
+            for form, tokenize in forms.items():
+                fn = lambda: tokenize(img)  # noqa: E731
+                e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+                d = harness.measure_graph_time(fn, iters=10, repeats=5)
+                print(f"  t2t_vit_14 tokenizer b{batch} {form:14s}: device p50 "
+                      f"{d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}), eager p50 "
+                      f"{e['p50_ms']:.4f} ms")
+
+
 def first_parting_layer(torch, fe, model, img, sq):
     """Run the int8 encoder one layer at a time, kernels and twins on the
     twins' input, and print each layer's largest relative deviation."""
@@ -270,13 +475,13 @@ def first_parting_layer(torch, fe, model, img, sq):
         x = ref
 
 
-def phase_slice(torch, fe, harness):
+def phase_slice(torch, counter):
     from edgevisiontransformer_tpu_torch.models.registry import build_model
     from edgevisiontransformer_tpu_torch.models.vit import (fused_vit_apply,
                                                              prepare_vit_fused)
 
     dev = DEVICE
-    launches = {k: 0 for k in fe.LAUNCHES}
+    launches = {k: 0 for k in counter.read()}
     worst = 0.0
     models = {}
 
@@ -292,28 +497,20 @@ def phase_slice(torch, fe, harness):
         img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(seed))
         img = img.to(dev)
         with torch.no_grad():
-            fe.reset_launches()
+            counter.reset()
             logits = fused_vit_apply(model, img, stacked=stacked)
             torch.cuda.synchronize()
-            counts = dict(fe.LAUNCHES)
+            counts = counter.read()
             ref = fused_vit_apply(model, img, stacked=stacked, plain=True)
             eager = model(img)
-        want = {k: v * depth for k, v in BF16_LAUNCHES.items()}
+        want = want_launches(BF16_LAUNCHES, depth)
         if counts != want:
             fail(f"{tag}: launch counts {counts}, expected {want}")
         for k, v in counts.items():
             launches[k] += v
-        if tuple(logits.shape) != (batch, model.config.num_classes):
-            fail(f"{tag}: logits shape {tuple(logits.shape)}")
-        if not torch.isfinite(logits.float()).all():
-            fail(f"{tag}: non-finite logits")
-        err = float((logits.float() - ref.float()).abs().max())
-        scale = float(ref.float().abs().max())
-        if err > LOGIT_REL * scale:
-            fail(f"{tag}: max |kernels - twins| {err:.4g} > {LOGIT_REL} * {scale:.4g}")
-        worst = max(worst, err / scale)
+        rel, err, scale, agree = check_logits(tag, logits, ref, batch, model.config.num_classes)
+        worst = max(worst, rel)
         e_err = float((logits.float() - eager.float()).abs().max())
-        agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
         print(f"  {tag:28s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} "
               f"(max|logit| {scale:.4g}), top-1 agreement {agree:.3f}, "
               f"max|kern-eager model| {e_err:.4g}, launches {counts}")
@@ -327,7 +524,7 @@ def phase_slice(torch, fe, harness):
     return launches, worst, models
 
 
-def phase_slice_int8(torch, fe, models):
+def phase_slice_int8(torch, fe, counter, models):
     """The int8 slice through ``fused_vit_apply_int8`` on the bf16 slice's
     models; returns (launches, worst deviation, {(name, style, mode): stack})."""
     from edgevisiontransformer_tpu_torch.models.vit import (fused_vit_apply,
@@ -336,7 +533,7 @@ def phase_slice_int8(torch, fe, models):
                                                              prepare_vit_int8_static)
     from edgevisiontransformer_tpu_torch.ops.quant import representative_batches
 
-    launches = {k: 0 for k in fe.LAUNCHES}
+    launches = {k: 0 for k in counter.read()}
     worst = 0.0
     stacks = {}
 
@@ -358,30 +555,24 @@ def phase_slice_int8(torch, fe, models):
         img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(seed))
         img = img.to(DEVICE)
         with torch.no_grad():
-            fe.reset_launches()
+            counter.reset()
             logits = fused_vit_apply_int8(model, img, stacked_q=sq)
             torch.cuda.synchronize()
-            counts = dict(fe.LAUNCHES)
+            counts = counter.read()
             ref = fused_vit_apply_int8(model, img, stacked_q=sq, plain=True)
             bf16 = fused_vit_apply(model, img, stacked=stacked)
-        want = {k: v * depth for k, v in INT8_LAUNCHES.items()}
+        want = want_launches(INT8_LAUNCHES, depth)
         if counts != want:
             fail(f"{tag}: launch counts {counts}, expected {want}")
         for k, v in counts.items():
             launches[k] += v
-        if tuple(logits.shape) != (batch, model.config.num_classes):
-            fail(f"{tag}: logits shape {tuple(logits.shape)}")
-        if not torch.isfinite(logits.float()).all():
-            fail(f"{tag}: non-finite logits")
         err = float((logits.float() - ref.float()).abs().max())
-        scale = float(ref.float().abs().max())
-        if err > LOGIT_REL * scale:
+        if err > LOGIT_REL * float(ref.float().abs().max()):
             print(f"  {tag}: kernels and twins part; per layer:")
             with torch.no_grad():
                 first_parting_layer(torch, fe, model, img, sq)
-            fail(f"{tag}: max |kernels - twins| {err:.4g} > {LOGIT_REL} * {scale:.4g}")
-        worst = max(worst, err / scale)
-        agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+        rel, err, scale, agree = check_logits(tag, logits, ref, batch, model.config.num_classes)
+        worst = max(worst, rel)
         agree_bf16 = float((logits.argmax(-1) == bf16.argmax(-1)).float().mean())
         print(f"  {tag:34s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} "
               f"(max|logit| {scale:.4g}), top-1 agreement with twins {agree:.3f}, "
@@ -467,47 +658,55 @@ def main() -> int:
     from edgevisiontransformer_tpu_torch.bench import harness
     from edgevisiontransformer_tpu_torch.ops.cuda import build
     from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
+    from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
 
+    counter = Launches(fe, ts)
     print("== phase 1: environment")
     card = phase_env(torch, build)
     print("== phase 2: build")
     build_s = phase_build(build)
-    print(f"== phase 3: kernels against twins (bf16 kernels and the int8 GELU epilogue: "
-          f"|err| <= {KERNEL_ATOL} + {KERNEL_RTOL:.4g}|twin|; quant_rows and the other "
-          f"linear_i8 epilogues bit for bit); times on {card}")
+    print(f"== phase 3: kernels against twins (bf16 kernels, stage1_kqv and the int8 GELU "
+          f"epilogue: |err| <= {KERNEL_ATOL} + {KERNEL_RTOL:.4g}|twin|; quant_rows and the "
+          f"other linear_i8 epilogues bit for bit); times on {card}")
     errs, layer_ms = phase_kernels(torch, fe, harness)
     errs8, layer_ms8 = phase_kernels_int8(torch, fe, harness)
     errs.update(errs8)
     layer_ms.update(layer_ms8)
-    print(f"== phase 4: slices through fused_vit_apply and fused_vit_apply_int8 (logits "
-          f"within {LOGIT_REL} x max|logit| of the twins)")
-    launches, worst, models = phase_slice(torch, fe, harness)
-    launches8, worst8, stacks = phase_slice_int8(torch, fe, models)
-    for k, v in launches8.items():
-        launches[k] += v
+    errs["stage1_kqv"], layer_ms["stage1_kqv"] = phase_kernel_stage1(torch, ts, harness)
+    print(f"== phase 4: slices through fused_vit_apply[_int8] and fused_t2t_apply[_int8] "
+          f"(logits within {LOGIT_REL} x max|logit| of the twins)")
+    launches, worst, models = phase_slice(torch, counter)
+    launches8, worst8, stacks = phase_slice_int8(torch, fe, counter, models)
+    launches_t2t, worst_t2t, t2t_state = phase_slice_t2t(torch, counter)
+    for more in (launches8, launches_t2t):
+        for k, v in more.items():
+            launches[k] += v
     for k, v in launches.items():
         if v == 0:
             fail(f"kernel {k} was never launched on the main path")
-    print(f"== phase 5: slice timing, deit_base b1 and deit_tiny standard bf16 and int8, "
-          f"on {card}")
+    print(f"== phase 5: slice timing, t2t_vit_14, deit_base b1 and deit_tiny standard bf16 "
+          f"and int8, on {card}")
+    phase_time_t2t(torch, harness, t2t_state)
+    del t2t_state
     phase_time_base(torch, harness, models, stacks)
     # deit_tiny's peak memory is read with deit_base's weights freed
     models.pop(("deit_base", "standard"))
     stacks.pop(("deit_base", "standard", "static"))
     torch.cuda.empty_cache()
     phase_time_slice(torch, harness, models, stacks)
-    print(f"build {build_s:.2f} s; worst logit deviation {max(worst, worst8):.4g} of "
-          f"max|logit| (bf16 {worst:.4g}, int8 {worst8:.4g})")
+    print(f"build {build_s:.2f} s; worst logit deviation {max(worst, worst8, worst_t2t):.4g} "
+          f"of max|logit| (deit bf16 {worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 "
+          f"{worst_t2t:.4g})")
 
     src = "edgevisiontransformer_tpu_torch/csrc/"
     print("kernel ms / plain_ms: device time (CUDA-graph replay) of one deit_tiny b128 "
-          "layer's launches of that kernel (int8 kernels: a static-int8 layer); launches: "
-          "the bf16 and int8 slices' requests of phase 4")
+          "layer's launches of that kernel (int8 kernels: a static-int8 layer; stage1_kqv: "
+          "one t2t_vit_14 b1 call); launches: the requests of phase 4")
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": f"{src}{k}.cu", "replaces": replaces,
+        {"name": k, "route": "cuda", "source": f"{src}{source}", "replaces": replaces,
          "launches": launches[k], "max_abs_err": errs[k],
          "ms": layer_ms[k][0], "plain_ms": layer_ms[k][1]}
-        for k, replaces in KERNELS.items()]}))
+        for k, (source, replaces) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

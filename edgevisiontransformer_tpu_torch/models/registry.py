@@ -1,15 +1,18 @@
 """Model registry: name -> (module, example NCHW input shape sans batch).
 
 Port of ``edgevisiontransformer_tpu/models/registry.py`` for the models
-ported so far: ``deit_tiny``, ``deit_small`` and ``deit_base``.
+ported so far: ``deit_tiny``, ``deit_small``, ``deit_base`` and
+``t2t_vit_{7,10,12,14}``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 from torch import nn
 
+from .t2t_vit import get_t2t_vit
 from .vit import get_deit_base, get_deit_small, get_deit_tiny
 
 _REGISTRY = {
@@ -17,6 +20,8 @@ _REGISTRY = {
     "deit_small": get_deit_small,
     "deit_base": get_deit_base,
 }
+for _v in (7, 10, 12, 14):
+    _REGISTRY[f"t2t_vit_{_v}"] = functools.partial(get_t2t_vit, _v)
 
 
 def available_models():

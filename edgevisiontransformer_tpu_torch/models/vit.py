@@ -28,6 +28,30 @@ def _param(shape, cfg: ViTConfig) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype))
 
 
+def lecun_normal_(prm: torch.Tensor, gen: torch.Generator | None) -> None:
+    """Flax's default Dense init: truncated normal of variance 1 / fan_in."""
+    std = math.sqrt(1.0 / prm.shape[0]) / 0.87962566103423978
+    nn.init.trunc_normal_(prm, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+def xavier_uniform_(prm: torch.Tensor, gen: torch.Generator | None) -> None:
+    limit = math.sqrt(6.0 / (prm.shape[0] + prm.shape[1]))
+    prm.uniform_(-limit, limit, generator=gen)
+
+
+def nested_tree(named) -> dict:
+    """``(dotted name, tensor)`` pairs as a nested dict of detached tensors:
+    ``named_parameters()`` becomes the Flax ``params`` tree."""
+    tree: dict = {}
+    for name, t in named:
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t.detach()
+    return tree
+
+
 def _check_kernel_mode(cfg: ViTConfig) -> None:
     if cfg.kernel_mode != "xla":
         raise NotImplementedError(
@@ -176,12 +200,9 @@ class ViT(nn.Module):
             elif leaf == "scale":
                 prm.fill_(1.0)
             elif name.startswith("head") and leaf == "kernel":
-                std = math.sqrt(1.0 / prm.shape[0]) / 0.87962566103423978
-                nn.init.trunc_normal_(prm, 0.0, std, -2.0 * std, 2.0 * std,
-                                      generator=gen)
+                lecun_normal_(prm, gen)
             elif prm.dim() == 2:
-                limit = math.sqrt(6.0 / (prm.shape[0] + prm.shape[1]))
-                prm.uniform_(-limit, limit, generator=gen)
+                xavier_uniform_(prm, gen)
             else:
                 prm.zero_()
 
@@ -190,14 +211,7 @@ class ViT(nn.Module):
 
     def params(self) -> dict:
         """The parameters as a nested dict keyed as the Flax tree."""
-        tree: dict = {}
-        for name, prm in self.named_parameters():
-            *path, leaf = name.split(".")
-            node = tree
-            for k in path:
-                node = node.setdefault(k, {})
-            node[leaf] = prm.detach()
-        return tree
+        return nested_tree(self.named_parameters())
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         cfg = self.config

@@ -35,6 +35,7 @@ _SIGNATURES = (
     ("evt_attention_rows", _I, (_P, _P, _I, _I, _I, _I, _I, _F, _P)),
     ("evt_quant_rows", _I, (_P, _P, _P, _P, _I, _I, _I, _P)),
     ("evt_linear_i8", _I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    ("evt_t2t_stage1", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P)),
     ("evt_error_string", ctypes.c_char_p, (_I,)),
 )
 

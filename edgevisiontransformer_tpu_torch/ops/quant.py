@@ -343,7 +343,7 @@ def _calibrate_encoder(embed_fn, model, variables, batches=None, n: int = 100,
     elif method != "absmax":
         raise ValueError(f"unknown calibration method {method!r}")
     p = _unwrap(variables)
-    device = p["patch_kernel"].device
+    device = p["block_0"]["ln1"]["scale"].device  # every encoder family has block_0
     depth = cfg.depth
 
     def acts_of(batch):
@@ -401,3 +401,41 @@ def calibrate_vit(model, variables: Dict | None = None, batches=None, n: int = 1
     return _calibrate_encoder(lambda p, im: _embed_vit(model.config, p, im), model,
                               variables, batches=batches, n=n, percentile=percentile,
                               method=method)
+
+
+def calibrate_t2t(model, variables: Dict | None = None, batches=None, n: int = 100,
+                  percentile: float | None = None, method: str = "absmax") -> np.ndarray:
+    """:func:`calibrate_vit` for T2T-ViT: the tokenizer embeds (the exact
+    plain-unfold form, ``models/t2t_vit.t2t_tokenize(fast=False)``) and
+    stays float at deployment; the encoder matmul inputs are collected as
+    for a ViT."""
+    from ..models.t2t_vit import t2t_tokenize
+
+    if variables is None:
+        variables = model.params()
+    return _calibrate_encoder(lambda p, im: t2t_tokenize(model, im, params=p, fast=False),
+                              model, variables, batches=batches, n=n, percentile=percentile,
+                              method=method)
+
+
+def _int8_t2t(model, qparams: Dict, img: torch.Tensor, mm) -> torch.Tensor:
+    from ..models.t2t_vit import t2t_tokenize
+
+    cfg = model.config
+    p = _unwrap(qparams)
+    x = _int8_encoder_blocks(cfg, p, t2t_tokenize(model, img, params=p, fast=False), mm)
+    return _vit_head(cfg, p, x)
+
+
+def int8_t2t_apply(model, qparams: Dict, img: torch.Tensor) -> torch.Tensor:
+    """T2T forward with int8 dynamic-range encoder matmuls (``qparams`` from
+    :func:`quantize_vit_params_int8` over the T2T tree); the tokenizer, in
+    its plain-unfold form, stays float."""
+    return _int8_t2t(model, qparams, img, _mm_int8_dynamic)
+
+
+def int8_t2t_apply_static(model, qparams: Dict, img: torch.Tensor) -> torch.Tensor:
+    """T2T forward with static int8 encoder matmuls (``qparams`` from
+    :func:`quantize_vit_params_int8_static`): the eager oracle of
+    ``fused_t2t_apply_int8`` on a ``prepare_t2t_int8_static`` stack."""
+    return _int8_t2t(model, qparams, img, _mm_int8_static)

@@ -33,26 +33,55 @@ def flatten_tree(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def _matched(tree_np: dict, named: dict, what: str) -> list:
+    """``[(port tensor, exact torch copy of the flax leaf)]`` for a numpy
+    tree against ``{dotted name: tensor}``; raise ``KeyError`` on a missing
+    or extra leaf and ``ValueError`` on a shape or dtype mismatch."""
+    flat = {k: np.asarray(v) for k, v in flatten_tree(tree_np).items()}
+    missing = sorted(set(named) - set(flat))
+    extra = sorted(set(flat) - set(named))
+    if missing or extra:
+        raise KeyError(f"{what} trees differ: missing {missing}, unexpected {extra}")
+    pairs = []
+    for name, dst in named.items():
+        src = to_torch(flat[name])
+        if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+            raise ValueError(f"{name}: flax {tuple(src.shape)} {src.dtype} vs port "
+                             f"{tuple(dst.shape)} {dst.dtype}")
+        pairs.append((dst, src))
+    return pairs
+
+
+def _copy(pairs: list) -> None:
+    with torch.no_grad():
+        for dst, src in pairs:
+            dst.copy_(src)
+
+
 def load_jax_params(model: torch.nn.Module, params_np: dict) -> torch.nn.Module:
     """Copy a Flax params tree (numpy leaves) into ``model`` in place.
 
     Raises ``KeyError`` when either side has a leaf the other lacks and
     ``ValueError`` on a shape or dtype mismatch: nothing is cast or left at
     its initial value."""
-    flat = {k: np.asarray(v) for k, v in flatten_tree(params_np).items()}
-    named = dict(model.named_parameters())
-    missing = sorted(set(named) - set(flat))
-    extra = sorted(set(flat) - set(named))
-    if missing or extra:
-        raise KeyError(f"param trees differ: missing {missing}, unexpected {extra}")
-    with torch.no_grad():
-        for name, prm in named.items():
-            src = to_torch(flat[name])
-            if tuple(src.shape) != tuple(prm.shape) or src.dtype != prm.dtype:
-                raise ValueError(
-                    f"{name}: flax {tuple(src.shape)} {src.dtype} vs port "
-                    f"{tuple(prm.shape)} {prm.dtype}")
-            prm.copy_(src)
+    _copy(_matched(params_np, dict(model.named_parameters()), "param"))
+    return model
+
+
+def load_jax_variables(model: torch.nn.Module, variables_np: dict) -> torch.nn.Module:
+    """Copy Flax variables (numpy leaves) into ``model`` in place: the
+    ``params`` collection onto its parameters and the ``constants``
+    collection (for T2T-ViT the performers' ``w`` and ``pos_embedding``)
+    onto its buffers, under :func:`load_jax_params`'s rule; both are checked
+    before either is copied.  A model without buffers takes variables
+    without constants."""
+    extra = sorted(set(variables_np) - {"params", "constants"})
+    if extra:
+        raise KeyError(f"unexpected variable collections {extra}")
+    pairs = _matched(variables_np["params"], dict(model.named_parameters()), "param")
+    pairs += _matched(variables_np.get("constants", {}), dict(model.named_buffers()),
+                      "constant")
+    _copy(pairs)
     return model
 
 

@@ -20,13 +20,16 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.ops.layers",
     "edgevisiontransformer_tpu_torch.ops.attention",
     "edgevisiontransformer_tpu_torch.ops.quant",
+    "edgevisiontransformer_tpu_torch.ops.unfold",
     "edgevisiontransformer_tpu_torch.ops.cuda",
     "edgevisiontransformer_tpu_torch.ops.cuda.common",
     "edgevisiontransformer_tpu_torch.ops.cuda.mathlib",
     "edgevisiontransformer_tpu_torch.ops.cuda.build",
     "edgevisiontransformer_tpu_torch.ops.cuda.fused_encoder",
+    "edgevisiontransformer_tpu_torch.ops.cuda.t2t_stage1",
     "edgevisiontransformer_tpu_torch.models",
     "edgevisiontransformer_tpu_torch.models.vit",
+    "edgevisiontransformer_tpu_torch.models.t2t_vit",
     "edgevisiontransformer_tpu_torch.models.registry",
     "edgevisiontransformer_tpu_torch.utils.jax_bridge",
     "edgevisiontransformer_tpu_torch.bench.harness",

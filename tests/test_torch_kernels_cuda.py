@@ -8,13 +8,16 @@ suite's conftest is left out):
 This file imports no JAX.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
 from edgevisiontransformer_tpu_torch.models.vit import (ViT, deit_config, fused_vit_apply,
                                                          fused_vit_apply_int8, prepare_vit_int8,
                                                          prepare_vit_int8_static)
 from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
+from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -257,3 +260,80 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError, match="int8"):
         fe.linear_i8(q.float(), None, w_q, ones, ones, epilogue=fe.BIAS,
                      out_dtype=torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# T2T-ViT: stage1_kqv
+# ---------------------------------------------------------------------------
+
+
+def _stage1_weights(dev, d=192, seed=0):
+    """W9, M9, c1, c2 of a random performer1 (kqv kernel, bias, norm1 affine)."""
+    rng = np.random.RandomState(seed)
+    w = t2t.build_stage1_weights(rng.randn(147, d) * 147 ** -0.5, rng.randn(d) * 0.1,
+                                 1.0 + 0.1 * rng.randn(147), 0.1 * rng.randn(147))
+    return w[0].to(dev, torch.bfloat16), w[1].to(dev), w[2].to(dev), w[3].to(dev)
+
+
+def _images(dev, kind, batch):
+    if kind == "normal":
+        return _rnd(dev, batch, 3, 224, 224)
+    value = {"ones": 1.0, "zeros": 0.0}[kind]  # a constant image: var ~ 0 in the interior
+    return torch.full((batch, 3, 224, 224), value, device=dev, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["normal", "ones", "zeros"])
+@pytest.mark.parametrize("batch,d", [(1, 192), (4, 192), (2, 64), (2, 256)])
+def test_stage1_kqv_kernel_matches_twin_and_counts(dev, batch, d, kind):
+    img, w = _images(dev, kind, batch), _stage1_weights(dev, d)
+    ts.reset_launches()
+    got = ts.stage1_kqv(img, *w)
+    assert ts.LAUNCHES["stage1_kqv"] == 1
+    _close(got, ts.stage1_kqv_plain(img, *w))
+
+
+def test_stage1_kqv_empty_batch_launches_nothing(dev):
+    ts.reset_launches()
+    got = ts.stage1_kqv(_images(dev, "zeros", 0), *_stage1_weights(dev))
+    assert got.shape == (0, 3136, 192) and ts.LAUNCHES["stage1_kqv"] == 0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_t2t_apply_on_kernels_matches_plain_and_counts(dev, int8):
+    model = t2t.T2TViT(t2t.t2t_vit_config(7, depth=2, dtype=torch.bfloat16), device=dev,
+                       generator=torch.Generator().manual_seed(1))
+    img = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        if int8:
+            sq = t2t.prepare_t2t_int8_static(model, calib_batches=[img[:1].cpu().numpy()])
+            run = lambda **kw: t2t.fused_t2t_apply_int8(model, img, stacked_q=sq, **kw)  # noqa: E731
+        else:
+            run = lambda **kw: t2t.fused_t2t_apply(model, img, **kw)  # noqa: E731
+        fe.reset_launches()
+        ts.reset_launches()
+        got = run()
+        counts = {**fe.LAUNCHES, **ts.LAUNCHES}
+        ref = run(plain=True)
+    per_layer = ({"ln_rows": 2, "linear": 0, "attention_rows": 1, "quant_rows": 4, "linear_i8": 4}
+                 if int8 else
+                 {"ln_rows": 2, "linear": 4, "attention_rows": 1, "quant_rows": 0, "linear_i8": 0})
+    assert counts == {**{k: 2 * v for k, v in per_layer.items()}, "stage1_kqv": 1}
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+def test_stage1_kqv_refuses_what_the_kernel_does_not_take(dev):
+    w = _stage1_weights(dev)
+    img = _images(dev, "normal", 1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ts.stage1_kqv(img.float(), *w)
+    with pytest.raises(TypeError, match="float32"):
+        ts.stage1_kqv(img, w[0], w[1].bfloat16(), w[2], w[3])
+    with pytest.raises(ValueError, match="224"):
+        ts.stage1_kqv(_rnd(dev, 1, 3, 64, 64), *w)
+    with pytest.raises(ValueError, match="432"):
+        ts.stage1_kqv(img, w[0][:431].contiguous(), *w[1:])
+    w24 = _stage1_weights(dev, 24)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ts.stage1_kqv(img, *w24)
