@@ -25,19 +25,31 @@ Phases, in order; any failure exits non-zero before the last line:
    static one b8 — then ``build_model("t2t_vit_14")`` (reference style, full
    width and depth) through ``fused_t2t_apply`` and, static int8 calibrated
    on 8 representative batches, ``fused_t2t_apply_int8``, b1 (the stage-1
-   kernel) and b32 (the plain-unfold tokenizer) each — checking for each
-   the logits against the plain twins on the card, the exact kernel launch
-   counts, and finiteness;
+   kernel) and b32 (the plain-unfold tokenizer) each, then
+   ``build_model("swin_tiny")`` (full width and depth, bf16) through
+   ``fused_swin_apply`` at b1 and b32 — checking for each the logits
+   against the plain twins on the card, the exact kernel launch counts, and
+   finiteness;
 5. time t2t_vit_14 b1 and b32, bf16 and int8 static (eager p50, device p50,
    device time by kernel at b1) and its two tokenizer forms at b1, b8 and b32;
-   deit_base b1, int8 static against bf16 device p50; then the deit_tiny
-   slices (kernel path and plain path) at b1 and b128, bf16 and int8 static
-   and dynamic: eager p50, device p50 (CUDA-graph replay), peak memory, and
-   device time by kernel from ``torch.profiler``.
+   swin_tiny b1 and b32 (eager p50, device p50, peak memory, device time by
+   kernel at b1); deit_base b1, int8 static against bf16 device p50; then the
+   deit_tiny slices (kernel path and plain path) at b1 and b128, bf16 and
+   int8 static and dynamic: eager p50, device p50 (CUDA-graph replay), peak
+   memory, and device time by kernel from ``torch.profiler``;
+6. the yardsticks of every kernel's row: its bound (the larger of the bytes
+   its launches must move over 3.35 TB/s and their operations over the peak
+   rate for their type) and, where one PyTorch call computes the same
+   function, that call's device time at the same shapes.
+
+Phase 3 also holds ``window_attention`` (swin_tiny's four stage shapes at
+b1, shifted and unshifted where a stage has several windows; stages 0 and 2
+at b32), ``swin_merge`` (its three merges, b1 and b32) and ``ln_rows`` /
+``linear`` at Swin's widths to their twins.
 
 The line before last is the card's name and power limit; the one before it
-a JSON object with every kernel's launches, error and times; the last line
-is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+a JSON object with every kernel's launches, error, times and yardsticks; the
+last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -60,18 +72,33 @@ KERNEL_ATOL = 1e-2
 # largest deviation by 5% of the largest logit.
 LOGIT_REL = 0.05
 DEVICE = "cuda"
-TPU = "edgevisiontransformer_tpu/ops/pallas/fused_encoder.py"
+PALLAS = "edgevisiontransformer_tpu/ops/pallas"
+TPU = f"{PALLAS}/fused_encoder.py"
 # The kernels: the source of each, the TPU code it replaces.
 KERNELS = {"ln_rows": ("ln_rows.cu", f"{TPU}:54"),
            "linear": ("linear.cu", f"{TPU}:202"),
            "attention_rows": ("attention_rows.cu", f"{TPU}:101"),
            "quant_rows": ("quant_rows.cu", f"{TPU}:844"),
            "linear_i8": ("linear_i8.cu", f"{TPU}:856"),
-           "stage1_kqv": ("t2t_stage1.cu", "edgevisiontransformer_tpu/ops/pallas/t2t_stage1.py:82")}
+           "stage1_kqv": ("t2t_stage1.cu", f"{PALLAS}/t2t_stage1.py:82"),
+           "window_attention": ("window_attention.cu", f"{PALLAS}/swin_block.py:334"),
+           "swin_merge": ("swin_merge.cu", f"{PALLAS}/swin_merge.py:73")}
 # The launches one encoder layer makes; stage1_kqv launches once per forward
 # that takes the stage-1 tokenizer (a T2T-ViT batch below 8).
 BF16_LAUNCHES = {"ln_rows": 2, "linear": 4, "attention_rows": 1, "quant_rows": 0, "linear_i8": 0}
 INT8_LAUNCHES = {"ln_rows": 2, "linear": 0, "attention_rows": 1, "quant_rows": 4, "linear_i8": 4}
+# swin_tiny at 224: per stage (resolution, dim, heads, depth), window 7,
+# head_dim 32, mlp 4 dim; a block launches ln_rows 2, linear 4 and
+# window_attention 1, a merge swin_merge 1 and linear 1
+SWIN_STAGES = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 6), (7, 768, 24, 2))
+SWIN_WINDOW = 7
+SWIN_BATCHES = (1, 32)
+SWIN_BLOCK_LAUNCHES = {"ln_rows": 2, "linear": 4, "window_attention": 1}
+SWIN_MERGE_LAUNCHES = {"swin_merge": 1, "linear": 1}
+# The H100 SXM's published peaks (PERF.md section 3) for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+LOG2E = 1.4426950408889634
 # t2t_vit_14 batches: the stage-1 kernel path (b1) and the plain-unfold
 # tokenizer (b32) in phases 4 and 5; the tokenizer forms are timed at b1,
 # b8 and b32
@@ -149,7 +176,18 @@ class Launches:
 
 
 def want_launches(per_layer: dict, depth: int, stage1: int = 0) -> dict:
-    return {**{k: v * depth for k, v in per_layer.items()}, "stage1_kqv": stage1}
+    return {**{k: 0 for k in KERNELS}, **{k: v * depth for k, v in per_layer.items()},
+            "stage1_kqv": stage1}
+
+
+def want_swin_launches(cfg) -> dict:
+    """The launches of one forward of a Swin model of config ``cfg``."""
+    blocks, merges = sum(cfg.depths), len(cfg.depths) - 1
+    want = {k: 0 for k in KERNELS}
+    for per, count in ((SWIN_BLOCK_LAUNCHES, blocks), (SWIN_MERGE_LAUNCHES, merges)):
+        for k, v in per.items():
+            want[k] += v * count
+    return want
 
 
 def check_logits(tag, logits, ref, batch, classes):
@@ -354,6 +392,90 @@ def phase_kernel_stage1(torch, ts, harness):
     return worst, b1_ms
 
 
+def phase_kernels_swin(torch, fe, sb, sm, harness):
+    """``window_attention`` and ``swin_merge`` against their twins at
+    swin_tiny's shapes, and ``ln_rows`` / ``linear`` at Swin's widths (dim
+    -> 3 dim, dim -> dim, dim -> 4 dim, 4 dim -> dim, 4 dim -> 2 dim) with
+    the fp32 LayerNorm affine the Swin stages pass; returns
+    ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} summed over the launches
+    of one swin_tiny b1 forward, for window_attention and swin_merge)."""
+    from edgevisiontransformer_tpu_torch.models.swin import shifted_window_mask
+
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def f32(*shape, scale=1.0, base=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + base
+
+    errs, b1_ms = {}, {"window_attention": (0.0, 0.0), "swin_merge": (0.0, 0.0)}
+
+    def check(kname, label, shape_name, kern, plain, reps=0):
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, ok = within(got, ref, KERNEL_RTOL, KERNEL_ATOL)
+        if not ok or not torch.isfinite(got.float()).all():
+            fail(f"{label} at {shape_name}: max |kernel - twin| {err:.4g} "
+                 f"over {KERNEL_ATOL} + {KERNEL_RTOL:.4g}|twin|")
+        errs[kname] = max(errs.get(kname, 0.0), err)
+        t_k, t_p = time_pair(harness, shape_name, label, err, kern, plain)
+        if reps:
+            tk, tp = b1_ms[kname]
+            b1_ms[kname] = (tk + reps * t_k, tp + reps * t_p)
+
+    w = SWIN_WINDOW
+    n = w * w
+    for batch in SWIN_BATCHES:
+        for si, (res, dim, heads, depth) in enumerate(SWIN_STAGES):
+            tag = f"swin_tiny b{batch} s{si}"
+            m, nwin, last = batch * res * res, (res // w) ** 2, si == len(SWIN_STAGES) - 1
+            x = rnd(m, dim, scale=2.0)
+            if not last:
+                g4, b4 = f32(4 * dim, scale=0.5, base=1.0), f32(4 * dim, scale=0.5)
+                check("swin_merge", "swin_merge", tag,
+                      lambda: sm.swin_merge(x, g4, b4, res=res, eps=1e-5),
+                      lambda: sm.swin_merge_plain(x, g4, b4, res=res, eps=1e-5),
+                      int(batch == 1))
+            if batch > 1 and si not in (0, 2):  # b32: the merges, stages 0 and 2
+                continue
+            qkv = rnd(m, 3 * dim)
+            bias = f32(heads, n, n, scale=0.5 * LOG2E)
+            mask = (torch.from_numpy(shifted_window_mask(res, res, w, w // 2)).to(dev) * LOG2E
+                    if nwin > 1 else None)
+            for shifted in ((False, True) if nwin > 1 else (False,)):
+                kw = dict(res=res, window=w, shift=w // 2 if shifted else 0, heads=heads,
+                          head_dim=dim // heads)
+                mk = mask if shifted else None
+                # a stage's odd blocks shift where it has several windows
+                odd = depth // 2 if nwin > 1 else 0
+                reps = (odd if shifted else depth - odd) if batch == 1 else 0
+                check("window_attention",
+                      f"window_attention {'shifted' if shifted else 'unshifted'}",
+                      tag, lambda: sb.window_attention(qkv, bias, mk, **kw),
+                      lambda: sb.window_attention_plain(qkv, bias, mk, **kw), reps)
+            g, b = f32(dim, scale=0.5, base=1.0), f32(dim, scale=0.5)
+            check("ln_rows", "ln_rows (fp32 affine)", tag, lambda: fe.ln_rows(x, g, b, 1e-5),
+                  lambda: fe.ln_rows_plain(x, g, b, 1e-5))
+            gemms = [("qkv", dim, 3 * dim, fe.CAST_THEN_BIAS), ("proj", dim, dim, fe.BIAS_RESIDUAL),
+                     ("fc1 erf", dim, 4 * dim, fe.CAST_THEN_BIAS_GELU),
+                     ("fc2", 4 * dim, dim, fe.BIAS_RESIDUAL)]
+            if not last:
+                gemms.append(("reduction", 4 * dim, 2 * dim, None))
+            for name, k, nn_, epi in gemms:
+                rows = m // 4 if epi is None else m  # the reduction runs on merged tokens
+                a, wt = rnd(rows, k), rnd(k, nn_, scale=k ** -0.5)
+                bvec = rnd(nn_, scale=0.5) if epi is not None else torch.zeros(
+                    nn_, dtype=torch.bfloat16, device=dev)
+                r = rnd(rows, nn_) if epi == fe.BIAS_RESIDUAL else None
+                kwl = dict(epilogue=epi or fe.CAST_THEN_BIAS, res=r)
+                check("linear", f"linear {name}", tag, lambda: fe.linear(a, wt, bvec, **kwl),
+                      lambda: fe.linear_plain(a, wt, bvec, **kwl))
+    return errs, b1_ms
+
+
 def phase_slice_t2t(torch, counter):
     """t2t_vit_14 (reference style, full width and depth) through
     ``fused_t2t_apply`` and, with a static stack calibrated on 8
@@ -453,6 +575,175 @@ def phase_time_t2t(torch, harness, state):
                 print(f"  t2t_vit_14 tokenizer b{batch} {form:14s}: device p50 "
                       f"{d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}), eager p50 "
                       f"{e['p50_ms']:.4f} ms")
+
+
+def phase_slice_swin(torch, counter):
+    """swin_tiny (full width and depth, bf16, seeded random weights) through
+    ``fused_swin_apply`` at b1 and b32 with constants prepared once; returns
+    (launches, worst deviation, the model state for phase 5)."""
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+    from edgevisiontransformer_tpu_torch.models.swin import fused_swin_apply, prepare_swin_fused
+
+    model, shape = build_model("swin_tiny", dtype=torch.bfloat16, device=DEVICE,
+                               generator=torch.Generator().manual_seed(0))
+    cfg = model.config
+    t0 = time.perf_counter()
+    prepared = prepare_swin_fused(model)
+    torch.cuda.synchronize()
+    print(f"  swin_tiny (embed {cfg.embed_dim}, depths {cfg.depths}, heads {cfg.num_heads}, "
+          f"window {cfg.window_size}): constants prepared in {time.perf_counter() - t0:.2f} s")
+    launches = {k: 0 for k in counter.read()}
+    worst = 0.0
+    want = want_swin_launches(cfg)
+    for batch, seed in zip(SWIN_BATCHES, (1200, 1300)):
+        tag = f"swin_tiny b{batch}"
+        img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(seed)).to(DEVICE)
+        with torch.no_grad():
+            counter.reset()
+            logits = fused_swin_apply(model, img, prepared=prepared)
+            torch.cuda.synchronize()
+            counts = counter.read()
+            ref = fused_swin_apply(model, img, prepared=prepared, plain=True)
+            eager = model(img)
+        if counts != want:
+            fail(f"{tag}: launch counts {counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        rel, err, scale, agree = check_logits(tag, logits, ref, batch, cfg.num_classes)
+        worst = max(worst, rel)
+        e_err = float((logits.float() - eager.float()).abs().max())
+        print(f"  {tag:28s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} "
+              f"(max|logit| {scale:.4g}), top-1 agreement {agree:.3f}, "
+              f"max|kern-eager model| {e_err:.4g}, launches {counts}")
+    return launches, worst, (model, shape, prepared)
+
+
+def phase_time_swin(torch, harness, state):
+    """swin_tiny b1 and b32: eager and device p50, peak memory (the script's
+    other resident models included) and the device time by kernel at b1."""
+    from edgevisiontransformer_tpu_torch.models.swin import fused_swin_apply
+
+    model, shape, prepared = state
+    with torch.no_grad():
+        for batch in SWIN_BATCHES:
+            img = torch.randn(batch, *shape,
+                              generator=torch.Generator().manual_seed(batch)).to(DEVICE)
+            fn = lambda: fused_swin_apply(model, img, prepared=prepared)  # noqa: E731
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+            peak = harness.device_mem_mb()
+            d = harness.measure_graph_time(fn, iters=10, repeats=5)
+            print(f"  swin_tiny bf16 b{batch}: eager p50 {e['p50_ms']:.4f} ms (std "
+                  f"{e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device p50 "
+                  f"{d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}), peak mem {peak:.1f} MiB")
+            if batch == 1:
+                prof = harness.device_time_by_kernel(fn)
+                busy = sum(r[2] for r in prof)
+                print(f"      traced kernel time {busy:.4f} ms (device idle "
+                      f"{max(0.0, 1 - busy / e['p50_ms']):.1%} of the eager call)")
+                for name, calls, ms in prof[:8]:
+                    print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
+
+
+def _bound(nbytes: float, ops: dict):
+    """(bound_ms, bound_by): the larger of ``nbytes`` over the HBM rate and
+    the operations ``{type: count}`` over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(c / PEAK_OPS_PER_S[k] for k, c in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_yardsticks(torch, harness):
+    """Each kernel's bound and library yardstick over the launches its JSON
+    row times: one deit_tiny b128 layer (ln_rows, linear, attention_rows;
+    quant_rows and linear_i8 static), one t2t_vit_14 b1 stage1_kqv call, one
+    swin_tiny b1 forward (window_attention, swin_merge).  Bytes count each
+    input read once and each output written once; operations are the
+    tensor-core products for the GEMMs and attention (bf16 or int8), ~8
+    fp32 operations per element for a LayerNorm, 3 for a quantization.  The
+    library call is one PyTorch call of the same function at the same shapes
+    (device p50, CUDA-graph replay; the GEMM calls leave out the epilogue);
+    None where no one call computes it.  Returns {kernel: (bound_ms,
+    bound_by, library_ms)}."""
+    import torch.nn.functional as F
+
+    from edgevisiontransformer_tpu_torch.models.swin import shifted_window_mask
+    from edgevisiontransformer_tpu_torch.ops.cuda.swin_block import window_rows
+
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def lib(calls):
+        return sum(reps * harness.measure_graph_time(fn)["p50_ms"] for fn, reps in calls)
+
+    out = {}
+    m, dim, mlp, heads, n = 128 * 197, 192, 768, 3, 197
+    x, g, b = rnd(m, dim), rnd(dim), rnd(dim)
+    out["ln_rows"] = (*_bound(2 * (4 * m * dim + 4 * dim), {"fp32": 2 * 8 * m * dim}),
+                      lib([(lambda: F.layer_norm(x, (dim,), g, b, 1e-6), 2)]))
+    gemms = ((dim, 3 * dim, False), (dim, dim, True), (dim, mlp, False), (mlp, dim, True))
+    nbytes = sum(2 * (m * k + k * nn_ + m * nn_ * (2 if r else 1) + nn_) for k, nn_, r in gemms)
+    ops = sum(2 * m * k * nn_ for k, nn_, _ in gemms)
+    mats = [(rnd(m, k), rnd(k, nn_), rnd(nn_)) for k, nn_, _ in gemms]
+    out["linear"] = (*_bound(nbytes, {"bf16": ops}),
+                     lib([((lambda a=a, w=w, bb=bb: torch.addmm(bb, a, w)), 1)
+                          for a, w, bb in mats]))
+    qkv = rnd(128, n, 3, heads, dim // heads).permute(2, 0, 3, 1, 4)
+    key_mask = torch.zeros(1, 1, 1, n, dtype=torch.bfloat16, device=dev)
+    out["attention_rows"] = (
+        *_bound(2 * 4 * m * dim, {"bf16": 4 * 128 * heads * n * n * (dim // heads)}),
+        lib([(lambda: F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
+                                                     attn_mask=key_mask), 1)]))
+    widths = (dim, dim, dim, mlp)  # the static layer quantizes qkv, out, fc1, fc2 inputs
+    out["quant_rows"] = (*_bound(sum(3 * m * k for k in widths),
+                                 {"fp32": sum(3 * m * k for k in widths)}), None)
+    nbytes = sum(m * k + k * nn_ + 2 * m * nn_ * (2 if r else 1) + 8 * nn_ for k, nn_, r in gemms)
+    mats8 = [(int8(m, k), int8(k, nn_)) for k, nn_, _ in gemms]
+    out["linear_i8"] = (*_bound(nbytes, {"int8": ops}),
+                        lib([((lambda q=q, w=w: torch._int_mm(q, w)), 1) for q, w in mats8]))
+    tok, feat, d = 3136, 147, 192
+    out["stage1_kqv"] = (*_bound(2 * 3 * 224 * 224 + 2 * 432 * d + 4 * 432 + 8 * d + 2 * tok * d,
+                                 {"bf16": 2 * tok * feat * d, "fp32": 4 * tok * feat}), None)
+
+    w, nw_ops, wa_bytes, wa_calls = SWIN_WINDOW, 0, 0, []
+    nt = w * w
+    merge_bytes, merge_ops = 0, 0
+    for si, (res, sdim, sheads, depth) in enumerate(SWIN_STAGES):
+        rows, nwin, hd = res * res, (res // w) ** 2, sdim // sheads
+        idx = window_rows(res, w, 0, dev)
+        win = rnd(rows, 3, sheads, hd)[idx].reshape(nwin, nt, 3, sheads, hd)
+        q, k, v = win.permute(2, 0, 3, 1, 4).contiguous()
+        bias = rnd(sheads, nt, nt, dtype=torch.float32)
+        odd = depth // 2 if nwin > 1 else 0
+        for shifted, reps in ((False, depth - odd), (True, odd)):
+            if reps == 0:
+                continue
+            mask_b = 0
+            am = bias[None] / LOG2E
+            if shifted:
+                mk = torch.from_numpy(shifted_window_mask(res, res, w, w // 2)).to(dev) * LOG2E
+                am, mask_b = (bias[None] + mk[:, None]) / LOG2E, 4 * nwin * nt * nt
+            am = am.to(torch.bfloat16).expand(nwin, sheads, nt, nt).contiguous()
+            wa_bytes += reps * (2 * 4 * rows * sdim + 4 * sheads * nt * nt + mask_b)
+            nw_ops += reps * 4 * nwin * sheads * nt * nt * hd
+            wa_calls.append(((lambda q=q, k=k, v=v, am=am:
+                              F.scaled_dot_product_attention(q, k, v, attn_mask=am)), reps))
+        if si < len(SWIN_STAGES) - 1:
+            merge_bytes += 2 * rows * sdim + 2 * rows * sdim + 2 * 4 * 4 * sdim
+            merge_ops += 8 * rows * sdim
+    out["window_attention"] = (*_bound(wa_bytes, {"bf16": nw_ops}), lib(wa_calls))
+    out["swin_merge"] = (*_bound(merge_bytes, {"fp32": merge_ops}), None)
+    for k, (bnd, by, lib_ms) in out.items():
+        print(f"  {k:16s} bound {bnd:.4f} ms ({by}), library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    return out
 
 
 def first_parting_layer(torch, fe, model, img, sq):
@@ -658,9 +949,11 @@ def main() -> int:
     from edgevisiontransformer_tpu_torch.bench import harness
     from edgevisiontransformer_tpu_torch.ops.cuda import build
     from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
+    from edgevisiontransformer_tpu_torch.ops.cuda import swin_block as sb
+    from edgevisiontransformer_tpu_torch.ops.cuda import swin_merge as sm
     from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
 
-    counter = Launches(fe, ts)
+    counter = Launches(fe, ts, sb, sm)
     print("== phase 1: environment")
     card = phase_env(torch, build)
     print("== phase 2: build")
@@ -673,39 +966,54 @@ def main() -> int:
     errs.update(errs8)
     layer_ms.update(layer_ms8)
     errs["stage1_kqv"], layer_ms["stage1_kqv"] = phase_kernel_stage1(torch, ts, harness)
-    print(f"== phase 4: slices through fused_vit_apply[_int8] and fused_t2t_apply[_int8] "
-          f"(logits within {LOGIT_REL} x max|logit| of the twins)")
+    errs_swin, swin_ms = phase_kernels_swin(torch, fe, sb, sm, harness)
+    for k, v in errs_swin.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    layer_ms.update(swin_ms)
+    print(f"== phase 4: slices through fused_vit_apply[_int8], fused_t2t_apply[_int8] and "
+          f"fused_swin_apply (logits within {LOGIT_REL} x max|logit| of the twins)")
     launches, worst, models = phase_slice(torch, counter)
     launches8, worst8, stacks = phase_slice_int8(torch, fe, counter, models)
     launches_t2t, worst_t2t, t2t_state = phase_slice_t2t(torch, counter)
-    for more in (launches8, launches_t2t):
+    launches_swin, worst_swin, swin_state = phase_slice_swin(torch, counter)
+    for more in (launches8, launches_t2t, launches_swin):
         for k, v in more.items():
             launches[k] += v
     for k, v in launches.items():
         if v == 0:
             fail(f"kernel {k} was never launched on the main path")
-    print(f"== phase 5: slice timing, t2t_vit_14, deit_base b1 and deit_tiny standard bf16 "
-          f"and int8, on {card}")
+    print(f"== phase 5: slice timing, t2t_vit_14, swin_tiny, deit_base b1 and deit_tiny "
+          f"standard bf16 and int8, on {card}")
     phase_time_t2t(torch, harness, t2t_state)
     del t2t_state
+    phase_time_swin(torch, harness, swin_state)
+    del swin_state
+    torch.cuda.empty_cache()
     phase_time_base(torch, harness, models, stacks)
     # deit_tiny's peak memory is read with deit_base's weights freed
     models.pop(("deit_base", "standard"))
     stacks.pop(("deit_base", "standard", "static"))
     torch.cuda.empty_cache()
     phase_time_slice(torch, harness, models, stacks)
-    print(f"build {build_s:.2f} s; worst logit deviation {max(worst, worst8, worst_t2t):.4g} "
-          f"of max|logit| (deit bf16 {worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 "
-          f"{worst_t2t:.4g})")
+    del models, stacks
+    torch.cuda.empty_cache()
+    print(f"== phase 6: bounds and library yardsticks, on {card}")
+    yard = phase_yardsticks(torch, harness)
+    print(f"build {build_s:.2f} s; worst logit deviation "
+          f"{max(worst, worst8, worst_t2t, worst_swin):.4g} of max|logit| (deit bf16 "
+          f"{worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 {worst_t2t:.4g}, swin_tiny "
+          f"{worst_swin:.4g})")
 
     src = "edgevisiontransformer_tpu_torch/csrc/"
-    print("kernel ms / plain_ms: device time (CUDA-graph replay) of one deit_tiny b128 "
-          "layer's launches of that kernel (int8 kernels: a static-int8 layer; stage1_kqv: "
-          "one t2t_vit_14 b1 call); launches: the requests of phase 4")
+    print("kernel ms / plain_ms / bound_ms / library_ms: device time (CUDA-graph replay) of "
+          "one deit_tiny b128 layer's launches of that kernel (int8 kernels: a static-int8 "
+          "layer; stage1_kqv: one t2t_vit_14 b1 call; window_attention and swin_merge: one "
+          "swin_tiny b1 forward); launches: the requests of phase 4")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"{src}{source}", "replaces": replaces,
          "launches": launches[k], "max_abs_err": errs[k],
-         "ms": layer_ms[k][0], "plain_ms": layer_ms[k][1]}
+         "ms": layer_ms[k][0], "plain_ms": layer_ms[k][1], "bound_ms": yard[k][0],
+         "bound_by": yard[k][1], "library_ms": yard[k][2]}
         for k, (source, replaces) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 """Model registry: name -> (module, example NCHW input shape sans batch).
 
 Port of ``edgevisiontransformer_tpu/models/registry.py`` for the models
-ported so far: ``deit_tiny``, ``deit_small``, ``deit_base`` and
-``t2t_vit_{7,10,12,14}``.
+ported so far: ``deit_tiny``, ``deit_small``, ``deit_base``,
+``t2t_vit_{7,10,12,14}`` and ``swin_{tiny,small,base}``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import Tuple
 
 from torch import nn
 
+from .swin import get_swin
 from .t2t_vit import get_t2t_vit
 from .vit import get_deit_base, get_deit_small, get_deit_tiny
 
@@ -22,6 +23,8 @@ _REGISTRY = {
 }
 for _v in (7, 10, 12, 14):
     _REGISTRY[f"t2t_vit_{_v}"] = functools.partial(get_t2t_vit, _v)
+for _size in ("tiny", "small", "base"):
+    _REGISTRY[f"swin_{_size}"] = functools.partial(get_swin, _size)
 
 
 def available_models():
@@ -29,8 +32,9 @@ def available_models():
 
 
 def build_model(name: str, **kw) -> Tuple[nn.Module, Tuple[int, ...]]:
-    """Build a model by name; ``kw`` goes to the factory (``style``,
-    ``device``, ``generator`` and any ``ViTConfig`` field)."""
+    """Build a model by name; ``kw`` goes to the factory (``device``, the
+    card by default, ``generator``, ``style`` for the ViT family and any
+    field of its config)."""
     if name not in _REGISTRY:
         raise KeyError(f"model {name!r} is not ported yet; ported: {available_models()}")
     model = _REGISTRY[name](**kw)

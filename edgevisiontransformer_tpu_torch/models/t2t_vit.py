@@ -31,7 +31,8 @@ from ..ops.layers import layer_norm, mlp_block
 from ..ops.quant import _dense, _unwrap
 from ..ops.unfold import unfold, unfold_output_size
 from .vit import (INT8_VARIANTS, Dense, EncoderBlock, LayerNormP, _check_fused, _fused_head,
-                  _param, lecun_normal_, nested_tree, prepare_vit_fused, xavier_uniform_)
+                  _param, lecun_normal_, model_device, nested_tree, prepare_vit_fused,
+                  xavier_uniform_)
 
 
 def sinusoid_encoding(n_position: int, d_hid: int) -> np.ndarray:
@@ -140,13 +141,15 @@ class T2TViT(nn.Module):
     Parameters are created on the CPU and initialised from ``generator`` as
     the Flax initialisers do (lecun-normal Dense kernels, xavier-uniform
     performer MLP and encoder kernels, normal(0.02) cls token, zero biases,
-    unit norm scales), then moved to ``device``.  The model is built in
+    unit norm scales), then moved to ``device``, the card unless the caller
+    names another (``models/vit.model_device``).  The model is built in
     eval mode, as ``model.apply`` runs with ``train=False``;
     ``model.train()`` turns the performers' dropout on."""
 
-    def __init__(self, cfg: ViTConfig, token_size: int = 64, *, device=None,
+    def __init__(self, cfg: ViTConfig, token_size: int = 64, *, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
+        device = model_device(device)
         self.config = cfg
         self.token_size = token_size
         n = (cfg.image_size // 16) ** 2  # three soft splits: strides 4 * 2 * 2
@@ -159,8 +162,7 @@ class T2TViT(nn.Module):
         self.head = Dense(cfg, cfg.dim, cfg.num_classes)
         self._init_params(generator)
         self.eval()
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     @torch.no_grad()
     def _init_params(self, gen: torch.Generator | None) -> None:
@@ -217,7 +219,7 @@ def t2t_vit_config(variant: int = 14, style: str = "reference", **overrides) -> 
     return ViTConfig(**{**_T2T_SHAPES[variant], **style_kw, **overrides})
 
 
-def get_t2t_vit(variant: int = 14, style: str = "reference", *, device=None, generator=None,
+def get_t2t_vit(variant: int = 14, style: str = "reference", *, device="cuda", generator=None,
                 **kw) -> T2TViT:
     return T2TViT(t2t_vit_config(variant, style, **kw), device=device, generator=generator)
 

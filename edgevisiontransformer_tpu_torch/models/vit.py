@@ -52,6 +52,18 @@ def nested_tree(named) -> dict:
     return tree
 
 
+def model_device(device) -> torch.device:
+    """The device a model is built on: the card unless the caller names
+    another.  Raises when the card is asked for and there is none, rather
+    than leaving the model, and every kernel wrapper after it, on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} but no CUDA device is available: the port's models are "
+            "built on the card unless asked otherwise; pass device='cpu' to build on the CPU")
+    return dev
+
+
 def _check_kernel_mode(cfg: ViTConfig) -> None:
     if cfg.kernel_mode != "xla":
         raise NotImplementedError(
@@ -60,17 +72,18 @@ def _check_kernel_mode(cfg: ViTConfig) -> None:
 
 
 class Dense(nn.Module):
-    """``x @ kernel + bias`` in the compute dtype (flax ``nn.Dense``)."""
+    """``x @ kernel (+ bias)`` in the compute dtype (flax ``nn.Dense``)."""
 
-    def __init__(self, cfg: ViTConfig, din: int, dout: int):
+    def __init__(self, cfg: ViTConfig, din: int, dout: int, use_bias: bool = True):
         super().__init__()
         self.config = cfg
         self.kernel = _param((din, dout), cfg)
-        self.bias = _param((dout,), cfg)
+        self.bias = _param((dout,), cfg) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.config.dtype
-        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+        y = x.to(dt) @ self.kernel.to(dt)
+        return y + self.bias.to(dt) if self.bias is not None else y
 
 
 class Attention(nn.Module):
@@ -166,12 +179,14 @@ class ViT(nn.Module):
     Parameters are created on the CPU, initialised from ``generator`` (the
     Flax initialisers: xavier-uniform kernels, lecun-normal head kernels,
     normal(0.02) cls / position embeddings, zero biases, unit LN scales),
-    then moved to ``device``.
+    then moved to ``device``: the card unless the caller names another
+    (:func:`model_device`).
     """
 
-    def __init__(self, cfg: ViTConfig, *, device=None,
+    def __init__(self, cfg: ViTConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
+        device = model_device(device)
         self.config = cfg
         p, c, dim = cfg.patch_size, cfg.in_channels, cfg.dim
         self.patch_kernel = _param((p * p * c, dim), cfg)
@@ -188,8 +203,7 @@ class ViT(nn.Module):
         else:
             self.head = Dense(cfg, dim, cfg.num_classes)
         self._init_params(generator)
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     @torch.no_grad()
     def _init_params(self, gen: torch.Generator | None) -> None:
@@ -248,15 +262,18 @@ def deit_config(size: str = "tiny", style: str = "standard", **overrides) -> ViT
     return ViTConfig(**{**shape, **style_kw, **overrides})
 
 
-def get_deit_tiny(style: str = "standard", *, device=None, generator=None, **kw) -> ViT:
+def get_deit_tiny(style: str = "standard", *, device="cuda", generator=None,
+                  **kw) -> ViT:
     return ViT(deit_config("tiny", style, **kw), device=device, generator=generator)
 
 
-def get_deit_small(style: str = "standard", *, device=None, generator=None, **kw) -> ViT:
+def get_deit_small(style: str = "standard", *, device="cuda", generator=None,
+                   **kw) -> ViT:
     return ViT(deit_config("small", style, **kw), device=device, generator=generator)
 
 
-def get_deit_base(style: str = "standard", *, device=None, generator=None, **kw) -> ViT:
+def get_deit_base(style: str = "standard", *, device="cuda", generator=None,
+                  **kw) -> ViT:
     return ViT(deit_config("base", style, **kw), device=device, generator=generator)
 
 

@@ -36,6 +36,8 @@ _SIGNATURES = (
     ("evt_quant_rows", _I, (_P, _P, _P, _P, _I, _I, _I, _P)),
     ("evt_linear_i8", _I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     ("evt_t2t_stage1", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P)),
+    ("evt_window_attention", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
+    ("evt_swin_merge", _I, (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     ("evt_error_string", ctypes.c_char_p, (_I,)),
 )
 

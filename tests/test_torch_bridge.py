@@ -38,7 +38,7 @@ def _same(t: torch.Tensor, a) -> bool:
 @pytest.mark.parametrize("style", ["standard", "reference"])
 def test_load_jax_params_is_exact(style):
     jcfg, params = _jax_params(style)
-    model = ViT(deit_config("tiny", style, **NARROW))
+    model = ViT(deit_config("tiny", style, **NARROW), device="cpu")
     load_jax_params(model, _np(params))
     flat = flatten_tree(_np(params))
     named = dict(model.named_parameters())
@@ -51,7 +51,8 @@ def test_load_jax_params_is_exact(style):
 
 def test_load_jax_params_bf16_is_exact():
     _, params = _jax_params("standard", param_dtype=jnp.bfloat16)
-    model = ViT(deit_config("tiny", "standard", param_dtype=torch.bfloat16, **NARROW))
+    model = ViT(deit_config("tiny", "standard", param_dtype=torch.bfloat16, **NARROW),
+                device="cpu")
     load_jax_params(model, _np(params))
     for name, arr in flatten_tree(_np(params)).items():
         assert _same(dict(model.named_parameters())[name].detach(), arr), name
@@ -60,10 +61,10 @@ def test_load_jax_params_bf16_is_exact():
 def test_load_jax_params_refuses_mismatched_trees():
     _, params = _jax_params("standard")
     p = _np(params)
-    model = ViT(deit_config("tiny", "reference", **NARROW))  # other head, no qkv bias
+    model = ViT(deit_config("tiny", "reference", **NARROW), device="cpu")  # other head, no qkv bias
     with pytest.raises(KeyError):
         load_jax_params(model, p)
-    model = ViT(deit_config("tiny", "standard", **{**NARROW, "mlp_dim": 64}))
+    model = ViT(deit_config("tiny", "standard", **{**NARROW, "mlp_dim": 64}), device="cpu")
     with pytest.raises(ValueError):
         load_jax_params(model, p)
 
@@ -85,7 +86,7 @@ def test_prepare_vit_fused_matches_jax_stack():
     """The port's own stack of a model loaded from Flax params equals the
     JAX stack cast to the compute dtype, bit for bit."""
     _, params = _jax_params("standard")
-    model = ViT(deit_config("tiny", "standard", dtype=torch.bfloat16, **NARROW))
+    model = ViT(deit_config("tiny", "standard", dtype=torch.bfloat16, **NARROW), device="cpu")
     load_jax_params(model, _np(params))
     ref = jax.tree.map(lambda a: a.astype(jnp.bfloat16),
                        stack_vit_layer_params(params, 3, True))

@@ -27,9 +27,12 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.ops.cuda.build",
     "edgevisiontransformer_tpu_torch.ops.cuda.fused_encoder",
     "edgevisiontransformer_tpu_torch.ops.cuda.t2t_stage1",
+    "edgevisiontransformer_tpu_torch.ops.cuda.swin_block",
+    "edgevisiontransformer_tpu_torch.ops.cuda.swin_merge",
     "edgevisiontransformer_tpu_torch.models",
     "edgevisiontransformer_tpu_torch.models.vit",
     "edgevisiontransformer_tpu_torch.models.t2t_vit",
+    "edgevisiontransformer_tpu_torch.models.swin",
     "edgevisiontransformer_tpu_torch.models.registry",
     "edgevisiontransformer_tpu_torch.utils.jax_bridge",
     "edgevisiontransformer_tpu_torch.bench.harness",

@@ -158,7 +158,7 @@ def _models(size: str, style: str, dtype: str):
     variables = {"params": jax.tree.map(
         lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
         if a.ndim == 1 else a, variables["params"])}
-    tmodel = tvit.ViT(tvit.deit_config("tiny", style, dtype=td, **CONFIGS[size]))
+    tmodel = tvit.ViT(tvit.deit_config("tiny", style, dtype=td, **CONFIGS[size]), device="cpu")
     load_jax_params(tmodel, jax.tree.map(np.asarray, variables["params"]))
     img = rng.standard_normal((2, 3, n, n)).astype(np.float32)
     calib = list(jq.representative_batches(n=2, batch=2, shape=(3, n, n), seed=3))
@@ -216,7 +216,7 @@ def test_fused_vit_apply_int8_defaults_variants_and_plain_flag():
 def test_fused_vit_apply_int8_refuses_multi_segment_models():
     cfg = tvit.deit_config("tiny", **NARROW).replace(heads_per_layer=(2, 1),
                                                       mlp_dim_per_layer=(128, 64))
-    model = tvit.ViT(cfg)
+    model = tvit.ViT(cfg, device="cpu")
     sq = tvit.prepare_vit_int8(model)
     assert len(sq["segments"]) == 2
     with pytest.raises(NotImplementedError, match="layerwise"):
@@ -234,9 +234,9 @@ def test_fused_vit_apply_int8_refuses_what_jax_refuses():
         jvit.fused_vit_apply_int8(jvit.ViT(jvit.deit_config("tiny", **bad)), variables,
                                   jnp.asarray(img))
     with pytest.raises(ValueError, match="layernorm"):
-        tvit.fused_vit_apply_int8(tvit.ViT(tvit.deit_config("tiny", **bad)),
+        tvit.fused_vit_apply_int8(tvit.ViT(tvit.deit_config("tiny", **bad), device="cpu"),
                                   torch.from_numpy(img))
-    model = tvit.ViT(tvit.deit_config("tiny", **NARROW))
+    model = tvit.ViT(tvit.deit_config("tiny", **NARROW), device="cpu")
     sq = tvit.prepare_vit_int8(model)
     with pytest.raises(ValueError, match="segments"):
         tvit.fused_vit_apply_int8(model, torch.from_numpy(img), stacked_q={"segments": [sq, sq]})

@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from edgevisiontransformer_tpu_torch.models import swin
 from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
 from edgevisiontransformer_tpu_torch.models.vit import (ViT, deit_config, fused_vit_apply,
                                                          fused_vit_apply_int8, prepare_vit_int8,
                                                          prepare_vit_int8_static)
 from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
+from edgevisiontransformer_tpu_torch.ops.cuda import swin_block as sb
+from edgevisiontransformer_tpu_torch.ops.cuda import swin_merge as sm
 from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
 
 pytestmark = pytest.mark.gpu
@@ -337,3 +340,135 @@ def test_stage1_kqv_refuses_what_the_kernel_does_not_take(dev):
     w24 = _stage1_weights(dev, 24)
     with pytest.raises(ValueError, match="multiple of 16"):
         ts.stage1_kqv(img, *w24)
+
+
+# ---------------------------------------------------------------------------
+# Swin: window_attention and swin_merge
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _window_inputs(dev, batch, res, w, heads, hd, shifted, seed=0):
+    """qkv, a log2(e)-scaled bias [heads, n, n] and, when shifted, the
+    stage's log2(e)-scaled mask, as prepare_swin_fused builds them."""
+    n = w * w
+    qkv = _rnd(dev, batch * res * res, 3 * heads * hd, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    bias = torch.randn(heads, n, n, generator=g, device=dev) * (0.5 * LOG2E)
+    mask = (torch.from_numpy(swin.shifted_window_mask(res, res, w, w // 2)).to(dev) * LOG2E
+            if shifted else None)
+    return qkv, bias, mask
+
+
+@pytest.mark.parametrize("batch,res,w,heads,hd,shifted", [
+    (1, 56, 7, 3, 32, False), (1, 56, 7, 3, 32, True), (2, 28, 7, 6, 32, True),
+    (2, 14, 7, 12, 32, True), (2, 7, 7, 24, 32, False), (2, 8, 4, 2, 64, True),
+    (1, 16, 8, 2, 64, True)])
+def test_window_attention_kernel_matches_twin_and_counts(dev, batch, res, w, heads, hd, shifted):
+    qkv, bias, mask = _window_inputs(dev, batch, res, w, heads, hd, shifted)
+    kw = dict(res=res, window=w, shift=w // 2 if shifted else 0, heads=heads, head_dim=hd)
+    sb.reset_launches()
+    got = sb.window_attention(qkv, bias, mask, **kw)
+    assert sb.LAUNCHES["window_attention"] == 1
+    _close(got, sb.window_attention_plain(qkv, bias, mask, **kw))
+
+
+def test_window_attention_clamp60_rows_tie(dev):
+    qkv, bias, mask = _window_inputs(dev, 1, 14, 7, 1, 32, True)
+    qkv[:20, :64] *= 8  # q and k large: log2-scaled scores far above 60
+    kw = dict(res=14, window=7, shift=3, heads=1, head_dim=32)
+    _close(sb.window_attention(qkv, bias, mask, **kw),
+           sb.window_attention_plain(qkv, bias, mask, **kw))
+
+
+def test_window_attention_refuses_what_the_kernel_does_not_take(dev):
+    qkv, bias, mask = _window_inputs(dev, 1, 14, 7, 2, 32, True)
+    kw = dict(res=14, window=7, shift=3, heads=2, head_dim=32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        sb.window_attention(qkv.float(), bias, mask, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        sb.window_attention(qkv, bias.bfloat16(), mask, **kw)
+    with pytest.raises(ValueError, match="res % window"):
+        sb.window_attention(qkv, bias, mask, **{**kw, "window": 5})
+    with pytest.raises(ValueError, match="head_dim"):
+        sb.window_attention(_rnd(dev, 196, 3 * 48), bias[:1], mask,
+                            **{**kw, "heads": 1, "head_dim": 48})
+    q9, b9, _ = _window_inputs(dev, 1, 18, 9, 1, 32, False)
+    with pytest.raises(ValueError, match="at most 64"):
+        sb.window_attention(q9, b9, None, res=18, window=9, shift=0, heads=1, head_dim=32)
+
+
+@pytest.mark.parametrize("affine", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,res,c", [(1, 56, 96), (2, 28, 192), (2, 14, 384), (3, 8, 16)])
+def test_swin_merge_kernel_matches_twin_and_counts(dev, batch, res, c, affine):
+    x = _rnd(dev, batch * res * res, c, scale=3.0)
+    dt = getattr(torch, affine)
+    g = (_rnd(dev, 4 * c, seed=1, scale=0.5) + 1).to(dt)
+    b = _rnd(dev, 4 * c, seed=2, scale=0.5).to(dt)
+    sm.reset_launches()
+    got = sm.swin_merge(x, g, b, res=res, eps=1e-5)
+    assert sm.LAUNCHES["swin_merge"] == 1 and got.shape == (batch * (res // 2) ** 2, 4 * c)
+    _close(got, sm.swin_merge_plain(x, g, b, res=res, eps=1e-5))
+
+
+def test_swin_merge_refuses_what_the_kernel_does_not_take(dev):
+    g, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match="even"):
+        sm.swin_merge(_rnd(dev, 49, 16), g, b, res=7, eps=1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        sm.swin_merge(_rnd(dev, 16, 12), g[:48], b[:48], res=4, eps=1e-5)
+    with pytest.raises(ValueError, match="one dtype"):
+        sm.swin_merge(_rnd(dev, 16, 16), g, b.bfloat16(), res=4, eps=1e-5)
+    with pytest.raises(TypeError, match="bfloat16"):
+        sm.swin_merge(_rnd(dev, 16, 16).float(), g, b, res=4, eps=1e-5)
+
+
+def _swin_model(dev, dtype=torch.bfloat16):
+    """swin_tiny's widths (dim 96, head_dim 32) at image 112: three stages
+    (res 28, 14, 7), two merges."""
+    cfg = swin.swin_config("tiny", image_size=112, depths=(2, 2, 2), num_heads=(3, 6, 12),
+                           dtype=dtype)
+    return swin.SwinTransformer(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+
+
+def test_swin_stage_forward_kernels_match_twins_and_count(dev):
+    model = _swin_model(dev)
+    stage = swin.prepare_swin_fused(model)["stages"][0]
+    x = _rnd(dev, 2 * 28 * 28, 96)
+    kw = dict(res=28, window=7, heads=3, head_dim=32, eps=1e-5)
+    fe.reset_launches()
+    sb.reset_launches()
+    got = sb.swin_stage_forward(x, stage, **kw)
+    counts = {**fe.LAUNCHES, **sb.LAUNCHES}
+    assert counts == {"ln_rows": 4, "linear": 8, "attention_rows": 0, "quant_rows": 0,
+                      "linear_i8": 0, "window_attention": 2}
+    ref = sb.swin_stage_forward_plain(x, stage, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max() <= 0.03 * ref.float().abs().max()
+
+
+def test_fused_swin_apply_on_kernels_matches_plain_and_counts(dev):
+    model = _swin_model(dev)
+    img = torch.randn(2, 3, 112, 112, generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        prepared = swin.prepare_swin_fused(model)
+        fe.reset_launches()
+        sb.reset_launches()
+        sm.reset_launches()
+        got = swin.fused_swin_apply(model, img, prepared=prepared)
+        counts = {**fe.LAUNCHES, **sb.LAUNCHES, **sm.LAUNCHES}
+        ref = swin.fused_swin_apply(model, img, prepared=prepared, plain=True)
+    # six blocks: ln_rows 2, linear 4, window_attention 1 each; two merges:
+    # swin_merge 1, linear 1 each
+    assert counts == {"ln_rows": 12, "linear": 26, "attention_rows": 0, "quant_rows": 0,
+                      "linear_i8": 0, "window_attention": 6, "swin_merge": 2}
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+def test_fused_swin_apply_fp32_on_the_card_raises(dev):
+    model = _swin_model(dev, torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        swin.fused_swin_apply(model, torch.zeros(1, 3, 112, 112, device=dev))

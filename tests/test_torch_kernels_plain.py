@@ -267,4 +267,6 @@ def test_build_names_library_by_source_hash():
     assert path == build.library_path()
     assert {p.name for p in build.sources()} >= {"ln_rows.cu", "linear.cu",
                                                  "attention_rows.cu", "quant_rows.cu",
-                                                 "linear_i8.cu", "common.cuh"}
+                                                 "linear_i8.cu", "t2t_stage1.cu",
+                                                 "window_attention.cu", "swin_merge.cu",
+                                                 "common.cuh"}

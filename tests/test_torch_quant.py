@@ -42,7 +42,7 @@ def _models(size: str = "narrow", dtype: str = "float32", style: str = "standard
     # one all-zero output channel: its weight scale is the 1.0 fallback
     params["block_0"]["attn"]["out_kernel"] = params["block_0"]["attn"]["out_kernel"].at[:, 3].set(0)
     variables = {"params": params}
-    tmodel = tvit.ViT(tvit.deit_config("tiny", style, dtype=td, **CONFIGS[size]))
+    tmodel = tvit.ViT(tvit.deit_config("tiny", style, dtype=td, **CONFIGS[size]), device="cpu")
     load_jax_params(tmodel, jax.tree.map(np.asarray, params))
     img = rng.standard_normal((2, 3, n, n)).astype(np.float32)
     return jmodel, variables, tmodel, img

@@ -80,7 +80,7 @@ def _models(dtype: str):
     jd, td = DTYPES[dtype]
     variables, img = _variables()
     jmodel = jt2t.T2TViT(jt2t.t2t_vit_config(7, "reference", dtype=jd, **NARROW))
-    tmodel = tt2t.T2TViT(tt2t.t2t_vit_config(7, "reference", dtype=td, **NARROW))
+    tmodel = tt2t.T2TViT(tt2t.t2t_vit_config(7, "reference", dtype=td, **NARROW), device="cpu")
     load_jax_variables(tmodel, variables)
     return jmodel, variables, tmodel, img
 
@@ -341,7 +341,7 @@ def test_fused_t2t_apply_int8_defaults_variants_and_plain_flag():
 
 def test_load_jax_variables_round_trips_and_refuses_mismatches():
     variables, _ = _variables()
-    tmodel = tt2t.T2TViT(tt2t.t2t_vit_config(7, "reference", **NARROW))
+    tmodel = tt2t.T2TViT(tt2t.t2t_vit_config(7, "reference", **NARROW), device="cpu")
     load_jax_variables(tmodel, variables)
     for coll, tree in (("params", tmodel.params()), ("constants", tmodel.constants())):
         flat_t = jax.tree_util.tree_leaves_with_path(tree)
@@ -355,7 +355,8 @@ def test_load_jax_variables_round_trips_and_refuses_mismatches():
         bad = jax.tree.map(lambda a: a, variables)
         change(bad)
         with pytest.raises(exc):
-            load_jax_variables(tt2t.T2TViT(tt2t.t2t_vit_config(7, "reference", **NARROW)), bad)
+            load_jax_variables(tt2t.T2TViT(tt2t.t2t_vit_config(7, "reference", **NARROW),
+                                             device="cpu"), bad)
 
     refused(lambda v: v["constants"].pop("pos_embedding"), KeyError)
     refused(lambda v: v["constants"].update(extra=np.zeros(3, np.float32)), KeyError)
@@ -371,7 +372,7 @@ def test_registry_configs_match_jax():
             assert (tt2t.t2t_vit_config(v, style).to_json()
                     == jt2t.t2t_vit_config(v, style).to_json())
     with torch.device("meta"):
-        model, shape = registry.build_model("t2t_vit_14")
+        model, shape = registry.build_model("t2t_vit_14", device="meta")
     assert shape == (3, 224, 224)
     cfg = model.config
     assert (cfg.dim, cfg.depth, cfg.heads, cfg.mlp_dim) == (384, 14, 6, 1152)
@@ -382,7 +383,7 @@ def test_registry_configs_match_jax():
 
 def test_init_is_seeded_and_performer_w_is_scaled_orthogonal():
     def build(seed):
-        return tt2t.T2TViT(tt2t.t2t_vit_config(7, "reference", **NARROW),
+        return tt2t.T2TViT(tt2t.t2t_vit_config(7, "reference", **NARROW), device="cpu",
                            generator=torch.Generator().manual_seed(seed))
     a, b, c = build(0), build(0), build(1)
     for (_, ta), (_, tb) in zip(a.state_dict().items(), b.state_dict().items()):

@@ -14,6 +14,8 @@ import torch
 from edgevisiontransformer_tpu.models import vit as jvit
 from edgevisiontransformer_tpu_torch.config import dtype_name
 from edgevisiontransformer_tpu_torch.models import registry
+from edgevisiontransformer_tpu_torch.models import swin as tswin
+from edgevisiontransformer_tpu_torch.models import t2t_vit as tt2t
 from edgevisiontransformer_tpu_torch.models import vit as tvit
 from edgevisiontransformer_tpu_torch.utils.jax_bridge import load_jax_params
 
@@ -44,7 +46,7 @@ def _models(size: str, style: str, dtype: str, **extra):
     variables = {"params": jax.tree.map(
         lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
         if a.ndim == 1 else a, variables["params"])}
-    tmodel = tvit.ViT(tvit.deit_config("tiny", style, dtype=td, **overrides))
+    tmodel = tvit.ViT(tvit.deit_config("tiny", style, dtype=td, **overrides), device="cpu")
     load_jax_params(tmodel, jax.tree.map(np.asarray, variables["params"]))
     img = rng.standard_normal((2, 3, img_size, img_size)).astype(np.float32)
     return jmodel, variables, tmodel, img
@@ -119,7 +121,7 @@ def test_fused_vit_apply_refuses_multi_segment_models():
     assert tvit.encoder_segments(cfg) == jvit.encoder_segments(cfg) == [
         (0, 1, 2, 128), (1, 1, 1, 64)]
     with pytest.raises(NotImplementedError, match="layerwise"):
-        tvit.fused_vit_apply(tvit.ViT(cfg), torch.zeros(1, 3, 32, 32))
+        tvit.fused_vit_apply(tvit.ViT(cfg, device="cpu"), torch.zeros(1, 3, 32, 32))
 
 
 @pytest.mark.parametrize("name", ["deit_tiny", "deit_small", "deit_base"])
@@ -130,20 +132,39 @@ def test_registry_configs_match_jax(name):
         t = tvit.deit_config(size, style)
         assert t.to_json() == j.to_json()
     with torch.device("meta"):
-        model, shape = registry.build_model(name, style="reference")
+        model, shape = registry.build_model(name, style="reference", device="meta")
     assert shape == (3, 224, 224)
     assert model.config.reference_residual and model.config.mlp_head
     assert dtype_name(model.config.dtype) == "float32"
 
 
+_DEFAULT_DEVICE_BUILDS = {
+    "ViT": lambda: tvit.ViT(tvit.deit_config("tiny", **NARROW)),
+    "T2TViT": lambda: tt2t.T2TViT(tt2t.t2t_vit_config(7, depth=1)),
+    "SwinTransformer": lambda: tswin.SwinTransformer(tswin.swin_config("tiny", depths=(1,))),
+    "deit_tiny": lambda: registry.build_model("deit_tiny"),
+    "t2t_vit_7": lambda: registry.build_model("t2t_vit_7"),
+    "swin_tiny": lambda: registry.build_model("swin_tiny"),
+}
+
+
+@pytest.mark.parametrize("build", list(_DEFAULT_DEVICE_BUILDS))
+def test_models_default_to_the_card_and_raise_without_one(build, monkeypatch):
+    """Without a device argument a model goes to the card; with no card it
+    raises and names the way out, rather than running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _DEFAULT_DEVICE_BUILDS[build]()
+
+
 def test_registry_refuses_unported_models():
     with pytest.raises(KeyError, match="not ported"):
-        registry.build_model("swin_tiny")
+        registry.build_model("mobilenet_v2", device="cpu")
 
 
 def test_init_is_seeded():
     def build(seed):
-        return tvit.ViT(tvit.deit_config("tiny", **NARROW),
+        return tvit.ViT(tvit.deit_config("tiny", **NARROW), device="cpu",
                         generator=torch.Generator().manual_seed(seed))
     a, b, c = build(0), build(0), build(1)
     for (n, pa), (_, pb), (_, pc) in zip(a.named_parameters(), b.named_parameters(),
