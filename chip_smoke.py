@@ -27,13 +27,17 @@ Phases, in order; any failure exits non-zero before the last line:
    on 8 representative batches, ``fused_t2t_apply_int8``, b1 (the stage-1
    kernel) and b32 (the plain-unfold tokenizer) each, then
    ``build_model("swin_tiny")`` (full width and depth, bf16) through
-   ``fused_swin_apply`` at b1 and b32 — checking for each the logits
-   against the plain twins on the card, the exact kernel launch counts, and
-   finiteness;
+   ``fused_swin_apply`` at b1 and b32, in bf16 and with int8 stages 1-3
+   (``int8_prepared``: static, calibrated on 8 representative batches, and
+   dynamic), and the swin_tiny module forward with ``kernel_mode="pallas"``
+   (window attention on ``window_sdpa``) at b1 and b32 — checking for each
+   the logits against the plain twins on the card, the exact kernel launch
+   counts, and finiteness;
 5. time t2t_vit_14 b1 and b32, bf16 and int8 static (eager p50, device p50,
    device time by kernel at b1) and its two tokenizer forms at b1, b8 and b32;
-   swin_tiny b1 and b32 (eager p50, device p50, peak memory, device time by
-   kernel at b1); deit_base b1, int8 static against bf16 device p50; then the
+   swin_tiny b1 and b32, bf16, int8 static and dynamic, and the
+   ``kernel_mode="pallas"`` module (eager p50, device p50, peak memory,
+   device time by kernel at b1); deit_base b1, int8 static against bf16 device p50; then the
    deit_tiny slices (kernel path and plain path) at b1 and b128, bf16 and
    int8 static and dynamic: eager p50, device p50 (CUDA-graph replay), peak
    memory, and device time by kernel from ``torch.profiler``;
@@ -42,10 +46,12 @@ Phases, in order; any failure exits non-zero before the last line:
    rate for their type) and, where one PyTorch call computes the same
    function, that call's device time at the same shapes.
 
-Phase 3 also holds ``window_attention`` (swin_tiny's four stage shapes at
-b1, shifted and unshifted where a stage has several windows; stages 0 and 2
-at b32), ``swin_merge`` (its three merges, b1 and b32) and ``ln_rows`` /
-``linear`` at Swin's widths to their twins.
+Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
+four stage shapes at b1, shifted and unshifted where a stage has several
+windows; stages 0 and 2 at b32), ``swin_merge`` (its three merges, b1 and
+b32), ``ln_rows`` / ``linear`` at Swin's widths, and ``quant_rows`` /
+``linear_i8`` at the int8 stages' shapes (stages 1-3, b1 and b32, bf16
+biases) to their twins.
 
 The line before last is the card's name and power limit; the one before it
 a JSON object with every kernel's launches, error, times and yardsticks; the
@@ -82,7 +88,8 @@ KERNELS = {"ln_rows": ("ln_rows.cu", f"{TPU}:54"),
            "linear_i8": ("linear_i8.cu", f"{TPU}:856"),
            "stage1_kqv": ("t2t_stage1.cu", f"{PALLAS}/t2t_stage1.py:82"),
            "window_attention": ("window_attention.cu", f"{PALLAS}/swin_block.py:334"),
-           "swin_merge": ("swin_merge.cu", f"{PALLAS}/swin_merge.py:73")}
+           "swin_merge": ("swin_merge.cu", f"{PALLAS}/swin_merge.py:73"),
+           "window_sdpa": ("window_sdpa.cu", f"{PALLAS}/window_attention.py:102")}
 # The launches one encoder layer makes; stage1_kqv launches once per forward
 # that takes the stage-1 tokenizer (a T2T-ViT batch below 8).
 BF16_LAUNCHES = {"ln_rows": 2, "linear": 4, "attention_rows": 1, "quant_rows": 0, "linear_i8": 0}
@@ -94,7 +101,16 @@ SWIN_STAGES = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 6), (7, 768, 24, 2
 SWIN_WINDOW = 7
 SWIN_BATCHES = (1, 32)
 SWIN_BLOCK_LAUNCHES = {"ln_rows": 2, "linear": 4, "window_attention": 1}
+SWIN_INT8_BLOCK_LAUNCHES = {"ln_rows": 2, "quant_rows": 4, "linear_i8": 4, "window_attention": 1}
 SWIN_MERGE_LAUNCHES = {"swin_merge": 1, "linear": 1}
+# the stages prepare_swin_int8[_static] makes int8 at swin_tiny (the JAX
+# package's choice: width >= 128 and K9's VMEM gate at int8 weights)
+SWIN_INT8_STAGES = (1, 2, 3)
+# quant_rows / linear_i8 at the int8 stages' shapes: (rows, dim, mlp, heads,
+# reference style), as SHAPES
+SWIN_INT8_SHAPES = {f"swin_tiny b{b} s{si}": (b * res * res, dim, 4 * dim, heads, False)
+                    for b in SWIN_BATCHES for si, (res, dim, heads, _) in enumerate(SWIN_STAGES)
+                    if si in SWIN_INT8_STAGES}
 # The H100 SXM's published peaks (PERF.md section 3) for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -180,11 +196,14 @@ def want_launches(per_layer: dict, depth: int, stage1: int = 0) -> dict:
             "stage1_kqv": stage1}
 
 
-def want_swin_launches(cfg) -> dict:
-    """The launches of one forward of a Swin model of config ``cfg``."""
-    blocks, merges = sum(cfg.depths), len(cfg.depths) - 1
+def want_swin_launches(cfg, int8_stages=()) -> dict:
+    """The launches of one ``fused_swin_apply`` of a Swin model of config
+    ``cfg`` whose ``int8_stages`` run the int8 chain."""
+    int8_blocks = sum(d for si, d in enumerate(cfg.depths) if si in int8_stages)
     want = {k: 0 for k in KERNELS}
-    for per, count in ((SWIN_BLOCK_LAUNCHES, blocks), (SWIN_MERGE_LAUNCHES, merges)):
+    for per, count in ((SWIN_BLOCK_LAUNCHES, sum(cfg.depths) - int8_blocks),
+                       (SWIN_INT8_BLOCK_LAUNCHES, int8_blocks),
+                       (SWIN_MERGE_LAUNCHES, len(cfg.depths) - 1)):
         for k, v in per.items():
             want[k] += v * count
     return want
@@ -276,13 +295,15 @@ def time_pair(harness, shape_name, label, err, call_k, call_p):
     return t_k, t_p
 
 
-def phase_kernels_int8(torch, fe, harness):
-    """``quant_rows`` and ``linear_i8`` against their twins at the main
-    path's shapes: bit for bit, except the GELU epilogue (tolerance).
-    Returns the same as :func:`phase_kernels`; the layer times are those of
-    one static-int8 deit_tiny b128 layer."""
+def phase_kernels_int8(torch, fe, harness, shapes=SHAPES, bias_dtype=None, seed=1):
+    """``quant_rows`` and ``linear_i8`` against their twins at ``shapes``
+    (the encoders' by default; with ``bias_dtype`` bf16 the Swin int8
+    stages', whose stacks keep bf16 biases): bit for bit, except the GELU
+    epilogue (tolerance).  Returns the same as :func:`phase_kernels`; the
+    layer times are those of one static-int8 deit_tiny b128 layer."""
     dev = DEVICE
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bias_dtype = bias_dtype or torch.float32
 
     def uniform(*shape, lo=0.5, hi=1.5):
         return torch.rand(*shape, generator=gen, device=dev) * (hi - lo) + lo
@@ -293,7 +314,7 @@ def phase_kernels_int8(torch, fe, harness):
     act_inv = (127.0 / (4.0 * uniform(12, 4))).contiguous()
     errs = {"quant_rows": 0.0, "linear_i8": 0.0}
     layer_ms = {"quant_rows": (0.0, 0.0), "linear_i8": (0.0, 0.0)}
-    for shape_name, (m, dim, mlp, _, reference) in SHAPES.items():
+    for shape_name, (m, dim, mlp, _, reference) in shapes.items():
         b128 = shape_name == "deit_tiny b128"
         for k, reps in ((dim, 3), (mlp, 1)):  # a layer quantizes 3 dim-wide, 1 mlp-wide input
             h = (torch.randn(m, k, generator=gen, device=dev) * 2.0).to(torch.bfloat16)
@@ -325,7 +346,7 @@ def phase_kernels_int8(torch, fe, harness):
                 ("fc2", mlp, dim, fe.BIAS_RESIDUAL, False, res)):
             unit = 1.0 / (73.0 * 73.0 * k ** 0.5)  # a dequantized sum of order 1
             q, w_q = int8(m, k), int8(k, n)
-            bias = torch.randn(n, generator=gen, device=dev) * 0.5
+            bias = (torch.randn(n, generator=gen, device=dev) * 0.5).to(bias_dtype)
             if reference and name == "qkv":
                 bias = torch.zeros_like(bias)
             for mode in ("dynamic", "static"):
@@ -392,13 +413,14 @@ def phase_kernel_stage1(torch, ts, harness):
     return worst, b1_ms
 
 
-def phase_kernels_swin(torch, fe, sb, sm, harness):
-    """``window_attention`` and ``swin_merge`` against their twins at
-    swin_tiny's shapes, and ``ln_rows`` / ``linear`` at Swin's widths (dim
-    -> 3 dim, dim -> dim, dim -> 4 dim, 4 dim -> dim, 4 dim -> 2 dim) with
-    the fp32 LayerNorm affine the Swin stages pass; returns
+def phase_kernels_swin(torch, fe, sb, sm, ws, harness):
+    """``window_attention``, ``window_sdpa`` and ``swin_merge`` against their
+    twins at swin_tiny's shapes, and ``ln_rows`` / ``linear`` at Swin's
+    widths (dim -> 3 dim, dim -> dim, dim -> 4 dim, 4 dim -> dim, 4 dim -> 2
+    dim) with the fp32 LayerNorm affine the Swin stages pass; returns
     ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} summed over the launches
-    of one swin_tiny b1 forward, for window_attention and swin_merge)."""
+    of one swin_tiny b1 forward, for window_attention, window_sdpa and
+    swin_merge)."""
     from edgevisiontransformer_tpu_torch.models.swin import shifted_window_mask
 
     dev = DEVICE
@@ -410,7 +432,8 @@ def phase_kernels_swin(torch, fe, sb, sm, harness):
     def f32(*shape, scale=1.0, base=0.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale + base
 
-    errs, b1_ms = {}, {"window_attention": (0.0, 0.0), "swin_merge": (0.0, 0.0)}
+    errs = {}
+    b1_ms = {"window_attention": (0.0, 0.0), "window_sdpa": (0.0, 0.0), "swin_merge": (0.0, 0.0)}
 
     def check(kname, label, shape_name, kern, plain, reps=0):
         got = kern()
@@ -456,6 +479,20 @@ def phase_kernels_swin(torch, fe, sb, sm, harness):
                       f"window_attention {'shifted' if shifted else 'unshifted'}",
                       tag, lambda: sb.window_attention(qkv, bias, mk, **kw),
                       lambda: sb.window_attention_plain(qkv, bias, mk, **kw), reps)
+            # window_sdpa, as the kernel_mode="pallas" module calls it: window-major
+            # qkv, a bf16 bias, the fp32 mask (raw, tiled over the images)
+            qkv_w = rnd(batch * nwin, n, 3 * dim)
+            bias16 = rnd(heads, n, n, scale=0.5)
+            mask32 = (torch.from_numpy(shifted_window_mask(res, res, w, w // 2)).to(dev)
+                      if nwin > 1 else None)
+            for shifted in ((False, True) if nwin > 1 else (False,)):
+                kw = dict(heads=heads, head_dim=dim // heads)
+                mk = mask32 if shifted else None
+                odd = depth // 2 if nwin > 1 else 0
+                reps = (odd if shifted else depth - odd) if batch == 1 else 0
+                check("window_sdpa", f"window_sdpa {'shifted' if shifted else 'unshifted'}", tag,
+                      lambda: ws.window_sdpa(qkv_w, bias16, mk, **kw),
+                      lambda: ws.window_sdpa_plain(qkv_w, bias16, mk, **kw), reps)
             g, b = f32(dim, scale=0.5, base=1.0), f32(dim, scale=0.5)
             check("ln_rows", "ln_rows (fp32 affine)", tag, lambda: fe.ln_rows(x, g, b, 1e-5),
                   lambda: fe.ln_rows_plain(x, g, b, 1e-5))
@@ -618,32 +655,131 @@ def phase_slice_swin(torch, counter):
     return launches, worst, (model, shape, prepared)
 
 
-def phase_time_swin(torch, harness, state):
-    """swin_tiny b1 and b32: eager and device p50, peak memory (the script's
-    other resident models included) and the device time by kernel at b1."""
+def phase_slice_swin_int8(torch, counter, state):
+    """The bf16 slice's swin_tiny through ``fused_swin_apply`` with int8
+    stacks for stages 1-3: static (``prepare_swin_int8_static``, calibrated
+    on 8 representative batches) and dynamic (``prepare_swin_int8``), at b1
+    and b32, against ``plain=True``; returns (launches, worst deviation,
+    {mode: stack})."""
+    from edgevisiontransformer_tpu_torch.models.swin import (fused_swin_apply, prepare_swin_int8,
+                                                              prepare_swin_int8_static)
+    from edgevisiontransformer_tpu_torch.ops.quant import representative_batches
+
+    model, shape, prepared = state
+    cfg = model.config
+    t0 = time.perf_counter()
+    stacks = {"static": prepare_swin_int8_static(model, batches=representative_batches(
+        n=8, shape=shape)), "dynamic": prepare_swin_int8(model)}
+    torch.cuda.synchronize()
+    print(f"  swin_tiny int8 stacks (static: calibrated on 8 representative batches) prepared in "
+          f"{time.perf_counter() - t0:.2f} s; int8 stages {[list(q) for q in stacks.values()]}")
+    launches = {k: 0 for k in counter.read()}
+    worst = 0.0
+    for mode, sq in stacks.items():
+        if tuple(sq) != SWIN_INT8_STAGES:
+            fail(f"swin_tiny int8 {mode}: stages {list(sq)} are int8, expected "
+                 f"{list(SWIN_INT8_STAGES)}")
+        want = want_swin_launches(cfg, SWIN_INT8_STAGES)
+        for batch, seed in zip(SWIN_BATCHES, (1400, 1500)):
+            tag = f"swin_tiny int8 {mode} b{batch}"
+            img = torch.randn(batch, *shape,
+                              generator=torch.Generator().manual_seed(seed)).to(DEVICE)
+            with torch.no_grad():
+                counter.reset()
+                logits = fused_swin_apply(model, img, prepared=prepared, int8_prepared=sq)
+                torch.cuda.synchronize()
+                counts = counter.read()
+                ref = fused_swin_apply(model, img, prepared=prepared, int8_prepared=sq, plain=True)
+                bf16 = fused_swin_apply(model, img, prepared=prepared)
+            if counts != want:
+                fail(f"{tag}: launch counts {counts}, expected {want}")
+            for k, v in counts.items():
+                launches[k] += v
+            rel, err, scale, agree = check_logits(tag, logits, ref, batch, cfg.num_classes)
+            worst = max(worst, rel)
+            d16 = float((logits.float() - bf16.float()).abs().max())
+            agree16 = float((logits.argmax(-1) == bf16.argmax(-1)).float().mean())
+            print(f"  {tag:30s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} "
+                  f"(max|logit| {scale:.4g}), top-1 agreement {agree:.3f}; against the bf16 "
+                  f"path max {d16:.4g}, top-1 {agree16:.3f}; launches {counts}")
+    return launches, worst, stacks
+
+
+def phase_slice_swin_module(torch, counter, ws):
+    """``build_model("swin_tiny", kernel_mode="pallas")`` (full width and
+    depth, bf16, the bf16 slice's seed) forward at b1 and b32: every window
+    attention on ``window_sdpa``, held against the same forward on its twin;
+    returns (launches, worst deviation, the model for phase 5)."""
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+
+    model, shape = build_model("swin_tiny", kernel_mode="pallas", dtype=torch.bfloat16,
+                               device=DEVICE, generator=torch.Generator().manual_seed(0))
+    cfg = model.config
+    want = {**{k: 0 for k in KERNELS}, "window_sdpa": sum(cfg.depths)}
+    launches = {k: 0 for k in counter.read()}
+    worst = 0.0
+    for batch, seed in zip(SWIN_BATCHES, (1600, 1700)):
+        tag = f"swin_tiny module pallas b{batch}"
+        img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(seed)).to(DEVICE)
+        with torch.no_grad():
+            counter.reset()
+            logits = model(img)
+            torch.cuda.synchronize()
+            counts = counter.read()
+            kernel, ws.window_sdpa = ws.window_sdpa, ws.window_sdpa_plain
+            try:
+                ref = model(img)
+            finally:
+                ws.window_sdpa = kernel
+        if counts != want:
+            fail(f"{tag}: launch counts {counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        rel, err, scale, agree = check_logits(tag, logits, ref, batch, cfg.num_classes)
+        worst = max(worst, rel)
+        print(f"  {tag:30s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} "
+              f"(max|logit| {scale:.4g}), top-1 agreement {agree:.3f}, launches {counts}")
+    return launches, worst, (model, shape)
+
+
+def phase_time_swin(torch, harness, state, stacks, module_state):
+    """swin_tiny b1 and b32, bf16, int8 static and dynamic through
+    ``fused_swin_apply`` and the ``kernel_mode="pallas"`` module: eager and
+    device p50, peak memory (the script's other resident models included)
+    and the device time by kernel at b1."""
     from edgevisiontransformer_tpu_torch.models.swin import fused_swin_apply
 
     model, shape, prepared = state
+    module, _ = module_state
+    slices = {
+        "bf16": lambda img: fused_swin_apply(model, img, prepared=prepared),
+        "int8 static": lambda img: fused_swin_apply(model, img, prepared=prepared,
+                                                     int8_prepared=stacks["static"]),
+        "int8 dynamic": lambda img: fused_swin_apply(model, img, prepared=prepared,
+                                                      int8_prepared=stacks["dynamic"]),
+        "module pallas": lambda img: module(img),
+    }
     with torch.no_grad():
-        for batch in SWIN_BATCHES:
-            img = torch.randn(batch, *shape,
-                              generator=torch.Generator().manual_seed(batch)).to(DEVICE)
-            fn = lambda: fused_swin_apply(model, img, prepared=prepared)  # noqa: E731
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            e = harness.measure_op_time(fn, (), iters=10, repeats=5)
-            peak = harness.device_mem_mb()
-            d = harness.measure_graph_time(fn, iters=10, repeats=5)
-            print(f"  swin_tiny bf16 b{batch}: eager p50 {e['p50_ms']:.4f} ms (std "
-                  f"{e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device p50 "
-                  f"{d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}), peak mem {peak:.1f} MiB")
-            if batch == 1:
-                prof = harness.device_time_by_kernel(fn)
-                busy = sum(r[2] for r in prof)
-                print(f"      traced kernel time {busy:.4f} ms (device idle "
-                      f"{max(0.0, 1 - busy / e['p50_ms']):.1%} of the eager call)")
-                for name, calls, ms in prof[:8]:
-                    print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
+        for slice_name, apply in slices.items():
+            for batch in SWIN_BATCHES:
+                img = torch.randn(batch, *shape,
+                                  generator=torch.Generator().manual_seed(batch)).to(DEVICE)
+                fn = lambda: apply(img)  # noqa: E731
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+                peak = harness.device_mem_mb()
+                d = harness.measure_graph_time(fn, iters=10, repeats=5)
+                print(f"  swin_tiny {slice_name} b{batch}: eager p50 {e['p50_ms']:.4f} ms (std "
+                      f"{e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device p50 "
+                      f"{d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}), peak mem {peak:.1f} MiB")
+                if batch == 1:
+                    prof = harness.device_time_by_kernel(fn)
+                    busy = sum(r[2] for r in prof)
+                    print(f"      traced kernel time {busy:.4f} ms (device idle "
+                          f"{max(0.0, 1 - busy / e['p50_ms']):.1%} of the eager call)")
+                    for name, calls, ms in prof[:8]:
+                        print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
 
 
 def _bound(nbytes: float, ops: dict):
@@ -658,7 +794,8 @@ def phase_yardsticks(torch, harness):
     """Each kernel's bound and library yardstick over the launches its JSON
     row times: one deit_tiny b128 layer (ln_rows, linear, attention_rows;
     quant_rows and linear_i8 static), one t2t_vit_14 b1 stage1_kqv call, one
-    swin_tiny b1 forward (window_attention, swin_merge).  Bytes count each
+    swin_tiny b1 forward (window_attention, swin_merge; window_sdpa: the
+    kernel_mode="pallas" module's).  Bytes count each
     input read once and each output written once; operations are the
     tensor-core products for the GEMMs and attention (bf16 or int8), ~8
     fp32 operations per element for a LayerNorm, 3 for a quantization.  The
@@ -712,7 +849,7 @@ def phase_yardsticks(torch, harness):
     out["stage1_kqv"] = (*_bound(2 * 3 * 224 * 224 + 2 * 432 * d + 4 * 432 + 8 * d + 2 * tok * d,
                                  {"bf16": 2 * tok * feat * d, "fp32": 4 * tok * feat}), None)
 
-    w, nw_ops, wa_bytes, wa_calls = SWIN_WINDOW, 0, 0, []
+    w, nw_ops, wa_bytes, wa_calls, sd_bytes, sd_calls = SWIN_WINDOW, 0, 0, [], 0, []
     nt = w * w
     merge_bytes, merge_ops = 0, 0
     for si, (res, sdim, sheads, depth) in enumerate(SWIN_STAGES):
@@ -735,11 +872,21 @@ def phase_yardsticks(torch, harness):
             nw_ops += reps * 4 * nwin * sheads * nt * nt * hd
             wa_calls.append(((lambda q=q, k=k, v=v, am=am:
                               F.scaled_dot_product_attention(q, k, v, attn_mask=am)), reps))
+            # window_sdpa (the module path): a bf16 bias [H, n, n] and the raw fp32
+            # mask [nW, n, n]; SDPA on the same window-major q, k, v with their sum
+            sm_ = (torch.from_numpy(shifted_window_mask(res, res, w, w // 2)).to(dev)[:, None]
+                   if shifted else 0.0)
+            am16 = (bias.to(torch.bfloat16).float()[None] + sm_).to(torch.bfloat16)
+            am16 = am16.expand(nwin, sheads, nt, nt).contiguous()
+            sd_bytes += reps * (2 * 4 * rows * sdim + 2 * sheads * nt * nt + mask_b)
+            sd_calls.append(((lambda q=q, k=k, v=v, am=am16:
+                              F.scaled_dot_product_attention(q, k, v, attn_mask=am)), reps))
         if si < len(SWIN_STAGES) - 1:
             merge_bytes += 2 * rows * sdim + 2 * rows * sdim + 2 * 4 * 4 * sdim
             merge_ops += 8 * rows * sdim
     out["window_attention"] = (*_bound(wa_bytes, {"bf16": nw_ops}), lib(wa_calls))
     out["swin_merge"] = (*_bound(merge_bytes, {"fp32": merge_ops}), None)
+    out["window_sdpa"] = (*_bound(sd_bytes, {"bf16": nw_ops}), lib(sd_calls))
     for k, (bnd, by, lib_ms) in out.items():
         print(f"  {k:16s} bound {bnd:.4f} ms ({by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
@@ -952,8 +1099,9 @@ def main() -> int:
     from edgevisiontransformer_tpu_torch.ops.cuda import swin_block as sb
     from edgevisiontransformer_tpu_torch.ops.cuda import swin_merge as sm
     from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
+    from edgevisiontransformer_tpu_torch.ops.cuda import window_sdpa as ws
 
-    counter = Launches(fe, ts, sb, sm)
+    counter = Launches(fe, ts, sb, sm, ws)
     print("== phase 1: environment")
     card = phase_env(torch, build)
     print("== phase 2: build")
@@ -966,17 +1114,23 @@ def main() -> int:
     errs.update(errs8)
     layer_ms.update(layer_ms8)
     errs["stage1_kqv"], layer_ms["stage1_kqv"] = phase_kernel_stage1(torch, ts, harness)
-    errs_swin, swin_ms = phase_kernels_swin(torch, fe, sb, sm, harness)
-    for k, v in errs_swin.items():
-        errs[k] = max(errs.get(k, 0.0), v)
+    errs_swin, swin_ms = phase_kernels_swin(torch, fe, sb, sm, ws, harness)
+    errs_swin8, _ = phase_kernels_int8(torch, fe, harness, shapes=SWIN_INT8_SHAPES,
+                                       bias_dtype=torch.bfloat16, seed=7)
+    for more in (errs_swin, errs_swin8):
+        for k, v in more.items():
+            errs[k] = max(errs.get(k, 0.0), v)
     layer_ms.update(swin_ms)
-    print(f"== phase 4: slices through fused_vit_apply[_int8], fused_t2t_apply[_int8] and "
-          f"fused_swin_apply (logits within {LOGIT_REL} x max|logit| of the twins)")
+    print(f"== phase 4: slices through fused_vit_apply[_int8], fused_t2t_apply[_int8], "
+          f"fused_swin_apply (bf16 and int8) and the kernel_mode='pallas' Swin module (logits "
+          f"within {LOGIT_REL} x max|logit| of the twins)")
     launches, worst, models = phase_slice(torch, counter)
     launches8, worst8, stacks = phase_slice_int8(torch, fe, counter, models)
     launches_t2t, worst_t2t, t2t_state = phase_slice_t2t(torch, counter)
     launches_swin, worst_swin, swin_state = phase_slice_swin(torch, counter)
-    for more in (launches8, launches_t2t, launches_swin):
+    launches_swin8, worst_swin8, swin_stacks = phase_slice_swin_int8(torch, counter, swin_state)
+    launches_mod, worst_mod, module_state = phase_slice_swin_module(torch, counter, ws)
+    for more in (launches8, launches_t2t, launches_swin, launches_swin8, launches_mod):
         for k, v in more.items():
             launches[k] += v
     for k, v in launches.items():
@@ -986,8 +1140,8 @@ def main() -> int:
           f"standard bf16 and int8, on {card}")
     phase_time_t2t(torch, harness, t2t_state)
     del t2t_state
-    phase_time_swin(torch, harness, swin_state)
-    del swin_state
+    phase_time_swin(torch, harness, swin_state, swin_stacks, module_state)
+    del swin_state, swin_stacks, module_state
     torch.cuda.empty_cache()
     phase_time_base(torch, harness, models, stacks)
     # deit_tiny's peak memory is read with deit_base's weights freed
@@ -1000,15 +1154,17 @@ def main() -> int:
     print(f"== phase 6: bounds and library yardsticks, on {card}")
     yard = phase_yardsticks(torch, harness)
     print(f"build {build_s:.2f} s; worst logit deviation "
-          f"{max(worst, worst8, worst_t2t, worst_swin):.4g} of max|logit| (deit bf16 "
-          f"{worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 {worst_t2t:.4g}, swin_tiny "
-          f"{worst_swin:.4g})")
+          f"{max(worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod):.4g} of "
+          f"max|logit| (deit bf16 {worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 "
+          f"{worst_t2t:.4g}, swin_tiny bf16 {worst_swin:.4g}, int8 {worst_swin8:.4g}, module "
+          f"pallas {worst_mod:.4g})")
 
     src = "edgevisiontransformer_tpu_torch/csrc/"
     print("kernel ms / plain_ms / bound_ms / library_ms: device time (CUDA-graph replay) of "
           "one deit_tiny b128 layer's launches of that kernel (int8 kernels: a static-int8 "
           "layer; stage1_kqv: one t2t_vit_14 b1 call; window_attention and swin_merge: one "
-          "swin_tiny b1 forward); launches: the requests of phase 4")
+          "swin_tiny b1 forward; window_sdpa: one swin_tiny b1 kernel_mode='pallas' module "
+          "forward); launches: the requests of phase 4")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"{src}{source}", "replaces": replaces,
          "launches": launches[k], "max_abs_err": errs[k],

@@ -1,6 +1,6 @@
 // Shared device helpers for the kernels (ln_rows.cu, linear.cu,
 // attention_rows.cu, quant_rows.cu, linear_i8.cu, t2t_stage1.cu,
-// window_attention.cu, swin_merge.cu).  Plain CUDA C++ for
+// window_attention.cu, swin_merge.cu, window_sdpa.cu).  Plain CUDA C++ for
 // sm_90a; no PyTorch headers, so the
 // library builds in seconds and binds through a C interface (ctypes).
 #pragma once

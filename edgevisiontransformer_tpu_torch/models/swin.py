@@ -6,18 +6,28 @@ final LayerNorm, a mean pool and a linear head.  Parameters keep the Flax
 names and layouts (:meth:`SwinTransformer.params`); the Flax ``constants``
 collection, each block's ``attn.relative_position_index`` and each shifted
 block's ``attn_mask``, are buffers (:meth:`SwinTransformer.constants`).
+With ``kernel_mode="pallas"`` the module's window attention runs on the
+hand-written kernel ``ops/cuda/window_sdpa.window_sdpa`` (the TPU kernel
+K12).
 
 :func:`fused_swin_apply` is the inference path: every stage on the
-hand-written kernels (``ops/cuda/swin_block.swin_stage_forward``) and patch
+hand-written kernels (``ops/cuda/swin_block.swin_stage_forward``, or
+``swin_stage_forward_int8`` for the stages of an int8 stack) and patch
 merging on ``ops/cuda/swin_merge.swin_merge``, with the constants built once
-by :func:`prepare_swin_fused`.
+by :func:`prepare_swin_fused` and the int8 stacks by
+:func:`prepare_swin_int8[_static] <prepare_swin_int8_static>`.  Static
+scales come from :func:`calibrate_swin`, which runs the module forward with
+a collector of the matmul inputs (the JAX modules' ``acts``, ``acts_full``
+and ``acts_ch`` sows); :func:`smooth_swin` migrates activation outliers
+into the weights first.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +35,13 @@ from torch import nn
 
 from ..ops.activations import get_gelu
 from ..ops.layers import layer_norm, mlp_block, patch_embed
+from ..ops.quant import MSE_CLIP_RATIOS, _smooth_s, representative_batches
+from ..utils.jax_bridge import flatten_tree
 from .vit import Dense, _param, lecun_normal_, model_device, nested_tree, xavier_uniform_
+
+# collect(key, activation): what a forward hands each matmul input to, keyed
+# "qkv_in", "proj_in", "fc1_in", "fc2_in" (the JAX modules' sow names)
+Collect = Callable[[str, torch.Tensor], None]
 
 _LOG2E = 1.4426950408889634
 
@@ -122,7 +138,9 @@ class WindowAttention(nn.Module):
     """W-MSA / SW-MSA with the relative position bias, on windows
     ``[b*nW, n, dim]``.  ``cfg.window_pack`` is accepted and computes the
     unpacked function (the JAX module's packing changes only how the TPU
-    tiles the products)."""
+    tiles the products).  ``kernel_mode="pallas"`` runs the attention core
+    on ``window_sdpa`` (K12's math: fp32 scale, bias in the compute dtype,
+    max-subtracted softmax)."""
 
     def __init__(self, cfg: SwinConfig, dim: int, heads: int):
         super().__init__()
@@ -134,20 +152,28 @@ class WindowAttention(nn.Module):
         self.register_buffer("relative_position_index",
                              torch.from_numpy(relative_position_index(w)))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None,
+                collect: Collect | None = None) -> torch.Tensor:
+        """``collect``, when given, receives the qkv and proj inputs."""
         cfg = self.config
-        if cfg.kernel_mode == "pallas":
-            raise NotImplementedError(
-                "kernel_mode='pallas' runs the TPU window-attention kernel K12 "
-                "(ops/pallas/window_attention.py), which is not ported yet; use "
-                "kernel_mode='xla' or fused_swin_apply")
         n = cfg.window_size ** 2
         hd = self.dim // self.heads
         bw = x.shape[0]
-        qkv = self.qkv(x).reshape(bw, n, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]
+        if collect is not None:
+            collect("qkv_in", x)
+        qkv = self.qkv(x)
         rpi = self.relative_position_index.reshape(-1).long()
         bias = self.relative_position_bias_table[rpi].reshape(n, n, self.heads).permute(2, 0, 1)
+        if cfg.kernel_mode == "pallas":
+            from ..ops.cuda.window_sdpa import window_sdpa
+
+            out = window_sdpa(qkv, bias.to(cfg.dtype).contiguous(), mask, heads=self.heads,
+                              head_dim=hd)
+            if collect is not None:
+                collect("proj_in", out)
+            return self.proj(out)
+        qkv = qkv.reshape(bw, n, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
         attn = (q * hd ** -0.5) @ k.transpose(-1, -2)
         attn = attn + bias[None].to(attn.dtype)
         if mask is not None:
@@ -159,6 +185,8 @@ class WindowAttention(nn.Module):
         else:
             attn = torch.softmax(attn, dim=-1)
         out = (attn @ v).permute(0, 2, 1, 3).reshape(bw, n, self.dim)
+        if collect is not None:
+            collect("proj_in", out)
         return self.proj(out)
 
 
@@ -180,7 +208,10 @@ class SwinBlock(nn.Module):
             self.register_buffer("attn_mask", torch.from_numpy(
                 shifted_window_mask(resolution, resolution, self.window, self.shift)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, collect: Collect | None = None) -> torch.Tensor:
+        """``collect``, when given, receives the four matmul inputs; the fc2
+        input is recomputed as ``gelu(xn @ w1 + b1)`` in the compute dtype,
+        as the JAX module's sow does."""
         cfg = self.config
         dt = cfg.dtype
         h, w, s = self.resolution, self.window, self.shift
@@ -188,14 +219,17 @@ class SwinBlock(nn.Module):
         xn = layer_norm(x, self.ln1_scale, self.ln1_bias, cfg.layernorm_eps).reshape(b, h, h, c)
         if s > 0:
             xn = torch.roll(xn, (-s, -s), (1, 2))
-        attn = self.attn(window_partition(xn, w), self.attn_mask if s > 0 else None)
+        attn = self.attn(window_partition(xn, w), self.attn_mask if s > 0 else None, collect)
         xn = window_reverse(attn, w, h, h)
         if s > 0:
             xn = torch.roll(xn, (s, s), (1, 2))
         x = x + xn.reshape(b, n, c)
         xn = layer_norm(x, self.ln2_scale, self.ln2_bias, cfg.layernorm_eps)
-        return x + mlp_block(xn, self.mlp_fc1_kernel.to(dt), self.mlp_fc1_bias.to(dt),
-                             self.mlp_fc2_kernel.to(dt), self.mlp_fc2_bias.to(dt),
+        w1, b1 = self.mlp_fc1_kernel.to(dt), self.mlp_fc1_bias.to(dt)
+        if collect is not None:
+            collect("fc1_in", xn)
+            collect("fc2_in", get_gelu(cfg.gelu_approx)(xn @ w1 + b1))
+        return x + mlp_block(xn, w1, b1, self.mlp_fc2_kernel.to(dt), self.mlp_fc2_bias.to(dt),
                              get_gelu(cfg.gelu_approx))
 
 
@@ -273,7 +307,12 @@ class SwinTransformer(nn.Module):
         """The buffers as the Flax ``constants`` tree."""
         return nested_tree(self.named_buffers())
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor,
+                collect: Callable[[str, str, torch.Tensor], None] | None = None) -> torch.Tensor:
+        """``collect(block, key, activation)``, when given, receives every
+        block's matmul inputs (``block`` is its name, ``"stage_0_block_1"``):
+        what the JAX modules sow for calibration.  Nothing of it outlives the
+        call; without it the forward computes as before."""
         cfg = self.config
         dt = cfg.dtype
         x = patch_embed(img.to(dt), self.patch_kernel.to(dt), self.patch_bias.to(dt),
@@ -281,7 +320,9 @@ class SwinTransformer(nn.Module):
         x = layer_norm(x, self.embed_norm_scale, self.embed_norm_bias, cfg.layernorm_eps)
         for si, depth in enumerate(cfg.depths):
             for bi in range(depth):
-                x = getattr(self, f"stage_{si}_block_{bi}")(x)
+                name = f"stage_{si}_block_{bi}"
+                x = getattr(self, name)(x, None if collect is None
+                                        else functools.partial(collect, name))
             if si < len(cfg.depths) - 1:
                 x = getattr(self, f"downsample_{si}")(x)
         x = layer_norm(x, self.final_norm_scale, self.final_norm_bias, cfg.layernorm_eps)
@@ -403,12 +444,235 @@ def prepare_swin_fused(model: SwinTransformer) -> dict:
     return {"stages": stages, "merges": merges}
 
 
+# ---------------------------------------------------------------------------
+# Int8: quantized stage stacks, calibration, SmoothQuant
+# ---------------------------------------------------------------------------
+
+
+def _params(model: SwinTransformer, variables: dict | None) -> dict:
+    return model.params() if variables is None else variables.get("params", variables)
+
+
+def _int8_stage_fits(g: StageGeom, dt: torch.dtype) -> bool:
+    """K9's gate at int8 weights: the stages JAX makes int8 (see
+    ``ops/cuda/swin_block.swin_stage_pipelined_fits``)."""
+    from ..ops.cuda.swin_block import swin_stage_pipelined_fits
+
+    return g.nwin >= 1 and swin_stage_pipelined_fits(g.dim, g.hidden, g.depth, 1, nwin=g.nwin,
+                                                     n_pad=g.n_pad, heads=g.heads,
+                                                     act_itemsize=dt.itemsize)
+
+
+def _int8_stages(cfg: SwinConfig, p: dict, min_dim: int) -> list:
+    """The geometry of the stages that become int8: at least ``min_dim``
+    wide and admitted by K9's gate."""
+    return [g for g in _stage_geometry(cfg, p)
+            if g.dim >= min_dim and _int8_stage_fits(g, cfg.dtype)]
+
+
+@torch.no_grad()
+def prepare_swin_int8(model: SwinTransformer, variables: dict | None = None,
+                      min_dim: int = 128) -> dict:
+    """``{si: stack}``: the int8 stacks of the stages :func:`fused_swin_apply`
+    runs in int8 (``int8_prepared=``), quantized once per layer and output
+    channel (``fused_encoder.quantize_stacked_int8`` on the qkv, proj, fc1
+    and fc2 weights, after their cast to ``cfg.dtype``).  LN affines stay as
+    they are and biases in ``cfg.dtype`` (``linear_i8`` reads a bf16 bias).
+
+    A stage qualifies when its width is at least ``min_dim`` (the JAX
+    package measured stage 0 slower in int8 on the TPU and keeps it bf16)
+    and K9's VMEM gate admits it at int8 weights: the same stages as the JAX
+    ``prepare_swin_int8``, which fixes the model's mixed precision.
+    ``variables`` defaults to ``model.params()``."""
+    from ..ops.cuda.fused_encoder import quantize_stacked_int8
+    from ..ops.cuda.swin_block import MATMUL_KEYS
+
+    cfg = model.config
+    p = _params(model, variables)
+    return {g.si: quantize_stacked_int8(_stack_stage_params(p, g.si, g.depth, g.dim, cfg.dtype),
+                                        keys=MATMUL_KEYS)
+            for g in _int8_stages(cfg, p, min_dim)}
+
+
+_ACT_NAMES = ("qkv_in", "proj_in", "fc1_in", "fc2_in")
+
+
+def _batches(model: SwinTransformer, batches, n: int):
+    cfg = model.config
+    if batches is None:
+        batches = representative_batches(n=n, shape=(cfg.in_channels, cfg.image_size,
+                                                      cfg.image_size))
+    return batches
+
+
+def _collect_over(model: SwinTransformer, p: dict, batches, collect) -> None:
+    """The module forward under the params ``p`` on every batch, handing
+    each matmul input to ``collect(block, key, activation)``."""
+    dev = model.patch_kernel.device
+    flat = flatten_tree(p)
+    with torch.no_grad():
+        for batch in batches:
+            img = torch.as_tensor(np.asarray(batch), device=dev)
+            torch.func.functional_call(model, flat, (img,), {"collect": collect})
+
+
+@torch.no_grad()
+def calibrate_swin(model: SwinTransformer, variables: dict | None = None, batches=None,
+                   n: int = 32, percentile=None, method: str = "absmax") -> dict:
+    """Static int8 activation scales of every stage, ``{si: [depth, 4]}``
+    fp32 in (qkv, proj, fc1, fc2) order: the largest ``|activation|`` of
+    each matmul input over representative batches (``n`` random-normal
+    images from the seed-0 stream unless ``batches`` is given), over 127.
+
+    ``method="mse"`` runs the batches again and keeps, per tensor, the clip
+    ``ratio * absmax`` (``ratio`` in ``MSE_CLIP_RATIOS``) whose int8
+    quantization has the least summed mean squared error.  ``percentile``
+    must be None: the JAX collections record the absmax only."""
+    if percentile is not None:
+        raise NotImplementedError("swin calibration records absmax only")
+    if method not in ("absmax", "mse"):
+        raise ValueError(f"unknown calibration method {method!r}")
+    cfg = model.config
+    p = _params(model, variables)
+    batches = _batches(model, batches, n)
+    if method == "mse":
+        batches = list(batches)  # two passes
+    run: dict = {}
+
+    def absmax(block, key, a):
+        m = a.float().abs().amax()
+        run[block, key] = m if (block, key) not in run else torch.maximum(run[block, key], m)
+
+    _collect_over(model, p, batches, absmax)
+    msum: dict = {}
+    if method == "mse":
+        ratios = torch.tensor(MSE_CLIP_RATIOS, dtype=torch.float32,
+                              device=model.patch_kernel.device)
+
+        def mse(block, key, a):
+            a = a.float()
+            s = torch.clamp(run[block, key], min=1e-30) * ratios
+            s = s / torch.full_like(s, 127.0)
+            q = torch.clamp(torch.round(a[..., None] / s), -127, 127) * s
+            e = torch.mean(torch.square(a[..., None] - q), dim=tuple(range(a.dim())))
+            msum[block, key] = e if (block, key) not in msum else msum[block, key] + e
+
+        _collect_over(model, p, batches, mse)
+    out = {}
+    for g in _stage_geometry(cfg, p):
+        rows = np.ones((g.depth, 4), np.float32)
+        for bi in range(g.depth):
+            block = f"stage_{g.si}_block_{bi}"
+            for j, name in enumerate(_ACT_NAMES):
+                m = float(run[block, name])
+                if msum and m > 0:
+                    m *= MSE_CLIP_RATIOS[int(np.argmin(msum[block, name].cpu().numpy()))]
+                rows[bi, j] = m / 127.0 if m > 0 else 1.0
+        out[g.si] = rows
+    return out
+
+
+@torch.no_grad()
+def smooth_swin(model: SwinTransformer, variables: dict | None = None, batches=None,
+                n: int = 32, alpha: float = 0.5) -> dict:
+    """SmoothQuant's offline scale migration for Swin: a new float params
+    tree whose forward is the same function, with per-channel activation
+    outliers moved into the weights (the JAX ``smooth_swin``).
+
+    From the per-channel absmax of each matmul input over the batches,
+    ``s = _smooth_s(act, max|W row|, alpha)``; then per block
+    * qkv_in, fc1_in: ``1/s`` into the LN scale and bias, ``s`` into the
+      qkv / fc1 kernel rows;
+    * proj_in: ``1/s`` into the v columns ``[2C, 3C)`` of the qkv kernel
+      (and bias), ``s`` into the proj kernel rows.
+    fc2_in sits behind the GELU and is left to the calibration.  Feed the
+    result to :func:`prepare_swin_int8_static` as ``variables``."""
+    cfg = model.config
+    p = _params(model, variables)
+    run: dict = {}
+
+    def channel_max(block, key, a):
+        if key == "fc2_in":
+            return
+        m = a.float().abs().amax(dim=(0, 1))
+        run[block, key] = m if (block, key) not in run else torch.maximum(run[block, key], m)
+
+    _collect_over(model, p, _batches(model, batches, n), channel_max)
+
+    def smooth(block, key, w):
+        s = _smooth_s(run[block, key].cpu().numpy(), w.abs().amax(dim=1).cpu().numpy(), alpha)
+        return torch.from_numpy(s).to(w.device)
+
+    def fresh(tree):  # new dict containers, the same leaves
+        return {k: fresh(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+    out = dict(p)
+    for g in _stage_geometry(cfg, p):
+        for bi in range(g.depth):
+            name = f"stage_{g.si}_block_{bi}"
+            blk = fresh(p[name])
+            attn = blk["attn"]
+            qkv_w = attn["qkv"]["kernel"].float()
+            s = smooth(name, "qkv_in", qkv_w)
+            blk["ln1_scale"], blk["ln1_bias"] = blk["ln1_scale"] / s, blk["ln1_bias"] / s
+            qkv_w = qkv_w * s[:, None]
+
+            proj_w = attn["proj"]["kernel"].float()
+            v0 = 2 * (qkv_w.shape[1] // 3)
+            s = smooth(name, "proj_in", proj_w)
+            inv = 1.0 / s
+            qkv_w = torch.cat([qkv_w[:, :v0], qkv_w[:, v0:] * inv[None, :]], dim=1)
+            if "bias" in attn["qkv"]:
+                qb = attn["qkv"]["bias"].float()
+                attn["qkv"]["bias"] = torch.cat([qb[:v0], qb[v0:] * inv])
+            attn["qkv"]["kernel"] = qkv_w
+            attn["proj"]["kernel"] = proj_w * s[:, None]
+
+            fc1_w = blk["mlp_fc1_kernel"].float()
+            s = smooth(name, "fc1_in", fc1_w)
+            blk["ln2_scale"], blk["ln2_bias"] = blk["ln2_scale"] / s, blk["ln2_bias"] / s
+            blk["mlp_fc1_kernel"] = fc1_w * s[:, None]
+            out[name] = blk
+    return out
+
+
+@torch.no_grad()
+def prepare_swin_int8_static(model: SwinTransformer, variables: dict | None = None,
+                             batches=None, n: int = 32, min_dim: int = 128,
+                             method: str = "absmax") -> dict:
+    """:func:`prepare_swin_int8` with calibrated static activation scales
+    (:func:`calibrate_swin`) folded into each stage's weight scales and
+    exported inverted as ``act_inv [depth, 4]`` fp32, which the quantizer
+    reads on the device.  Stages are chosen first: with none, the result is
+    ``{}`` and no calibration runs."""
+    from ..ops.cuda.fused_encoder import quantize_stacked_int8_static
+    from ..ops.cuda.swin_block import MATMUL_KEYS
+
+    cfg = model.config
+    p = _params(model, variables)
+    chosen = _int8_stages(cfg, p, min_dim)
+    if not chosen:
+        return {}
+    act_scales = calibrate_swin(model, p, batches=batches, n=n, method=method)
+    return {g.si: quantize_stacked_int8_static(
+        _stack_stage_params(p, g.si, g.depth, g.dim, cfg.dtype), act_scales[g.si],
+        keys=MATMUL_KEYS) for g in chosen}
+
+
 def fused_swin_apply(model: SwinTransformer, img: torch.Tensor, *, prepared: dict | None = None,
                      int8_prepared: dict | None = None, plain: bool = False) -> torch.Tensor:
     """Forward pass with every stage on the hand-written kernels
     (``ops/cuda/swin_block.swin_stage_forward``: per block ``ln_rows``, four
     ``linear`` and ``window_attention``) and patch merging on ``swin_merge``
     + ``linear``; the same params and result as ``model(img)``.
+
+    ``int8_prepared`` (:func:`prepare_swin_int8[_static]
+    <prepare_swin_int8_static>`) runs each of its stages that K9's gate
+    admits at int8 weights on ``swin_stage_forward_int8`` (per block
+    ``ln_rows`` 2, ``quant_rows`` 4, ``linear_i8`` 4, ``window_attention``
+    1), with the biases and masks of ``prepared``; every other stage, and
+    every merge, stays in the compute dtype.  The JAX function re-checks the
+    gate the same way.
 
     Tokens stay ``[b*res*res, C]`` rows in raster order from stage to stage;
     the windows exist only in the attention kernel's addressing.  Patch
@@ -420,15 +684,11 @@ def fused_swin_apply(model: SwinTransformer, img: torch.Tensor, *, prepared: dic
 
     The JAX function's ``pallas_stages`` and ``merge_kernel`` choose between
     TPU kernels and XLA by what fits in VMEM; every stage here takes the one
-    chain, so they have no counterpart.  ``int8_prepared`` (the int8 mode of
-    the TPU stage kernel) is not ported yet and raises."""
+    chain, so they have no counterpart."""
+    from ..ops.cuda import swin_block as sb
     from ..ops.cuda.fused_encoder import CAST_THEN_BIAS, linear, linear_plain
-    from ..ops.cuda.swin_block import swin_stage_forward, swin_stage_forward_plain
     from ..ops.cuda.swin_merge import swin_merge, swin_merge_plain
 
-    if int8_prepared is not None:
-        raise NotImplementedError("int8 Swin (prepare_swin_int8[_static] and the int8 mode of "
-                                  "the stage kernel) is not ported yet")
     cfg = model.config
     dt = cfg.dtype
     p = model.params()
@@ -442,7 +702,8 @@ def fused_swin_apply(model: SwinTransformer, img: torch.Tensor, *, prepared: dic
                              f"got {g.res}")
     if prepared is None:
         prepared = prepare_swin_fused(model)
-    stage_fn = swin_stage_forward_plain if plain else swin_stage_forward
+    stage_fn = sb.swin_stage_forward_plain if plain else sb.swin_stage_forward
+    int8_fn = sb.swin_stage_forward_int8_plain if plain else sb.swin_stage_forward_int8
     merge_fn, lin = (swin_merge_plain, linear_plain) if plain else (swin_merge, linear)
 
     x = patch_embed(img.to(dt), p["patch_kernel"].to(dt), p["patch_bias"].to(dt),
@@ -451,9 +712,14 @@ def fused_swin_apply(model: SwinTransformer, img: torch.Tensor, *, prepared: dic
     b = x.shape[0]
     x = x.reshape(-1, cfg.embed_dim)
     for g in geoms:
-        x = stage_fn(x, prepared["stages"][g.si], res=g.res, window=g.w, heads=g.heads,
-                     head_dim=g.dim // g.heads, eps=cfg.layernorm_eps,
-                     approx_gelu=cfg.gelu_approx)
+        stage = prepared["stages"][g.si]
+        kw = dict(res=g.res, window=g.w, heads=g.heads, head_dim=g.dim // g.heads,
+                  eps=cfg.layernorm_eps, approx_gelu=cfg.gelu_approx)
+        if int8_prepared is not None and g.si in int8_prepared and _int8_stage_fits(g, dt):
+            x = int8_fn(x, {**int8_prepared[g.si], "bias": stage["bias"], "mask": stage["mask"]},
+                        **kw)
+        else:
+            x = stage_fn(x, stage, **kw)
         if g.si < len(geoms) - 1:
             m = prepared["merges"][g.si]
             x = merge_fn(x, m["norm_scale"], m["norm_bias"], res=g.res, eps=cfg.layernorm_eps)

@@ -28,6 +28,15 @@ permutation pass and no pad row exist.  One implementation serves every
 stage and depth, odd or even: it is the port's counterpart of K9, K11a and
 K11b.
 
+K9's int8 mode (``int8=True``: per-row dynamic or calibrated per-tensor
+static activation scales, int8 weights with per-(layer, out-channel)
+scales) is :func:`swin_stage_forward_int8`: the same chain with each matmul
+split into ``fused_encoder.quant_rows`` and ``fused_encoder.linear_i8``,
+whose epilogues are K9's int8 cast points (``BIAS`` for qkv,
+``BIAS_RESIDUAL`` for proj and fc2, ``BIAS_GELU`` for fc1).  Per-row and
+per-tensor quantization do not care about row order, so the raster rows
+carry over unchanged.
+
 :func:`window_attention` has a plain PyTorch twin, which the wrapper takes
 for CPU tensors only; for a CUDA tensor it launches the kernel or raises.
 Every launch adds one to :data:`LAUNCHES`.
@@ -40,15 +49,19 @@ import ctypes
 import torch
 
 from . import build
-from .common import softmax_unnorm
-from .fused_encoder import (BIAS_RESIDUAL, CAST_THEN_BIAS, CAST_THEN_BIAS_GELU, _on_cpu, _ptr,
-                            _stream, linear, linear_plain, ln_rows, ln_rows_plain)
+from .common import round_up, softmax_unnorm
+from .fused_encoder import (BIAS, BIAS_GELU, BIAS_RESIDUAL, CAST_THEN_BIAS, CAST_THEN_BIAS_GELU,
+                            _on_cpu, _ptr, _stream, linear, linear_i8, linear_i8_plain,
+                            linear_plain, ln_rows, ln_rows_plain, quant_rows, quant_rows_plain)
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"window_attention": 0}
 
 _LOG2E = 1.4426950408889634
 MAX_TOKENS = 64  # tokens per window the kernel holds (w <= 8)
+# A stage's matmul weights, in the order of the int8 stacks' ``act_inv``
+# columns (JAX ``models/swin.prepare_swin_int8``'s quantize keys).
+MATMUL_KEYS = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
 
 
 def reset_launches() -> None:
@@ -143,22 +156,105 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor |
     return out
 
 
-def _stage(x, stage, ln, lin, attn, *, res, window, heads, head_dim, eps, approx_gelu):
+# ---------------------------------------------------------------------------
+# K9's VMEM gate (ops/pallas/swin_block.py:572-623), kept because it fixes
+# the result: JAX prepare_swin_int8 makes int8 only the stages it admits at
+# weight itemsize 1, and JAX fused_swin_apply re-checks it before it runs a
+# stage in int8, so the stages that are int8 (the model's mixed precision)
+# follow from it.  Nothing on the GPU is sized by it.
+# ---------------------------------------------------------------------------
+
+_STAGE_VMEM_HEADROOM = 40 * 1024 * 1024
+_STAGE_VMEM_CAP = 100 * 1024 * 1024
+# one-hot transition perms above this R switch to the banded factorization
+_PERM_BANDED_THRESHOLD = 1024
+
+
+def swin_stage_resident_bytes(c: int, hidden: int, itemsize: int, *, nwin: int, n_pad: int,
+                              heads: int, act_itemsize: int = 2) -> int:
+    """The TPU whole-stage kernel's resident VMEM bytes: double-buffered
+    weight and bias slots plus, for a shifted stage, the transition
+    permutation (full or banded) and the window mask.  ``itemsize`` is the
+    weights' (1 in int8 mode), ``act_itemsize`` the activations'."""
+    c_p = round_up(c, 128)
+    hid_p = round_up(hidden, 128)
+    wb2 = 2 * itemsize * (c * round_up(3 * c, 128) + c * c_p + c * hid_p + hid_p * c_p)
+    wb2 += 2 * 4 * heads * n_pad * round_up(n_pad, 128)  # bias slots (f32)
+    if nwin > 1:
+        r_tot = nwin * n_pad
+        if r_tot > _PERM_BANDED_THRESHOLD:
+            nb = round(nwin ** 0.5)
+            rb = nb * n_pad
+            wb2 += 2 * nb * rb * rb * act_itemsize   # banded perm pair
+        else:
+            wb2 += r_tot * r_tot * act_itemsize      # full one-hot perm
+        wb2 += nwin * n_pad * n_pad * 4              # shifted window mask (f32)
+    return wb2
+
+
+def swin_stage_pipelined_fits(c: int, hidden: int, depth: int, itemsize: int = 2, *,
+                              nwin: int = 1, n_pad: int = 56, heads: int = 1,
+                              act_itemsize: int | None = None) -> bool:
+    """True where the TPU runs a stage as the whole-stage kernel K9: its
+    resident bytes fit the VMEM budget and the depth fits the pair loop.
+    The same function as the JAX package's, so both pick the same int8
+    stages."""
+    if nwin > 1 and depth % 2 != 0:
+        return False
+    wb2 = swin_stage_resident_bytes(c, hidden, itemsize, nwin=nwin, n_pad=n_pad, heads=heads,
+                                    act_itemsize=act_itemsize or max(itemsize, 2))
+    return (depth % 2 == 0 or depth <= 8) and wb2 + _STAGE_VMEM_HEADROOM <= _STAGE_VMEM_CAP
+
+
+# ---------------------------------------------------------------------------
+# The stage chain
+# ---------------------------------------------------------------------------
+
+
+def _stage(x, stage, ln, mm, attn, *, res, window, heads, head_dim, eps):
+    """Every block of a stage; ``mm(h, i, j, res=None)`` is block ``i``'s
+    matmul ``j`` (:data:`MATMUL_KEYS` order) with its epilogue."""
     depth = stage["qkv_w"].shape[0]
     shifted_stage = res > window  # more than one window: odd blocks shift
     for i in range(depth):
         shifted = shifted_stage and i % 2 == 1
         h = ln(x, stage["ln1_g"][i], stage["ln1_b"][i], eps)
-        qkv = lin(h, stage["qkv_w"][i], stage["qkv_b"][i], epilogue=CAST_THEN_BIAS)
+        qkv = mm(h, i, 0)
         a = attn(qkv, stage["bias"][i], stage["mask"] if shifted else None, res=res,
                  window=window, shift=window // 2 if shifted else 0, heads=heads,
                  head_dim=head_dim)
-        x = lin(a, stage["proj_w"][i], stage["proj_b"][i], epilogue=BIAS_RESIDUAL, res=x)
+        x = mm(a, i, 1, res=x)
         h2 = ln(x, stage["ln2_g"][i], stage["ln2_b"][i], eps)
-        t = lin(h2, stage["fc1_w"][i], stage["fc1_b"][i], epilogue=CAST_THEN_BIAS_GELU,
-                approx_gelu=approx_gelu)
-        x = lin(t, stage["fc2_w"][i], stage["fc2_b"][i], epilogue=BIAS_RESIDUAL, res=x)
+        t = mm(h2, i, 2)
+        x = mm(t, i, 3, res=x)
     return x
+
+
+_BF16_EPILOGUES = (CAST_THEN_BIAS, BIAS_RESIDUAL, CAST_THEN_BIAS_GELU, BIAS_RESIDUAL)
+_INT8_EPILOGUES = (BIAS, BIAS_RESIDUAL, BIAS_GELU, BIAS_RESIDUAL)
+
+
+def _bf16_mm(stage, lin, approx_gelu):
+    def mm(h, i, j, res=None):
+        key = MATMUL_KEYS[j]
+        return lin(h, stage[key][i], stage[key.replace("_w", "_b")][i],
+                   epilogue=_BF16_EPILOGUES[j], res=res, approx_gelu=approx_gelu)
+    return mm
+
+
+def _int8_mm(stage, quant, lin, approx_gelu):
+    """K9's ``imm``: quantize per row (dynamic) or by ``act_inv[i, j]``
+    (static, read on the device at flat index ``i * 4 + j``), then the int8
+    GEMM with the int8 epilogue, out in the activations' dtype."""
+    act_inv = stage.get("act_inv")
+
+    def mm(h, i, j, res=None):
+        key = MATMUL_KEYS[j]
+        q, s = quant(h, act_inv, i * len(MATMUL_KEYS) + j)
+        return lin(q, s, stage[key][i], stage[key.replace("_w", "_s")][i, 0],
+                   stage[key.replace("_w", "_b")][i], epilogue=_INT8_EPILOGUES[j],
+                   out_dtype=h.dtype, res=res, approx_gelu=approx_gelu)
+    return mm
 
 
 def swin_stage_forward(x: torch.Tensor, stage: dict, *, res: int, window: int, heads: int,
@@ -168,14 +264,38 @@ def swin_stage_forward(x: torch.Tensor, stage: dict, *, res: int, window: int, h
     on a CUDA tensor, their twins on a CPU tensor.  Odd blocks of a stage
     with more than one window shift by ``window // 2`` and add the stage's
     mask."""
-    return _stage(x, stage, ln_rows, linear, window_attention, res=res, window=window,
-                  heads=heads, head_dim=head_dim, eps=eps, approx_gelu=approx_gelu)
+    return _stage(x, stage, ln_rows, _bf16_mm(stage, linear, approx_gelu), window_attention,
+                  res=res, window=window, heads=heads, head_dim=head_dim, eps=eps)
 
 
 def swin_stage_forward_plain(x: torch.Tensor, stage: dict, *, res: int, window: int, heads: int,
                              head_dim: int, eps: float, approx_gelu: bool = False) -> torch.Tensor:
     """:func:`swin_stage_forward` through the plain twins on any device: the
     reference the kernels are held to on the GPU."""
-    return _stage(x, stage, ln_rows_plain, linear_plain, window_attention_plain, res=res,
-                  window=window, heads=heads, head_dim=head_dim, eps=eps,
-                  approx_gelu=approx_gelu)
+    return _stage(x, stage, ln_rows_plain, _bf16_mm(stage, linear_plain, approx_gelu),
+                  window_attention_plain, res=res, window=window, heads=heads,
+                  head_dim=head_dim, eps=eps)
+
+
+def swin_stage_forward_int8(x: torch.Tensor, stage_q: dict, *, res: int, window: int, heads: int,
+                            head_dim: int, eps: float, approx_gelu: bool = False) -> torch.Tensor:
+    """K9's int8 mode: :func:`swin_stage_forward` with every matmul on
+    ``quant_rows`` + ``linear_i8``.  ``stage_q`` is a
+    ``models/swin.prepare_swin_int8[_static]`` stack (int8 ``*_w``, fp32
+    ``*_s [L, 1, out]``, biases in the compute dtype, LN affines, and
+    ``act_inv [L, 4]`` when static) with the stage's ``bias`` and ``mask``
+    of ``prepare_swin_fused`` added."""
+    return _stage(x, stage_q, ln_rows, _int8_mm(stage_q, quant_rows, linear_i8, approx_gelu),
+                  window_attention, res=res, window=window, heads=heads, head_dim=head_dim,
+                  eps=eps)
+
+
+def swin_stage_forward_int8_plain(x: torch.Tensor, stage_q: dict, *, res: int, window: int,
+                                  heads: int, head_dim: int, eps: float,
+                                  approx_gelu: bool = False) -> torch.Tensor:
+    """:func:`swin_stage_forward_int8` through the plain twins on any
+    device."""
+    return _stage(x, stage_q, ln_rows_plain,
+                  _int8_mm(stage_q, quant_rows_plain, linear_i8_plain, approx_gelu),
+                  window_attention_plain, res=res, window=window, heads=heads,
+                  head_dim=head_dim, eps=eps)

@@ -327,6 +327,18 @@ def representative_batches(n: int = 100, batch: int = 1, shape=(3, 224, 224), se
 MSE_CLIP_RATIOS = (0.6, 0.7, 0.8, 0.85, 0.9, 0.95, 1.0)
 
 
+def _smooth_s(act_max: np.ndarray, w_in_max: np.ndarray, alpha: float) -> np.ndarray:
+    """SmoothQuant migration strength ``s_j = max|X_j|^a / max|W_j|^(1-a)``
+    in float64, cast to fp32: channels the calibration set never activates
+    (``act_max`` 0) keep ``s = 1``, and ``s`` is clipped to ``[1e-3, 1e3]``
+    so a dead weight row cannot explode the fold."""
+    a = np.maximum(act_max.astype(np.float64), 1e-12)
+    w = np.maximum(w_in_max.astype(np.float64), 1e-12)
+    s = a ** alpha / w ** (1.0 - alpha)
+    s = np.where(act_max > 0, s, 1.0)
+    return np.clip(s, 1e-3, 1e3).astype(np.float32)
+
+
 def _calibrate_encoder(embed_fn, model, variables, batches=None, n: int = 100,
                        percentile: float | None = None,
                        method: str = "absmax") -> np.ndarray:

@@ -106,3 +106,17 @@ def quantized_stack_from_jax(stacked_q_np: dict) -> dict:
     if "segments" in stacked_q_np:
         return {"segments": [quantized_stack_from_jax(s) for s in stacked_q_np["segments"]]}
     return {k: to_torch(v) for k, v in stacked_q_np.items()}
+
+
+def swin_int8_from_jax(int8_prepared_np: dict) -> dict:
+    """The port's ``models/swin.prepare_swin_int8[_static]`` result from a
+    JAX one (``{si: stack}``, leaves as numpy), copied exactly: the JAX
+    stacks keep LN affines and biases as ``[L, 1, d]``, the port's as
+    ``[L, d]``; int8 weights, ``*_s [L, 1, out]`` scales and ``act_inv``
+    keep their shapes."""
+    def convert(key, v):
+        t = to_torch(v)
+        return t[:, 0].contiguous() if key.endswith(("_g", "_b")) else t
+
+    return {int(si): {k: convert(k, v) for k, v in stack.items()}
+            for si, stack in int8_prepared_np.items()}

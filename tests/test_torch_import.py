@@ -29,6 +29,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.ops.cuda.t2t_stage1",
     "edgevisiontransformer_tpu_torch.ops.cuda.swin_block",
     "edgevisiontransformer_tpu_torch.ops.cuda.swin_merge",
+    "edgevisiontransformer_tpu_torch.ops.cuda.window_sdpa",
     "edgevisiontransformer_tpu_torch.models",
     "edgevisiontransformer_tpu_torch.models.vit",
     "edgevisiontransformer_tpu_torch.models.t2t_vit",

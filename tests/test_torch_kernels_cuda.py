@@ -21,6 +21,8 @@ from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
 from edgevisiontransformer_tpu_torch.ops.cuda import swin_block as sb
 from edgevisiontransformer_tpu_torch.ops.cuda import swin_merge as sm
 from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
+from edgevisiontransformer_tpu_torch.ops.cuda import window_sdpa as ws
+from edgevisiontransformer_tpu_torch.ops.quant import representative_batches
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -472,3 +474,123 @@ def test_fused_swin_apply_fp32_on_the_card_raises(dev):
     model = _swin_model(dev, torch.float32)
     with pytest.raises(TypeError, match="bfloat16"):
         swin.fused_swin_apply(model, torch.zeros(1, 3, 112, 112, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Swin: window_sdpa (K12), the int8 stage chain, the module's K12 path
+# ---------------------------------------------------------------------------
+
+
+def _sdpa_inputs(dev, batch, res, w, heads, hd, shifted, seed=0):
+    """Window-major qkv of ``batch`` images, a bf16 bias [heads, n, n] and,
+    when shifted, the stage's fp32 mask, as the module passes them."""
+    n, nw = w * w, (res // w) ** 2
+    qkv = _rnd(dev, batch * nw, n, 3 * heads * hd, seed=seed)
+    bias = _rnd(dev, heads, n, n, scale=0.5, seed=seed + 1)
+    mask = (torch.from_numpy(swin.shifted_window_mask(res, res, w, w // 2)).to(dev)
+            if shifted else None)
+    return qkv, bias, mask
+
+
+@pytest.mark.parametrize("batch,res,w,heads,hd,shifted", [
+    (1, 56, 7, 3, 32, False), (1, 56, 7, 3, 32, True), (1, 28, 7, 6, 32, True),
+    (1, 14, 7, 12, 32, True), (1, 7, 7, 24, 32, False), (2, 28, 7, 6, 32, True),
+    (3, 8, 4, 2, 64, True), (2, 16, 8, 2, 64, True)])
+def test_window_sdpa_kernel_matches_twin_and_counts(dev, batch, res, w, heads, hd, shifted):
+    """swin_tiny's four stage shapes at b1, the mask tiled over 2 and 3
+    images, head_dim 64 and a full 64-token window."""
+    qkv, bias, mask = _sdpa_inputs(dev, batch, res, w, heads, hd, shifted)
+    ws.reset_launches()
+    got = ws.window_sdpa(qkv, bias, mask, heads=heads, head_dim=hd)
+    assert ws.LAUNCHES["window_sdpa"] == 1
+    _close(got, ws.window_sdpa_plain(qkv, bias, mask, heads=heads, head_dim=hd))
+
+
+def test_window_sdpa_large_scores_subtract_the_row_max(dev):
+    qkv, bias, mask = _sdpa_inputs(dev, 1, 14, 7, 2, 32, True)
+    qkv[..., :128] *= 12  # q and k large: exp of the raw scores would overflow
+    got = ws.window_sdpa(qkv, bias, mask, heads=2, head_dim=32)
+    _close(got, ws.window_sdpa_plain(qkv, bias, mask, heads=2, head_dim=32))
+
+
+def test_window_sdpa_refuses_what_the_kernel_does_not_take(dev):
+    qkv, bias, mask = _sdpa_inputs(dev, 1, 14, 7, 2, 32, True)
+    kw = dict(heads=2, head_dim=32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ws.window_sdpa(qkv.float(), bias, mask, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        ws.window_sdpa(qkv, bias, mask.bfloat16(), **kw)
+    with pytest.raises(ValueError, match="nW dividing"):
+        ws.window_sdpa(qkv[:3], bias, mask, **kw)
+    with pytest.raises(ValueError, match="head_dim"):
+        ws.window_sdpa(_rnd(dev, 4, 49, 3 * 48), bias[:1], None, heads=1, head_dim=48)
+    q9, b9, _ = _sdpa_inputs(dev, 1, 18, 9, 1, 32, False)
+    with pytest.raises(ValueError, match="at most 64"):
+        ws.window_sdpa(q9, b9, None, heads=1, head_dim=32)
+
+
+def _int8_stacks(model, mode):
+    if mode == "dynamic":
+        return swin.prepare_swin_int8(model, min_dim=0)
+    return swin.prepare_swin_int8_static(model, batches=representative_batches(
+        n=2, shape=(3, 112, 112)), min_dim=0)
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_swin_int8_stage_kernels_match_twins_and_count(dev, mode):
+    model = _swin_model(dev)
+    stage = swin.prepare_swin_fused(model)["stages"][1]
+    q = _int8_stacks(model, mode)
+    assert list(q) == [0, 1, 2] and ("act_inv" in q[1]) == (mode == "static")
+    stack = {**q[1], "bias": stage["bias"], "mask": stage["mask"]}
+    x = _rnd(dev, 2 * 14 * 14, 192)
+    kw = dict(res=14, window=7, heads=6, head_dim=32, eps=1e-5)
+    fe.reset_launches()
+    sb.reset_launches()
+    got = sb.swin_stage_forward_int8(x, stack, **kw)
+    counts = {**fe.LAUNCHES, **sb.LAUNCHES}
+    assert counts == {"ln_rows": 4, "linear": 0, "attention_rows": 0, "quant_rows": 8,
+                      "linear_i8": 8, "window_attention": 2}
+    ref = sb.swin_stage_forward_int8_plain(x, stack, **kw)
+    torch.cuda.synchronize()
+    # a one-spacing flip before a quantization moves a value into the next
+    # int8 bucket, which the next matmuls spread
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_fused_swin_apply_int8_on_kernels_matches_plain_and_counts(dev, mode):
+    model = _swin_model(dev)
+    img = torch.randn(2, 3, 112, 112, generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        prepared = swin.prepare_swin_fused(model)
+        q = _int8_stacks(model, mode)
+        fe.reset_launches()
+        sb.reset_launches()
+        sm.reset_launches()
+        got = swin.fused_swin_apply(model, img, prepared=prepared, int8_prepared=q)
+        counts = {**fe.LAUNCHES, **sb.LAUNCHES, **sm.LAUNCHES}
+        ref = swin.fused_swin_apply(model, img, prepared=prepared, int8_prepared=q, plain=True)
+    # six int8 blocks: ln_rows 2, quant_rows 4, linear_i8 4, window_attention 1
+    # each; two merges: swin_merge 1, linear 1 each
+    assert counts == {"ln_rows": 12, "linear": 2, "attention_rows": 0, "quant_rows": 24,
+                      "linear_i8": 24, "window_attention": 6, "swin_merge": 2}
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+def test_swin_module_pallas_kernel_mode_on_the_kernel_matches_the_twin(dev, monkeypatch):
+    cfg = swin.swin_config("tiny", image_size=112, depths=(2, 2, 2), num_heads=(3, 6, 12),
+                           dtype=torch.bfloat16, kernel_mode="pallas")
+    model = swin.SwinTransformer(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+    img = torch.randn(2, 3, 112, 112, generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        ws.reset_launches()
+        got = model(img)
+        assert ws.LAUNCHES["window_sdpa"] == 6
+        monkeypatch.setattr(ws, "window_sdpa", ws.window_sdpa_plain)
+        ref = model(img)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()

@@ -1,9 +1,11 @@
 """The port's Swin Transformer against the JAX one on the same params,
 constants and images: the window tables, ``SwinTransformer.forward``
-against ``model.apply`` (``window_pack`` 1 and 2), ``fused_swin_apply`` (on
-the CPU: the kernels' plain twins) against the JAX ``fused_swin_apply`` with
-prepared constants (Pallas in interpret mode) and ``model.apply``, the
-variables bridge, the stage geometry and the registry.
+against ``model.apply`` (``window_pack`` 1 and 2, and ``kernel_mode=
+"pallas"``, whose window attention is K12), ``window_sdpa_plain`` against
+K12 ``window_sdpa``, ``fused_swin_apply`` (on the CPU: the kernels' plain
+twins) against the JAX ``fused_swin_apply`` with prepared constants (Pallas
+in interpret mode) and ``model.apply``, the variables bridge, the stage
+geometry and the registry.
 
 Small sizes: image 56 (two stages, one merge) and image 112 (three stages,
 two merges), narrow widths, head_dim 32."""
@@ -18,10 +20,12 @@ import pytest
 import torch
 
 from edgevisiontransformer_tpu.models import swin as jswin
+from edgevisiontransformer_tpu.ops.pallas.window_attention import window_sdpa
 from edgevisiontransformer_tpu_torch.config import dtype_name
 from edgevisiontransformer_tpu_torch.models import registry
 from edgevisiontransformer_tpu_torch.models import swin as tswin
-from edgevisiontransformer_tpu_torch.utils.jax_bridge import load_jax_variables
+from edgevisiontransformer_tpu_torch.ops.cuda import window_sdpa as tws
+from edgevisiontransformer_tpu_torch.utils.jax_bridge import load_jax_variables, to_torch
 
 torch.set_num_threads(1)
 
@@ -43,6 +47,14 @@ FP32_MODULE = dict(rtol=2e-4, atol=2e-4)
 # bf16 logits: single-spacing flips compound through the stages and the
 # head; hold the largest deviation to 5% of the largest logit
 BF16_REL = 0.05
+# bf16 module outputs on the K12 path: the bf16 encoder bound
+# (tests/test_torch_encoder.py), 3% of the largest magnitude, the typical
+# element within 2^-7
+BF16_MAX, BF16_MEDIAN = 0.03, 2.0 ** -7
+# K12 alone: fp32, the same math in another summation order; bf16, a value
+# at most ~2 bf16 spacings off (p rounds to bf16 after normalising)
+SDPA_FP32 = dict(rtol=1e-5, atol=1e-6)
+SDPA_BF16 = dict(rtol=2.0 ** -6, atol=1e-2)
 
 
 def _f32(a) -> np.ndarray:
@@ -84,10 +96,10 @@ def _variables(image: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _models(image: int, dtype: str, window_pack: int = 1):
+def _models(image: int, dtype: str, window_pack: int = 1, kernel_mode: str = "xla"):
     jd, td = DTYPES[dtype]
     variables, img = _variables(image)
-    cfg = dict(CONFIGS[image], window_pack=window_pack)
+    cfg = dict(CONFIGS[image], window_pack=window_pack, kernel_mode=kernel_mode)
     jmodel = jswin.SwinTransformer(jswin.swin_config("tiny", dtype=jd, **cfg))
     tmodel = tswin.SwinTransformer(tswin.swin_config("tiny", dtype=td, **cfg), device="cpu")
     load_jax_variables(tmodel, variables)
@@ -141,11 +153,44 @@ def test_forward_matches_model_apply(dtype, window_pack):
     _check(got, _jax_apply(56, dtype, window_pack), dtype, FP32_MODULE)
 
 
-def test_module_refuses_pallas_kernel_mode():
-    cfg = tswin.swin_config("tiny", kernel_mode="pallas", **CONFIGS[56])
-    model = tswin.SwinTransformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="K12"):
-        model(torch.zeros(1, 3, 56, 56))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_module_pallas_kernel_mode_matches_jax(dtype):
+    """``kernel_mode="pallas"``: the window attention on ``window_sdpa`` (on
+    the CPU its twin) against the JAX module on K12 in interpret mode."""
+    jmodel, variables, tmodel, img = _models(56, dtype, kernel_mode="pallas")
+    ref = _f32(jax.jit(jmodel.apply)(variables, jnp.asarray(img)))
+    with torch.no_grad():
+        got = _f32(tmodel(torch.from_numpy(img)))
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    if dtype == "float32":
+        # the JAX package's own pallas-against-xla bound (tests/test_swin.py:122)
+        np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(got, _jax_apply(56, dtype), rtol=2e-4, atol=2e-4)
+    else:
+        err = np.abs(got - ref)
+        assert err.max() <= BF16_MAX * np.abs(ref).max(), (err.max(), np.abs(ref).max())
+        assert np.median(err) <= BF16_MEDIAN * np.median(np.abs(ref)), np.median(err)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_sdpa_plain_matches_jax_window_sdpa(dtype, masked):
+    """Three images of four windows (the mask tiles over the images: window
+    ``j`` takes ``mask[j % 4]``), two heads of 32, a bias in the compute
+    dtype, the fp32 shifted-window mask."""
+    jd, td = DTYPES[dtype]
+    rng = np.random.default_rng(11)
+    heads, hd, n, nw, b = 2, 32, 49, 4, 3
+    qkv = rng.standard_normal((b * nw, n, 3 * heads * hd)).astype(np.float32)
+    bias = (0.5 * rng.standard_normal((heads, n, n))).astype(np.float32)
+    mask = jswin.shifted_window_mask(14, 14, 7, 3) if masked else None
+    assert mask is None or mask.shape == (nw, n, n)
+    jq, jb = jnp.asarray(qkv).astype(jd), jnp.asarray(bias).astype(jd)
+    ref = _f32(window_sdpa(jq, jb, None if mask is None else jnp.asarray(mask), heads, hd))
+    got = tws.window_sdpa(to_torch(qkv).to(td), to_torch(bias).to(td),
+                          None if mask is None else to_torch(mask), heads=heads, head_dim=hd)
+    assert got.dtype == td and got.shape == (b * nw, n, heads * hd)
+    np.testing.assert_allclose(_f32(got), ref, **(SDPA_FP32 if dtype == "float32" else SDPA_BF16))
 
 
 # ---------------------------------------------------------------------------
@@ -212,8 +257,11 @@ def test_prepared_constants_match_jax():
 
 def test_fused_swin_apply_refuses_what_the_reference_cannot_run():
     _, _, tmodel, img = _models(56, "float32")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tswin.fused_swin_apply(tmodel, torch.from_numpy(img), int8_prepared={})
+    # the JAX Swin calibration records the absmax only
+    with pytest.raises(NotImplementedError, match="absmax"):
+        tswin.calibrate_swin(tmodel, batches=[img[:1]], percentile=99.9)
+    with pytest.raises(ValueError, match="method"):
+        tswin.calibrate_swin(tmodel, batches=[img[:1]], method="kl")
     # window 7 does not tile the 16x16 map of a 64x64 image (one block per
     # stage, so no shifted mask, which could not be built either)
     cfg = tswin.swin_config("tiny", **{**CONFIGS[56], "image_size": 64, "depths": (1, 1)})
