@@ -30,14 +30,21 @@ Phases, in order; any failure exits non-zero before the last line:
    ``fused_swin_apply`` at b1 and b32, in bf16 and with int8 stages 1-3
    (``int8_prepared``: static, calibrated on 8 representative batches, and
    dynamic), and the swin_tiny module forward with ``kernel_mode="pallas"``
-   (window attention on ``window_sdpa``) at b1 and b32 — checking for each
-   the logits against the plain twins on the card, the exact kernel launch
-   counts, and finiteness;
+   (window attention on ``window_sdpa``) at b1 and b32, then the ViT module
+   path with ``kernel_mode="pallas"`` (``sdpa`` and ``mlp``): deit_tiny at
+   b1 and b128 and one t2t_vit_14 b1 forward, and the pruned models:
+   ``pruned_deit_tiny@all_head1_ffn0.3`` through ``fused_vit_apply`` and
+   static ``fused_vit_apply_int8`` at b1 and b128, the two-segment layerwise
+   encoding through ``fused_vit_apply`` (segmented and packed) and the
+   module at b1 — checking for each the logits against the plain twins on
+   the card, the exact kernel launch counts, and finiteness;
 5. time t2t_vit_14 b1 and b32, bf16 and int8 static (eager p50, device p50,
    device time by kernel at b1) and its two tokenizer forms at b1, b8 and b32;
    swin_tiny b1 and b32, bf16, int8 static and dynamic, and the
    ``kernel_mode="pallas"`` module (eager p50, device p50, peak memory,
-   device time by kernel at b1); deit_base b1, int8 static against bf16 device p50; then the
+   device time by kernel at b1); the deit_tiny ``kernel_mode="pallas"``
+   module and the uniform pruned model (bf16 and int8 static) at b1 and b128;
+   deit_base b1, int8 static against bf16 device p50; then the
    deit_tiny slices (kernel path and plain path) at b1 and b128, bf16 and
    int8 static and dynamic: eager p50, device p50 (CUDA-graph replay), peak
    memory, and device time by kernel from ``torch.profiler``;
@@ -49,9 +56,11 @@ Phases, in order; any failure exits non-zero before the last line:
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
 windows; stages 0 and 2 at b32), ``swin_merge`` (its three merges, b1 and
-b32), ``ln_rows`` / ``linear`` at Swin's widths, and ``quant_rows`` /
+b32), ``ln_rows`` / ``linear`` at Swin's widths, ``quant_rows`` /
 ``linear_i8`` at the int8 stages' shapes (stages 1-3, b1 and b32, bf16
-biases) to their twins.
+biases), ``sdpa`` (K13) and ``mlp`` (K14) at the module path's shapes,
+``layer_norm`` (K15, on ``ln_rows``), and ``linear`` / ``quant_rows`` /
+``linear_i8`` at a pruned model's hidden widths 230 and 537 to their twins.
 
 The line before last is the card's name and power limit; the one before it
 a JSON object with every kernel's launches, error, times and yardsticks; the
@@ -89,7 +98,9 @@ KERNELS = {"ln_rows": ("ln_rows.cu", f"{TPU}:54"),
            "stage1_kqv": ("t2t_stage1.cu", f"{PALLAS}/t2t_stage1.py:82"),
            "window_attention": ("window_attention.cu", f"{PALLAS}/swin_block.py:334"),
            "swin_merge": ("swin_merge.cu", f"{PALLAS}/swin_merge.py:73"),
-           "window_sdpa": ("window_sdpa.cu", f"{PALLAS}/window_attention.py:102")}
+           "window_sdpa": ("window_sdpa.cu", f"{PALLAS}/window_attention.py:102"),
+           "sdpa": ("sdpa.cu", f"{PALLAS}/fused_attention.py:56"),
+           "mlp": ("mlp.cu", f"{PALLAS}/fused_mlp.py:60")}
 # The launches one encoder layer makes; stage1_kqv launches once per forward
 # that takes the stage-1 tokenizer (a T2T-ViT batch below 8).
 BF16_LAUNCHES = {"ln_rows": 2, "linear": 4, "attention_rows": 1, "quant_rows": 0, "linear_i8": 0}
@@ -123,6 +134,24 @@ TOKENIZER_BATCHES = (1, 8, 32)
 # The encoder kernels' shapes on the main path: (rows, dim, mlp, heads,
 # reference style).  In the reference style (t2t_vit_14) the out / fc2
 # residual is the LayerNorm output h and the qkv projection has no bias.
+# The pruned models of phase 4: the uniform one the reference measured
+# (hidden int(0.3 * 768) = 230, one head of 64) and BENCHMARKS.md's
+# two-segment layerwise encoding (h1 / hidden 230 for six layers, then h2 /
+# hidden 384)
+PRUNED_UNIFORM = "pruned_deit_tiny@all_head1_ffn0.3"
+PRUNED_LAYERWISE = ("pruned_deit_tiny@layerwise_" + "_".join(["h1-d0.3"] * 6 + ["h2-d0.5"] * 6))
+# The module path's kernels per encoder layer (kernel_mode="pallas")
+MODULE_LAUNCHES = {"sdpa": 1, "mlp": 1}
+# sdpa at the module path's shapes, [b, h, n, d]: deit_tiny b1 and b128,
+# t2t_vit_14 b1, pruned h1 b1 and b128, head_dim 32
+SDPA_SHAPES = {"deit_tiny b1": (1, 3, 197, 64), "deit_tiny b128": (128, 3, 197, 64),
+               "t2t_vit_14 b1": (1, 6, 197, 64), "pruned h1 b1": (1, 1, 197, 64),
+               "pruned h1 b128": (128, 1, 197, 64), "head_dim 32 b8": (8, 6, 197, 32)}
+# mlp at (rows, dim, hidden): deit_tiny b1 and b128, deit_base b8, the
+# pruned widths 230 (ffn0.3) and 537 (ffn0.7)
+MLP_SHAPES = {"deit_tiny b1": (197, 192, 768), "deit_tiny b128": (128 * 197, 192, 768),
+              "deit_base b8": (8 * 197, 768, 3072), "hidden 230 b1": (197, 192, 230),
+              "hidden 230 b128": (128 * 197, 192, 230), "hidden 537 b1": (197, 192, 537)}
 SHAPES = {
     "deit_tiny b1": (197, 192, 768, 3, False),
     "deit_tiny b128": (128 * 197, 192, 768, 3, False),
@@ -513,6 +542,121 @@ def phase_kernels_swin(torch, fe, sb, sm, ws, harness):
     return errs, b1_ms
 
 
+def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
+    """``sdpa`` (K13) and ``mlp`` (K14) against their twins at the module
+    path's shapes (``SDPA_SHAPES``, q, k, v as views of a fused qkv, as
+    ``attention`` passes them; ``MLP_SHAPES``, both GELU forms) and
+    ``layer_norm`` (K15, one ``ln_rows`` launch) at ``[b, 197, 192]``;
+    returns ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} of one deit_tiny
+    b128 layer's launch)."""
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    errs, layer_ms = {"sdpa": 0.0, "mlp": 0.0}, {}
+
+    def check(kname, label, shape_name, kern, plain, row=False):
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, ok = within(got, ref, KERNEL_RTOL, KERNEL_ATOL)
+        if not ok or not torch.isfinite(got.float()).all():
+            fail(f"{label} at {shape_name}: max |kernel - twin| {err:.4g} "
+                 f"over {KERNEL_ATOL} + {KERNEL_RTOL:.4g}|twin|")
+        errs[kname] = max(errs.get(kname, 0.0), err)
+        times = time_pair(harness, shape_name, label, err, kern, plain)
+        if row:
+            layer_ms[kname] = times
+
+    for shape_name, (b, h, n, d) in SDPA_SHAPES.items():
+        qkv = rnd(b, n, 3 * h * d)
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        check("sdpa", "sdpa", shape_name, lambda: fa.sdpa(q, k, v),
+              lambda: fa.sdpa_plain(q, k, v), row=shape_name == "deit_tiny b128")
+    for shape_name, (m, dim, hid) in MLP_SHAPES.items():
+        x = rnd(m, dim, scale=2.0)
+        w1, b1 = rnd(dim, hid, scale=dim ** -0.5), rnd(hid)
+        w2, b2 = rnd(hid, dim, scale=hid ** -0.5), rnd(dim)
+        for approx in (False, True):
+            check("mlp", f"mlp {'tanh' if approx else 'erf'}", shape_name,
+                  lambda: fm.mlp(x, w1, b1, w2, b2, approx_gelu=approx),
+                  lambda: fm.mlp_plain(x, w1, b1, w2, b2, approx_gelu=approx),
+                  row=shape_name == "deit_tiny b128" and not approx)
+    for b in (1, 128):
+        x = rnd(b, 197, 192, scale=3.0)
+        g, bb = rnd(192, scale=0.5) + 1, rnd(192, scale=0.5)
+        check("ln_rows", "layer_norm (ln_rows)", f"[{b}, 197, 192]",
+              lambda: ln.layer_norm(x, g, bb, 1e-6), lambda: ln.layer_norm_plain(x, g, bb, 1e-6))
+    return errs, layer_ms
+
+
+def phase_kernels_ragged(torch, fe, harness):
+    """``linear``, ``quant_rows`` and ``linear_i8`` where K or N is a pruned
+    model's hidden width (230 at ffn0.3, 537 at ffn0.7; rows and weights off
+    16-byte boundaries): bf16 within the tolerance, ``quant_rows`` and the
+    non-GELU ``linear_i8`` epilogues bit for bit; returns {kernel:
+    max_abs_err}."""
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def uniform(*shape):
+        return torch.rand(*shape, generator=gen, device=dev) + 0.5
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    errs = {"linear": 0.0, "quant_rows": 0.0, "linear_i8": 0.0}
+    act_inv = (127.0 / (4.0 * uniform(12, 4))).contiguous()
+    for hid in (230, 537):
+        for m in (197, 128 * 197):
+            tag = f"hidden {hid} M={m}"
+            for name, k, n, epi in (("fc1 erf", 192, hid, fe.CAST_THEN_BIAS_GELU),
+                                    ("fc2", hid, 192, fe.BIAS_RESIDUAL)):
+                a, w, bias = rnd(m, k), rnd(k, n, scale=k ** -0.5), rnd(n, scale=0.5)
+                kw = dict(epilogue=epi, res=rnd(m, n) if epi == fe.BIAS_RESIDUAL else None)
+                got, ref = fe.linear(a, w, bias, **kw), fe.linear_plain(a, w, bias, **kw)
+                torch.cuda.synchronize()
+                err, ok = within(got, ref, KERNEL_RTOL, KERNEL_ATOL)
+                if not ok or not torch.isfinite(got.float()).all():
+                    fail(f"linear {name} at {tag}: max |kernel - twin| {err:.4g}")
+                errs["linear"] = max(errs["linear"], err)
+                time_pair(harness, tag, f"linear {name}", err, lambda: fe.linear(a, w, bias, **kw),
+                          lambda: fe.linear_plain(a, w, bias, **kw))
+            h = rnd(m, hid, scale=2.0)
+            for mode, ai in (("dynamic", None), ("static", act_inv)):
+                (q, sc), (q_p, s_p) = fe.quant_rows(h, ai, 5), fe.quant_rows_plain(h, ai, 5)
+                torch.cuda.synchronize()
+                if not torch.equal(q, q_p) or (sc is not None and not torch.equal(sc, s_p)):
+                    fail(f"quant_rows {mode} at {tag}: {int((q != q_p).sum())} int8 values "
+                         "differ from the twin (must be bit for bit)")
+            for name, k, n, epi in (("fc1 erf", 192, hid, fe.BIAS_GELU),
+                                    ("fc2", hid, 192, fe.BIAS_RESIDUAL)):
+                q, w_q = int8(m, k), int8(k, n)
+                bias = torch.randn(n, generator=gen, device=dev) * 0.5
+                w_s = uniform(n) / (73.0 * 73.0 * k ** 0.5)
+                kw = dict(epilogue=epi, out_dtype=torch.bfloat16,
+                          res=rnd(m, n) if epi == fe.BIAS_RESIDUAL else None)
+                got = fe.linear_i8(q, None, w_q, w_s, bias, **kw)
+                ref = fe.linear_i8_plain(q, None, w_q, w_s, bias, **kw)
+                torch.cuda.synchronize()
+                err, ok = within(got, ref, KERNEL_RTOL, KERNEL_ATOL)
+                if not ok or (epi != fe.BIAS_GELU and not torch.equal(got, ref)):
+                    fail(f"linear_i8 {name} at {tag}: max |kernel - twin| {err:.4g} (bit for "
+                         f"bit unless GELU)")
+                errs["linear_i8"] = max(errs["linear_i8"], err)
+                time_pair(harness, tag, f"linear_i8 {name} static", err,
+                          lambda: fe.linear_i8(q, None, w_q, w_s, bias, **kw),
+                          lambda: fe.linear_i8_plain(q, None, w_q, w_s, bias, **kw))
+    print(f"  ragged widths: linear, quant_rows (bit for bit) and linear_i8 (non-GELU bit for "
+          f"bit) held; worst {errs}")
+    return errs
+
+
 def phase_slice_t2t(torch, counter):
     """t2t_vit_14 (reference style, full width and depth) through
     ``fused_t2t_apply`` and, with a static stack calibrated on 8
@@ -742,6 +886,150 @@ def phase_slice_swin_module(torch, counter, ws):
     return launches, worst, (model, shape)
 
 
+def module_twins(fa, fm):
+    """A context in which the module path's kernel wrappers are their twins:
+    the reference the ``kernel_mode="pallas"`` modules are held to."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def swapped():
+        kernels = fa.sdpa, fm.mlp
+        fa.sdpa, fm.mlp = fa.sdpa_plain, fm.mlp_plain
+        try:
+            yield
+        finally:
+            fa.sdpa, fm.mlp = kernels
+
+    return swapped()
+
+
+def phase_slice_vit_module(torch, counter, fa, fm):
+    """The ViT module path with ``kernel_mode="pallas"``: deit_tiny (full
+    width and depth, bf16) at b1 and b128 and one t2t_vit_14 b1 forward,
+    every attention on ``sdpa`` and every MLP on ``mlp``, held against the
+    same forward on the twins; returns (launches, worst deviation, the
+    deit_tiny model for phase 5)."""
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+
+    launches = {k: 0 for k in counter.read()}
+    worst = 0.0
+    deit = None
+    for name, style, batches in (("deit_tiny", "standard", (1, 128)),
+                                 ("t2t_vit_14", "reference", (1,))):
+        model, shape = build_model(name, style=style, kernel_mode="pallas", dtype=torch.bfloat16,
+                                   device=DEVICE, generator=torch.Generator().manual_seed(0))
+        cfg = model.config
+        want = want_launches(MODULE_LAUNCHES, cfg.depth)
+        for batch in batches:
+            tag = f"{name} module pallas b{batch}"
+            img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(
+                1800 + batch)).to(DEVICE)
+            with torch.no_grad():
+                counter.reset()
+                logits = model(img)
+                torch.cuda.synchronize()
+                counts = counter.read()
+                with module_twins(fa, fm):
+                    ref = model(img)
+            if counts != want:
+                fail(f"{tag}: launch counts {counts}, expected {want}")
+            for k, v in counts.items():
+                launches[k] += v
+            rel, err, scale, agree = check_logits(tag, logits, ref, batch, cfg.num_classes)
+            worst = max(worst, rel)
+            print(f"  {tag:30s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} "
+                  f"(max|logit| {scale:.4g}), top-1 agreement {agree:.3f}, launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+        if name == "deit_tiny":
+            deit = (model, shape)
+        else:
+            del model
+    return launches, worst, deit
+
+
+def phase_slice_pruned(torch, counter, fa, fm):
+    """The pruned models: ``PRUNED_UNIFORM`` (hidden 230 on the ragged
+    kernel paths) through ``fused_vit_apply`` and, static int8 calibrated on
+    8 representative batches, ``fused_vit_apply_int8``, at b1 and b128; the
+    two-segment ``PRUNED_LAYERWISE`` through ``fused_vit_apply`` (segmented
+    and ``pack_layers=True``) and the ``kernel_mode="pallas"`` module at
+    b1.  Returns (launches, worst deviation, the uniform model's state for
+    phase 5)."""
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+    from edgevisiontransformer_tpu_torch.models.vit import (fused_vit_apply,
+                                                             fused_vit_apply_int8,
+                                                             prepare_vit_fused,
+                                                             prepare_vit_int8_static)
+    from edgevisiontransformer_tpu_torch.ops.quant import representative_batches
+
+    launches = {k: 0 for k in counter.read()}
+    worst = 0.0
+
+    def request(tag, batch, seed, run, ref_run, want, classes):
+        nonlocal worst
+        img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(seed)).to(DEVICE)
+        with torch.no_grad():
+            counter.reset()
+            logits = run(img)
+            torch.cuda.synchronize()
+            counts = counter.read()
+            ref = ref_run(img)
+        if counts != want:
+            fail(f"{tag}: launch counts {counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        rel, err, scale, agree = check_logits(tag, logits, ref, batch, classes)
+        worst = max(worst, rel)
+        print(f"  {tag:44s} max|kern-twin| {err:.4g} (max|logit| {scale:.4g}), top-1 "
+              f"agreement {agree:.3f}, launches { {k: v for k, v in counts.items() if v} }")
+
+    model, shape = build_model(PRUNED_UNIFORM, dtype=torch.bfloat16, device=DEVICE,
+                               generator=torch.Generator().manual_seed(0))
+    cfg = model.config
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        stacked = prepare_vit_fused(model)
+        sq = prepare_vit_int8_static(model, calib_batches=representative_batches(n=8,
+                                                                                 shape=shape))
+    torch.cuda.synchronize()
+    print(f"  {PRUNED_UNIFORM} (heads {cfg.layer_heads(0)}, head_dim {cfg.resolved_head_dim}, "
+          f"hidden {cfg.layer_mlp_dim(0)}): bf16 and static int8 stacks prepared in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for batch, seed in ((1, 1900), (128, 1910)):
+        request(f"pruned ffn0.3 bf16 b{batch}", batch, seed,
+                lambda img: fused_vit_apply(model, img, stacked=stacked),
+                lambda img: fused_vit_apply(model, img, stacked=stacked, plain=True),
+                want_launches(BF16_LAUNCHES, cfg.depth), cfg.num_classes)
+        request(f"pruned ffn0.3 int8 static b{batch}", batch, seed + 1,
+                lambda img: fused_vit_apply_int8(model, img, stacked_q=sq),
+                lambda img: fused_vit_apply_int8(model, img, stacked_q=sq, plain=True),
+                want_launches(INT8_LAUNCHES, cfg.depth), cfg.num_classes)
+    state = (model, shape, stacked, sq)
+
+    lw, shape = build_model(PRUNED_LAYERWISE, dtype=torch.bfloat16, device=DEVICE,
+                            generator=torch.Generator().manual_seed(0))
+    lw_module, _ = build_model(PRUNED_LAYERWISE, kernel_mode="pallas", dtype=torch.bfloat16,
+                               device=DEVICE, generator=torch.Generator().manual_seed(0))
+    segs = prepare_vit_fused(lw)
+    packed = prepare_vit_fused(lw, pack_layers=True)
+    print(f"  {PRUNED_LAYERWISE}: {len(segs['segments'])} segments, packed to heads "
+          f"{packed['qkv_w'].shape[2] // (3 * lw.config.resolved_head_dim)}, hidden "
+          f"{packed['fc1_w'].shape[2]}")
+    for pack, st in ((False, segs), (True, packed)):
+        request(f"pruned layerwise {'packed' if pack else 'segmented'} b1", 1, 1920,
+                lambda img: fused_vit_apply(lw, img, stacked=st, pack_layers=pack),
+                lambda img: fused_vit_apply(lw, img, stacked=st, pack_layers=pack, plain=True),
+                want_launches(BF16_LAUNCHES, lw.config.depth), lw.config.num_classes)
+
+    def module_ref(img):
+        with module_twins(fa, fm):
+            return lw_module(img)
+
+    request("pruned layerwise module pallas b1", 1, 1930, lw_module, module_ref,
+            want_launches(MODULE_LAUNCHES, lw.config.depth), lw.config.num_classes)
+    return launches, worst, state
+
+
 def phase_time_swin(torch, harness, state, stacks, module_state):
     """swin_tiny b1 and b32, bf16, int8 static and dynamic through
     ``fused_swin_apply`` and the ``kernel_mode="pallas"`` module: eager and
@@ -782,6 +1070,40 @@ def phase_time_swin(torch, harness, state, stacks, module_state):
                         print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
 
 
+def phase_time_pallas(torch, harness, module_state, pruned_state):
+    """The deit_tiny ``kernel_mode="pallas"`` module and ``PRUNED_UNIFORM``
+    through ``fused_vit_apply`` (bf16) and ``fused_vit_apply_int8`` (static),
+    at b1 and b128: eager and device p50, the device's idle share of the
+    eager call and the device time by kernel at b1."""
+    from edgevisiontransformer_tpu_torch.models.vit import fused_vit_apply, fused_vit_apply_int8
+
+    module, shape = module_state
+    pruned, _, stacked, sq = pruned_state
+    slices = {
+        "deit_tiny module pallas": lambda img: module(img),
+        "pruned ffn0.3 bf16": lambda img: fused_vit_apply(pruned, img, stacked=stacked),
+        "pruned ffn0.3 int8 static": lambda img: fused_vit_apply_int8(pruned, img, stacked_q=sq),
+    }
+    with torch.no_grad():
+        for slice_name, apply in slices.items():
+            for batch in (1, 128):
+                img = torch.randn(batch, *shape,
+                                  generator=torch.Generator().manual_seed(batch)).to(DEVICE)
+                fn = lambda: apply(img)  # noqa: E731
+                e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+                d = harness.measure_graph_time(fn, iters=10, repeats=5)
+                prof = harness.device_time_by_kernel(fn)
+                busy = sum(r[2] for r in prof)
+                print(f"  {slice_name} b{batch}: eager p50 {e['p50_ms']:.4f} ms (std "
+                      f"{e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device p50 "
+                      f"{d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}), traced kernel time "
+                      f"{busy:.4f} ms (device idle {max(0.0, 1 - busy / e['p50_ms']):.1%} of the "
+                      f"eager call)")
+                if batch == 1:
+                    for name, calls, ms in prof[:8]:
+                        print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
+
+
 def _bound(nbytes: float, ops: dict):
     """(bound_ms, bound_by): the larger of ``nbytes`` over the HBM rate and
     the operations ``{type: count}`` over the peak rate of their type."""
@@ -793,9 +1115,10 @@ def _bound(nbytes: float, ops: dict):
 def phase_yardsticks(torch, harness):
     """Each kernel's bound and library yardstick over the launches its JSON
     row times: one deit_tiny b128 layer (ln_rows, linear, attention_rows;
-    quant_rows and linear_i8 static), one t2t_vit_14 b1 stage1_kqv call, one
-    swin_tiny b1 forward (window_attention, swin_merge; window_sdpa: the
-    kernel_mode="pallas" module's).  Bytes count each
+    quant_rows and linear_i8 static; sdpa and mlp: the kernel_mode="pallas"
+    module's), one t2t_vit_14 b1 stage1_kqv call, one swin_tiny b1 forward
+    (window_attention, swin_merge; window_sdpa: the kernel_mode="pallas"
+    module's).  Bytes count each
     input read once and each output written once; operations are the
     tensor-core products for the GEMMs and attention (bf16 or int8), ~8
     fp32 operations per element for a LayerNorm, 3 for a quantization.  The
@@ -887,6 +1210,19 @@ def phase_yardsticks(torch, harness):
     out["window_attention"] = (*_bound(wa_bytes, {"bf16": nw_ops}), lib(wa_calls))
     out["swin_merge"] = (*_bound(merge_bytes, {"fp32": merge_ops}), None)
     out["window_sdpa"] = (*_bound(sd_bytes, {"bf16": nw_ops}), lib(sd_calls))
+
+    # sdpa: one deit_tiny b128 layer's call, q, k, v as views of the fused qkv;
+    # the library call is SDPA on the same views (no mask: n is not padded)
+    b, hd = 128, dim // heads
+    qkv5 = rnd(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    out["sdpa"] = (*_bound(2 * 4 * b * heads * n * hd, {"bf16": 4 * b * heads * n * n * hd}),
+                   lib([(lambda: F.scaled_dot_product_attention(qkv5[0], qkv5[1], qkv5[2]), 1)]))
+    # mlp: one deit_tiny b128 layer (erf GELU); the library yardstick is
+    # torch.addmm + F.gelu + torch.addmm timed as one sum
+    xm, w1, b1, w2, b2 = rnd(m, dim), rnd(dim, mlp), rnd(mlp), rnd(mlp, dim), rnd(dim)
+    out["mlp"] = (*_bound(2 * (2 * m * dim + 2 * dim * mlp + mlp + dim),
+                          {"bf16": 4 * m * dim * mlp}),
+                  lib([(lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, xm, w1)), w2), 1)]))
     for k, (bnd, by, lib_ms) in out.items():
         print(f"  {k:16s} bound {bnd:.4f} ms ({by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
@@ -1095,13 +1431,16 @@ def main() -> int:
 
     from edgevisiontransformer_tpu_torch.bench import harness
     from edgevisiontransformer_tpu_torch.ops.cuda import build
+    from edgevisiontransformer_tpu_torch.ops.cuda import fused_attention as fa
     from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
+    from edgevisiontransformer_tpu_torch.ops.cuda import fused_mlp as fm
+    from edgevisiontransformer_tpu_torch.ops.cuda import layernorm as ln
     from edgevisiontransformer_tpu_torch.ops.cuda import swin_block as sb
     from edgevisiontransformer_tpu_torch.ops.cuda import swin_merge as sm
     from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
     from edgevisiontransformer_tpu_torch.ops.cuda import window_sdpa as ws
 
-    counter = Launches(fe, ts, sb, sm, ws)
+    counter = Launches(fe, ts, sb, sm, ws, fa, fm)
     print("== phase 1: environment")
     card = phase_env(torch, build)
     print("== phase 2: build")
@@ -1121,27 +1460,40 @@ def main() -> int:
         for k, v in more.items():
             errs[k] = max(errs.get(k, 0.0), v)
     layer_ms.update(swin_ms)
+    errs_pallas, pallas_ms = phase_kernels_pallas(torch, fe, fa, fm, ln, harness)
+    errs_ragged = phase_kernels_ragged(torch, fe, harness)
+    for more in (errs_pallas, errs_ragged):
+        for k, v in more.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    layer_ms.update(pallas_ms)
     print(f"== phase 4: slices through fused_vit_apply[_int8], fused_t2t_apply[_int8], "
-          f"fused_swin_apply (bf16 and int8) and the kernel_mode='pallas' Swin module (logits "
-          f"within {LOGIT_REL} x max|logit| of the twins)")
+          f"fused_swin_apply (bf16 and int8), the kernel_mode='pallas' Swin, ViT and T2T modules "
+          f"and the pruned DeiT models (logits within {LOGIT_REL} x max|logit| of the twins)")
     launches, worst, models = phase_slice(torch, counter)
     launches8, worst8, stacks = phase_slice_int8(torch, fe, counter, models)
     launches_t2t, worst_t2t, t2t_state = phase_slice_t2t(torch, counter)
     launches_swin, worst_swin, swin_state = phase_slice_swin(torch, counter)
     launches_swin8, worst_swin8, swin_stacks = phase_slice_swin_int8(torch, counter, swin_state)
     launches_mod, worst_mod, module_state = phase_slice_swin_module(torch, counter, ws)
-    for more in (launches8, launches_t2t, launches_swin, launches_swin8, launches_mod):
+    launches_vm, worst_vm, vit_module_state = phase_slice_vit_module(torch, counter, fa, fm)
+    launches_pr, worst_pr, pruned_state = phase_slice_pruned(torch, counter, fa, fm)
+    for more in (launches8, launches_t2t, launches_swin, launches_swin8, launches_mod,
+                 launches_vm, launches_pr):
         for k, v in more.items():
             launches[k] += v
     for k, v in launches.items():
         if v == 0:
             fail(f"kernel {k} was never launched on the main path")
-    print(f"== phase 5: slice timing, t2t_vit_14, swin_tiny, deit_base b1 and deit_tiny "
-          f"standard bf16 and int8, on {card}")
+    print(f"== phase 5: slice timing, t2t_vit_14, swin_tiny, the deit_tiny kernel_mode='pallas' "
+          f"module and {PRUNED_UNIFORM}, deit_base b1 and deit_tiny standard bf16 and int8, on "
+          f"{card}")
     phase_time_t2t(torch, harness, t2t_state)
     del t2t_state
     phase_time_swin(torch, harness, swin_state, swin_stacks, module_state)
     del swin_state, swin_stacks, module_state
+    torch.cuda.empty_cache()
+    phase_time_pallas(torch, harness, vit_module_state, pruned_state)
+    del vit_module_state, pruned_state
     torch.cuda.empty_cache()
     phase_time_base(torch, harness, models, stacks)
     # deit_tiny's peak memory is read with deit_base's weights freed
@@ -1153,18 +1505,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"== phase 6: bounds and library yardsticks, on {card}")
     yard = phase_yardsticks(torch, harness)
-    print(f"build {build_s:.2f} s; worst logit deviation "
-          f"{max(worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod):.4g} of "
-          f"max|logit| (deit bf16 {worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 "
-          f"{worst_t2t:.4g}, swin_tiny bf16 {worst_swin:.4g}, int8 {worst_swin8:.4g}, module "
-          f"pallas {worst_mod:.4g})")
+    worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr)
+    print(f"build {build_s:.2f} s; worst logit deviation {max(worsts):.4g} of max|logit| (deit "
+          f"bf16 {worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 {worst_t2t:.4g}, swin_tiny bf16 "
+          f"{worst_swin:.4g}, int8 {worst_swin8:.4g}, swin module pallas {worst_mod:.4g}, ViT / T2T "
+          f"module pallas {worst_vm:.4g}, pruned {worst_pr:.4g})")
 
     src = "edgevisiontransformer_tpu_torch/csrc/"
     print("kernel ms / plain_ms / bound_ms / library_ms: device time (CUDA-graph replay) of "
           "one deit_tiny b128 layer's launches of that kernel (int8 kernels: a static-int8 "
-          "layer; stage1_kqv: one t2t_vit_14 b1 call; window_attention and swin_merge: one "
-          "swin_tiny b1 forward; window_sdpa: one swin_tiny b1 kernel_mode='pallas' module "
-          "forward); launches: the requests of phase 4")
+          "layer; sdpa and mlp: a kernel_mode='pallas' module layer, mlp's library call being "
+          "torch.addmm + F.gelu + torch.addmm timed as one sum; stage1_kqv: one t2t_vit_14 b1 "
+          "call; window_attention and swin_merge: one swin_tiny b1 forward; window_sdpa: one "
+          "swin_tiny b1 kernel_mode='pallas' module forward); launches: the requests of phase 4")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"{src}{source}", "replaces": replaces,
          "launches": launches[k], "max_abs_err": errs[k],

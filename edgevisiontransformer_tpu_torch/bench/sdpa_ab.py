@@ -1,0 +1,119 @@
+"""What the softmax section of ``csrc/sdpa.cu`` (K13) costs on the card: the
+kernel as committed against variants of its source, each built into its own
+library and timed on the same inputs.
+
+    python -m edgevisiontransformer_tpu_torch.bench.sdpa_ab
+
+Variants: the committed exact division ``p / sum``; a product with the
+rounded reciprocal of ``sum`` (off K13 by up to one bf16 spacing); ``exp2``
+of a prescaled difference in place of ``exp``; no softmax at all (the two
+products and the loads only, a floor; its output is not attention).  Each
+line gives the device time per launch (CUDA events around 200 launches,
+median of 5 samples) and the largest difference from the committed kernel's
+output.  Needs a CUDA device and ``nvcc``; the libraries go to
+``build/sdpa_ab/``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import statistics
+import subprocess
+
+import torch
+
+from ..ops.cuda import build
+
+SHAPES = {"deit_tiny b128": (128, 3, 197, 64), "deit_tiny b1": (1, 3, 197, 64),
+          "pruned h1 b128": (128, 1, 197, 64)}
+_DIV = "row[c] = c < n ? __fdiv_rn(row[c], sum) : 0.0f;"
+_EXP = "const float e = expf(__fsub_rn(row[c], mx));"
+_SUM = "sum = warp_sum(sum);"
+_ROW = "if (q0 + wr + r >= n) break;"
+
+
+def variants(src: str) -> dict:
+    for anchor in (_DIV, _EXP, _SUM, _ROW):
+        if anchor not in src:
+            raise ValueError(f"csrc/sdpa.cu no longer holds {anchor!r}")
+    return {
+        "exact division (committed)": src,
+        "reciprocal product": src.replace(_SUM, _SUM + "\n    const float inv = __frcp_rn(sum);")
+                                 .replace(_DIV, "row[c] = c < n ? __fmul_rn(row[c], inv) : 0.0f;"),
+        "exp2f of prescaled": src.replace(
+            _EXP, "const float e = exp2f(__fsub_rn(row[c], mx) * 1.4426950408889634f);"),
+        "no softmax (products only)": src.replace(_ROW, "break;"),
+    }
+
+
+def build_variants() -> dict:
+    """``{name: evt_sdpa}`` of each variant, compiled side by side."""
+    out_dir = build.BUILD_DIR.parent / "sdpa_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for i, (name, code) in enumerate(variants((build.CSRC / "sdpa.cu").read_text()).items()):
+        cu, so = out_dir / f"sdpa_v{i}.cu", out_dir / f"libsdpa_v{i}.so"
+        cu.write_text(code)
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC), "-o",
+               str(so), str(cu)]
+        jobs.append((name, so, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)))
+    fns = {}
+    for name, so, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise build.KernelBuildError(f"{name}: {err}")
+        fn = ctypes.CDLL(str(so)).evt_sdpa
+        fn.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+        fns[name] = fn
+    return fns
+
+
+def _launch(fn, q, k, v, out) -> None:
+    b, h, n, d = q.shape
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, n,
+                   d, ctypes.c_float(d ** -0.5), torch.cuda.current_stream().cuda_stream), "sdpa")
+
+
+def _time(call, iters: int = 200, repeats: int = 5) -> float:
+    for _ in range(10):
+        call()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            call()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    return statistics.median(samples)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("sdpa_ab needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True)
+    print(card.stdout.strip() or torch.cuda.get_device_name(0))
+    fns = build_variants()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for tag, (b, h, n, d) in SHAPES.items():
+        qkv = torch.randn(b, n, 3 * h * d, generator=gen, device="cuda").bfloat16()
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        ref = None
+        for order in (list(fns), list(reversed(fns))):  # A, B, ..., B, A
+            for name in order:
+                out = torch.empty(b, h, n, d, device="cuda", dtype=torch.bfloat16)
+                ms = _time(lambda: _launch(fns[name], q, k, v, out))
+                ref = out.clone() if ref is None else ref
+                diff = float((out.float() - ref.float()).abs().max())
+                print(f"{tag:15s} {name:28s} {ms * 1e3:8.2f} us  max|diff vs committed| "
+                      f"{diff:.3g}")
+
+
+if __name__ == "__main__":
+    main()

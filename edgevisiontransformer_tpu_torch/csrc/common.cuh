@@ -1,8 +1,8 @@
 // Shared device helpers for the kernels (ln_rows.cu, linear.cu,
 // attention_rows.cu, quant_rows.cu, linear_i8.cu, t2t_stage1.cu,
-// window_attention.cu, swin_merge.cu, window_sdpa.cu).  Plain CUDA C++ for
-// sm_90a; no PyTorch headers, so the
-// library builds in seconds and binds through a C interface (ctypes).
+// window_attention.cu, swin_merge.cu, window_sdpa.cu, sdpa.cu, mlp.cu).
+// Plain CUDA C++ for sm_90a; no PyTorch headers, so the library builds in
+// seconds and binds through a C interface (ctypes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +43,10 @@ __device__ __forceinline__ void load8_either(const void* p, int chunk, int f32, 
     unpack8(*reinterpret_cast<const uint4*>(static_cast<const bf16*>(p) + chunk * 8), f);
   }
 }
+
+// A pointer on a 16-byte boundary (null counts as one): the kernels take
+// their 16-byte vector paths only then.
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // Round an fp32 value to bf16 and back (a cast point of the reference).
 __device__ __forceinline__ float round_bf16(float x) {

@@ -27,11 +27,16 @@
 // (mma.sync .s8 on the tensor cores, int32 accumulators).  128x128 output
 // tile per thread block, 8 warps each owning 32x64 as 2x4 fragments, K in
 // steps of 64 through a 3-stage cp.async ring in shared memory (zero-filled
-// past the ragged M, N and K edges; K and N are multiples of 16).  An int8
+// past the ragged M, N and K edges).  An int8
 // fragment pointer must be 32-byte aligned, which a 16-byte column offset
 // inside a row-major tile is not, so shared memory holds each operand tile
 // as 16-column panels (ldm = 16).  The epilogue stages the int32 tile in
-// shared memory and writes 16-byte vectors.  wgmma, TMA and fusing the
+// shared memory and writes 16-byte vectors.  Any K and N: where K (the rows
+// of Q) or N (the rows of W, the scales, bias, residual and Y) is not a
+// multiple of 16, as a pruned model's hidden width 230 is, or a pointer is
+// off its 16-byte boundary, the host takes the element-wise form of that
+// operand's loads (and of the epilogue, for N), which masks every element
+// itself; the arithmetic is the same.  wgmma, TMA and fusing the
 // quantization into the neighbouring kernels are later work.
 #include <mma.h>
 
@@ -56,25 +61,61 @@ constexpr int C_BYTES = BM * CS * 4;
 constexpr int SMEM_BYTES = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
 static_assert(A_STAGE % 32 == 0 && B_STAGE % 32 == 0, "panels must stay 32-byte aligned");
 
+// One K step of the A (Q) and B (W) tiles into their panels.  VA / VB: the
+// operand's rows are 16-byte aligned (cp.async of 16 values, all in or all
+// out); otherwise each value is loaded and masked on its own.
+template <bool VA, bool VB>
 __device__ __forceinline__ void load_stage(int8_t* sA, int8_t* sB, const int8_t* __restrict__ Q,
                                            const int8_t* __restrict__ W, int M, int N, int K,
                                            int m0, int n0, int k0, int tid) {
+  if constexpr (VA) {
 #pragma unroll
-  for (int i = tid; i < BM * (BK / 16); i += THREADS) {
-    const int r = i / (BK / 16), c = i % (BK / 16);
-    const int gm = m0 + r, gk = k0 + c * 16;
-    const bool ok = gm < M && gk < K;
-    cp_async16(sA + c * A_PANEL + r * 16, ok ? Q + static_cast<size_t>(gm) * K + gk : Q, ok);
+    for (int i = tid; i < BM * (BK / 16); i += THREADS) {
+      const int r = i / (BK / 16), c = i % (BK / 16);
+      const int gm = m0 + r, gk = k0 + c * 16;
+      const bool ok = gm < M && gk < K;
+      cp_async16(sA + c * A_PANEL + r * 16, ok ? Q + static_cast<size_t>(gm) * K + gk : Q, ok);
+    }
+  } else {
+    for (int i = tid; i < BM * BK; i += THREADS) {
+      const int r = i / BK, c = i % BK;
+      const int gm = m0 + r, gk = k0 + c;
+      sA[(c >> 4) * A_PANEL + r * 16 + (c & 15)] =
+          gm < M && gk < K ? Q[static_cast<size_t>(gm) * K + gk] : int8_t(0);
+    }
   }
+  if constexpr (VB) {
 #pragma unroll
-  for (int i = tid; i < BK * (BN / 16); i += THREADS) {
-    const int r = i / (BN / 16), c = i % (BN / 16);
-    const int gk = k0 + r, gn = n0 + c * 16;
-    const bool ok = gk < K && gn < N;
-    cp_async16(sB + c * B_PANEL + r * 16, ok ? W + static_cast<size_t>(gk) * N + gn : W, ok);
+    for (int i = tid; i < BK * (BN / 16); i += THREADS) {
+      const int r = i / (BN / 16), c = i % (BN / 16);
+      const int gk = k0 + r, gn = n0 + c * 16;
+      const bool ok = gk < K && gn < N;
+      cp_async16(sB + c * B_PANEL + r * 16, ok ? W + static_cast<size_t>(gk) * N + gn : W, ok);
+    }
+  } else {
+    for (int i = tid; i < BK * BN; i += THREADS) {
+      const int r = i / BN, c = i % BN;
+      const int gk = k0 + r, gn = n0 + c;
+      sB[(c >> 4) * B_PANEL + r * 16 + (c & 15)] =
+          gk < K && gn < N ? W[static_cast<size_t>(gk) * N + gn] : int8_t(0);
+    }
   }
 }
 
+// The dequant and epilogue of one int32 sum: deq = (f32(acc) * sr) * ws
+// (dynamic) or f32(acc) * ws (static), then bias, and GELU or residual.
+__device__ __forceinline__ float epilogue(int acc, bool dynamic, float sr, float ws, float b,
+                                          float r, int epi) {
+  const float accf = __int2float_rn(acc);
+  const float deq = dynamic ? __fmul_rn(__fmul_rn(accf, sr), ws) : __fmul_rn(accf, ws);
+  const float v = __fadd_rn(deq, b);
+  if (epi == 3) return __fadd_rn(v, r);
+  if (epi == 1) return gelu_tanh_f(round_bf16(v));
+  if (epi == 2) return gelu_erf_f(round_bf16(v));
+  return v;
+}
+
+template <bool VA, bool VB>
 __global__ __launch_bounds__(THREADS) void linear_i8_kernel(
     const int8_t* __restrict__ Q, const float* __restrict__ s_row, const int8_t* __restrict__ W,
     const float* __restrict__ w_s, const void* __restrict__ bias, const bf16* __restrict__ res,
@@ -95,7 +136,8 @@ __global__ __launch_bounds__(THREADS) void linear_i8_kernel(
   const int KT = (K + BK - 1) / BK;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(sA + s * A_STAGE, sB + s * B_STAGE, Q, W, M, N, K, m0, n0, s * BK, tid);
+    if (s < KT)
+      load_stage<VA, VB>(sA + s * A_STAGE, sB + s * B_STAGE, Q, W, M, N, K, m0, n0, s * BK, tid);
     cp_async_commit();
   }
 
@@ -105,7 +147,8 @@ __global__ __launch_bounds__(THREADS) void linear_i8_kernel(
     const int nk = kt + STAGES - 1;
     if (nk < KT) {
       const int s = nk % STAGES;
-      load_stage(sA + s * A_STAGE, sB + s * B_STAGE, Q, W, M, N, K, m0, n0, nk * BK, tid);
+      load_stage<VA, VB>(sA + s * A_STAGE, sB + s * B_STAGE, Q, W, M, N, K, m0, n0, nk * BK,
+                         tid);
     }
     cp_async_commit();
     const int8_t* a = sA + (kt % STAGES) * A_STAGE;
@@ -140,41 +183,59 @@ __global__ __launch_bounds__(THREADS) void linear_i8_kernel(
                               wmma::mem_row_major);
   __syncthreads();
 
-  for (int i = tid; i < BM * (BN / 8); i += THREADS) {
-    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm >= M || gn >= N) continue;  // N % 16 == 0: a vector is all in or all out
-    const int4 a0 = *reinterpret_cast<const int4*>(sC + r * CS + c);
-    const int4 a1 = *reinterpret_cast<const int4*>(sC + r * CS + c + 4);
-    const int av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float4 s0 = *reinterpret_cast<const float4*>(w_s + gn);
-    const float4 s1 = *reinterpret_cast<const float4*>(w_s + gn + 4);
-    const float wv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-    float bv[8], v[8];
-    load8_either(bias, gn / 8, bias_f32, bv);
-    const float sr = s_row != nullptr ? s_row[gm] : 0.f;
+  const bool dynamic = s_row != nullptr;
+  if constexpr (VB) {
+    for (int i = tid; i < BM * (BN / 8); i += THREADS) {
+      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+      const int gm = m0 + r, gn = n0 + c;
+      if (gm >= M || gn >= N) continue;  // N % 16 == 0: a vector is all in or all out
+      const int4 a0 = *reinterpret_cast<const int4*>(sC + r * CS + c);
+      const int4 a1 = *reinterpret_cast<const int4*>(sC + r * CS + c + 4);
+      const int av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float4 s0 = *reinterpret_cast<const float4*>(w_s + gn);
+      const float4 s1 = *reinterpret_cast<const float4*>(w_s + gn + 4);
+      const float wv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+      float bv[8], v[8], rv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      load8_either(bias, gn / 8, bias_f32, bv);
+      const float sr = dynamic ? s_row[gm] : 0.f;
+      const size_t off = static_cast<size_t>(gm) * N + gn;
+      if (epi == 3) unpack8(*reinterpret_cast<const uint4*>(res + off), rv);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float accf = __int2float_rn(av[e]);
-      const float deq = s_row != nullptr ? __fmul_rn(__fmul_rn(accf, sr), wv[e])
-                                         : __fmul_rn(accf, wv[e]);
-      v[e] = __fadd_rn(deq, bv[e]);
+      for (int e = 0; e < 8; ++e) v[e] = epilogue(av[e], dynamic, sr, wv[e], bv[e], rv[e], epi);
+      *reinterpret_cast<uint4*>(Y + off) = pack8(v);
     }
-    const size_t off = static_cast<size_t>(gm) * N + gn;
-    if (epi == 3) {
-      float rv[8];
-      unpack8(*reinterpret_cast<const uint4*>(res + off), rv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = __fadd_rn(v[e], rv[e]);
-    } else if (epi == 1) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = gelu_tanh_f(round_bf16(v[e]));
-    } else if (epi == 2) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = gelu_erf_f(round_bf16(v[e]));
+  } else {
+    for (int i = tid; i < BM * BN; i += THREADS) {
+      const int r = i / BN, c = i % BN;
+      const int gm = m0 + r, gn = n0 + c;
+      if (gm >= M || gn >= N) continue;
+      const size_t off = static_cast<size_t>(gm) * N + gn;
+      const float b = bias_f32 ? static_cast<const float*>(bias)[gn]
+                               : __bfloat162float(static_cast<const bf16*>(bias)[gn]);
+      const float rv = epi == 3 ? __bfloat162float(res[off]) : 0.f;
+      Y[off] = __float2bfloat16_rn(
+          epilogue(sC[r * CS + c], dynamic, dynamic ? s_row[gm] : 0.f, w_s[gn], b, rv, epi));
     }
-    *reinterpret_cast<uint4*>(Y + off) = pack8(v);
   }
+}
+
+template <bool VA, bool VB>
+int launch(const void* q, const void* s_row, const void* w, const void* w_s, const void* bias,
+           const void* res, void* y, int M, int N, int K, int epi, int bias_f32,
+           cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        linear_i8_kernel<VA, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  linear_i8_kernel<VA, VB><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(s_row),
+      static_cast<const int8_t*>(w), static_cast<const float*>(w_s), bias,
+      static_cast<const bf16*>(res), static_cast<bf16*>(y), M, N, K, epi, bias_f32);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -183,18 +244,13 @@ __global__ __launch_bounds__(THREADS) void linear_i8_kernel(
 extern "C" int evt_linear_i8(const void* q, const void* s_row, const void* w, const void* w_s,
                              const void* bias, const void* res, void* y, int M, int N, int K,
                              int epi, int bias_f32, void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        linear_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
   if (M == 0 || N == 0) return 0;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  linear_i8_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(s_row),
-      static_cast<const int8_t*>(w), static_cast<const float*>(w_s), bias,
-      static_cast<const bf16*>(res), static_cast<bf16*>(y), M, N, K, epi, bias_f32);
-  return static_cast<int>(cudaGetLastError());
+  const bool va = K % 16 == 0 && aligned16(q);
+  const bool vb = N % 16 == 0 && aligned16(w) && aligned16(w_s) && aligned16(bias) &&
+                  aligned16(res) && aligned16(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (va && vb) return launch<true, true>(q, s_row, w, w_s, bias, res, y, M, N, K, epi, bias_f32, s);
+  if (va) return launch<true, false>(q, s_row, w, w_s, bias, res, y, M, N, K, epi, bias_f32, s);
+  if (vb) return launch<false, true>(q, s_row, w, w_s, bias, res, y, M, N, K, epi, bias_f32, s);
+  return launch<false, false>(q, s_row, w, w_s, bias, res, y, M, N, K, epi, bias_f32, s);
 }

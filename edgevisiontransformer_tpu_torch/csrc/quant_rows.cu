@@ -25,7 +25,9 @@
 // stores of 8 int8 values.  Dynamic mode reads the row twice (the absmax,
 // then the quantization; the second read hits L1 / L2).  Static mode reads
 // inv_a on the device, so a forward needs no host copy of act_inv and can
-// be captured in a CUDA graph.
+// be captured in a CUDA graph.  Any K: where K is not a multiple of 8 (a
+// pruned model's hidden width, 230) or a pointer is off its vector boundary,
+// the host takes the element-wise form of the same loop.
 #include "common.cuh"
 
 namespace {
@@ -33,17 +35,20 @@ namespace {
 constexpr int kWarps = 8;
 constexpr float kInv127 = 1.0f / 127.0f;  // folded at compile time, correctly rounded
 
+__device__ __forceinline__ int8_t quant1(float f, float inv) {
+  return static_cast<int8_t>(min(max(__float2int_rn(__fmul_rn(f, inv)), -127), 127));
+}
+
 __device__ __forceinline__ uint2 quant8(const float f[8], float inv) {
   uint2 out;
   int8_t* o = reinterpret_cast<int8_t*>(&out);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int v = __float2int_rn(__fmul_rn(f[i], inv));
-    o[i] = static_cast<int8_t>(min(max(v, -127), 127));
-  }
+  for (int i = 0; i < 8; ++i) o[i] = quant1(f[i], inv);
   return out;
 }
 
+// VEC: K % 8 == 0 and x, q on 16- and 8-byte boundaries (8 values a lane).
+template <bool VEC>
 __global__ __launch_bounds__(kWarps * 32) void quant_rows_kernel(
     const bf16* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
     const float* __restrict__ act_inv, int index, int rows, int K) {
@@ -60,10 +65,14 @@ __global__ __launch_bounds__(kWarps * 32) void quant_rows_kernel(
     inv = act_inv[index];
   } else {
     float a = 0.f;
-    for (int c = lane; c < chunks; c += 32) {
-      unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+    if constexpr (VEC) {
+      for (int c = lane; c < chunks; c += 32) {
+        unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a = fmaxf(a, fabsf(f[i]));
+        for (int i = 0; i < 8; ++i) a = fmaxf(a, fabsf(f[i]));
+      }
+    } else {
+      for (int c = lane; c < K; c += 32) a = fmaxf(a, fabsf(__bfloat162float(xr[c])));
     }
     a = warp_max(a);
     const float sc = a > 0.f ? __fmul_rn(a, kInv127) : 1.0f;
@@ -71,9 +80,13 @@ __global__ __launch_bounds__(kWarps * 32) void quant_rows_kernel(
     inv = __fdiv_rn(1.0f, sc);
   }
 
-  for (int c = lane; c < chunks; c += 32) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-    *reinterpret_cast<uint2*>(qr + c * 8) = quant8(f, inv);
+  if constexpr (VEC) {
+    for (int c = lane; c < chunks; c += 32) {
+      unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+      *reinterpret_cast<uint2*>(qr + c * 8) = quant8(f, inv);
+    }
+  } else {
+    for (int c = lane; c < K; c += 32) qr[c] = quant1(__bfloat162float(xr[c]), inv);
   }
 }
 
@@ -85,8 +98,14 @@ extern "C" int evt_quant_rows(const void* x, void* q, void* s, const void* act_i
                               int rows, int K, void* stream) {
   if (rows == 0) return 0;
   const dim3 grid((rows + kWarps - 1) / kWarps);
-  quant_rows_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<int8_t*>(q), static_cast<float*>(s),
-      static_cast<const float*>(act_inv), index, rows, K);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xp = static_cast<const bf16*>(x);
+  int8_t* qp = static_cast<int8_t*>(q);
+  if (K % 8 == 0 && aligned16(x) && (reinterpret_cast<uintptr_t>(q) & 7u) == 0)
+    quant_rows_kernel<true><<<grid, kWarps * 32, 0, st>>>(
+        xp, qp, static_cast<float*>(s), static_cast<const float*>(act_inv), index, rows, K);
+  else
+    quant_rows_kernel<false><<<grid, kWarps * 32, 0, st>>>(
+        xp, qp, static_cast<float*>(s), static_cast<const float*>(act_inv), index, rows, K);
   return static_cast<int>(cudaGetLastError());
 }

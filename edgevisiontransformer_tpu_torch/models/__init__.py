@@ -6,5 +6,7 @@ from .vit import (  # noqa: F401
     get_deit_base,
     get_deit_small,
     get_deit_tiny,
+    get_pruned_vit,
     prepare_vit_fused,
+    pruned_vit_config,
 )

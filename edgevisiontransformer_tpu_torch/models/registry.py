@@ -2,7 +2,9 @@
 
 Port of ``edgevisiontransformer_tpu/models/registry.py`` for the models
 ported so far: ``deit_tiny``, ``deit_small``, ``deit_base``,
-``t2t_vit_{7,10,12,14}`` and ``swin_{tiny,small,base}``.
+``pruned_deit_<size>@<encoding>`` (the encoding defaults to
+``all_head12_ffn1.0``), ``t2t_vit_{7,10,12,14}`` and
+``swin_{tiny,small,base}``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from torch import nn
 
 from .swin import get_swin
 from .t2t_vit import get_t2t_vit
-from .vit import get_deit_base, get_deit_small, get_deit_tiny
+from .vit import get_deit_base, get_deit_small, get_deit_tiny, get_pruned_vit
 
 _REGISTRY = {
     "deit_tiny": get_deit_tiny,
@@ -34,9 +36,14 @@ def available_models():
 def build_model(name: str, **kw) -> Tuple[nn.Module, Tuple[int, ...]]:
     """Build a model by name; ``kw`` goes to the factory (``device``, the
     card by default, ``generator``, ``style`` for the ViT family and any
-    field of its config)."""
-    if name not in _REGISTRY:
+    field of its config).  ``pruned_deit_<size>@<encoding>``, e.g.
+    ``pruned_deit_tiny@all_head1_ffn0.3``, builds :func:`get_pruned_vit`."""
+    if name.startswith("pruned_deit_"):
+        size, _, enc = name[len("pruned_deit_"):].partition("@")
+        model = get_pruned_vit(size=size, prune_encoding=enc or "all_head12_ffn1.0", **kw)
+    elif name not in _REGISTRY:
         raise KeyError(f"model {name!r} is not ported yet; ported: {available_models()}")
-    model = _REGISTRY[name](**kw)
+    else:
+        model = _REGISTRY[name](**kw)
     img = model.config.image_size
     return model, (model.config.in_channels, img, img)

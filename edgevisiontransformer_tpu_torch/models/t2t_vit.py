@@ -373,6 +373,16 @@ def t2t_tokenize(model: T2TViT, img: torch.Tensor, *, params: dict | None = None
     return torch.cat([cls, x], dim=1) + model.pos_embedding.to(dt)
 
 
+def _uniform_heads(cfg: ViTConfig) -> int:
+    """The heads of the one uniform encoder the fused T2T paths run, as the
+    reference's do (its stack spans every layer with ``cfg.heads``)."""
+    segments = _check_fused(cfg)
+    if len(segments) != 1:
+        raise NotImplementedError(f"{len(segments)} encoder segments: the fused T2T paths run "
+                                  "one uniform encoder (use model(img))")
+    return segments[0][2]
+
+
 def fused_t2t_apply(model: T2TViT, img: torch.Tensor, *, prepared: dict | None = None,
                     stacked: dict | None = None, fast: bool | None = None,
                     plain: bool = False) -> torch.Tensor:
@@ -391,7 +401,7 @@ def fused_t2t_apply(model: T2TViT, img: torch.Tensor, *, prepared: dict | None =
     from ..ops.cuda.fused_encoder import encoder_forward, encoder_forward_plain
 
     cfg = model.config
-    heads = _check_fused(cfg)
+    heads = _uniform_heads(cfg)
     p = model.params()
     x = t2t_tokenize(model, img, params=p, prepared=prepared, fast=fast, plain=plain)
     if stacked is None:
@@ -442,7 +452,7 @@ def fused_t2t_apply_int8(model: T2TViT, img: torch.Tensor, *, stacked_q: dict | 
     cfg = model.config
     if variant not in INT8_VARIANTS:
         raise ValueError(f"unknown int8 variant {variant!r}; one of {INT8_VARIANTS}")
-    heads = _check_fused(cfg)
+    heads = _uniform_heads(cfg)
     if stacked_q is None:
         stacked_q = prepare_t2t_int8(model)
     p = model.params()

@@ -4,8 +4,11 @@ Parameters keep the Flax names and layouts (a dense kernel is ``[in, out]``,
 applied as ``x @ w``), so ``named_parameters()`` matches the Flax
 ``variables["params"]`` tree leaf for leaf: ``block_0.attn.qkv_kernel`` is
 ``params["block_0"]["attn"]["qkv_kernel"]``.  :meth:`ViT.params` returns that
-tree.  ``ViT.forward`` has ``model.apply``'s eager semantics;
-:func:`fused_vit_apply` runs the encoder on the hand-written kernels, and
+tree.  ``ViT.forward`` has ``model.apply``'s eager semantics; with
+``kernel_mode="pallas"`` its attention core runs on the ``sdpa`` kernel and
+its MLP on the ``mlp`` kernel.  :func:`fused_vit_apply` runs the encoder on
+the hand-written kernels, one chain per uniform run of layers for
+layerwise-pruned models (:func:`pruned_vit_config`), and
 :func:`fused_vit_apply_int8` runs it in int8 (dynamic or static scales).
 """
 
@@ -18,9 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..config import REFERENCE_STYLE, STANDARD_STYLE, ViTConfig
+from ..config import REFERENCE_STYLE, STANDARD_STYLE, ViTConfig, decode_prune_encoding
 from ..ops.activations import get_act, get_gelu
 from ..ops.attention import attention_xla
+from ..ops.cuda import fused_attention, fused_mlp
 from ..ops.layers import layer_norm, mlp_block, patch_embed
 
 
@@ -64,13 +68,6 @@ def model_device(device) -> torch.device:
     return dev
 
 
-def _check_kernel_mode(cfg: ViTConfig) -> None:
-    if cfg.kernel_mode != "xla":
-        raise NotImplementedError(
-            f"kernel_mode={cfg.kernel_mode!r}: the per-op attention and MLP "
-            "kernels are not ported yet; use kernel_mode='xla' or fused_vit_apply")
-
-
 class Dense(nn.Module):
     """``x @ kernel (+ bias)`` in the compute dtype (flax ``nn.Dense``)."""
 
@@ -87,7 +84,8 @@ class Dense(nn.Module):
 
 
 class Attention(nn.Module):
-    """Fused-QKV multi-head self-attention."""
+    """Fused-QKV multi-head self-attention; with ``kernel_mode="pallas"`` the
+    softmax chain runs on the ``sdpa`` kernel (K13)."""
 
     def __init__(self, cfg: ViTConfig, layer_idx: int = 0):
         super().__init__()
@@ -102,16 +100,17 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        _check_kernel_mode(cfg)
         dt = cfg.dtype
         b_qkv = self.qkv_bias.to(dt) if self.qkv_bias is not None else None
-        return attention_xla(x.to(dt), self.qkv_kernel.to(dt), b_qkv,
-                             self.out_kernel.to(dt), self.out_bias.to(dt),
-                             self.heads, self.head_dim)
+        fn = fused_attention.attention if cfg.kernel_mode == "pallas" else attention_xla
+        return fn(x.to(dt), self.qkv_kernel.to(dt), b_qkv, self.out_kernel.to(dt),
+                  self.out_bias.to(dt), self.heads, self.head_dim)
 
 
 class FeedForward(nn.Module):
-    """Dense(hidden, gelu) -> Dense(dim)."""
+    """Dense(hidden, gelu) -> Dense(dim); with ``kernel_mode="pallas"`` (and
+    any ``act`` but ``"relu"``, as in the reference) both run in the ``mlp``
+    kernel (K14)."""
 
     def __init__(self, cfg: ViTConfig, layer_idx: int = 0):
         super().__init__()
@@ -124,10 +123,12 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        _check_kernel_mode(cfg)
         dt = cfg.dtype
-        return mlp_block(x.to(dt), self.fc1_kernel.to(dt), self.fc1_bias.to(dt),
-                         self.fc2_kernel.to(dt), self.fc2_bias.to(dt), get_act(cfg))
+        weights = (self.fc1_kernel.to(dt), self.fc1_bias.to(dt), self.fc2_kernel.to(dt),
+                   self.fc2_bias.to(dt))
+        if cfg.kernel_mode == "pallas" and cfg.act != "relu":
+            return fused_mlp.mlp(x.to(dt), *weights, approx_gelu=cfg.gelu_approx)
+        return mlp_block(x.to(dt), *weights, get_act(cfg))
 
 
 class LayerNormP(nn.Module):
@@ -277,6 +278,24 @@ def get_deit_base(style: str = "standard", *, device="cuda", generator=None,
     return ViT(deit_config("base", style, **kw), device=device, generator=generator)
 
 
+def pruned_vit_config(size: str = "tiny", prune_encoding: str = "all_head12_ffn1.0",
+                      head_dim: int | None = 64, style: str = "standard",
+                      **overrides) -> ViTConfig:
+    """A pruned DeiT's config: static per-layer heads and MLP widths from
+    ``prune_encoding`` (``config.decode_prune_encoding``).  Pruned models
+    keep a head size of 64 whatever the unpruned dim and heads, as the
+    reference does; ``head_dim`` overrides it."""
+    base = deit_config(size, style, **overrides)
+    heads_per_layer, mlp_per_layer = decode_prune_encoding(prune_encoding, base.depth,
+                                                           base.mlp_dim)
+    return base.replace(heads_per_layer=heads_per_layer, mlp_dim_per_layer=mlp_per_layer,
+                        head_dim=head_dim)
+
+
+def get_pruned_vit(*, device="cuda", generator=None, **kw) -> ViT:
+    return ViT(pruned_vit_config(**kw), device=device, generator=generator)
+
+
 def encoder_segments(cfg: ViTConfig) -> list:
     """Runs of consecutive layers with identical (heads, mlp) shapes, as
     ``[(start, depth, heads, mlp_dim)]``."""
@@ -291,20 +310,33 @@ def encoder_segments(cfg: ViTConfig) -> list:
     return segments
 
 
-def prepare_vit_fused(model: ViT) -> dict:
+def prepare_vit_fused(model: ViT, pack_layers: bool = False) -> dict:
     """The encoder params stacked ``[L, ...]`` in the compute dtype, as
     :func:`fused_vit_apply` consumes them.  Build once and pass as
-    ``stacked=`` to keep the stack and cast out of every forward."""
-    from ..ops.cuda.fused_encoder import stack_vit_layer_params
+    ``stacked=`` to keep the stack and cast out of every forward.
+
+    Layerwise-pruned models return ``{"segments": [stack, ...]}``, one per
+    uniform run of layers, or with ``pack_layers`` one zero-padded uniform
+    stack of every layer (``stack_vit_layer_params_packed``)."""
+    from ..ops.cuda.fused_encoder import stack_vit_layer_params, stack_vit_layer_params_packed
 
     cfg = model.config
-    stacked = stack_vit_layer_params(model.params(), cfg.depth, cfg.qkv_bias)
-    return {k: v.to(cfg.dtype).contiguous() for k, v in stacked.items()}
+    p = model.params()
+    segs = encoder_segments(cfg)
+    if pack_layers and len(segs) > 1:
+        stacks = [stack_vit_layer_params_packed(
+            p, [cfg.layer_heads(i) for i in range(cfg.depth)],
+            [cfg.layer_mlp_dim(i) for i in range(cfg.depth)], cfg.resolved_head_dim,
+            cfg.qkv_bias)]
+    else:
+        stacks = [stack_vit_layer_params(p, d, cfg.qkv_bias, start=s) for s, d, _, _ in segs]
+    stacks = [{k: v.to(cfg.dtype).contiguous() for k, v in st.items()} for st in stacks]
+    return stacks[0] if len(stacks) == 1 else {"segments": stacks}
 
 
-def _check_fused(cfg: ViTConfig) -> int:
-    """The heads of the one encoder segment of a model the fused encoders
-    take; raise for anything else."""
+def _check_fused(cfg: ViTConfig) -> list:
+    """The encoder segments (:func:`encoder_segments`) of a model the fused
+    encoders take; raise for the NoNorm / ReLU models they do not."""
     if cfg.norm_mode != "layernorm" or cfg.act != "gelu":
         # transitions-compiled (NoNorm / ReLU) models: the kernels compute
         # real LayerNorm + GELU
@@ -312,12 +344,17 @@ def _check_fused(cfg: ViTConfig) -> int:
             "fused encoder supports norm_mode='layernorm' + act='gelu' only; "
             f"got norm_mode={cfg.norm_mode!r}, act={cfg.act!r} (use model(img))"
         )
-    segments = encoder_segments(cfg)
-    if len(segments) != 1:
-        raise NotImplementedError(
-            f"{len(segments)} encoder segments: layerwise-pruned models are not "
-            "ported to the fused path yet (use model(img))")
-    return segments[0][2]
+    return encoder_segments(cfg)
+
+
+def _segment_stacks(stacked: dict, segments: list, what: str, prepare: str) -> list:
+    """The per-segment stacks of a uniform or ``{"segments": [...]}`` stack;
+    raise when their number is not the config's."""
+    stacks = stacked["segments"] if "segments" in stacked else [stacked]
+    if len(stacks) != len(segments):
+        raise ValueError(f"{what} has {len(stacks)} segment(s) but the config segments into "
+                         f"{len(segments)}: re-run {prepare} for this model")
+    return stacks
 
 
 def _fused_embed(cfg: ViTConfig, p: dict, img: torch.Tensor) -> torch.Tensor:
@@ -342,29 +379,46 @@ def _fused_head(cfg: ViTConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def fused_vit_apply(model: ViT, img: torch.Tensor, *, stacked: dict | None = None,
-                    plain: bool = False) -> torch.Tensor:
+                    pack_layers: bool | None = None, plain: bool = False) -> torch.Tensor:
     """Forward pass with the encoder on the hand-written kernels
     (``ops/cuda/fused_encoder.encoder_forward``); the same params and
     result as ``model(img)``.
 
     Patch embedding, the cls / position add, the final LayerNorm and the
     head stay plain tensor ops, as they stay outside the kernel in the
-    reference.  ``stacked`` is :func:`prepare_vit_fused`'s output (built
+    reference.  A layerwise-pruned model runs one encoder chain per uniform
+    run of layers, each with its own heads, or with ``pack_layers`` one
+    chain over a zero-padded uniform stack (exact: padded heads and MLP
+    units contribute zeros); the default never packs, as in the reference.
+    The reference's choice among its TPU kernel variants is a VMEM budget,
+    so one CUDA chain serves every segment.  ``stacked`` is
+    :func:`prepare_vit_fused`'s output for the same ``pack_layers`` (built
     here when omitted).  ``plain=True`` runs the kernels' plain twins on any
     device: the reference the kernel path is checked against on the GPU.
     """
     from ..ops.cuda.fused_encoder import encoder_forward, encoder_forward_plain
 
     cfg = model.config
-    heads = _check_fused(cfg)
+    segments = _check_fused(cfg)
+    pack = bool(pack_layers) and len(segments) > 1
+    if stacked is None:
+        stacked = prepare_vit_fused(model, pack_layers=pack)
+    if pack:
+        hmax = max(s[2] for s in segments)
+        if "segments" in stacked or stacked["qkv_w"].shape[0] != cfg.depth:
+            raise ValueError("pack_layers=True takes one packed stack of every layer: "
+                             "re-run prepare_vit_fused(model, pack_layers=True)")
+        runs = [(hmax, stacked)]
+    else:
+        runs = [(heads, st) for (_, _, heads, _), st in zip(
+            segments, _segment_stacks(stacked, segments, "stacked", "prepare_vit_fused"))]
     p = model.params()
     x = _fused_embed(cfg, p, img)
-    if stacked is None:
-        stacked = prepare_vit_fused(model)
     encoder = encoder_forward_plain if plain else encoder_forward
-    x = encoder(x, stacked, heads=heads, head_dim=cfg.resolved_head_dim,
-                eps=cfg.layernorm_eps, reference_residual=cfg.reference_residual,
-                approx_gelu=cfg.gelu_approx)
+    for heads, st in runs:
+        x = encoder(x, st, heads=heads, head_dim=cfg.resolved_head_dim,
+                    eps=cfg.layernorm_eps, reference_residual=cfg.reference_residual,
+                    approx_gelu=cfg.gelu_approx)
     return _fused_head(cfg, p, x)
 
 
@@ -476,24 +530,25 @@ def fused_vit_apply_int8(model: ViT, img: torch.Tensor, *, stacked_q: dict | Non
     activation scales, per-channel weight scales, ``ops/quant.int8_vit_apply``).
     With a :func:`prepare_vit_int8_static` stack: calibrated per-tensor
     activation scales.  Embedding and head stay float, in ``cfg.dtype``.
-    ``stacked_q`` is built with :func:`prepare_vit_int8` when omitted.
-    ``variant`` is one of :data:`INT8_VARIANTS` (all take the one encoder);
-    ``plain=True`` runs the kernels' plain twins on any device."""
+    ``stacked_q`` is built with :func:`prepare_vit_int8` when omitted; a
+    layerwise-pruned model takes its ``{"segments": [...]}`` form and runs
+    one int8 chain per uniform run of layers.  ``variant`` is one of
+    :data:`INT8_VARIANTS` (all take the one encoder); ``plain=True`` runs
+    the kernels' plain twins on any device."""
     from ..ops.cuda.fused_encoder import encoder_forward_int8, encoder_forward_int8_plain
 
     cfg = model.config
     if variant not in INT8_VARIANTS:
         raise ValueError(f"unknown int8 variant {variant!r}; one of {INT8_VARIANTS}")
-    heads = _check_fused(cfg)
+    segments = _check_fused(cfg)
     if stacked_q is None:
         stacked_q = prepare_vit_int8(model)
-    if "segments" in stacked_q:
-        raise ValueError(f"stacked_q has {len(stacked_q['segments'])} segments but the "
-                         "config has one: re-run prepare_vit_int8[_static] for this model")
+    stacks = _segment_stacks(stacked_q, segments, "stacked_q", "prepare_vit_int8[_static]")
     p = model.params()
     x = _fused_embed(cfg, p, img)
     encoder = encoder_forward_int8_plain if plain else encoder_forward_int8
-    x = encoder(x, stacked_q, heads=heads, head_dim=cfg.resolved_head_dim,
-                eps=cfg.layernorm_eps, reference_residual=cfg.reference_residual,
-                approx_gelu=cfg.gelu_approx)
+    for (_, _, heads, _), sq in zip(segments, stacks):
+        x = encoder(x, sq, heads=heads, head_dim=cfg.resolved_head_dim,
+                    eps=cfg.layernorm_eps, reference_residual=cfg.reference_residual,
+                    approx_gelu=cfg.gelu_approx)
     return _fused_head(cfg, p, x)

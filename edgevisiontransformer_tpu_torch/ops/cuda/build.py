@@ -39,6 +39,8 @@ _SIGNATURES = (
     ("evt_window_attention", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
     ("evt_swin_merge", _I, (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     ("evt_window_sdpa", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+    ("evt_sdpa", _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+    ("evt_mlp", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     ("evt_error_string", ctypes.c_char_p, (_I,)),
 )
 

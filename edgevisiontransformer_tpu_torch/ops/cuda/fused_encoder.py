@@ -95,11 +95,13 @@ _BF16 = (torch.bfloat16,)
 _BF16_F32 = (torch.bfloat16, torch.float32)
 
 
-def _on_cpu(what: str, *tensors: torch.Tensor, dtypes: dict | None = None) -> bool:
+def _on_cpu(what: str, *tensors: torch.Tensor, dtypes: dict | None = None,
+            aligned: bool = True) -> bool:
     """True when every tensor is on the CPU (take the twin), False when all
-    are on one CUDA device, contiguous and 16-byte aligned, in bf16 or the
-    dtypes that ``dtypes`` (tensor position -> allowed dtypes) names for a
-    tensor (launch); raise otherwise."""
+    are on one CUDA device, contiguous and (unless ``aligned`` is False, for
+    a kernel that masks unaligned rows itself) 16-byte aligned, in bf16 or
+    the dtypes that ``dtypes`` (tensor position -> allowed dtypes) names for
+    a tensor (launch); raise otherwise."""
     devs = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devs):
         return True
@@ -114,7 +116,7 @@ def _on_cpu(what: str, *tensors: torch.Tensor, dtypes: dict | None = None) -> bo
                             f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: the CUDA kernel needs contiguous tensors")
-        if t.data_ptr() % 16:
+        if aligned and t.data_ptr() % 16:
             raise ValueError(f"{what}: the CUDA kernel needs 16-byte aligned tensors")
     return False
 
@@ -181,13 +183,14 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
            epilogue: str, res: torch.Tensor | None = None,
            approx_gelu: bool = False) -> torch.Tensor:
     """Tiled bf16 GEMM with fp32 accumulation and a fused epilogue
-    (csrc/linear.cu).  ``res`` is required by ``BIAS_RESIDUAL`` only."""
+    (csrc/linear.cu), at any K and N.  ``res`` is required by
+    ``BIAS_RESIDUAL`` only."""
     if (epilogue, approx_gelu) not in _EPI_CODES:
         raise ValueError(f"linear: unknown epilogue {epilogue!r}")
     if (res is not None) != (epilogue == BIAS_RESIDUAL):
         raise ValueError("linear: res is given exactly for BIAS_RESIDUAL")
     tensors = (x, w, b) + ((res,) if res is not None else ())
-    if _on_cpu("linear", *tensors):
+    if _on_cpu("linear", *tensors, aligned=False):
         return linear_plain(x, w, b, epilogue=epilogue, res=res,
                             approx_gelu=approx_gelu)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
@@ -196,8 +199,6 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     n = w.shape[1]
     if b.shape != (n,) or (res is not None and res.shape != (m, n)):
         raise ValueError(f"linear: bad bias/residual shape for N={n}")
-    if k % 8 or n % 8:
-        raise ValueError(f"linear: K and N must be multiples of 8, got K={k} N={n}")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = build.load()
     rc = lib.evt_linear(_ptr(x), _ptr(w), _ptr(b),
@@ -291,14 +292,14 @@ def quant_rows_plain(h: torch.Tensor, act_inv: torch.Tensor | None = None,
 
 
 def quant_rows(h: torch.Tensor, act_inv: torch.Tensor | None = None, index: int = 0):
-    """:func:`quant_rows_plain` as one kernel (csrc/quant_rows.cu).  Static
-    mode reads ``inv_a`` from ``act_inv`` on the device (flat ``index``:
-    ``layer * 4 + matmul``), so a forward needs no host sync."""
+    """:func:`quant_rows_plain` as one kernel (csrc/quant_rows.cu), at any
+    K.  Static mode reads ``inv_a`` from ``act_inv`` on the device (flat
+    ``index``: ``layer * 4 + matmul``), so a forward needs no host sync."""
     tensors = (h,) + ((act_inv,) if act_inv is not None else ())
-    if _on_cpu("quant_rows", *tensors, dtypes={1: (torch.float32,)}):
+    if _on_cpu("quant_rows", *tensors, dtypes={1: (torch.float32,)}, aligned=False):
         return quant_rows_plain(h, act_inv, index)
-    if h.dim() != 2 or h.shape[1] % 16:
-        raise ValueError(f"quant_rows: h must be [M, K] with K % 16 == 0, got {tuple(h.shape)}")
+    if h.dim() != 2:
+        raise ValueError(f"quant_rows: h must be [M, K], got {tuple(h.shape)}")
     if act_inv is not None and not 0 <= index < act_inv.numel():
         raise IndexError(f"quant_rows: index {index} outside act_inv{tuple(act_inv.shape)}")
     m, k = h.shape
@@ -344,8 +345,8 @@ def linear_i8(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
               out_dtype: torch.dtype, res: torch.Tensor | None = None,
               approx_gelu: bool = False) -> torch.Tensor:
     """:func:`linear_i8_plain` as one kernel (csrc/linear_i8.cu): int8 WMMA
-    with int32 accumulation.  On the GPU the output and ``res`` are bf16,
-    ``b`` bf16 or fp32, and K and N multiples of 16."""
+    with int32 accumulation, at any K and N.  On the GPU the output and
+    ``res`` are bf16 and ``b`` bf16 or fp32."""
     if (epilogue, approx_gelu) not in _I8_EPI_CODES:
         raise ValueError(f"linear_i8: unknown epilogue {epilogue!r}")
     if (res is not None) != (epilogue == BIAS_RESIDUAL):
@@ -357,7 +358,7 @@ def linear_i8(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
         tensors.append(s_row)
     if res is not None:
         tensors.append(res)
-    if _on_cpu("linear_i8", *tensors, dtypes=dtypes):
+    if _on_cpu("linear_i8", *tensors, dtypes=dtypes, aligned=False):
         return linear_i8_plain(q, s_row, w_q, w_s, b, epilogue=epilogue,
                                out_dtype=out_dtype, res=res, approx_gelu=approx_gelu)
     if out_dtype != torch.bfloat16:
@@ -370,8 +371,6 @@ def linear_i8(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
             or (s_row is not None and s_row.shape != (m,))
             or (res is not None and res.shape != (m, n))):
         raise ValueError(f"linear_i8: bad scale/bias/residual shape for M={m} N={n}")
-    if k % 16 or n % 16:
-        raise ValueError(f"linear_i8: K and N must be multiples of 16, got K={k} N={n}")
     y = torch.empty((m, n), dtype=torch.bfloat16, device=q.device)
     lib = build.load()
     rc = lib.evt_linear_i8(_ptr(q), _ptr(s_row) if s_row is not None else None,
@@ -419,6 +418,47 @@ def stack_vit_layer_params(params: dict, depth: int, qkv_bias: bool,
         "fc2_w": stack(lambda b: b["ffn"]["fc2_kernel"]),
         "fc2_b": stack(lambda b: b["ffn"]["fc2_bias"]),
     }
+
+
+def stack_vit_layer_params_packed(params: dict, heads_per_layer, mlp_per_layer,
+                                  head_dim: int, qkv_bias: bool) -> dict:
+    """One uniform ``[L, ...]`` stack of every layer of a layerwise-pruned
+    model, each zero-padded to the largest heads and MLP width, so the whole
+    depth runs as one encoder chain with the largest heads.
+
+    Exact: a padded head has zero q, k and v columns (its attention output
+    is ``p @ 0 = 0``) and zero out-projection rows; a padded MLP unit has
+    zero fc1 weights and bias (``gelu(0) = 0``) and a zero fc2 row.  The
+    cost is the padded layers' extra work."""
+    hmax, mlp_max = max(heads_per_layer), max(mlp_per_layer)
+
+    def pad_to(a, size, axis):
+        shape = list(a.shape)
+        shape[axis] = size - a.shape[axis]
+        return torch.cat([a, a.new_zeros(shape)], dim=axis)
+
+    def pad_qkv(a, h, axis):  # each of the q, k, v sections to hmax heads
+        return torch.cat([pad_to(sec, hmax * head_dim, axis)
+                          for sec in a.split(h * head_dim, dim=axis)], dim=axis)
+
+    rows = []
+    for i, (h, m) in enumerate(zip(heads_per_layer, mlp_per_layer)):
+        b = params[f"block_{i}"]
+        qkv_w = b["attn"]["qkv_kernel"]
+        qkv_b = b["attn"]["qkv_bias"] if qkv_bias else qkv_w.new_zeros(3 * h * head_dim)
+        rows.append({
+            "ln1_g": b["ln1"]["scale"], "ln1_b": b["ln1"]["bias"],
+            "qkv_w": pad_qkv(qkv_w, h, 1), "qkv_b": pad_qkv(qkv_b, h, 0),
+            "out_w": pad_to(b["attn"]["out_kernel"], hmax * head_dim, 0),
+            "out_b": b["attn"]["out_bias"],
+            "ln2_g": b["ln2"]["scale"], "ln2_b": b["ln2"]["bias"],
+            "fc1_w": pad_to(b["ffn"]["fc1_kernel"], mlp_max, 1),
+            "fc1_b": pad_to(b["ffn"]["fc1_bias"], mlp_max, 0),
+            "fc2_w": pad_to(b["ffn"]["fc2_kernel"], mlp_max, 0),
+            "fc2_b": b["ffn"]["fc2_bias"],
+        })
+    out = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    return {k: v[:, None, :] if v.dim() == 2 else v for k, v in out.items()}
 
 
 def _encoder(x, stacked, ln, lin, attn, *, heads, head_dim, eps,

@@ -30,6 +30,9 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.ops.cuda.swin_block",
     "edgevisiontransformer_tpu_torch.ops.cuda.swin_merge",
     "edgevisiontransformer_tpu_torch.ops.cuda.window_sdpa",
+    "edgevisiontransformer_tpu_torch.ops.cuda.fused_attention",
+    "edgevisiontransformer_tpu_torch.ops.cuda.fused_mlp",
+    "edgevisiontransformer_tpu_torch.ops.cuda.layernorm",
     "edgevisiontransformer_tpu_torch.models",
     "edgevisiontransformer_tpu_torch.models.vit",
     "edgevisiontransformer_tpu_torch.models.t2t_vit",
@@ -37,6 +40,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.models.registry",
     "edgevisiontransformer_tpu_torch.utils.jax_bridge",
     "edgevisiontransformer_tpu_torch.bench.harness",
+    "edgevisiontransformer_tpu_torch.bench.sdpa_ab",
 ]
 
 

@@ -214,15 +214,21 @@ def test_fused_vit_apply_int8_defaults_variants_and_plain_flag():
 
 
 def test_fused_vit_apply_int8_refuses_multi_segment_models():
+    """A two-segment model runs one int8 chain per segment; what it refuses,
+    as the JAX function does, is a stack of another segmentation."""
     cfg = tvit.deit_config("tiny", **NARROW).replace(heads_per_layer=(2, 1),
                                                       mlp_dim_per_layer=(128, 64))
     model = tvit.ViT(cfg, device="cpu")
     sq = tvit.prepare_vit_int8(model)
     assert len(sq["segments"]) == 2
-    with pytest.raises(NotImplementedError, match="layerwise"):
-        tvit.fused_vit_apply_int8(model, torch.zeros(1, 3, 32, 32), stacked_q=sq)
-    with pytest.raises(NotImplementedError, match="layerwise"):
-        tvit.fused_vit_apply_int8(model, torch.zeros(1, 3, 32, 32))
+    img = torch.zeros(1, 3, 32, 32)
+    with pytest.raises(ValueError, match="segments into 2"):
+        tvit.fused_vit_apply_int8(model, img, stacked_q=sq["segments"][0])
+    with pytest.raises(ValueError, match="segments into 2"):
+        tvit.fused_vit_apply_int8(model, img, stacked_q={"segments": sq["segments"][:1]})
+    torch.testing.assert_close(tvit.fused_vit_apply_int8(model, img),
+                               tvit.fused_vit_apply_int8(model, img, stacked_q=sq),
+                               rtol=0, atol=0)
 
 
 def test_fused_vit_apply_int8_refuses_what_jax_refuses():

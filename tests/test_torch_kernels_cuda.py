@@ -14,10 +14,15 @@ import torch
 
 from edgevisiontransformer_tpu_torch.models import swin
 from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
+from edgevisiontransformer_tpu_torch.models.registry import build_model
 from edgevisiontransformer_tpu_torch.models.vit import (ViT, deit_config, fused_vit_apply,
-                                                         fused_vit_apply_int8, prepare_vit_int8,
+                                                         fused_vit_apply_int8, prepare_vit_fused,
+                                                         prepare_vit_int8,
                                                          prepare_vit_int8_static)
+from edgevisiontransformer_tpu_torch.ops.cuda import fused_attention as fa
 from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
+from edgevisiontransformer_tpu_torch.ops.cuda import fused_mlp as fm
+from edgevisiontransformer_tpu_torch.ops.cuda import layernorm as ln
 from edgevisiontransformer_tpu_torch.ops.cuda import swin_block as sb
 from edgevisiontransformer_tpu_torch.ops.cuda import swin_merge as sm
 from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
@@ -135,9 +140,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fe.ln_rows(xb.t().contiguous().t(), gb, bb, 1e-6)
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         fe.ln_rows(xb, gb.cpu(), bb, 1e-6)
-    with pytest.raises(ValueError, match="multiples of 8"):
+    with pytest.raises(ValueError, match="bad bias"):
         fe.linear(xb, torch.zeros(16, 12, device=dev, dtype=torch.bfloat16),
-                  torch.zeros(12, device=dev, dtype=torch.bfloat16),
+                  torch.zeros(8, device=dev, dtype=torch.bfloat16),
                   epilogue=fe.CAST_THEN_BIAS)
     with pytest.raises(ValueError, match="head_dim"):
         fe.attention_rows(torch.zeros(10, 3 * 48, device=dev, dtype=torch.bfloat16),
@@ -249,15 +254,15 @@ def test_fused_vit_apply_int8_on_kernels_matches_plain(dev, static):
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    h = _rnd(dev, 8, 24)
-    with pytest.raises(ValueError, match="K % 16"):
+    h = _rnd(dev, 2, 8, 24)
+    with pytest.raises(ValueError, match=r"\[M, K\]"):
         fe.quant_rows(h)
     with pytest.raises(TypeError, match="float32"):
         fe.quant_rows(_rnd(dev, 8, 32), torch.ones(2, 4, device=dev, dtype=torch.float64))
     q, w_q = _int8(dev, 8, 32), _int8(dev, 32, 24)
     ones = torch.ones(24, device=dev)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        fe.linear_i8(q, None, w_q, ones, ones, epilogue=fe.BIAS, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bad scale"):
+        fe.linear_i8(q, None, w_q, ones[:16], ones, epilogue=fe.BIAS, out_dtype=torch.bfloat16)
     w_q = _int8(dev, 32, 32)
     ones = torch.ones(32, device=dev)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -591,6 +596,228 @@ def test_swin_module_pallas_kernel_mode_on_the_kernel_matches_the_twin(dev, monk
         assert ws.LAUNCHES["window_sdpa"] == 6
         monkeypatch.setattr(ws, "window_sdpa", ws.window_sdpa_plain)
         ref = model(img)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+# ---------------------------------------------------------------------------
+# Any hidden width: linear, quant_rows and linear_i8 at a pruned model's K / N
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(197, 192, 230), (197, 230, 192), (394, 192, 537),
+                                   (197, 537, 192), (5, 13, 7)])
+@pytest.mark.parametrize("epilogue,approx", [
+    (fe.CAST_THEN_BIAS, False), (fe.CAST_THEN_BIAS_GELU, False), (fe.BIAS_RESIDUAL, False)])
+def test_linear_kernel_any_width_matches_twin(dev, m, k, n, epilogue, approx):
+    x, w = _rnd(dev, m, k), _rnd(dev, k, n, scale=k ** -0.5, seed=1)
+    b = _rnd(dev, n, scale=0.5, seed=2)
+    res = _rnd(dev, m, n, seed=3) if epilogue == fe.BIAS_RESIDUAL else None
+    kw = dict(epilogue=epilogue, res=res, approx_gelu=approx)
+    _close(fe.linear(x, w, b, **kw), fe.linear_plain(x, w, b, **kw))
+
+
+def test_linear_kernel_unaligned_stack_slices_match_twin(dev):
+    """Layer 1 of a [L, 1, 230] bias stack starts 460 bytes in: off its
+    16-byte boundary, as the stacks of a pruned model are."""
+    x = _rnd(dev, 197, 192)
+    w = _rnd(dev, 3, 192, 230, scale=192 ** -0.5, seed=1)
+    b = _rnd(dev, 3, 1, 230, scale=0.5, seed=2)
+    assert b[1, 0].data_ptr() % 16
+    kw = dict(epilogue=fe.CAST_THEN_BIAS_GELU)
+    _close(fe.linear(x, w[1], b[1, 0], **kw), fe.linear_plain(x, w[1], b[1, 0], **kw))
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("rows,k", [(197, 230), (197, 537), (394, 460), (9, 13)])
+def test_quant_rows_kernel_any_width_equals_twin(dev, rows, k, static):
+    h = _rnd(dev, rows, k, scale=3.0)
+    h[0] = 0  # absmax 0: s = 1
+    act_inv = (30.0 * _uniform(dev, 3, 4, seed=1)).contiguous() if static else None
+    q, s = fe.quant_rows(h, act_inv, 7)
+    q_p, s_p = fe.quant_rows_plain(h, act_inv, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_p) and (static or torch.equal(s, s_p))
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("m,k,n", [(197, 192, 230), (197, 230, 192), (197, 537, 192),
+                                   (394, 192, 537), (5, 13, 7)])
+@pytest.mark.parametrize("epilogue,approx", [
+    (fe.BIAS, False), (fe.BIAS_GELU, False), (fe.BIAS_RESIDUAL, False)])
+def test_linear_i8_kernel_any_width_matches_twin(dev, m, k, n, epilogue, approx, static):
+    """Bit for bit, except the GELU epilogue."""
+    unit = 1.0 / (73.0 * 73.0 * k ** 0.5)
+    q, w_q = _int8(dev, m, k), _int8(dev, k, n, seed=1)
+    s_row = None if static else _uniform(dev, m, seed=2) * 0.05
+    w_s = _uniform(dev, n, seed=3) * (unit if static else unit / 0.05)
+    b = torch.randn(n, device=dev)
+    res = _rnd(dev, m, n, seed=4) if epilogue == fe.BIAS_RESIDUAL else None
+    kw = dict(epilogue=epilogue, out_dtype=torch.bfloat16, res=res, approx_gelu=approx)
+    got = fe.linear_i8(q, s_row, w_q, w_s, b, **kw)
+    ref = fe.linear_i8_plain(q, s_row, w_q, w_s, b, **kw)
+    if epilogue == fe.BIAS_GELU:
+        _close(got, ref)
+    else:
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
+
+
+# ---------------------------------------------------------------------------
+# The ViT module's kernel_mode="pallas" path: sdpa (K13), mlp (K14),
+# layer_norm (K15 on ln_rows)
+# ---------------------------------------------------------------------------
+
+
+def _qkv_views(dev, b, h, n, d, seed=0):
+    """q, k, v of [b, h, n, d] as views of a fused [b, n, 3 h d] activation."""
+    qkv = _rnd(dev, b, n, 3 * h * d, seed=seed)
+    parts = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+    return parts[0], parts[1], parts[2]
+
+
+@pytest.mark.parametrize("b,h,n,d", [(1, 3, 197, 64), (128, 3, 197, 64), (1, 6, 197, 64),
+                                     (2, 1, 197, 64), (2, 2, 50, 32), (1, 2, 577, 64),
+                                     (2, 4, 65, 16), (1, 2, 100, 128), (1, 1, 1, 64)])
+def test_sdpa_kernel_matches_twin_and_counts(dev, b, h, n, d):
+    q, k, v = _qkv_views(dev, b, h, n, d)
+    fa.reset_launches()
+    got = fa.sdpa(q, k, v)
+    assert fa.LAUNCHES["sdpa"] == 1 and got.is_contiguous()
+    _close(got, fa.sdpa_plain(q, k, v))
+
+
+def test_sdpa_large_scores_subtract_the_row_max(dev):
+    q, k, v = _qkv_views(dev, 1, 2, 197, 64)
+    q, k = q * 12, k * 12  # exp of the raw scores would overflow
+    _close(fa.sdpa(q, k, v), fa.sdpa_plain(q, k, v))
+
+
+def test_attention_writes_the_merged_heads_in_place(dev):
+    x = _rnd(dev, 2, 197, 192)
+    w_qkv, b_qkv = _rnd(dev, 192, 576, scale=0.05, seed=1), _rnd(dev, 576, scale=0.05, seed=2)
+    w_out, b_out = _rnd(dev, 192, 192, scale=0.05, seed=3), _rnd(dev, 192, scale=0.05, seed=4)
+    fa.reset_launches()
+    got = fa.attention(x, w_qkv, b_qkv, w_out, b_out, 3, 64)
+    assert fa.LAUNCHES["sdpa"] == 1
+    qkv = x @ w_qkv + b_qkv
+    q, k, v = (t.contiguous() for t in qkv.view(2, 197, 3, 3, 64).permute(2, 0, 3, 1, 4))
+    o = fa.sdpa_plain(q, k, v).permute(0, 2, 1, 3).reshape(2, 197, 192)
+    _close(got, o @ w_out + b_out)
+
+
+@pytest.mark.parametrize("rows,dim,hidden", [(197, 192, 768), (25216, 192, 768),
+                                             (1576, 768, 3072), (197, 192, 230),
+                                             (197, 192, 537), (394, 384, 460), (3, 64, 13)])
+@pytest.mark.parametrize("approx", [False, True])
+def test_mlp_kernel_matches_twin_and_counts(dev, rows, dim, hidden, approx):
+    x = _rnd(dev, rows, dim, scale=2.0)
+    w1, b1 = _rnd(dev, dim, hidden, scale=dim ** -0.5, seed=1), _rnd(dev, hidden, seed=2)
+    w2, b2 = _rnd(dev, hidden, dim, scale=hidden ** -0.5, seed=3), _rnd(dev, dim, seed=4)
+    fm.reset_launches()
+    got = fm.mlp(x, w1, b1, w2, b2, approx_gelu=approx)
+    assert fm.LAUNCHES["mlp"] == 1
+    _close(got, fm.mlp_plain(x, w1, b1, w2, b2, approx_gelu=approx))
+
+
+def test_layer_norm_is_one_ln_rows_launch(dev):
+    x = _rnd(dev, 4, 197, 192, scale=3.0)
+    g, b = _rnd(dev, 192, seed=1) + 1, _rnd(dev, 192, seed=2)
+    fe.reset_launches()
+    got = ln.layer_norm(x, g, b, 1e-6)
+    assert fe.LAUNCHES["ln_rows"] == 1 and got.shape == x.shape
+    _close(got, ln.layer_norm_plain(x, g, b, 1e-6))
+
+
+def test_pallas_wrappers_raise_on_the_card_rather_than_fall_back(dev):
+    q, k, v = _qkv_views(dev, 1, 2, 50, 32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.sdpa(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.sdpa(*_qkv_views(dev, 1, 2, 50, 48))
+    with pytest.raises(ValueError, match="at most"):
+        fa.sdpa(*_qkv_views(dev, 1, 1, 1000, 64))
+    odd = _rnd(dev, 1, 2, 50, 36)[..., :32]  # rows 36 values apart: not 16-byte vectors
+    with pytest.raises(ValueError, match="strides"):
+        fa.sdpa(odd, odd, odd)
+    x, w1, w2 = _rnd(dev, 8, 64), _rnd(dev, 64, 96), _rnd(dev, 96, 64)
+    b1, b2 = _rnd(dev, 96), _rnd(dev, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fm.mlp(x.float(), w1.float(), b1.float(), w2.float(), b2.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fm.mlp(_rnd(dev, 8, 60), w1[:60], b1, _rnd(dev, 96, 60), b2[:60])
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        fm.mlp(x, w1.cpu(), b1, w2, b2)
+
+
+def _module_counts():
+    return {**fe.LAUNCHES, **fa.LAUNCHES, **fm.LAUNCHES}
+
+
+def _reset_module_counts():
+    for m in (fe, fa, fm):
+        m.reset_launches()
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("deit_tiny", dict(depth=2)), ("deit_tiny", dict(depth=2, style="reference")),
+    ("pruned_deit_tiny@layerwise_h1-d0.3_h2-d0.5", dict(depth=2))])
+def test_vit_module_pallas_kernel_mode_on_the_kernels_matches_the_twins(dev, monkeypatch,
+                                                                       name, kw):
+    model, shape = build_model(name, kernel_mode="pallas", dtype=torch.bfloat16, device=dev,
+                               generator=torch.Generator().manual_seed(1), **kw)
+    img = torch.randn(2, *shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        _reset_module_counts()
+        got = model(img)
+        counts = _module_counts()
+        monkeypatch.setattr(fa, "sdpa", fa.sdpa_plain)
+        monkeypatch.setattr(fm, "mlp", fm.mlp_plain)
+        ref = model(img)
+    assert counts["sdpa"] == 2 and counts["mlp"] == 2
+    assert sum(counts.values()) == 4  # LayerNorm and the projections stay torch ops
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("enc,pack", [("all_head1_ffn0.3", False),
+                                      ("layerwise_h1-d0.3_h1-d0.3_h2-d0.5", False),
+                                      ("layerwise_h1-d0.3_h1-d0.3_h2-d0.5", True)])
+def test_pruned_fused_vit_apply_on_kernels_matches_plain_and_counts(dev, enc, pack):
+    model, shape = build_model(f"pruned_deit_tiny@{enc}", depth=3, dtype=torch.bfloat16,
+                               device=dev, generator=torch.Generator().manual_seed(1))
+    img = torch.randn(2, *shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        stacked = prepare_vit_fused(model, pack_layers=pack)
+        fe.reset_launches()
+        got = fused_vit_apply(model, img, stacked=stacked, pack_layers=pack)
+        counts = dict(fe.LAUNCHES)
+        ref = fused_vit_apply(model, img, stacked=stacked, pack_layers=pack, plain=True)
+    assert counts == {"ln_rows": 6, "linear": 12, "attention_rows": 3, "quant_rows": 0,
+                      "linear_i8": 0}
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("enc", ["all_head1_ffn0.3", "layerwise_h1-d0.3_h1-d0.3_h2-d0.5"])
+def test_pruned_fused_vit_apply_int8_on_kernels_matches_plain_and_counts(dev, enc, static):
+    model, shape = build_model(f"pruned_deit_tiny@{enc}", depth=3, dtype=torch.bfloat16,
+                               device=dev, generator=torch.Generator().manual_seed(1))
+    img = torch.randn(2, *shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        sq = (prepare_vit_int8_static(model, calib_batches=[img[:1].cpu().numpy()]) if static
+              else prepare_vit_int8(model))
+        assert ("segments" in sq) == enc.startswith("layerwise")
+        fe.reset_launches()
+        got = fused_vit_apply_int8(model, img, stacked_q=sq)
+        counts = dict(fe.LAUNCHES)
+        ref = fused_vit_apply_int8(model, img, stacked_q=sq, plain=True)
+    assert counts == {"ln_rows": 6, "linear": 0, "attention_rows": 3, "quant_rows": 12,
+                      "linear_i8": 12}
     torch.cuda.synchronize()
     assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
     assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()

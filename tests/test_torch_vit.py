@@ -116,12 +116,21 @@ def test_nonorm_relu_forward_matches_and_fused_refuses():
 
 
 def test_fused_vit_apply_refuses_multi_segment_models():
+    """A two-segment model runs one chain per segment; what it refuses is a
+    stack built for another segmentation (a uniform stack for a
+    two-segment model, a segmented one under ``pack_layers``)."""
     cfg = tvit.deit_config("tiny", **NARROW).replace(heads_per_layer=(2, 1),
                                                       mlp_dim_per_layer=(128, 64))
     assert tvit.encoder_segments(cfg) == jvit.encoder_segments(cfg) == [
         (0, 1, 2, 128), (1, 1, 1, 64)]
-    with pytest.raises(NotImplementedError, match="layerwise"):
-        tvit.fused_vit_apply(tvit.ViT(cfg, device="cpu"), torch.zeros(1, 3, 32, 32))
+    model = tvit.ViT(cfg, device="cpu")
+    img = torch.zeros(1, 3, 32, 32)
+    segmented = tvit.prepare_vit_fused(model)
+    with pytest.raises(ValueError, match="segments into 2"):
+        tvit.fused_vit_apply(model, img, stacked=segmented["segments"][0])
+    with pytest.raises(ValueError, match="pack_layers=True"):
+        tvit.fused_vit_apply(model, img, stacked=segmented, pack_layers=True)
+    assert tvit.fused_vit_apply(model, img, stacked=segmented).shape == (1, 10)
 
 
 @pytest.mark.parametrize("name", ["deit_tiny", "deit_small", "deit_base"])
