@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero before the last line:
    within a tolerance; ``quant_rows`` (dynamic and static) and the non-GELU
    ``linear_i8`` epilogues bit for bit, its GELU epilogue within the
    tolerance; ``stage1_kqv`` (the T2T stage-1 tokenizer) at b1 and b4 on
-   random-normal and constant images, within the tolerance;
+   random-normal and constant images, within the tolerance; ``vit_full``
+   (the whole DeiT forward, K7a/K7b) at depth 2, and ``performer_reduce`` /
+   ``performer_rows`` (the T2T TokenPerformer, K16) at the tokenizer's two
+   stage shapes and a ragged token count, within the tolerance;
 4. run the slices: ``build_model("deit_tiny")`` at full width and depth with
    seeded random weights through ``fused_vit_apply`` on the kernels — three
    b1 requests and one b128 in standard style, one b1 in reference style,
@@ -36,10 +39,17 @@ Phases, in order; any failure exits non-zero before the last line:
    ``pruned_deit_tiny@all_head1_ffn0.3`` through ``fused_vit_apply`` and
    static ``fused_vit_apply_int8`` at b1 and b128, the two-segment layerwise
    encoding through ``fused_vit_apply`` (segmented and packed) and the
-   module at b1 — checking for each the logits against the plain twins on
-   the card, the exact kernel launch counts, and finiteness;
-5. time t2t_vit_14 b1 and b32, bf16 and int8 static (eager p50, device p50,
-   device time by kernel at b1) and its two tokenizer forms at b1, b8 and b32;
+   module at b1, and ``fully_fused_vit_apply`` (one ``vit_full`` launch per
+   forward, and one device kernel in a profiler trace) on deit_tiny b1 and
+   b128 and deit_base b8, also held against ``fused_vit_apply`` — checking
+   for each the logits against the plain twins on the card, the exact kernel
+   launch counts, and finiteness;
+5. time ``fully_fused_vit_apply`` at deit_tiny b1 and b128 and deit_base b1
+   beside ``fused_vit_apply`` (eager and device p50, idle share) and the cost
+   of one grid barrier; t2t_vit_14 b1 and b32, bf16, int8 static and int8
+   static with the int8 stem (eager p50, device p50, device time by kernel at
+   b1) and its two tokenizer forms at b1, b8 and b32, each with K16 and with
+   the eager performer chain;
    swin_tiny b1 and b32, bf16, int8 static and dynamic, and the
    ``kernel_mode="pallas"`` module (eager p50, device p50, peak memory,
    device time by kernel at b1); the deit_tiny ``kernel_mode="pallas"``
@@ -61,6 +71,11 @@ b32), ``ln_rows`` / ``linear`` at Swin's widths, ``quant_rows`` /
 biases), ``sdpa`` (K13) and ``mlp`` (K14) at the module path's shapes,
 ``layer_norm`` (K15, on ``ln_rows``), and ``linear`` / ``quant_rows`` /
 ``linear_i8`` at a pruned model's hidden widths 230 and 537 to their twins.
+
+The t2t_vit_14 slices of phase 4 run K16 (two launches per performer) and,
+once at b1 and b32, the static int8 stem (``prepare_t2t_stem_int8_static``,
+calibrated on 8 representative batches) through ``quant_rows`` /
+``linear_i8``.
 
 The line before last is the card's name and power limit; the one before it
 a JSON object with every kernel's launches, error, times and yardsticks; the
@@ -100,7 +115,10 @@ KERNELS = {"ln_rows": ("ln_rows.cu", f"{TPU}:54"),
            "swin_merge": ("swin_merge.cu", f"{PALLAS}/swin_merge.py:73"),
            "window_sdpa": ("window_sdpa.cu", f"{PALLAS}/window_attention.py:102"),
            "sdpa": ("sdpa.cu", f"{PALLAS}/fused_attention.py:56"),
-           "mlp": ("mlp.cu", f"{PALLAS}/fused_mlp.py:60")}
+           "mlp": ("mlp.cu", f"{PALLAS}/fused_mlp.py:60"),
+           "vit_full": ("vit_full.cu", f"{PALLAS}/fused_vit_full.py:177"),
+           "performer_reduce": ("performer.cu", f"{PALLAS}/performer.py:148"),
+           "performer_rows": ("performer.cu", f"{PALLAS}/performer.py:148")}
 # The launches one encoder layer makes; stage1_kqv launches once per forward
 # that takes the stage-1 tokenizer (a T2T-ViT batch below 8).
 BF16_LAUNCHES = {"ln_rows": 2, "linear": 4, "attention_rows": 1, "quant_rows": 0, "linear_i8": 0}
@@ -142,6 +160,18 @@ PRUNED_UNIFORM = "pruned_deit_tiny@all_head1_ffn0.3"
 PRUNED_LAYERWISE = ("pruned_deit_tiny@layerwise_" + "_".join(["h1-d0.3"] * 6 + ["h2-d0.5"] * 6))
 # The module path's kernels per encoder layer (kernel_mode="pallas")
 MODULE_LAUNCHES = {"sdpa": 1, "mlp": 1}
+# vit_full at depth 2 in phase 3: (name, batch, config overrides); the
+# reference-residual config keeps the linear head (the whole-model path
+# refuses the two-layer one)
+FULL_CHECKS = (("deit_tiny", 1, {}), ("deit_tiny", 8, {}),
+               ("deit_tiny res=h tanh", 1, dict(reference_residual=True, gelu_approx=True)),
+               ("deit_tiny no final norm", 8, dict(final_norm=False)))
+# fully_fused_vit_apply in phase 4 (on phase_slice's models) and phase 5
+FULL_REQUESTS = (("deit_tiny", 1, 2000), ("deit_tiny", 128, 2010), ("deit_base", 8, 2020))
+FULL_TIMES = (("deit_tiny", 1), ("deit_tiny", 128), ("deit_base", 1))
+# K16 at (batch, tokens): stage 1 (56 x 56) and stage 2 (28 x 28) of a
+# 224 x 224 image at b1 and b4, and token counts off the 64-row tile
+PERFORMER_SHAPES = ((1, 3136), (4, 3136), (1, 784), (4, 784), (2, 300), (1, 50))
 # sdpa at the module path's shapes, [b, h, n, d]: deit_tiny b1 and b128,
 # t2t_vit_14 b1, pruned h1 b1 and b128, head_dim 32
 SDPA_SHAPES = {"deit_tiny b1": (1, 3, 197, 64), "deit_tiny b128": (128, 3, 197, 64),
@@ -193,10 +223,17 @@ def phase_env(torch, build) -> str:
 
 
 def phase_build(build) -> float:
+    """Build the library (a fresh checkout has none), print ptxas's registers
+    and spills for each kernel, load it; returns the build time."""
     t0 = time.perf_counter()
+    path = build.library_path()
+    report = build.compile_library(path) if not path.exists() else {}
     build.load()
     dt = time.perf_counter() - t0
-    print(f"kernels built and loaded in {dt:.2f} s: {build.library_path()}")
+    print(f"kernels built and loaded in {dt:.2f} s: {path}")
+    for src, lines in report.items():
+        for line in lines:
+            print(f"  ptxas {src}: {line}")
     return dt
 
 
@@ -220,9 +257,16 @@ class Launches:
         return {k: v for m in self.modules for k, v in m.LAUNCHES.items()}
 
 
-def want_launches(per_layer: dict, depth: int, stage1: int = 0) -> dict:
-    return {**{k: 0 for k in KERNELS}, **{k: v * depth for k, v in per_layer.items()},
-            "stage1_kqv": stage1}
+def want_launches(per_layer: dict, depth: int, stage1: int = 0, performers: int = 0,
+                  stem: int = 0) -> dict:
+    """The launches of one forward: ``per_layer`` times ``depth``, the stage-1
+    kernel, K16's two kernels once per performer, and one ``quant_rows`` and
+    one ``linear_i8`` per int8 stem matmul."""
+    want = {**{k: 0 for k in KERNELS}, **{k: v * depth for k, v in per_layer.items()},
+            "stage1_kqv": stage1, "performer_reduce": performers, "performer_rows": performers}
+    want["quant_rows"] += stem
+    want["linear_i8"] += stem
+    return want
 
 
 def want_swin_launches(cfg, int8_stages=()) -> dict:
@@ -657,12 +701,104 @@ def phase_kernels_ragged(torch, fe, harness):
     return errs
 
 
+def phase_kernel_vit_full(torch, vf, harness):
+    """``vit_full`` against its twin at depth 2 (``FULL_CHECKS``: deit_tiny
+    widths at b1 and b8, the reference residual with tanh GELU, no final
+    norm), fp32 images, within ``KERNEL_ATOL + KERNEL_RTOL * max|twin|``;
+    returns max_abs_err."""
+    from edgevisiontransformer_tpu_torch.models.vit import ViT, deit_config, prepare_vit_full
+
+    worst = 0.0
+    for label, batch, kw in FULL_CHECKS:
+        cfg = deit_config("tiny", depth=2, dtype=torch.bfloat16, **kw)
+        model = ViT(cfg, device=DEVICE, generator=torch.Generator().manual_seed(21))
+        prep = prepare_vit_full(model)
+        img = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(22))
+        img = img.to(DEVICE)
+        args = dict(heads=cfg.heads, head_dim=cfg.resolved_head_dim, eps=cfg.layernorm_eps,
+                    reference_residual=cfg.reference_residual, approx_gelu=cfg.gelu_approx,
+                    final_norm=cfg.final_norm)
+        with torch.no_grad():
+            got = vf.vit_full_forward(img, prep, **args)
+            torch.cuda.synchronize()
+            ref = vf.vit_full_forward_plain(img, prep, **args)
+        # a whole forward's logits: a one-spacing flip anywhere upstream moves
+        # every logit alike, so the bound scales with the largest logit
+        err = float((got.float() - ref.float()).abs().max())
+        bound = KERNEL_ATOL + KERNEL_RTOL * float(ref.float().abs().max())
+        if err > bound or not torch.isfinite(got.float()).all():
+            fail(f"vit_full at {label} depth 2 b{batch}: max |kernel - twin| {err:.4g} over "
+                 f"{KERNEL_ATOL} + {KERNEL_RTOL:.4g} max|twin| = {bound:.4g}")
+        worst = max(worst, err)
+        with torch.no_grad():
+            time_pair(harness, f"{label} d2 b{batch}", "vit_full", err,
+                      lambda: vf.vit_full_forward(img, prep, **args),
+                      lambda: vf.vit_full_forward_plain(img, prep, **args))
+    return worst
+
+
+def performer_params(torch, gen):
+    """Random TokenPerformer params (fp32, the model's param dtype) and its
+    random-feature matrix ``w [32, 64]`` on the card."""
+    def r(*shape, scale=0.1, base=0.0):
+        return torch.randn(*shape, generator=gen, device=DEVICE) * scale + base
+    p = {"attn_output": {"kernel": r(64, 64), "bias": r(64)}, "norm2_scale": r(64, base=1.0),
+         "norm2_bias": r(64), "mlp_fc1_kernel": r(64, 64), "mlp_fc1_bias": r(64),
+         "mlp_fc2_kernel": r(64, 64), "mlp_fc2_bias": r(64)}
+    return p, r(32, 64, scale=0.3)
+
+
+def phase_kernel_performer(torch, pf, harness):
+    """``performer_reduce`` (its chunk partials) and ``performer_rows`` (on the
+    twin's partials) against their twins at ``PERFORMER_SHAPES``, both GELU
+    forms; returns ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} summed
+    over one t2t_vit_14 b1 tokenizer's two performers)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    p, w = performer_params(torch, gen)
+    errs = {"performer_reduce": 0.0, "performer_rows": 0.0}
+    b1_ms = {"performer_reduce": (0.0, 0.0), "performer_rows": (0.0, 0.0)}
+
+    def check(kname, label, tag, kern, plain, reps):
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, ok = within(got, ref, KERNEL_RTOL, KERNEL_ATOL)
+        if not ok or not torch.isfinite(got.float()).all():
+            fail(f"{label} at {tag}: max |kernel - twin| {err:.4g} over {KERNEL_ATOL} + "
+                 f"{KERNEL_RTOL:.4g}|twin|")
+        errs[kname] = max(errs[kname], err)
+        t_k, t_p = time_pair(harness, tag, label, err, kern, plain)
+        tk, tp = b1_ms[kname]
+        b1_ms[kname] = (tk + reps * t_k, tp + reps * t_p)
+
+    for batch, n in PERFORMER_SHAPES:
+        x = (torch.randn(batch, n, 192, generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
+        tag = f"performer b{batch} n{n}"
+        reps = int(batch == 1 and n in (3136, 784))  # a t2t_vit_14 b1 tokenizer
+        check("performer_reduce", "performer_reduce", tag, lambda: pf.performer_reduce(x, w),
+              lambda: pf.performer_reduce_plain(x, w), reps)
+        partial = pf.performer_reduce_plain(x, w)
+        for approx in (True, False):
+            kw = dict(eps_ln=1e-5, approx_gelu=approx)
+            check("performer_rows", f"performer_rows {'tanh' if approx else 'erf'}", tag,
+                  lambda: pf.performer_rows(x, partial, p, w, **kw),
+                  lambda: pf.performer_rows_plain(x, partial, p, w, **kw), reps * int(approx))
+            got = pf.performer_rest(x, p, w, **kw)
+            torch.cuda.synchronize()
+            err, ok = within(got, pf.performer_rest_plain(x, p, w, **kw), KERNEL_RTOL, KERNEL_ATOL)
+            if not ok:
+                fail(f"performer_rest at {tag}: max |kernels - twins| {err:.4g}")
+    return errs, b1_ms
+
+
 def phase_slice_t2t(torch, counter):
     """t2t_vit_14 (reference style, full width and depth) through
     ``fused_t2t_apply`` and, with a static stack calibrated on 8
     representative batches, ``fused_t2t_apply_int8``, at b1 (the stage-1
-    kernel) and b32 (the plain-unfold tokenizer); returns (launches, worst
-    deviation, the model state for phase 5)."""
+    kernel) and b32 (the plain-unfold tokenizer), both performers on K16;
+    then ``fused_t2t_apply_int8`` with the static int8 stem
+    (``prepare_t2t_stem_int8_static``, 8 representative batches) at b1 and
+    b32; returns (launches, worst deviation, the model state for phase 5)."""
     from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
     from edgevisiontransformer_tpu_torch.models.registry import build_model
     from edgevisiontransformer_tpu_torch.models.vit import prepare_vit_fused
@@ -676,19 +812,24 @@ def phase_slice_t2t(torch, counter):
         prepared, stacked = t2t.prepare_t2t_fused(model), prepare_vit_fused(model)
         sq = t2t.prepare_t2t_int8_static(model,
                                          calib_batches=representative_batches(n=8, shape=shape))
+        stem = t2t.prepare_t2t_stem_int8_static(model,
+                                                batches=representative_batches(n=8, shape=shape))
     torch.cuda.synchronize()
     print(f"  t2t_vit_14 (dim {cfg.dim}, depth {cfg.depth}, heads {cfg.heads}, mlp "
-          f"{cfg.mlp_dim}): stage-1 weights, bf16 stack and static int8 stack prepared in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{cfg.mlp_dim}): stage-1 weights, bf16 stack, static int8 stack and int8 stem "
+          f"prepared in {time.perf_counter() - t0:.2f} s; stem act scales "
+          f"{ {k: round(float(e['act_scale']), 6) for k, e in stem.items()} }")
     slices = {
-        "bf16": (BF16_LAUNCHES, lambda img, plain: t2t.fused_t2t_apply(
+        "bf16": (BF16_LAUNCHES, False, lambda img, plain: t2t.fused_t2t_apply(
             model, img, prepared=prepared, stacked=stacked, plain=plain)),
-        "int8 static": (INT8_LAUNCHES, lambda img, plain: t2t.fused_t2t_apply_int8(
+        "int8 static": (INT8_LAUNCHES, False, lambda img, plain: t2t.fused_t2t_apply_int8(
             model, img, stacked_q=sq, prepared=prepared, plain=plain)),
+        "int8 static + stem": (INT8_LAUNCHES, True, lambda img, plain: t2t.fused_t2t_apply_int8(
+            model, img, stacked_q=sq, prepared=prepared, stem_q=stem, plain=plain)),
     }
     launches = {k: 0 for k in counter.read()}
     worst = 0.0
-    for slice_name, (per_layer, apply) in slices.items():
+    for slice_name, (per_layer, with_stem, apply) in slices.items():
         for batch, seed in zip(T2T_BATCHES, (1000, 1100)):
             tag = f"t2t_vit_14 {slice_name} b{batch}"
             img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(seed))
@@ -699,29 +840,35 @@ def phase_slice_t2t(torch, counter):
                 torch.cuda.synchronize()
                 counts = counter.read()
                 ref = apply(img, True)
-            want = want_launches(per_layer, cfg.depth, stage1=int(batch < 8))
+            # the stem's kqv1 is int8 only in the plain-unfold form (batch >= 8)
+            stem_mm = (2 if batch < 8 else 3) if with_stem else 0
+            want = want_launches(per_layer, cfg.depth, stage1=int(batch < 8), performers=2,
+                                 stem=stem_mm)
             if counts != want:
                 fail(f"{tag}: launch counts {counts}, expected {want}")
             for k, v in counts.items():
                 launches[k] += v
             rel, err, scale, agree = check_logits(tag, logits, ref, batch, cfg.num_classes)
             worst = max(worst, rel)
-            print(f"  {tag:28s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} "
-                  f"(max|logit| {scale:.4g}), top-1 agreement {agree:.3f}, launches {counts}")
-    return launches, worst, (model, shape, prepared, stacked, sq)
+            print(f"  {tag:32s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} "
+                  f"(max|logit| {scale:.4g}), top-1 agreement {agree:.3f}, launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+    return launches, worst, (model, shape, prepared, stacked, sq, stem)
 
 
 def phase_time_t2t(torch, harness, state):
-    """t2t_vit_14 b1 and b32, bf16 and int8 static: eager and device p50
-    (device time by kernel at b1); then the two tokenizer forms at b1, b8
-    and b32."""
+    """t2t_vit_14 b1 and b32, bf16, int8 static and int8 static with the int8
+    stem: eager and device p50 (device time by kernel at b1); then the two
+    tokenizer forms at b1, b8 and b32, with K16 and with the eager chain."""
     from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
 
-    model, shape, prepared, stacked, sq = state
+    model, shape, prepared, stacked, sq, stem = state
     slices = {
         "bf16": lambda img: t2t.fused_t2t_apply(model, img, prepared=prepared, stacked=stacked),
         "int8 static": lambda img: t2t.fused_t2t_apply_int8(model, img, stacked_q=sq,
                                                              prepared=prepared),
+        "int8 static + stem": lambda img: t2t.fused_t2t_apply_int8(
+            model, img, stacked_q=sq, prepared=prepared, stem_q=stem),
     }
     with torch.no_grad():
         for slice_name, apply in slices.items():
@@ -746,16 +893,26 @@ def phase_time_t2t(torch, harness, state):
                                                             fast=True, stage1_impl="kernel"),
             "plain unfold": lambda img: t2t.t2t_tokenize(model, img, fast=False),
         }
+        k16 = t2t.performer_rest
+
+        def eager_chain(x, p, w, **_):  # the JAX package's XLA chain, as ops
+            return t2t._performer_rest(x, p, w, model.config)
+
         for batch in TOKENIZER_BATCHES:
             img = torch.randn(batch, *shape,
                               generator=torch.Generator().manual_seed(batch)).to(DEVICE)
             for form, tokenize in forms.items():
-                fn = lambda: tokenize(img)  # noqa: E731
-                e = harness.measure_op_time(fn, (), iters=10, repeats=5)
-                d = harness.measure_graph_time(fn, iters=10, repeats=5)
-                print(f"  t2t_vit_14 tokenizer b{batch} {form:14s}: device p50 "
-                      f"{d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}), eager p50 "
-                      f"{e['p50_ms']:.4f} ms")
+                for perf_name, perf in (("K16", k16), ("eager chain", eager_chain)):
+                    t2t.performer_rest = perf
+                    try:
+                        fn = lambda: tokenize(img)  # noqa: E731
+                        e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+                        d = harness.measure_graph_time(fn, iters=10, repeats=5)
+                    finally:
+                        t2t.performer_rest = k16
+                    print(f"  t2t_vit_14 tokenizer b{batch} {form:14s} performers "
+                          f"{perf_name:11s}: device p50 {d['p50_ms']:.4f} ms (std "
+                          f"{d['std_ms']:.4f}), eager p50 {e['p50_ms']:.4f} ms")
 
 
 def phase_slice_swin(torch, counter):
@@ -1118,7 +1275,9 @@ def phase_yardsticks(torch, harness):
     quant_rows and linear_i8 static; sdpa and mlp: the kernel_mode="pallas"
     module's), one t2t_vit_14 b1 stage1_kqv call, one swin_tiny b1 forward
     (window_attention, swin_merge; window_sdpa: the kernel_mode="pallas"
-    module's).  Bytes count each
+    module's), one deit_tiny b128 forward (vit_full), one t2t_vit_14 b1
+    tokenizer's two performers (performer_reduce, performer_rows).  Bytes
+    count each
     input read once and each output written once; operations are the
     tensor-core products for the GEMMs and attention (bf16 or int8), ~8
     fp32 operations per element for a LayerNorm, 3 for a quantization.  The
@@ -1223,6 +1382,40 @@ def phase_yardsticks(torch, harness):
     out["mlp"] = (*_bound(2 * (2 * m * dim + 2 * dim * mlp + mlp + dim),
                           {"bf16": 4 * m * dim * mlp}),
                   lib([(lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, xm, w1)), w2), 1)]))
+    # vit_full: one deit_tiny b128 forward (12 layers, fp32 image in, bf16
+    # logits out); inputs are the image and every weight, read once
+    b, depth, pin, classes = 128, 12, 768, 1000
+    wbytes = 2 * (pin * dim + n * dim + 2 * dim + dim * classes + classes + depth * (
+        3 * dim * dim + 3 * dim + dim * dim + dim + 4 * dim + 2 * dim * mlp + mlp + dim))
+    flops = 2 * b * ((n - 1) * pin * dim + dim * classes
+                     + depth * (n * (4 * dim * dim + 2 * dim * mlp) + 2 * n * n * dim))
+    out["vit_full"] = (*_bound(wbytes + 4 * b * 3 * 224 * 224 + 2 * b * classes,
+                               {"bf16": flops}), None)
+    # K16 at one t2t_vit_14 b1 tokenizer: both performers (n = 3136, 784);
+    # ts = 64, m = 32, 256-token chunks
+    ts, mf, rb, rf, rrows, rrows16 = 64, 32, 0, 0, 0, 0
+    rrows_bytes = 0
+    for nt in (3136, 784):
+        chunks = -(-nt // 256)
+        rb += 2 * nt * 2 * ts + 2 * mf * ts + 4 * chunks * mf * (1 + ts)
+        rf += nt * (4 * mf * ts + ts + mf)
+        rrows_bytes += (2 * nt * 2 * ts + 4 * chunks * mf * (1 + ts) + 2 * (mf * ts + 3 * ts * ts)
+                        + 4 * 5 * ts + 2 * nt * ts)
+        rrows += nt * (4 * mf * ts + 2 * mf + ts)
+        rrows16 += 3 * 2 * nt * ts * ts
+    out["performer_reduce"] = (*_bound(rb, {"fp32": rf}), None)
+    out["performer_rows"] = (*_bound(rrows_bytes, {"fp32": rrows, "bf16": rrows16}), None)
+    from edgevisiontransformer_tpu_torch.config import ViTConfig
+    from edgevisiontransformer_tpu_torch.models.t2t_vit import _performer_rest
+
+    pp, pw = performer_params(torch, gen)
+    cfg = ViTConfig(dtype=torch.bfloat16, gelu_approx=True)
+    chain = 0.0
+    for nt in (3136, 784):
+        xk = rnd(1, nt, 192)
+        chain += harness.measure_graph_time(lambda: _performer_rest(xk, pp, pw, cfg))["p50_ms"]
+    print(f"  K16's yardstick, the eager performer chain (_performer_rest, ~40 torch ops) at one "
+          f"t2t_vit_14 b1 tokenizer's two performers: {chain:.4f} ms")
     for k, (bnd, by, lib_ms) in out.items():
         print(f"  {k:16s} bound {bnd:.4f} ms ({by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
@@ -1402,6 +1595,106 @@ def phase_time_slice(torch, harness, models, stacks):
                         print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
 
 
+def phase_slice_full(torch, counter, vf, models):
+    """``fully_fused_vit_apply`` (full width and depth, phase_slice's models)
+    at ``FULL_REQUESTS``: one ``vit_full`` launch per forward and no other,
+    logits against ``plain=True`` and against ``fused_vit_apply``, and one
+    device kernel in a profiler trace of a forward on a bf16 image.  Returns
+    (launches, worst deviation, {name: prepared})."""
+    from edgevisiontransformer_tpu_torch.bench import harness
+    from edgevisiontransformer_tpu_torch.models.vit import (fully_fused_vit_apply,
+                                                             fused_vit_apply, prepare_vit_full)
+
+    launches = {k: 0 for k in counter.read()}
+    worst = 0.0
+    preps = {}
+    want = {**{k: 0 for k in KERNELS}, "vit_full": 1}
+    for name, batch, seed in FULL_REQUESTS:
+        model, shape, stacked = models[(name, "standard")]
+        if name not in preps:
+            with torch.no_grad():
+                preps[name] = prepare_vit_full(model)
+        prep = preps[name]
+        tag = f"{name} fully fused b{batch}"
+        img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(seed)).to(DEVICE)
+        with torch.no_grad():
+            counter.reset()
+            logits = fully_fused_vit_apply(model, img, prepared=prep)
+            torch.cuda.synchronize()
+            counts = counter.read()
+            grid = vf.LAST_GRID["blocks"]
+            ref = fully_fused_vit_apply(model, img, prepared=prep, plain=True)
+            chain = fused_vit_apply(model, img, stacked=stacked)
+        if counts != want:
+            fail(f"{tag}: launch counts {counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        rel, err, scale, agree = check_logits(tag, logits, ref, batch, model.config.num_classes)
+        rel2, err2, _, agree2 = check_logits(f"{tag} against fused_vit_apply", logits, chain,
+                                             batch, model.config.num_classes)
+        worst = max(worst, rel, rel2)
+        img16 = img.bfloat16()
+        with torch.no_grad():
+            rows = harness.device_time_by_kernel(
+                lambda: fully_fused_vit_apply(model, img16, prepared=prep))
+        if len(rows) != 1 or rows[0][1] != 1:
+            fail(f"{tag}: a traced forward ran {[(r[0][:60], r[1]) for r in rows]}, expected "
+                 "one vit_full kernel")
+        print(f"  {tag:30s} grid {grid} blocks, max|kern-twin| {err:.4g} (max|logit| "
+              f"{scale:.4g}), top-1 agreement {agree:.3f}; against fused_vit_apply max "
+              f"{err2:.4g}, top-1 {agree2:.3f}; launches {counts['vit_full']} vit_full, trace: "
+              f"one kernel, {rows[0][2]:.4f} ms")
+    return launches, worst, preps
+
+
+def phase_time_full(torch, harness, vf, models, preps):
+    """``fully_fused_vit_apply`` beside ``fused_vit_apply`` at ``FULL_TIMES``:
+    eager p50, device p50 (CUDA-graph replay), the device's idle share of the
+    eager call; the cost of one grid barrier at the forward's block count.
+    Returns (ms, plain_ms): device p50 of one deit_tiny b128 forward on the
+    kernel and on its twin."""
+    from edgevisiontransformer_tpu_torch.models.vit import (fully_fused_vit_apply,
+                                                             fused_vit_apply, prepare_vit_full)
+
+    row = None
+    with torch.no_grad():
+        for name, batch in FULL_TIMES:
+            model, shape, stacked = models[(name, "standard")]
+            prep = preps.get(name) or prepare_vit_full(model)
+            img = torch.randn(batch, *shape,
+                              generator=torch.Generator().manual_seed(batch)).to(DEVICE)
+            paths = {"fully_fused_vit_apply": lambda: fully_fused_vit_apply(model, img,
+                                                                            prepared=prep),
+                     "fused_vit_apply": lambda: fused_vit_apply(model, img, stacked=stacked)}
+            device = {}
+            for label, fn in paths.items():
+                e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+                d = harness.measure_graph_time(fn, iters=10, repeats=5)
+                prof = harness.device_time_by_kernel(fn)
+                busy = sum(r[2] for r in prof)
+                device[label] = d["p50_ms"]
+                print(f"  {name} b{batch} {label:21s}: eager p50 {e['p50_ms']:.4f} ms (std "
+                      f"{e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device p50 "
+                      f"{d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}), traced kernel time "
+                      f"{busy:.4f} ms in {sum(r[1] for r in prof)} kernels (device idle "
+                      f"{max(0.0, 1 - busy / e['p50_ms']):.1%} of the eager call)")
+            fully_fused_vit_apply(model, img, prepared=prep)
+            grid = vf.LAST_GRID["blocks"]
+            vf.barrier_probe(img.device, grid, 10)
+            t = harness.measure_op_time(lambda: vf.barrier_probe(img.device, grid, 1000), (),
+                                        iters=3, repeats=5)["p50_ms"]
+            n_bar = 1 + 7 * model.config.depth
+            print(f"  {name} b{batch}: one grid barrier at {grid} blocks {t:.4f} us (1000 in one "
+                  f"launch); {n_bar} per forward, {n_bar * t / 1e3:.4f} ms, "
+                  f"{n_bar * t / 1e3 / device['fully_fused_vit_apply']:.1%} of its device p50")
+            if (name, batch) == ("deit_tiny", 128):
+                plain = harness.measure_graph_time(
+                    lambda: fully_fused_vit_apply(model, img, prepared=prep, plain=True),
+                    iters=5, repeats=3)["p50_ms"]
+                row = (device["fully_fused_vit_apply"], plain)
+    return row
+
+
 def phase_time_base(torch, harness, models, stacks):
     """deit_base b1 device p50, bf16 against int8 static: the weight-bytes
     case the TPU int8 kernel was written for."""
@@ -1434,13 +1727,15 @@ def main() -> int:
     from edgevisiontransformer_tpu_torch.ops.cuda import fused_attention as fa
     from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
     from edgevisiontransformer_tpu_torch.ops.cuda import fused_mlp as fm
+    from edgevisiontransformer_tpu_torch.ops.cuda import fused_vit_full as vf
     from edgevisiontransformer_tpu_torch.ops.cuda import layernorm as ln
+    from edgevisiontransformer_tpu_torch.ops.cuda import performer as pf
     from edgevisiontransformer_tpu_torch.ops.cuda import swin_block as sb
     from edgevisiontransformer_tpu_torch.ops.cuda import swin_merge as sm
     from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
     from edgevisiontransformer_tpu_torch.ops.cuda import window_sdpa as ws
 
-    counter = Launches(fe, ts, sb, sm, ws, fa, fm)
+    counter = Launches(fe, ts, sb, sm, ws, fa, fm, vf, pf)
     print("== phase 1: environment")
     card = phase_env(torch, build)
     print("== phase 2: build")
@@ -1466,9 +1761,14 @@ def main() -> int:
         for k, v in more.items():
             errs[k] = max(errs.get(k, 0.0), v)
     layer_ms.update(pallas_ms)
-    print(f"== phase 4: slices through fused_vit_apply[_int8], fused_t2t_apply[_int8], "
-          f"fused_swin_apply (bf16 and int8), the kernel_mode='pallas' Swin, ViT and T2T modules "
-          f"and the pruned DeiT models (logits within {LOGIT_REL} x max|logit| of the twins)")
+    errs["vit_full"] = phase_kernel_vit_full(torch, vf, harness)
+    errs_perf, perf_ms = phase_kernel_performer(torch, pf, harness)
+    errs.update(errs_perf)
+    layer_ms.update(perf_ms)
+    print(f"== phase 4: slices through fused_vit_apply[_int8], fused_t2t_apply[_int8] (K16, the "
+          f"int8 stem), fused_swin_apply (bf16 and int8), the kernel_mode='pallas' Swin, ViT and "
+          f"T2T modules, the pruned DeiT models and fully_fused_vit_apply (logits within "
+          f"{LOGIT_REL} x max|logit| of the twins)")
     launches, worst, models = phase_slice(torch, counter)
     launches8, worst8, stacks = phase_slice_int8(torch, fe, counter, models)
     launches_t2t, worst_t2t, t2t_state = phase_slice_t2t(torch, counter)
@@ -1477,16 +1777,17 @@ def main() -> int:
     launches_mod, worst_mod, module_state = phase_slice_swin_module(torch, counter, ws)
     launches_vm, worst_vm, vit_module_state = phase_slice_vit_module(torch, counter, fa, fm)
     launches_pr, worst_pr, pruned_state = phase_slice_pruned(torch, counter, fa, fm)
+    launches_full, worst_full, full_preps = phase_slice_full(torch, counter, vf, models)
     for more in (launches8, launches_t2t, launches_swin, launches_swin8, launches_mod,
-                 launches_vm, launches_pr):
+                 launches_vm, launches_pr, launches_full):
         for k, v in more.items():
             launches[k] += v
     for k, v in launches.items():
         if v == 0:
             fail(f"kernel {k} was never launched on the main path")
     print(f"== phase 5: slice timing, t2t_vit_14, swin_tiny, the deit_tiny kernel_mode='pallas' "
-          f"module and {PRUNED_UNIFORM}, deit_base b1 and deit_tiny standard bf16 and int8, on "
-          f"{card}")
+          f"module and {PRUNED_UNIFORM}, fully_fused_vit_apply, deit_base b1 and deit_tiny "
+          f"standard bf16 and int8, on {card}")
     phase_time_t2t(torch, harness, t2t_state)
     del t2t_state
     phase_time_swin(torch, harness, swin_state, swin_stacks, module_state)
@@ -1495,6 +1796,8 @@ def main() -> int:
     phase_time_pallas(torch, harness, vit_module_state, pruned_state)
     del vit_module_state, pruned_state
     torch.cuda.empty_cache()
+    layer_ms["vit_full"] = phase_time_full(torch, harness, vf, models, full_preps)
+    del full_preps
     phase_time_base(torch, harness, models, stacks)
     # deit_tiny's peak memory is read with deit_base's weights freed
     models.pop(("deit_base", "standard"))
@@ -1505,11 +1808,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"== phase 6: bounds and library yardsticks, on {card}")
     yard = phase_yardsticks(torch, harness)
-    worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr)
+    worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr,
+              worst_full)
     print(f"build {build_s:.2f} s; worst logit deviation {max(worsts):.4g} of max|logit| (deit "
           f"bf16 {worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 {worst_t2t:.4g}, swin_tiny bf16 "
           f"{worst_swin:.4g}, int8 {worst_swin8:.4g}, swin module pallas {worst_mod:.4g}, ViT / T2T "
-          f"module pallas {worst_vm:.4g}, pruned {worst_pr:.4g})")
+          f"module pallas {worst_vm:.4g}, pruned {worst_pr:.4g}, fully fused {worst_full:.4g})")
 
     src = "edgevisiontransformer_tpu_torch/csrc/"
     print("kernel ms / plain_ms / bound_ms / library_ms: device time (CUDA-graph replay) of "
@@ -1517,7 +1821,9 @@ def main() -> int:
           "layer; sdpa and mlp: a kernel_mode='pallas' module layer, mlp's library call being "
           "torch.addmm + F.gelu + torch.addmm timed as one sum; stage1_kqv: one t2t_vit_14 b1 "
           "call; window_attention and swin_merge: one swin_tiny b1 forward; window_sdpa: one "
-          "swin_tiny b1 kernel_mode='pallas' module forward); launches: the requests of phase 4")
+          "swin_tiny b1 kernel_mode='pallas' module forward; vit_full: one deit_tiny b128 "
+          "forward; performer_reduce and performer_rows: one t2t_vit_14 b1 tokenizer's two "
+          "performers); launches: the requests of phase 4")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"{src}{source}", "replaces": replaces,
          "launches": launches[k], "max_abs_err": errs[k],

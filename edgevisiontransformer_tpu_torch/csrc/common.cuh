@@ -1,6 +1,7 @@
 // Shared device helpers for the kernels (ln_rows.cu, linear.cu,
 // attention_rows.cu, quant_rows.cu, linear_i8.cu, t2t_stage1.cu,
-// window_attention.cu, swin_merge.cu, window_sdpa.cu, sdpa.cu, mlp.cu).
+// window_attention.cu, swin_merge.cu, window_sdpa.cu, sdpa.cu, mlp.cu,
+// vit_full.cu, performer.cu; the encoder's tiles are in encoder_tiles.cuh).
 // Plain CUDA C++ for sm_90a; no PyTorch headers, so the library builds in
 // seconds and binds through a C interface (ctypes).
 #pragma once

@@ -16,8 +16,9 @@
 // Design: one warp per row, 16-byte vector loads, fp32 statistics in two
 // passes exactly as the reference does (mean, then the mean of squared
 // deviations), then rsqrt(var + eps) * g + b in fp32 and one cast to bf16.
-// The second and third passes re-read the row, which stays in L1.
-#include "common.cuh"
+// The second and third passes re-read the row, which stays in L1.  The row
+// itself is ln_row (encoder_tiles.cuh), which vit_full.cu runs too.
+#include "encoder_tiles.cuh"
 
 namespace {
 
@@ -29,40 +30,9 @@ __global__ __launch_bounds__(kWarps * 32) void ln_rows_kernel(
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const bf16* xr = x + static_cast<size_t>(row) * dim;
   bf16* yr = y + static_cast<size_t>(row) * dim;
-  const int chunks = dim / 8;
-  float f[8];
-
-  float sum = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sum += f[i];
-  }
-  const float mean = warp_sum(sum) / static_cast<float>(dim);
-
-  float sq = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float d = f[i] - mean;
-      sq += d * d;
-    }
-  }
-  const float var = warp_sum(sq) / static_cast<float>(dim);
-  const float rs = rsqrtf(var + eps);
-
-  float gf[8], bf[8];
-  for (int c = lane; c < chunks; c += 32) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-    load8_either(g, c, affine_f32, gf);
-    load8_either(b, c, affine_f32, bf);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = (f[i] - mean) * rs * gf[i] + bf[i];
-    *reinterpret_cast<uint4*>(yr + c * 8) = pack8(f);
-  }
+  ln_row(x + static_cast<size_t>(row) * dim, g, b, dim, eps, affine_f32, lane,
+         [yr](int c, const float f[8]) { *reinterpret_cast<uint4*>(yr + c * 8) = pack8(f); });
 }
 
 }  // namespace

@@ -10,7 +10,9 @@ the position table) are buffers (:meth:`T2TViT.constants`).
 
 :func:`fused_t2t_apply` and :func:`fused_t2t_apply_int8` are the inference
 paths: :func:`t2t_tokenize` (at batch < 8 through the stage-1 kernel,
-``ops/cuda/t2t_stage1.stage1_kqv``), then the encoder on the hand-written
+``ops/cuda/t2t_stage1.stage1_kqv``; both performers on the K16 kernels,
+``ops/cuda/performer.performer_rest``; optionally the int8 stem of
+:func:`prepare_t2t_stem_int8_static`), then the encoder on the hand-written
 kernels (``ops/cuda/fused_encoder``).
 """
 
@@ -25,10 +27,12 @@ from torch import nn
 
 from ..config import REFERENCE_STYLE, STANDARD_STYLE, ViTConfig
 from ..ops.activations import get_gelu
+from ..ops.cuda.fused_encoder import BIAS, linear_i8, linear_i8_plain, quant_rows, quant_rows_plain
+from ..ops.cuda.performer import performer_rest, performer_rest_plain
 from ..ops.cuda.t2t_stage1 import (FEATURES, K9, S2D, SHIFTS, shift_concat, stage1_kqv,
                                    stage1_kqv_plain)
 from ..ops.layers import layer_norm, mlp_block
-from ..ops.quant import _dense, _unwrap
+from ..ops.quant import _dense, _unwrap, int8_matmul_static, quantize_weight_int8
 from ..ops.unfold import unfold, unfold_output_size
 from .vit import (INT8_VARIANTS, Dense, EncoderBlock, LayerNormP, _check_fused, _fused_head,
                   _param, lecun_normal_, model_device, nested_tree, prepare_vit_fused,
@@ -298,10 +302,10 @@ def _kqv_dense(x: torch.Tensor, node: dict, dt: torch.dtype) -> torch.Tensor:
 
 def _performer_rest(x_kqv: torch.Tensor, p: dict, w: torch.Tensor,
                     cfg: ViTConfig) -> torch.Tensor:
-    """TokenPerformer after norm1 and kqv, with the JAX fused path's
-    promotions (the ``attn_output`` product in fp32 against fp32 params).
-    The JAX package's ``_performer_dispatch`` always takes this form (its
-    whole-chain Pallas kernel K16 is a measured negative result there)."""
+    """TokenPerformer after norm1 and kqv as eager tensor ops, with the JAX
+    fused path's promotions (the ``attn_output`` product in fp32 against
+    fp32 params): the JAX package's ``_performer_dispatch`` always takes
+    this form."""
     dt = cfg.dtype
     eps = TokenPerformer.layernorm_eps
     y, vf = _linear_attention(x_kqv, w, TokenPerformer.eps)
@@ -311,6 +315,43 @@ def _performer_rest(x_kqv: torch.Tensor, p: dict, w: torch.Tensor,
                   p["mlp_fc2_kernel"].to(dt), p["mlp_fc2_bias"].to(dt),
                   get_gelu(cfg.gelu_approx))
     return y + h
+
+
+def _performer_dispatch(x_kqv: torch.Tensor, p: dict, w: torch.Tensor, cfg: ViTConfig,
+                        plain: bool = False) -> torch.Tensor:
+    """The TokenPerformer after kqv: K16 (``ops/cuda/performer.performer_rest``,
+    two kernels) on a CUDA tensor at every batch, its twin with
+    ``plain``, and on a CPU tensor the eager chain :func:`_performer_rest`,
+    which the JAX package dispatches to everywhere (its K16 lost a TPU A/B,
+    ``ops/pallas/performer.py:22-29``, which does not carry over)."""
+    kw = dict(eps_ln=TokenPerformer.layernorm_eps, approx_gelu=cfg.gelu_approx)
+    if plain:
+        return performer_rest_plain(x_kqv, p, w, **kw)
+    if x_kqv.device.type == "cpu":
+        return _performer_rest(x_kqv, p, w, cfg)
+    return performer_rest(x_kqv, p, w, **kw)
+
+
+def _stem_matmul(x: torch.Tensor, entry: dict, dt: torch.dtype, plain: bool) -> torch.Tensor:
+    """``x @ kernel + bias`` of one stem matmul in static int8 (an entry of
+    :func:`prepare_t2t_stem_int8_static`): ``int8(x / act_scale) @ q``
+    dequantized by the combined scale and cast to ``dt``, then the bias added
+    in ``dt``, rounding twice as the reference does.  On the CPU
+    ``ops/quant.int8_matmul_static``; on the card ``quant_rows`` (static)
+    and ``linear_i8`` (epilogue ``BIAS`` on a zero bias), or their twins
+    with ``plain``."""
+    if x.device.type == "cpu":
+        y = int8_matmul_static(x, entry["q"], entry["scale"], entry["act_scale"])
+    else:
+        quant, lin = (quant_rows_plain, linear_i8_plain) if plain else (quant_rows, linear_i8)
+        act_inv = 1.0 / torch.as_tensor(entry["act_scale"], dtype=torch.float32,
+                                        device=x.device).reshape(1)
+        n = entry["q"].shape[1]
+        q, _ = quant(x.reshape(-1, x.shape[-1]).contiguous(), act_inv, 0)
+        y = lin(q, None, entry["q"], entry["scale"],
+                torch.zeros(n, dtype=torch.float32, device=x.device), epilogue=BIAS,
+                out_dtype=dt).reshape(*x.shape[:-1], n)
+    return y + entry["bias"].to(dt) if "bias" in entry else y
 
 
 STAGE1_IMPLS = ("auto", "kernel", "fast")
@@ -328,12 +369,15 @@ def t2t_tokenize(model: T2TViT, img: torch.Tensor, *, params: dict | None = None
     (the exact form, which calibration uses).  In the fast form
     ``stage1_impl`` picks ``stage1_kqv`` (``"auto"``, ``"kernel"``: the
     hand-written kernel on a CUDA tensor) or the eager
-    :func:`fast_stage1_kqv` (``"fast"``); ``plain=True`` takes the kernel's
-    plain twin.  ``prepared`` defaults to :func:`prepare_t2t_fused`;
-    ``params`` (a Flax-keyed tree, float tokenizer) to ``model.params()``.
-    The performer matrices and the position table are the model's buffers."""
-    if stem_q is not None:
-        raise NotImplementedError("stem int8 not ported yet (prepare_t2t_stem_int8_static)")
+    :func:`fast_stage1_kqv` (``"fast"``).  Both performers go through
+    :func:`_performer_dispatch`.  ``stem_q``
+    (:func:`prepare_t2t_stem_int8_static`) runs the stem's big matmuls in
+    static int8: stage-1 kqv in the plain-unfold form only (the fast form
+    keeps its float kernel, as the reference does), stage-2 kqv and the
+    projection in both.  ``plain=True`` takes the kernels' plain twins.
+    ``prepared`` defaults to :func:`prepare_t2t_fused`; ``params`` (a
+    Flax-keyed tree, float tokenizer) to ``model.params()``.  The performer
+    matrices and the position table are the model's buffers."""
     if stage1_impl not in STAGE1_IMPLS:
         raise ValueError(f"unknown stage1_impl {stage1_impl!r}; one of {STAGE1_IMPLS}")
     cfg = model.config
@@ -357,17 +401,23 @@ def t2t_tokenize(model: T2TViT, img: torch.Tensor, *, params: dict | None = None
             x = (stage1_kqv_plain if plain else stage1_kqv)(*args, eps=eps)
     else:
         x = layer_norm(unfold(img, 7, 4, 2), p1["norm1_scale"], p1["norm1_bias"], eps)
-        x = _kqv_dense(x, p1["kqv"], dt)
-    x = _performer_rest(x, p1, t2t.performer1.w, cfg)
+        x = (_stem_matmul(x, stem_q["kqv1"], dt, plain) if stem_q is not None
+             else _kqv_dense(x, p1["kqv"], dt))
+    x = _performer_dispatch(x, p1, t2t.performer1.w, cfg, plain)
 
     bsz = x.shape[0]
     s0 = unfold_output_size(cfg.image_size, 7, 4, 2)
     s1 = unfold_output_size(s0, 3, 2, 1)
     x = unfold(x.reshape(bsz, s0, s0, ts).permute(0, 3, 1, 2), 3, 2, 1)
     x = layer_norm(x, p2["norm1_scale"], p2["norm1_bias"], eps)
-    x = _performer_rest(_kqv_dense(x, p2["kqv"], dt), p2, t2t.performer2.w, cfg)
+    x = (_stem_matmul(x, stem_q["kqv2"], dt, plain) if stem_q is not None
+         else _kqv_dense(x, p2["kqv"], dt))
+    x = _performer_dispatch(x, p2, t2t.performer2.w, cfg, plain)
     x = unfold(x.reshape(bsz, s1, s1, ts).permute(0, 3, 1, 2), 3, 2, 1)
-    x = x @ tok["project"]["kernel"].to(dt) + tok["project"]["bias"].to(dt)
+    if stem_q is not None:
+        x = _stem_matmul(x, stem_q["project"], dt, plain)
+    else:
+        x = x @ tok["project"]["kernel"].to(dt) + tok["project"]["bias"].to(dt)
 
     cls = p["cls_token"].to(dt).expand(bsz, 1, cfg.dim)
     return torch.cat([cls, x], dim=1) + model.pos_embedding.to(dt)
@@ -437,16 +487,83 @@ def prepare_t2t_int8_static(model: T2TViT, act_scales=None, calib_batches=None,
     return quantize_stacked_int8_static(stacked, np.asarray(act_scales, np.float32))
 
 
+def calibrate_t2t_stem(model: T2TViT, variables: dict | None = None, batches=None,
+                       n: int = 32) -> dict:
+    """Absmax activation scales ``{"kqv1", "kqv2", "project": float}`` of the
+    three stem matmuls' inputs in the plain-unfold form: the LayerNorm of
+    the stage-1 unfold, the LayerNorm of the stage-2 unfold, the stage-3
+    unfold; ``max / 127`` (1.0 where the max is 0).  The performers run
+    through :func:`_performer_dispatch` (K16 on the card).  ``batches``
+    defaults to ``n`` representative batches (``ops/quant.representative_batches``);
+    ``variables`` (a Flax-keyed tree) to ``model.params()``."""
+    from ..ops.quant import representative_batches
+
+    cfg = model.config
+    dt = cfg.dtype
+    p = model.params() if variables is None else _unwrap(variables)
+    tok = p["tokens_to_token"]
+    p1, p2 = tok["performer1"], tok["performer2"]
+    t2t = model.tokens_to_token
+    ts = t2t.token_size
+    eps = TokenPerformer.layernorm_eps
+    dev = model.cls_token.device
+    if batches is None:
+        batches = representative_batches(n=n, shape=(3, cfg.image_size, cfg.image_size))
+    s0 = unfold_output_size(cfg.image_size, 7, 4, 2)
+    s1 = unfold_output_size(s0, 3, 2, 1)
+    run_max = None
+    with torch.no_grad():
+        for batch in batches:
+            im = torch.as_tensor(np.asarray(batch), device=dev).to(dt)
+            x1 = layer_norm(unfold(im, 7, 4, 2), p1["norm1_scale"], p1["norm1_bias"], eps)
+            y = _performer_dispatch(_kqv_dense(x1, p1["kqv"], dt), p1, t2t.performer1.w, cfg)
+            b = y.shape[0]
+            y = unfold(y.reshape(b, s0, s0, ts).permute(0, 3, 1, 2), 3, 2, 1)
+            x2 = layer_norm(y, p2["norm1_scale"], p2["norm1_bias"], eps)
+            z = _performer_dispatch(_kqv_dense(x2, p2["kqv"], dt), p2, t2t.performer2.w, cfg)
+            x3 = unfold(z.reshape(b, s1, s1, ts).permute(0, 3, 1, 2), 3, 2, 1)
+            m = torch.stack([x1.abs().max(), x2.abs().max(), x3.abs().max()])
+            run_max = m if run_max is None else torch.maximum(run_max, m)
+    vals = run_max.float().cpu().numpy()
+    return {k: (float(v) / 127.0 if v > 0 else 1.0)
+            for k, v in zip(("kqv1", "kqv2", "project"), vals)}
+
+
+def prepare_t2t_stem_int8_static(model: T2TViT, variables: dict | None = None, batches=None,
+                                 n: int = 32) -> dict:
+    """Static int8 for the stem's three big matmuls (performer1's and
+    performer2's kqv, the projection): per-output-channel int8 weights with
+    the calibrated activation scale (:func:`calibrate_t2t_stem`) folded into
+    the combined dequant scale, as ``{"kqv1" | "kqv2" | "project": {"q",
+    "scale", "act_scale", "bias"}}`` on the model's device.  Feeds
+    :func:`t2t_tokenize` and :func:`fused_t2t_apply_int8` (``stem_q=``)."""
+    p = model.params() if variables is None else _unwrap(variables)
+    tok = p["tokens_to_token"]
+    scales = calibrate_t2t_stem(model, p, batches=batches, n=n)
+    out = {}
+    for key, node in (("kqv1", tok["performer1"]["kqv"]), ("kqv2", tok["performer2"]["kqv"]),
+                      ("project", tok["project"])):
+        q, w_scale = quantize_weight_int8(node["kernel"])
+        entry = {"q": q, "scale": (w_scale * scales[key]).float(),
+                 "act_scale": torch.tensor(scales[key], dtype=torch.float32,
+                                           device=q.device)}
+        if "bias" in node:
+            entry["bias"] = node["bias"]
+        out[key] = entry
+    return out
+
+
 def fused_t2t_apply_int8(model: T2TViT, img: torch.Tensor, *, stacked_q: dict | None = None,
                          prepared: dict | None = None, variant: str = "auto",
                          stem_q: dict | None = None, plain: bool = False) -> torch.Tensor:
     """T2T forward with the int8 encoder on the hand-written kernels
     (``ops/cuda/fused_encoder.encoder_forward_int8``): dynamic scales with a
     :func:`prepare_t2t_int8` stack (the default), static with a
-    :func:`prepare_t2t_int8_static` one.  The tokenizer, final norm and head
-    stay float.  ``variant`` is one of ``models/vit.INT8_VARIANTS`` (all take
-    the one encoder); ``stem_q`` (the int8 stem) is not ported yet;
-    ``prepared`` and ``plain`` are :func:`fused_t2t_apply`'s."""
+    :func:`prepare_t2t_int8_static` one.  The tokenizer stays float unless
+    ``stem_q`` (:func:`prepare_t2t_stem_int8_static`) runs its big matmuls
+    in static int8; the final norm and head stay float.  ``variant`` is one
+    of ``models/vit.INT8_VARIANTS`` (all take the one encoder); ``prepared``
+    and ``plain`` are :func:`fused_t2t_apply`'s."""
     from ..ops.cuda.fused_encoder import encoder_forward_int8, encoder_forward_int8_plain
 
     cfg = model.config

@@ -8,8 +8,9 @@ tree.  ``ViT.forward`` has ``model.apply``'s eager semantics; with
 ``kernel_mode="pallas"`` its attention core runs on the ``sdpa`` kernel and
 its MLP on the ``mlp`` kernel.  :func:`fused_vit_apply` runs the encoder on
 the hand-written kernels, one chain per uniform run of layers for
-layerwise-pruned models (:func:`pruned_vit_config`), and
-:func:`fused_vit_apply_int8` runs it in int8 (dynamic or static scales).
+layerwise-pruned models (:func:`pruned_vit_config`),
+:func:`fused_vit_apply_int8` runs it in int8 (dynamic or static scales), and
+:func:`fully_fused_vit_apply` runs the whole forward as one kernel launch.
 """
 
 from __future__ import annotations
@@ -420,6 +421,67 @@ def fused_vit_apply(model: ViT, img: torch.Tensor, *, stacked: dict | None = Non
                     eps=cfg.layernorm_eps, reference_residual=cfg.reference_residual,
                     approx_gelu=cfg.gelu_approx)
     return _fused_head(cfg, p, x)
+
+
+def _check_full(cfg: ViTConfig) -> None:
+    if cfg.mlp_head or cfg.heads_per_layer is not None or cfg.mlp_dim_per_layer is not None:
+        raise ValueError("fully-fused path requires standard head + uniform layers")
+
+
+def prepare_vit_full(model: ViT) -> dict:
+    """Everything :func:`fully_fused_vit_apply` reads, built once in the
+    compute dtype on the model's device: the encoder stack
+    (``stack_vit_layer_params``), ``patch_w``, ``embed_bias`` (row 0 ``pos[0]
+    + cls``, the others ``pos[1:] + patch_bias``, added in the compute dtype
+    as the reference folds them), ``fnorm_g`` / ``fnorm_b`` (ones and zeros
+    without a final norm), ``head_w`` and ``head_b``."""
+    from ..ops.cuda.fused_encoder import stack_vit_layer_params
+
+    cfg = model.config
+    _check_full(cfg)
+    dt = cfg.dtype
+    p = model.params()
+    out = stack_vit_layer_params(p, cfg.depth, cfg.qkv_bias)
+    pos = p["pos_embedding"].to(dt)
+    embed_bias = torch.cat([pos[:1] + p["cls_token"].to(dt)[0],
+                            pos[1:] + p["patch_bias"].to(dt)])
+    if cfg.final_norm:
+        fg, fb = p["final_norm"]["scale"], p["final_norm"]["bias"]
+    else:
+        fg, fb = torch.ones_like(p["patch_bias"]), torch.zeros_like(p["patch_bias"])
+    out.update(patch_w=p["patch_kernel"], embed_bias=embed_bias, fnorm_g=fg, fnorm_b=fb,
+               head_w=p["head"]["kernel"], head_b=p["head"]["bias"])
+    return {k: v.to(dt).contiguous() for k, v in out.items()}
+
+
+def fully_fused_vit_apply(model: ViT, img: torch.Tensor, *, prepared: dict | None = None,
+                          batch_block: int | None = None, plain: bool = False) -> torch.Tensor:
+    """Forward pass as one kernel launch (``ops/cuda/fused_vit_full.vit_full_forward``):
+    patch embedding, the encoder, the final LayerNorm and the head, reading
+    the NCHW image (fp32 or bf16) and writing the logits in the compute
+    dtype.  The same params as ``model(img)``.
+
+    Standard-style models with uniform layers only, as in the reference: a
+    two-layer head or per-layer heads or widths raise ``ValueError``.  Like
+    the reference kernel it computes LayerNorm and GELU whatever the
+    config's ``norm_mode`` and ``act``.  ``batch_block`` is the reference's
+    TPU blocking (images per program); it is validated and does not change
+    the result, since the CUDA kernel's grid is the card's resident blocks.
+    ``prepared`` is :func:`prepare_vit_full`'s output (built here when
+    omitted); ``plain=True`` runs the kernel's plain twin on any device."""
+    from ..ops.cuda.fused_vit_full import vit_full_forward, vit_full_forward_plain
+
+    cfg = model.config
+    _check_full(cfg)
+    if batch_block is not None and (isinstance(batch_block, bool)
+                                    or not isinstance(batch_block, int) or batch_block < 1):
+        raise ValueError(f"batch_block must be a positive int, got {batch_block!r}")
+    if prepared is None:
+        prepared = prepare_vit_full(model)
+    forward = vit_full_forward_plain if plain else vit_full_forward
+    return forward(img, prepared, heads=cfg.heads, head_dim=cfg.resolved_head_dim,
+                   eps=cfg.layernorm_eps, reference_residual=cfg.reference_residual,
+                   approx_gelu=cfg.gelu_approx, final_norm=cfg.final_norm)
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,10 @@ _SIGNATURES = (
     ("evt_window_sdpa", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     ("evt_sdpa", _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
     ("evt_mlp", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    ("evt_vit_full", _I, (_P, _P, _P, _P)),
+    ("evt_vit_full_barrier_probe", _I, (_I, _I, _P)),
+    ("evt_performer_reduce", _I, (_P, _P, _P, _I, _I, _P)),
+    ("evt_performer_rows", _I, (_P, _I, _I, _F, _I, _P)),
     ("evt_error_string", ctypes.c_char_p, (_I,)),
 )
 
@@ -76,25 +80,32 @@ def library_path() -> Path:
     return BUILD_DIR / f"libevt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def compile_library(out: Path) -> None:
+def compile_library(out: Path) -> dict:
     """Compile every ``csrc/*.cu`` to an object, one ``nvcc`` process per
     source running side by side, then link them into ``out``; raise with
     nvcc's stderr on failure.  Works in a temporary directory beside ``out``
-    so a concurrent build never loads a half-written file."""
+    so a concurrent build never loads a half-written file.  Returns ptxas's
+    report of each kernel (``{source: [line, ...]}``: its name, then its
+    registers and spills)."""
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    report = {}
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         jobs = []
         for src in sorted(CSRC.glob("*.cu")):
             obj = Path(tmp) / f"{src.stem}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c", "-o", str(obj),
+                   str(src)]
             jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.PIPE, text=True)))
         errors = []
-        for cmd, _, proc in jobs:
+        for cmd, obj, proc in jobs:
             _, err = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+            report[obj.stem] = [line.split("info    : ")[-1].strip() for line in err.splitlines()
+                                if "Compiling entry" in line or "registers" in line
+                                or "spill" in line]
         if errors:
             raise KernelBuildError("\n".join(errors))
         lib = Path(tmp) / out.name
@@ -104,6 +115,7 @@ def compile_library(out: Path) -> None:
             raise KernelBuildError(
                 f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
         os.replace(lib, out)
+    return report
 
 
 def load() -> ctypes.CDLL:

@@ -33,6 +33,8 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.ops.cuda.fused_attention",
     "edgevisiontransformer_tpu_torch.ops.cuda.fused_mlp",
     "edgevisiontransformer_tpu_torch.ops.cuda.layernorm",
+    "edgevisiontransformer_tpu_torch.ops.cuda.fused_vit_full",
+    "edgevisiontransformer_tpu_torch.ops.cuda.performer",
     "edgevisiontransformer_tpu_torch.models",
     "edgevisiontransformer_tpu_torch.models.vit",
     "edgevisiontransformer_tpu_torch.models.t2t_vit",

@@ -14,6 +14,7 @@ import torch
 
 from edgevisiontransformer_tpu_torch.models import swin
 from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
+from edgevisiontransformer_tpu_torch.models import vit as tvit
 from edgevisiontransformer_tpu_torch.models.registry import build_model
 from edgevisiontransformer_tpu_torch.models.vit import (ViT, deit_config, fused_vit_apply,
                                                          fused_vit_apply_int8, prepare_vit_fused,
@@ -22,7 +23,9 @@ from edgevisiontransformer_tpu_torch.models.vit import (ViT, deit_config, fused_
 from edgevisiontransformer_tpu_torch.ops.cuda import fused_attention as fa
 from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
 from edgevisiontransformer_tpu_torch.ops.cuda import fused_mlp as fm
+from edgevisiontransformer_tpu_torch.ops.cuda import fused_vit_full as vf
 from edgevisiontransformer_tpu_torch.ops.cuda import layernorm as ln
+from edgevisiontransformer_tpu_torch.ops.cuda import performer as pf
 from edgevisiontransformer_tpu_torch.ops.cuda import swin_block as sb
 from edgevisiontransformer_tpu_torch.ops.cuda import swin_merge as sm
 from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
@@ -821,3 +824,162 @@ def test_pruned_fused_vit_apply_int8_on_kernels_matches_plain_and_counts(dev, en
     torch.cuda.synchronize()
     assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
     assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+# ---------------------------------------------------------------------------
+# vit_full (K7a / K7b) and the performer kernels (K16)
+# ---------------------------------------------------------------------------
+
+
+def _full_model(dev, style="standard", **kw):
+    cfg = deit_config("tiny", style, depth=2, dtype=torch.bfloat16, **kw)
+    model = ViT(cfg, device=dev, generator=torch.Generator().manual_seed(3))
+    return model, tvit.prepare_vit_full(model)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("kw", [dict(), dict(reference_residual=True, gelu_approx=True),
+                                dict(final_norm=False), dict(num_classes=10)])
+def test_vit_full_kernel_matches_twin_in_one_launch(dev, batch, kw):
+    model, prep = _full_model(dev, **kw)
+    img = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(4)).to(dev)
+    with torch.no_grad():
+        _reset_all()
+        got = tvit.fully_fused_vit_apply(model, img, prepared=prep)
+        counts = _all_counts()
+        ref = tvit.fully_fused_vit_apply(model, img, prepared=prep, plain=True)
+        chain = fused_vit_apply(model, img)
+    assert counts == {**{k: 0 for k in counts}, "vit_full": 1}
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (batch, model.config.num_classes)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    scale = ref.float().abs().max()
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * scale
+    assert (got.float() - chain.float()).abs().max() <= 0.05 * scale
+
+
+def test_vit_full_bf16_image_reads_as_the_rounded_fp32_image(dev):
+    model, prep = _full_model(dev)
+    img = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(5)).to(dev)
+    with torch.no_grad():
+        a = tvit.fully_fused_vit_apply(model, img, prepared=prep)
+        b = tvit.fully_fused_vit_apply(model, img.bfloat16(), prepared=prep)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_vit_full_is_one_device_kernel_in_a_trace(dev):
+    from edgevisiontransformer_tpu_torch.bench.harness import device_time_by_kernel
+
+    model, prep = _full_model(dev)
+    img = torch.randn(1, 3, 224, 224, generator=torch.Generator().manual_seed(6)).to(dev)
+    img16 = img.bfloat16()
+    with torch.no_grad():
+        tvit.fully_fused_vit_apply(model, img16, prepared=prep)
+        rows = device_time_by_kernel(lambda: tvit.fully_fused_vit_apply(model, img16,
+                                                                        prepared=prep))
+    assert len(rows) == 1 and rows[0][1] == 1 and "vit_full" in rows[0][0], rows
+
+
+def test_vit_full_replays_in_a_cuda_graph(dev):
+    model, prep = _full_model(dev)
+    img = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(7)).to(dev)
+    with torch.no_grad():
+        eager = tvit.fully_fused_vit_apply(model, img, prepared=prep)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = tvit.fully_fused_vit_apply(model, img, prepared=prep)
+        graph.replay()
+        torch.cuda.synchronize()
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+    torch.testing.assert_close(first, eager, rtol=0, atol=0)
+    torch.testing.assert_close(out, eager, rtol=0, atol=0)
+
+
+def test_vit_full_refuses_what_the_kernel_does_not_take(dev):
+    model, prep = _full_model(dev)
+    img = torch.randn(1, 3, 224, 224, device=dev)
+    fp32 = {k: v.float() for k, v in prep.items()}
+    with pytest.raises(TypeError, match="bfloat16"):
+        vf.vit_full_forward(img, fp32, heads=3, head_dim=64, eps=1e-6,
+                            reference_residual=False, approx_gelu=False, final_norm=True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tvit.fully_fused_vit_apply(model, img.half(), prepared=prep)
+    with pytest.raises(ValueError, match="contiguous"):
+        tvit.fully_fused_vit_apply(model, img.transpose(2, 3), prepared=prep)
+    with pytest.raises(ValueError, match="head_dim"):
+        vf.vit_full_forward(img, prep, heads=4, head_dim=48, eps=1e-6,
+                            reference_residual=False, approx_gelu=False, final_norm=True)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        tvit.fully_fused_vit_apply(model, img.cpu(), prepared=prep)
+
+
+def _performer_inputs(dev, batch, n, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    p = {"attn_output": {"kernel": torch.randn(64, 64, generator=g) * 0.1,
+                         "bias": torch.randn(64, generator=g) * 0.1},
+         "norm2_scale": 1 + torch.randn(64, generator=g) * 0.1,
+         "norm2_bias": torch.randn(64, generator=g) * 0.1,
+         "mlp_fc1_kernel": torch.randn(64, 64, generator=g) * 0.1,
+         "mlp_fc1_bias": torch.randn(64, generator=g) * 0.1,
+         "mlp_fc2_kernel": torch.randn(64, 64, generator=g) * 0.1,
+         "mlp_fc2_bias": torch.randn(64, generator=g) * 0.1}
+    p = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev))
+         for k, v in p.items()}
+    w = (torch.randn(32, 64, generator=g) * 0.3).to(dev)
+    x = (torch.randn(batch, n, 192, generator=g) * 0.5).to(dev, torch.bfloat16)
+    return x, p, w
+
+
+@pytest.mark.parametrize("batch,n", [(1, 3136), (2, 784), (1, 50), (3, 100), (2, 300)])
+@pytest.mark.parametrize("approx", [True, False])
+def test_performer_kernels_match_twin_and_count(dev, batch, n, approx):
+    x, p, w = _performer_inputs(dev, batch, n)
+    pf.reset_launches()
+    got = pf.performer_rest(x, p, w, eps_ln=1e-5, approx_gelu=approx)
+    assert pf.LAUNCHES == {"performer_reduce": 1, "performer_rows": 1}
+    _close(got, pf.performer_rest_plain(x, p, w, eps_ln=1e-5, approx_gelu=approx))
+
+
+def test_performer_refuses_what_the_kernels_do_not_take(dev):
+    x, p, w = _performer_inputs(dev, 1, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        pf.performer_rest(x.float(), p, w, eps_ln=1e-5, approx_gelu=True)
+    with pytest.raises(ValueError, match="ts = 64"):
+        pf.performer_rest(x, p, w[:16], eps_ln=1e-5, approx_gelu=True)
+    with pytest.raises(ValueError, match="192"):
+        pf.performer_rest(x[..., :96].contiguous(), p, w, eps_ln=1e-5, approx_gelu=True)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_t2t_tokenize_runs_k16_and_the_int8_stem(dev, batch):
+    model, shape = build_model("t2t_vit_7", dtype=torch.bfloat16, depth=1, device=dev,
+                               generator=torch.Generator().manual_seed(1))
+    img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        stem = t2t.prepare_t2t_stem_int8_static(model, batches=[img[:1].cpu().numpy()])
+        for stem_q in (None, stem):
+            _reset_all()
+            got = t2t.t2t_tokenize(model, img, stem_q=stem_q)
+            counts = _all_counts()
+            ref = t2t.t2t_tokenize(model, img, stem_q=stem_q, plain=True)
+            want_i8 = 0 if stem_q is None else (2 if batch < 8 else 3)
+            assert counts["performer_reduce"] == counts["performer_rows"] == 2
+            assert counts["quant_rows"] == counts["linear_i8"] == want_i8
+            assert counts["stage1_kqv"] == int(batch < 8)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max()
+            assert err <= 0.05 * ref.float().abs().max()
+
+
+def _all_counts():
+    return {**fe.LAUNCHES, **ts.LAUNCHES, **sb.LAUNCHES, **sm.LAUNCHES, **ws.LAUNCHES,
+            **fa.LAUNCHES, **fm.LAUNCHES, **vf.LAUNCHES, **pf.LAUNCHES}
+
+
+def _reset_all():
+    for m in (fe, ts, sb, sm, ws, fa, fm, vf, pf):
+        m.reset_launches()

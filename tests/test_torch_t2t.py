@@ -25,11 +25,12 @@ from edgevisiontransformer_tpu_torch.config import dtype_name
 from edgevisiontransformer_tpu_torch.models import registry
 from edgevisiontransformer_tpu_torch.models import t2t_vit as tt2t
 from edgevisiontransformer_tpu_torch.ops import quant as tq
+from edgevisiontransformer_tpu_torch.ops.cuda import performer as tperf
 from edgevisiontransformer_tpu_torch.ops.cuda import t2t_stage1 as ts
 from edgevisiontransformer_tpu_torch.ops.unfold import unfold as tunfold
 from edgevisiontransformer_tpu_torch.ops.unfold import unfold_output_size
 from edgevisiontransformer_tpu_torch.utils.jax_bridge import (load_jax_variables,
-                                                              quantized_stack_from_jax)
+                                                              quantized_stack_from_jax, to_torch)
 
 torch.set_num_threads(1)
 
@@ -198,10 +199,6 @@ def test_t2t_tokenize_matches_jax(fast, stage1_impl):
 def test_t2t_tokenize_refuses_what_is_not_ported():
     _, _, tmodel, img = _models("float32")
     x = torch.from_numpy(img[:1])
-    with pytest.raises(NotImplementedError, match="stem int8"):
-        tt2t.t2t_tokenize(tmodel, x, stem_q={"kqv1": {}})
-    with pytest.raises(NotImplementedError, match="stem int8"):
-        tt2t.fused_t2t_apply_int8(tmodel, x, stem_q={"kqv1": {}})
     with pytest.raises(ValueError, match="stage1_impl"):
         tt2t.t2t_tokenize(tmodel, x, stage1_impl="pallas")
 
@@ -236,17 +233,23 @@ def test_fused_t2t_apply_matches_jax_fused_and_apply(batch, fast, dtype):
 
 
 def test_fused_t2t_apply_prepared_and_plain_flag():
+    """``plain=True`` runs the kernels' twins, whose performers keep K16's
+    cast points, where a CPU tensor otherwise takes JAX's eager performer
+    chain: the two agree within the bf16 logit bound, and with JAX."""
     _, _, tmodel, img = _models("bfloat16")
     x = torch.from_numpy(img[:1])
     ts.reset_launches()
+    tperf.reset_launches()
     with torch.no_grad():
         a = tt2t.fused_t2t_apply(tmodel, x)
         b = tt2t.fused_t2t_apply(tmodel, x, prepared=tt2t.prepare_t2t_fused(tmodel),
                                  stacked=tt2t.prepare_vit_fused(tmodel))
         c = tt2t.fused_t2t_apply(tmodel, x, plain=True)
     assert ts.LAUNCHES["stage1_kqv"] == 0
+    assert sum(tperf.LAUNCHES.values()) == 0
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    torch.testing.assert_close(a, c, rtol=0, atol=0)
+    assert _rel(c, a) <= LOGIT_REL
+    _check(c, _jax_fused("bfloat16", 1), "bfloat16")
 
 
 # ---------------------------------------------------------------------------
@@ -325,13 +328,76 @@ def test_fused_t2t_apply_int8_defaults_variants_and_plain_flag():
     x = torch.from_numpy(img[:1])
     with torch.no_grad():
         ref = tt2t.fused_t2t_apply_int8(tmodel, x, stacked_q=tt2t.prepare_t2t_int8(tmodel))
-        outs = [tt2t.fused_t2t_apply_int8(tmodel, x),
-                tt2t.fused_t2t_apply_int8(tmodel, x, plain=True)]
+        outs = [tt2t.fused_t2t_apply_int8(tmodel, x)]
         outs += [tt2t.fused_t2t_apply_int8(tmodel, x, variant=v) for v in tt2t.INT8_VARIANTS]
+        plain = tt2t.fused_t2t_apply_int8(tmodel, x, plain=True)
     for out in outs:
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    # the twins' performers keep K16's cast points (see the bf16 test above)
+    assert _rel(plain, ref) <= LOGIT_REL
     with pytest.raises(ValueError, match="variant"):
         tt2t.fused_t2t_apply_int8(tmodel, x, variant="resident")
+
+
+@functools.lru_cache(maxsize=None)
+def _stems(dtype: str = "float32"):
+    """The int8 stem of both packages, calibrated on the same two batches."""
+    jmodel, variables, tmodel, _ = _models(dtype)
+    return (jt2t.prepare_t2t_stem_int8_static(jmodel, variables, batches=_calib()),
+            tt2t.prepare_t2t_stem_int8_static(tmodel, batches=_calib()))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_prepare_t2t_stem_int8_static_bit_for_bit(dtype):
+    """Calibration on the plain-unfold form through the performers, then the
+    per-channel int8 weights with the act scale folded in: equal to JAX's
+    bit for bit in bf16, where every calibrated tensor is a bf16 value.  In
+    fp32 the performers' sums run in another order, so the stage-3 absmax
+    (a performer output) may sit one fp32 spacing apart, and the combined
+    scales built on it two; the int8 weights stay equal."""
+    ref, got = _stems(dtype)
+    assert set(got) == set(ref) == {"kqv1", "kqv2", "project"}
+    for key, entry in ref.items():
+        assert set(got[key]) == set(entry), key
+        for k, r in entry.items():
+            r = np.asarray(r)
+            assert got[key][k].dtype == quantized_stack_from_jax({k: r})[k].dtype, (key, k)
+            if dtype == "bfloat16" or k in ("q", "bias"):
+                np.testing.assert_array_equal(got[key][k].numpy(), r, err_msg=f"{key}/{k}")
+            else:
+                np.testing.assert_allclose(got[key][k].numpy(), r, rtol=2.0 ** -21, atol=0,
+                                           err_msg=f"{key}/{k}")
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_t2t_tokenize_with_int8_stem_matches_jax(fast):
+    """The tokenizer with the static int8 stem, on JAX's stem: the fast form
+    (stage-1 kernel, kqv2 and the projection int8) and the plain-unfold
+    form (all three int8)."""
+    jmodel, variables, tmodel, img = _models("float32")
+    jstem, _ = _stems()
+    tstem = {k: {n: to_torch(np.asarray(v)) for n, v in e.items()} for k, e in jstem.items()}
+    ref = jt2t.t2t_tokenize(jmodel, variables, jnp.asarray(img[:1]), fast=fast, stem_q=jstem)
+    with torch.no_grad():
+        got = tt2t.t2t_tokenize(tmodel, torch.from_numpy(img[:1]), fast=fast, stem_q=tstem)
+        flt = tt2t.t2t_tokenize(tmodel, torch.from_numpy(img[:1]), fast=fast)
+    assert _rel(got, ref) <= LOGIT_REL
+    assert 0 < _rel(got, flt) <= LOGIT_REL  # int8, and close to the float stem
+
+
+def test_fused_t2t_apply_int8_with_int8_stem_matches_jax():
+    """b1 (the fast form) with the static int8 encoder and the int8 stem."""
+    jmodel, variables, tmodel, img = _models("float32")
+    scales = _jax_scales()
+    jstem, tstem = _stems()
+    jsq = jt2t.prepare_t2t_int8_static(jmodel, variables, act_scales=scales)
+    ref = jt2t.fused_t2t_apply_int8(jmodel, variables, jnp.asarray(img[:1]), jsq, stem_q=jstem)
+    with torch.no_grad():
+        got = tt2t.fused_t2t_apply_int8(tmodel, torch.from_numpy(img[:1]),
+                                        stacked_q=tt2t.prepare_t2t_int8_static(
+                                            tmodel, act_scales=scales), stem_q=tstem)
+    assert got.shape == (1, 10)
+    assert _rel(got, ref) <= LOGIT_REL
 
 
 # ---------------------------------------------------------------------------
