@@ -173,10 +173,12 @@ FULL_TIMES = (("deit_tiny", 1), ("deit_tiny", 128), ("deit_base", 1))
 # 224 x 224 image at b1 and b4, and token counts off the 64-row tile
 PERFORMER_SHAPES = ((1, 3136), (4, 3136), (1, 784), (4, 784), (2, 300), (1, 50))
 # sdpa at the module path's shapes, [b, h, n, d]: deit_tiny b1 and b128,
-# t2t_vit_14 b1, pruned h1 b1 and b128, head_dim 32
+# t2t_vit_14 b1, pruned h1 b1 and b128, head_dim 32 (the kernel's resident
+# form), and deit_base at 384 (n = 577, its streamed form)
 SDPA_SHAPES = {"deit_tiny b1": (1, 3, 197, 64), "deit_tiny b128": (128, 3, 197, 64),
                "t2t_vit_14 b1": (1, 6, 197, 64), "pruned h1 b1": (1, 1, 197, 64),
-               "pruned h1 b128": (128, 1, 197, 64), "head_dim 32 b8": (8, 6, 197, 32)}
+               "pruned h1 b128": (128, 1, 197, 64), "head_dim 32 b8": (8, 6, 197, 32),
+               "deit_base 384 b8": (8, 12, 577, 64)}
 # mlp at (rows, dim, hidden): deit_tiny b1 and b128, deit_base b8, the
 # pruned widths 230 (ffn0.3) and 537 (ffn0.7)
 MLP_SHAPES = {"deit_tiny b1": (197, 192, 768), "deit_tiny b128": (128 * 197, 192, 768),
@@ -192,7 +194,9 @@ SHAPES = {
 
 
 def fail(msg: str) -> None:
+    # on both streams: a caller that keeps only the end of one still sees why
     print(f"chip_smoke: FAIL: {msg}", flush=True)
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1637,7 +1641,7 @@ def phase_slice_full(torch, counter, vf, models):
         with torch.no_grad():
             rows = harness.device_time_by_kernel(
                 lambda: fully_fused_vit_apply(model, img16, prepared=prep))
-        if len(rows) != 1 or rows[0][1] != 1:
+        if len(rows) != 1 or rows[0][1] != 1 or "vit_full" not in rows[0][0]:
             fail(f"{tag}: a traced forward ran {[(r[0][:60], r[1]) for r in rows]}, expected "
                  "one vit_full kernel")
         print(f"  {tag:30s} grid {grid} blocks, max|kern-twin| {err:.4g} (max|logit| "

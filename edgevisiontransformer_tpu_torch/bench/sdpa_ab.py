@@ -1,17 +1,22 @@
-"""What the softmax section of ``csrc/sdpa.cu`` (K13) costs on the card: the
-kernel as committed against variants of its source, each built into its own
+"""What the softmax of ``csrc/sdpa.cu`` (K13) costs on the card: the kernel
+as committed against variants of its source, each built into its own
 library and timed on the same inputs.
 
     python -m edgevisiontransformer_tpu_torch.bench.sdpa_ab
 
-Variants: the committed exact division ``p / sum``; a product with the
-rounded reciprocal of ``sum`` (off K13 by up to one bf16 spacing); ``exp2``
-of a prescaled difference in place of ``exp``; no softmax at all (the two
-products and the loads only, a floor; its output is not attention).  Each
-line gives the device time per launch (CUDA events around 200 launches,
-median of 5 samples) and the largest difference from the committed kernel's
-output.  Needs a CUDA device and ``nvcc``; the libraries go to
-``build/sdpa_ab/``.
+Variants rewrite the kernel's softmax helpers ``exp_shifted``,
+``normalise`` and ``divide_ieee``: the committed exact division ``e / l``
+(two corrections of ``e * RN(1/l)``, the last Markstein's, or ``__fdiv_rn``
+where a row's scores span too far); ``__fdiv_rn`` per score, which must give
+the same output bit for bit; a product with the rounded reciprocal of ``l``
+(off K13 by up to one bf16 spacing); ``exp2`` of a prescaled difference in
+place of ``exp``; no softmax at all (the helpers return their first
+argument, so the compiler drops the sums, the exps and the divisions: the
+products, the loads and the stores only, a floor; its output is not
+attention).  Each line gives the device time per
+launch (CUDA events around 200 launches, median of 5 samples) and the
+largest difference from the committed kernel's output.  Needs a CUDA device
+and ``nvcc``; the libraries go to ``build/sdpa_ab/``.
 """
 
 from __future__ import annotations
@@ -24,25 +29,32 @@ import torch
 
 from ..ops.cuda import build
 
+# deit_tiny b128 / b1 and the pruned model (n = 197, the resident form) and
+# deit_base at 384 (n = 577, the streamed form)
 SHAPES = {"deit_tiny b128": (128, 3, 197, 64), "deit_tiny b1": (1, 3, 197, 64),
-          "pruned h1 b128": (128, 1, 197, 64)}
-_DIV = "row[c] = c < n ? __fdiv_rn(row[c], sum) : 0.0f;"
-_EXP = "const float e = expf(__fsub_rn(row[c], mx));"
-_SUM = "sum = warp_sum(sum);"
-_ROW = "if (q0 + wr + r >= n) break;"
+          "pruned h1 b128": (128, 1, 197, 64), "deit_base 384 b8": (8, 12, 577, 64)}
+# the bodies of the kernel's helpers normalise(e, l, y), divide_ieee(e, l)
+# and exp_shifted(s, m)
+_DIV = """  float q = __fmul_rn(e, y);
+  q = __fmaf_rn(__fmaf_rn(-l, q, e), y, q);
+  return __fmaf_rn(__fmaf_rn(-l, q, e), y, q);"""
+_IEEE = "return __fdiv_rn(e, l);"
+_EXP = "return expf(__fsub_rn(s, m));"
 
 
 def variants(src: str) -> dict:
-    for anchor in (_DIV, _EXP, _SUM, _ROW):
-        if anchor not in src:
-            raise ValueError(f"csrc/sdpa.cu no longer holds {anchor!r}")
+    for anchor in (_DIV, _IEEE, _EXP):
+        if src.count(anchor) != 1:
+            raise ValueError(f"csrc/sdpa.cu no longer holds {anchor!r} once")
     return {
         "exact division (committed)": src,
-        "reciprocal product": src.replace(_SUM, _SUM + "\n    const float inv = __frcp_rn(sum);")
-                                 .replace(_DIV, "row[c] = c < n ? __fmul_rn(row[c], inv) : 0.0f;"),
+        "__fdiv_rn per score": src.replace(_DIV, "  " + _IEEE),
+        "reciprocal product": src.replace(_IEEE, "return __fmul_rn(e, __frcp_rn(l));")
+                                 .replace(_DIV, "  return __fmul_rn(e, y);"),
         "exp2f of prescaled": src.replace(
-            _EXP, "const float e = exp2f(__fsub_rn(row[c], mx) * 1.4426950408889634f);"),
-        "no softmax (products only)": src.replace(_ROW, "break;"),
+            _EXP, "return exp2f(__fsub_rn(s, m) * 1.4426950408889634f);"),
+        "no softmax (products only)": src.replace(_IEEE, "return e;").replace(_DIV, "  return e;")
+                                         .replace(_EXP, "return s;"),
     }
 
 
@@ -111,7 +123,7 @@ def main() -> None:
                 ms = _time(lambda: _launch(fns[name], q, k, v, out))
                 ref = out.clone() if ref is None else ref
                 diff = float((out.float() - ref.float()).abs().max())
-                print(f"{tag:15s} {name:28s} {ms * 1e3:8.2f} us  max|diff vs committed| "
+                print(f"{tag:17s} {name:28s} {ms * 1e3:8.2f} us  max|diff vs committed| "
                       f"{diff:.3g}")
 
 

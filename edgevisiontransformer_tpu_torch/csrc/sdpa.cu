@@ -6,15 +6,13 @@
 //   edgevisiontransformer_tpu/ops/pallas/fused_attention.py:29-75.  Per
 //   (image, head), with K13's math (:33-42):
 //     s = f32(q . k) * scale               (the scale multiplies the fp32 product)
-//     keys at index >= n: s = -1e30        (exp gives p = 0 exactly)
+//     keys at index >= n: excluded         (K13's -1e30 gives p = 0 exactly)
 //     p = exp(s - max_row s) / sum_row exp(s - max_row s)   (fp32, before PV)
 //     o = bf16(f32(bf16(p) @ v))           (p cast to v's dtype, fp32 accumulation)
-//   This is not attention_rows' max-free exp2 softmax with the normalisation
-//   deferred past PV.  Every step rounds as K13 does (__fmul_rn / __fsub_rn /
-//   __fdiv_rn): nvcc contracts nothing into an FMA and divides exactly.  K13
-//   pads n to a multiple of 128 and masks the padded keys; here keys past n
-//   are never read (their p is 0 either way), and the sums run over the n
-//   real keys, which adds the same numbers.
+//   Every step rounds as K13 does (__fmul_rn / __fsub_rn): nvcc contracts
+//   nothing into an FMA, and the division is exact (normalise: the correctly
+//   rounded quotient, as __fdiv_rn gives it).  The sums run over the n real
+//   keys in another order than K13's, which adds the same numbers.
 //
 // Operands: q, k, v and out are [b, h, n, d] with d contiguous and every
 // other stride a multiple of 8 elements, so a row is one run of 16-byte
@@ -25,31 +23,59 @@
 // Bound on the card: for deit_tiny (n = 197, d = 64, 3 heads) one (image,
 // head) does 4 * n^2 * d = 10 MFLOP on 4 * n * d * 2 = 101 KB of q, k, v and
 // out: ~100 flop/byte, under the H100's ~295 flop/byte balance point, so
-// bytes bound it (0.0116 ms per deit_tiny b128 layer at 3.35 TB/s), and the
-// n^2 exp (one MUFU op each) and the exact divisions cost about as much as
-// the two products on the tensor cores.
+// bytes bound it (0.0116 ms per deit_tiny b128 layer at 3.35 TB/s).  In
+// practice the n^2 exps and exact divisions on the fp32 ALUs cost more than
+// the two products on the tensor cores, and the latency of each block's
+// chain of loads, products and softmax decides how much of that overlaps.
 //
-// Design (simple first, the structure of attention_rows.cu): one thread
-// block of 4 warps per (image * head, 64-query tile); each warp owns 16
-// query rows.  The block's whole fp32 score row lives in shared memory
-// (64 x n_pad x 4 B, 66 KB at n = 197, 165 KB at n = 577), so the exact
-// softmax needs one pass over the keys for S = q k^T, one over each warp's
-// own rows in shared memory for max, exp, sum and p / sum, and one more over
-// the keys for O = bf16(p) v.  k and v stream through one 64-row tile
-// buffer, zero-filled past n; the products run on WMMA 16x16x16 bf16
-// fragments with fp32 accumulation.  At b1 (12 blocks for deit_tiny) the
-// card is mostly idle; several heads per block, wgmma and TMA are later work.
+// Design: one block of 4 warps per (image * head, 64-query tile); each warp
+// owns 16 query rows.
+// - Products on mma.sync.m16n8k16 (bf16 in, fp32 accumulators), fed by
+//   ldmatrix from tiles of row stride d + 8 (the 16-byte skew spreads eight
+//   rows over all 32 banks).  Q's A fragments come from its rows, S = Q K^T's
+//   B fragments from K's rows (ldmatrix), O = P V's from V's rows
+//   (ldmatrix.trans).
+// - The scores stay in the accumulator registers.  In the m16n8 layout a
+//   score row lives in the 4 lanes of a quad, so the row max and sum are
+//   taken in registers and reduced with two shuffles; and the accumulators
+//   of two neighbouring n8 tiles, packed to bf16x2, are the A fragment of one
+//   k16 step of PV (FlashAttention-2's register reuse).  P never goes to
+//   shared memory.
+// - K and V arrive by cp.async, zero-filled past n (p = 0 times a NaN left in
+//   shared memory would be NaN), so the loads overlap the arithmetic.
+// - Resident form (n <= RES_KEYS: 256 keys, 128 at d = 128, where the O
+//   accumulators take 64 registers): all of K and V sit in shared memory, K
+//   with Q in one commit group and V in a second, so V lands while Q K^T and
+//   the softmax run.  Each warp holds its 16 x n scores in registers: one
+//   Q K^T, one exp per score, one exact division, one PV.  The kernel is
+//   compiled for 2, 4, 8, 13 and 16 chunks of 16 keys and takes the fewest
+//   that hold n, so its loops carry no bound check (a branch in them keeps
+//   the compiler from running loads ahead of the products) and the scores
+//   take no more registers than n needs: at n = 197 (13 chunks, every
+//   registry ViT at 224^2) 168 registers, three blocks per SM.
+// - Streamed form (longer n): 64-key tiles of K (sweep 1) and then K and V
+//   (sweep 2) pass through a 2-stage cp.async ring.  Sweep 1 keeps a running
+//   row max and sum, l = l * exp(m_old - m_new) + sum exp(s - m_new); sweep 2
+//   recomputes S and takes p = exp(s - m) / l, rounds it to bf16 and runs PV.
+//   So p is normalised before PV, as K13 does; the online sum differs from a
+//   direct one only in the rounding of its fp32 additions.  Any n runs.
+// - The exact division costs a reciprocal on the MUFU and about ten more
+//   operations a score as __fdiv_rn; normalise gives the same quotient in
+//   five FMA-pipe operations from one reciprocal per row, wherever the
+//   warp's rows keep every quotient above 2^-101 (a warp-uniform check;
+//   other warps take __fdiv_rn).
+// - Query rows past n are computed from zeros and never stored; a warp whose
+//   16 rows all lie past n skips the arithmetic (at n = 197 three of the last
+//   tile's four warps).
+// - Epilogue: O is rounded to bf16 into the warp's own Q rows of shared
+//   memory, then written to the strided out view as 16-byte vectors.
 #include <math.h>
-#include <mma.h>
 
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int QT = 64, KT = 64, WARPS = 4, THREADS = WARPS * 32;
-constexpr int MAX_SMEM = 232448;  // the most dynamic shared memory a block may use
 
 // Element strides of q, k, v and out over (image, head, token).
 struct Strides {
@@ -57,166 +83,402 @@ struct Strides {
 };
 
 template <int HD>
-struct Smem {
-  static constexpr int LD = HD + 8;   // q and k / v tile row stride (bf16)
-  static constexpr int PLD = KT + 8;  // p tile row stride (bf16)
-  static constexpr int Q_OFF = 0;
-  static constexpr int KV_OFF = Q_OFF + QT * LD * 2;
-  static constexpr int P_OFF = KV_OFF + KT * LD * 2;
-  static constexpr int S_OFF = P_OFF + QT * PLD * 2;
-  // Score row stride (fp32): every key tile, and at least a row of output.
-  static __host__ __device__ int sld(int n) {
-    const int keys = (n + KT - 1) / KT * KT;
-    return (keys > HD ? keys : HD) + 4;
-  }
-  static __host__ __device__ size_t bytes(int n) {
-    return S_OFF + static_cast<size_t>(QT) * sld(n) * 4;
-  }
+struct Tile {
+  static constexpr int LD = HD + 8;  // shared-memory row stride (bf16)
+  // The longest n of the resident form: its scores take RES_KEYS / 2
+  // registers a thread, beside HD / 2 of O accumulators.
+  static constexpr int RES_KEYS = HD == 128 ? 128 : 256;
 };
 
-// Rows [r0, r0 + 64) of one (image, head) of a [.., n, HD] operand into
-// shared memory, zeros past token n.
+// The softmax's two costly steps, each in one place (bench/sdpa_ab.py
+// builds variants of them).
+__device__ __forceinline__ float exp_shifted(float s, float m) {
+  return expf(__fsub_rn(s, m));
+}
+
+// p = e / l correctly rounded, the value of __fdiv_rn(e, l), given y =
+// __frcp_rn(l) (one per row), for l >= 1 and e / l >= 2^-101 or e = 0.
+// q = RN(e y) lies within 1.5 ulp of e / l; one correction q + (e - l q) y
+// brings it within one ulp; then Markstein's theorem holds: with y within
+// half an ulp of 1/l and q within one ulp of e/l, the remainder r = e - l q
+// is exact in one FMA and RN(q + r y) = RN(e / l).  The bound on e / l keeps
+// r clear of underflow, which would break that (exact_corrections decides).
+// Five fp32 operations a score, where __fdiv_rn takes a reciprocal on the
+// MUFU and about ten more (tests/test_torch_sdpa_tiles.py checks this
+// arithmetic against the exact quotient).
+__device__ __forceinline__ float normalise(float e, float l, float y) {
+  float q = __fmul_rn(e, y);
+  q = __fmaf_rn(__fmaf_rn(-l, q, e), y, q);
+  return __fmaf_rn(__fmaf_rn(-l, q, e), y, q);
+}
+
+// p = e / l for the rows that normalise does not take.
+__device__ __forceinline__ float divide_ieee(float e, float l) {
+  return __fdiv_rn(e, l);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_min(float v) {
+  v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// Whether normalise is exact for every score of the warp's rows: the least
+// unmasked score lo gives the least nonzero numerator exp(lo - m), which must
+// keep e / l >= 2^-101 (2^-100 here, a margin for expf's last ulps).  lo is
+// this thread's share (quad-reduced here); l is quad-reduced.  Warp-uniform,
+// so the division loops stay free of branches; a row whose scores span more
+// than ~65 takes __fdiv_rn.
+__device__ __forceinline__ bool exact_corrections(const float lo[2], const float m[2],
+                                                  const float l[2]) {
+  bool ok = true;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float least = exp_shifted(quad_min(lo[r]), m[r]);  // every lane shuffles
+    ok &= least >= 0x1p-100f * l[r];
+  }
+  return __all_sync(0xffffffffu, ok);
+}
+
+// Rows [r0, r0 + rows) of one (image, head) of a [.., n, HD] operand into
+// shared memory by cp.async, zeros past token n (not waited for).
 template <int HD>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src,
-                                          long long stride_n, int r0, int n, int tid) {
+                                          long long stride_n, int r0, int rows, int n, int tid) {
   constexpr int CH = HD / 8;
-  for (int i = tid; i < 64 * CH; i += THREADS) {
+  for (int i = tid; i < rows * CH; i += THREADS) {
     const int r = i / CH, c = (i % CH) * 8;
     const int t = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t < n) v = *reinterpret_cast<const uint4*>(src + t * stride_n + c);
-    *reinterpret_cast<uint4*>(dst + r * Smem<HD>::LD + c) = v;
+    const bool ok = t < n;
+    cp_async16(dst + r * Tile<HD>::LD + c, ok ? src + t * stride_n + c : src, ok);
   }
 }
 
+// Scores of the warp's 16 query rows (sQw) against NC 16-key chunks of sK:
+// s[c][j] is the m16n8 accumulator of keys 16c + 8j .. + 7.  Thread (g =
+// lane / 4, t = lane % 4) holds rows g (s[.][.][0..1]) and g + 8 ([2..3]),
+// keys 2t and 2t + 1 of each n8 tile.
+template <int HD, int NC>
+__device__ __forceinline__ void qk(float (&s)[NC][2][4], const bf16* sQw, const bf16* sK,
+                                   int lane) {
+  constexpr int LD = Tile<HD>::LD;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[c][e / 4][e % 4] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, sQw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      uint32_t b[4];
+      ldsm_x4(b, sK + (c * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD + kk * 16 +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(s[c][0], a, b[0], b[1]);
+      mma_bf16(s[c][1], a, b[2], b[3]);
+    }
+  }
+}
+
+// s = f32(q . k) * scale, -inf for keys at or past n (key0: the first key
+// of chunk 0); lo[r] becomes the least unmasked score of row r in this
+// thread's share, if smaller.
+template <int NC>
+__device__ __forceinline__ void scale_mask(float (&s)[NC][2][4], int key0, int n, float scale,
+                                           int lane, float lo[2]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int key = key0 + c * 16 + (e / 4) * 8 + 2 * (lane & 3) + (e & 1);
+      float& x = s[c][e / 4][e % 4];
+      x = key < n ? __fmul_rn(x, scale) : -INFINITY;
+      if (key < n) lo[(e % 4) / 2] = fminf(lo[(e % 4) / 2], x);
+    }
+}
+
+// In place, p = e / l: by normalise where exact_corrections holds, else by
+// the IEEE division.
+template <int NC>
+__device__ __forceinline__ void divide_rows(float (&s)[NC][2][4], const float l[2],
+                                            bool corrections) {
+  if (corrections) {
+    const float y[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float& x = s[c][e / 4][e % 4];
+        x = normalise(x, l[(e % 4) / 2], y[(e % 4) / 2]);
+      }
+  } else {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float& x = s[c][e / 4][e % 4];
+        x = divide_ieee(x, l[(e % 4) / 2]);
+      }
+  }
+}
+
+// The row max of the scores (m[0]: row g, m[1]: row g + 8), quad-reduced.
+template <int NC>
+__device__ __forceinline__ void row_max(const float (&s)[NC][2][4], float m[2]) {
+  m[0] = m[1] = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m[(e % 4) / 2] = fmaxf(m[(e % 4) / 2], s[c][e / 4][e % 4]);
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+}
+
+// In place, s becomes exp(s - m) (0 for a masked key); returns this
+// thread's share of each row's sum in l (not quad-reduced).
+template <int NC>
+__device__ __forceinline__ void exp_rows(float (&s)[NC][2][4], const float m[2], float l[2]) {
+  l[0] = l[1] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float& x = s[c][e / 4][e % 4];
+      const int r = (e % 4) / 2;
+      x = x == -INFINITY ? 0.0f : exp_shifted(x, m[r]);
+      l[r] = __fadd_rn(l[r], x);
+    }
+}
+
+// O += bf16(P) V over NC 16-key chunks of sV, P in the score registers (two
+// n8 accumulators = one k16 A fragment).
+template <int HD, int NC>
+__device__ __forceinline__ void pv(float (&o)[HD / 8][4], const float (&p)[NC][2][4],
+                                   const bf16* sV, int lane) {
+  constexpr int LD = Tile<HD>::LD;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const uint32_t a[4] = {pack_bf16x2(p[c][0][0], p[c][0][1]),
+                           pack_bf16x2(p[c][0][2], p[c][0][3]),
+                           pack_bf16x2(p[c][1][0], p[c][1][1]),
+                           pack_bf16x2(p[c][1][2], p[c][1][3])};
+#pragma unroll
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, sV + (c * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
+      mma_bf16(o[2 * dp], a, b[0], b[1]);
+      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// bf16(O) through the warp's own 16 rows of the Q tile to out, 16-byte
+// stores, rows past n dropped.
 template <int HD>
+__device__ __forceinline__ void store_rows(const float (&o)[HD / 8][4], bf16* sQw,
+                                           bf16* __restrict__ op, long long stride_n, int row0,
+                                           int n, int lane) {
+  constexpr int LD = Tile<HD>::LD, CH = HD / 8;
+  const int g = lane >> 2, t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(sQw + g * LD + j * 8 + 2 * t) = pack_bf16x2(o[j][0], o[j][1]);
+    *reinterpret_cast<uint32_t*>(sQw + (g + 8) * LD + j * 8 + 2 * t) =
+        pack_bf16x2(o[j][2], o[j][3]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = (i % CH) * 8;
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(op + (row0 + r) * stride_n + c) =
+          *reinterpret_cast<const uint4*>(sQw + r * LD + c);
+  }
+}
+
+// RC > 0: the resident form over RC 16-key chunks (n <= 16 RC); RC == 0:
+// the streamed form.
+template <int HD, int RC>
 __global__ __launch_bounds__(THREADS) void sdpa_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, Strides st, int heads, int n, float scale) {
-  using L = Smem<HD>;
+  constexpr int LD = Tile<HD>::LD;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  bf16* sKV = reinterpret_cast<bf16*>(smem + L::KV_OFF);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sKV = sQ + QT * LD;
 
   const int img = blockIdx.x / heads, head = blockIdx.x % heads;
   const int q0 = blockIdx.y * QT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wr = warp * 16;  // this warp's first query row in the tile
-  const int ktiles = (n + KT - 1) / KT;
-  const int sld = L::sld(n);
+  const bool active = q0 + wr < n;
+  bf16* sQw = sQ + wr * LD;
   const bf16* qp = q + img * st.qb + head * st.qh;
   const bf16* kp = k + img * st.kb + head * st.kh;
   const bf16* vp = v + img * st.vb + head * st.vh;
   bf16* op = out + img * st.ob + head * st.oh;
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
 
-  load_rows<HD>(sQ, qp, st.qn, q0, n, tid);
-
-  // S[wr:wr+16, :] = q k^T, one 64-key tile at a time
-  for (int t = 0; t < ktiles; ++t) {
-    __syncthreads();  // q landed; every warp is done with the previous k tile
-    load_rows<HD>(sKV, kp, st.kn, t * KT, n, tid);
+  load_rows<HD>(sQ, qp, st.qn, q0, QT, n, tid);
+  if constexpr (RC > 0) {
+    bf16* sK = sKV;
+    bf16* sV = sKV + RC * 16 * LD;
+    load_rows<HD>(sK, kp, st.kn, 0, RC * 16, n, tid);
+    cp_async_commit();  // group 0: q and k
+    load_rows<HD>(sV, vp, st.vn, 0, RC * 16, n, tid);
+    cp_async_commit();  // group 1: v, landing while q k^T and the softmax run
+    cp_async_wait<1>();
     __syncthreads();
-#pragma unroll
-    for (int j = 0; j < KT / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, sQ + wr * L::LD + kk * 16, L::LD);
-        wmma::load_matrix_sync(b, sKV + j * 16 * L::LD + kk * 16, L::LD);
-        wmma::mma_sync(s, a, b, s);
-      }
-      wmma::store_matrix_sync(sS + wr * sld + t * KT + j * 16, s, sld, wmma::mem_row_major);
+    float s[RC][2][4];
+    if (active) {
+      qk<HD, RC>(s, sQw, sK, lane);
+      float m[2], l[2], lo[2] = {INFINITY, INFINITY};
+      scale_mask<RC>(s, 0, n, scale, lane, lo);
+      row_max<RC>(s, m);
+      exp_rows<RC>(s, m, l);
+      l[0] = quad_sum(l[0]);
+      l[1] = quad_sum(l[1]);
+      divide_rows<RC>(s, l, exact_corrections(lo, m, l));
     }
-  }
-  __syncwarp();
-
-  // The exact softmax of each of the warp's valid query rows over its n keys,
-  // in place; p is 0 past key n (those scores are -1e30 in K13).
-  for (int r = 0; r < 16; ++r) {
-    if (q0 + wr + r >= n) break;
-    float* row = sS + (wr + r) * sld;
-    float mx = -INFINITY;
-    for (int c = lane; c < n; c += 32) {
-      const float s = __fmul_rn(row[c], scale);
-      row[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int c = lane; c < n; c += 32) {
-      const float e = expf(__fsub_rn(row[c], mx));
-      row[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < ktiles * KT; c += 32) row[c] = c < n ? __fdiv_rn(row[c], sum) : 0.0f;
-  }
-  __syncwarp();
-
-  // O = bf16(p) v, one 64-key tile at a time
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[HD / 16];
-#pragma unroll
-  for (int d = 0; d < HD / 16; ++d) wmma::fill_fragment(o[d], 0.0f);
-  for (int t = 0; t < ktiles; ++t) {
-    __syncthreads();  // every warp is done with the previous k / v and p tiles
-    load_rows<HD>(sKV, vp, st.vn, t * KT, n, tid);
-    for (int i = lane; i < 16 * KT; i += 32) {
-      const int r = wr + i / KT, c = i % KT;
-      sP[r * L::PLD + c] = __float2bfloat16_rn(sS[r * sld + t * KT + c]);
-    }
+    cp_async_wait<0>();
     __syncthreads();
+    if (active) pv<HD, RC>(o, s, sV, lane);
+  } else {
+    constexpr int NC = KT / 16;
+    const int tiles = (n + KT - 1) / KT, steps = 2 * tiles;
+    // Step i < tiles: k tile i (sweep 1); step i >= tiles: k and v tile
+    // i - tiles (sweep 2); stage i % 2 of the ring holds a k and a v tile.
+    auto prefetch = [&](int i) {
+      bf16* sK = sKV + (i & 1) * 2 * KT * LD;
+      const int t = i < tiles ? i : i - tiles;
+      load_rows<HD>(sK, kp, st.kn, t * KT, KT, n, tid);
+      if (i >= tiles) load_rows<HD>(sK + KT * LD, vp, st.vn, t * KT, KT, n, tid);
+    };
+    prefetch(0);
+    cp_async_commit();  // group 0: q and the first k tile
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, lo[2] = {INFINITY, INFINITY};
+    bool corrections = true;
+    for (int i = 0; i < steps; ++i) {
+      if (i + 1 < steps) prefetch(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // step i landed
+      if (active) {
+        const bf16* sK = sKV + (i & 1) * 2 * KT * LD;
+        const int t = i < tiles ? i : i - tiles;
+        float s[NC][2][4];
+        qk<HD, NC>(s, sQw, sK, lane);
+        scale_mask<NC>(s, t * KT, n, scale, lane, lo);
+        if (i < tiles) {
+          float mt[2], lt[2];
+          row_max<NC>(s, mt);
 #pragma unroll
-    for (int d = 0; d < HD / 16; ++d) {
+          for (int r = 0; r < 2; ++r) mt[r] = fmaxf(mt[r], m[r]);
+          exp_rows<NC>(s, mt, lt);
 #pragma unroll
-      for (int kk = 0; kk < KT / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, sP + wr * L::PLD + kk * 16, L::PLD);
-        wmma::load_matrix_sync(b, sKV + kk * 16 * L::LD + d * 16, L::LD);
-        wmma::mma_sync(o[d], a, b, o[d]);
+          for (int r = 0; r < 2; ++r) {
+            l[r] = __fadd_rn(__fmul_rn(l[r], exp_shifted(m[r], mt[r])), lt[r]);
+            m[r] = mt[r];
+          }
+        } else {
+          if (i == tiles) {
+            l[0] = quad_sum(l[0]);
+            l[1] = quad_sum(l[1]);
+            corrections = exact_corrections(lo, m, l);
+          }
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              float& x = s[c][e / 4][e % 4];
+              x = x == -INFINITY ? 0.0f : exp_shifted(x, m[(e % 4) / 2]);
+            }
+          divide_rows<NC>(s, l, corrections);
+          pv<HD, NC>(o, s, sK + KT * LD, lane);
+        }
       }
+      __syncthreads();  // every warp is done with stage i % 2 before step i + 2 refills it
     }
   }
-
-  // The warp's own score rows become its fp32 output rows (sld >= HD + 4).
-#pragma unroll
-  for (int d = 0; d < HD / 16; ++d)
-    wmma::store_matrix_sync(sS + wr * sld + d * 16, o[d], sld, wmma::mem_row_major);
-  __syncwarp();
-  constexpr int CH = HD / 8;
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int qi = q0 + wr + r;
-    if (qi >= n) continue;
-    float f[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = sS[(wr + r) * sld + c + e];
-    *reinterpret_cast<uint4*>(op + qi * st.on + c) = pack8(f);
-  }
+  if (active) store_rows<HD>(o, sQw, op, st.on, q0 + wr, n, lane);
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, const Strides& st, int bh,
-           int heads, int n, float scale, cudaStream_t stream) {
-  const size_t bytes = Smem<HD>::bytes(n);
-  if (bytes > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
+template <int HD, int RC>
+int launch_form(const void* q, const void* k, const void* v, void* out, const Strides& st,
+                int bh, int heads, int n, float scale, cudaStream_t stream) {
+  constexpr int rows = RC > 0 ? QT + 2 * RC * 16 : QT + 2 * 2 * KT;  // q, then k and v
+  constexpr int bytes = rows * Tile<HD>::LD * 2;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sdpa_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+        sdpa_kernel<HD, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const dim3 grid(bh, (n + QT - 1) / QT);
-  sdpa_kernel<HD><<<grid, THREADS, bytes, stream>>>(
+  sdpa_kernel<HD, RC><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), st, heads, n, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The resident form at the fewest chunks that hold n (13 chunks: n = 197,
+// every registry ViT at 224^2), else the streamed form.
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, const Strides& st, int bh,
+           int heads, int n, float scale, cudaStream_t stream) {
+  const int nc = (n + 15) / 16;
+  if (nc <= 2) return launch_form<HD, 2>(q, k, v, out, st, bh, heads, n, scale, stream);
+  if (nc <= 4) return launch_form<HD, 4>(q, k, v, out, st, bh, heads, n, scale, stream);
+  if (nc <= 8) return launch_form<HD, 8>(q, k, v, out, st, bh, heads, n, scale, stream);
+  if constexpr (Tile<HD>::RES_KEYS > 128) {
+    if (nc <= 13) return launch_form<HD, 13>(q, k, v, out, st, bh, heads, n, scale, stream);
+    if (nc <= 16) return launch_form<HD, 16>(q, k, v, out, st, bh, heads, n, scale, stream);
+  }
+  return launch_form<HD, 0>(q, k, v, out, st, bh, heads, n, scale, stream);
 }
 
 }  // namespace

@@ -18,7 +18,6 @@ the row max, uses ``exp`` and normalises ``p`` before the PV product, and
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -31,30 +30,11 @@ from .fused_encoder import _ptr, _stream
 LAUNCHES = {"sdpa": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
-# csrc/sdpa.cu: a block holds 64 query rows of fp32 scores over every key,
-# a 64-row q tile, a k / v tile and a bf16 p tile in at most this much
-# shared memory.
-_SMEM_LIMIT = 232448
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def smem_bytes(head_dim: int, n: int) -> int:
-    """The shared memory one block of csrc/sdpa.cu takes (its ``Smem``)."""
-    keys = -(-n // 64) * 64
-    return 64 * (head_dim + 8) * 2 * 2 + 64 * 72 * 2 + 64 * (max(keys, head_dim) + 4) * 4
-
-
-@functools.lru_cache(maxsize=None)
-def max_tokens(head_dim: int) -> int:
-    """The longest sequence the kernel takes at ``head_dim`` (768 at 64)."""
-    n = 64
-    while smem_bytes(head_dim, n + 64) <= _SMEM_LIMIT:
-        n += 64
-    return n
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,10 +77,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          scale: Optional[float] = None, *, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention ``[b, h, n, d] -> [b, h, n, d]``: K13 as
     one kernel (csrc/sdpa.cu), one thread block per (image * head, 64-query
-    tile).  The operands are read through their strides, so views of a fused
-    qkv activation need no copy; ``out``, when given, is the ``[b, h, n, d]``
-    view the result is written into (and returned).  On the GPU all are
-    bf16, ``d`` is 16, 32, 64 or 128 and ``n`` at most :func:`max_tokens`."""
+    tile), its scores in registers; up to 256 keys (128 at ``d`` = 128) it
+    holds every key in shared memory, beyond that it streams 64-key tiles
+    twice, so any ``n`` runs.  The operands are read through their strides,
+    so views of a fused qkv activation need no copy; ``out``, when given, is
+    the ``[b, h, n, d]`` view the result is written into (and returned).  On
+    the GPU all are bf16 and ``d`` is 16, 32, 64 or 128."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or (
@@ -113,9 +95,6 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, n, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"sdpa: head_dim must be one of {HEAD_DIMS}, got {d}")
-    if n > max_tokens(d):
-        raise ValueError(f"sdpa: {n} tokens; the kernel holds at most {max_tokens(d)} at "
-                         f"head_dim {d}")
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
