@@ -179,11 +179,13 @@ SDPA_SHAPES = {"deit_tiny b1": (1, 3, 197, 64), "deit_tiny b128": (128, 3, 197, 
                "t2t_vit_14 b1": (1, 6, 197, 64), "pruned h1 b1": (1, 1, 197, 64),
                "pruned h1 b128": (128, 1, 197, 64), "head_dim 32 b8": (8, 6, 197, 32),
                "deit_base 384 b8": (8, 12, 577, 64)}
-# mlp at (rows, dim, hidden): deit_tiny b1 and b128, deit_base b8, the
-# pruned widths 230 (ffn0.3) and 537 (ffn0.7)
+# mlp at (rows, dim, hidden): deit_tiny b1 and b128, deit_base b8,
+# t2t_vit_14 b1, the pruned widths 230 (ffn0.3) and 537 (ffn0.7); every b1
+# entry takes the kernel's cluster split of the hidden width (fused_mlp.plan)
 MLP_SHAPES = {"deit_tiny b1": (197, 192, 768), "deit_tiny b128": (128 * 197, 192, 768),
-              "deit_base b8": (8 * 197, 768, 3072), "hidden 230 b1": (197, 192, 230),
-              "hidden 230 b128": (128 * 197, 192, 230), "hidden 537 b1": (197, 192, 537)}
+              "deit_base b8": (8 * 197, 768, 3072), "t2t_vit_14 b1": (197, 384, 1152),
+              "hidden 230 b1": (197, 192, 230), "hidden 230 b128": (128 * 197, 192, 230),
+              "hidden 537 b1": (197, 192, 537)}
 SHAPES = {
     "deit_tiny b1": (197, 192, 768, 3, False),
     "deit_tiny b128": (128 * 197, 192, 768, 3, False),
@@ -595,8 +597,9 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
     path's shapes (``SDPA_SHAPES``, q, k, v as views of a fused qkv, as
     ``attention`` passes them; ``MLP_SHAPES``, both GELU forms) and
     ``layer_norm`` (K15, one ``ln_rows`` launch) at ``[b, 197, 192]``;
-    returns ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} of one deit_tiny
-    b128 layer's launch)."""
+    ``mlp`` gives the same bits twice at deit_tiny b1 and b128; returns
+    ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} of one deit_tiny b128
+    layer's launch, and under ``"mlp b1"`` one deit_tiny b1 layer's)."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(11)
 
@@ -605,7 +608,7 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
 
     errs, layer_ms = {"sdpa": 0.0, "mlp": 0.0}, {}
 
-    def check(kname, label, shape_name, kern, plain, row=False):
+    def check(kname, label, shape_name, kern, plain, row=None):
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -616,13 +619,14 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
         errs[kname] = max(errs.get(kname, 0.0), err)
         times = time_pair(harness, shape_name, label, err, kern, plain)
         if row:
-            layer_ms[kname] = times
+            layer_ms[row] = times
 
     for shape_name, (b, h, n, d) in SDPA_SHAPES.items():
         qkv = rnd(b, n, 3 * h * d)
         q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
         check("sdpa", "sdpa", shape_name, lambda: fa.sdpa(q, k, v),
-              lambda: fa.sdpa_plain(q, k, v), row=shape_name == "deit_tiny b128")
+              lambda: fa.sdpa_plain(q, k, v),
+              row="sdpa" if shape_name == "deit_tiny b128" else None)
     for shape_name, (m, dim, hid) in MLP_SHAPES.items():
         x = rnd(m, dim, scale=2.0)
         w1, b1 = rnd(dim, hid, scale=dim ** -0.5), rnd(hid)
@@ -631,7 +635,15 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
             check("mlp", f"mlp {'tanh' if approx else 'erf'}", shape_name,
                   lambda: fm.mlp(x, w1, b1, w2, b2, approx_gelu=approx),
                   lambda: fm.mlp_plain(x, w1, b1, w2, b2, approx_gelu=approx),
-                  row=shape_name == "deit_tiny b128" and not approx)
+                  row=None if approx else {"deit_tiny b128": "mlp",
+                                           "deit_tiny b1": "mlp b1"}.get(shape_name))
+        if shape_name in ("deit_tiny b1", "deit_tiny b128"):
+            first, second = fm.mlp(x, w1, b1, w2, b2), fm.mlp(x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                fail(f"mlp at {shape_name}: two calls on the same inputs differ")
+            print(f"  {shape_name:15s} mlp: two calls give the same bits "
+                  f"(plan {tuple(fm.plan(m, dim, hid, fm._sm_count(0)))})")
     for b in (1, 128):
         x = rnd(b, 197, 192, scale=3.0)
         g, bb = rnd(192, scale=0.5) + 1, rnd(192, scale=0.5)
@@ -1386,6 +1398,11 @@ def phase_yardsticks(torch, harness):
     out["mlp"] = (*_bound(2 * (2 * m * dim + 2 * dim * mlp + mlp + dim),
                           {"bf16": 4 * m * dim * mlp}),
                   lib([(lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, xm, w1)), w2), 1)]))
+    # and one deit_tiny b1 layer, where the module loses its time
+    x1 = xm[:n]
+    out["mlp b1"] = (*_bound(2 * (2 * n * dim + 2 * dim * mlp + mlp + dim),
+                             {"bf16": 4 * n * dim * mlp}),
+                     lib([(lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, x1, w1)), w2), 1)]))
     # vit_full: one deit_tiny b128 forward (12 layers, fp32 image in, bf16
     # logits out); inputs are the image and every weight, read once
     b, depth, pin, classes = 128, 12, 768, 1000
@@ -1812,6 +1829,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"== phase 6: bounds and library yardsticks, on {card}")
     yard = phase_yardsticks(torch, harness)
+    (k1, p1), (bnd1, by1, lib1) = layer_ms["mlp b1"], yard["mlp b1"]
+    print(f"  mlp, one deit_tiny b1 module layer: kernel {k1:.4f} ms, twin {p1:.4f} ms, bound "
+          f"{bnd1:.4f} ms ({by1}), library (torch.addmm + F.gelu + torch.addmm) {lib1:.4f} ms")
     worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr,
               worst_full)
     print(f"build {build_s:.2f} s; worst logit deviation {max(worsts):.4g} of max|logit| (deit "

@@ -43,6 +43,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.utils.jax_bridge",
     "edgevisiontransformer_tpu_torch.bench.harness",
     "edgevisiontransformer_tpu_torch.bench.sdpa_ab",
+    "edgevisiontransformer_tpu_torch.bench.mlp_ab",
 ]
 
 

@@ -717,7 +717,8 @@ def test_attention_writes_the_merged_heads_in_place(dev):
 
 @pytest.mark.parametrize("rows,dim,hidden", [(197, 192, 768), (25216, 192, 768),
                                              (1576, 768, 3072), (197, 192, 230),
-                                             (197, 192, 537), (394, 384, 460), (3, 64, 13)])
+                                             (197, 192, 537), (394, 384, 460), (3, 64, 13),
+                                             (1, 192, 768), (6304, 384, 1152), (197, 200, 768)])
 @pytest.mark.parametrize("approx", [False, True])
 def test_mlp_kernel_matches_twin_and_counts(dev, rows, dim, hidden, approx):
     x = _rnd(dev, rows, dim, scale=2.0)
@@ -727,6 +728,41 @@ def test_mlp_kernel_matches_twin_and_counts(dev, rows, dim, hidden, approx):
     got = fm.mlp(x, w1, b1, w2, b2, approx_gelu=approx)
     assert fm.LAUNCHES["mlp"] == 1
     _close(got, fm.mlp_plain(x, w1, b1, w2, b2, approx_gelu=approx))
+
+
+# Every form of csrc/mlp.cu's grid at shapes where the plan would not pick
+# it: 128 and 64 rows, the cluster split (S = 2, 3, 8; at hidden 13 more
+# splits than chunks), each column-tile width, chunks of 32 and 64 hidden
+# units; dim 1,152 at 64 rows.
+@pytest.mark.parametrize("rows,dim,hidden,form", [
+    (197, 192, 768, (128, 1, 192, 32)), (197, 192, 768, (128, 8, 192, 32)),
+    (300, 192, 230, (64, 3, 128, 32)), (25216, 192, 768, (64, 1, 64, 32)),
+    (25216, 192, 768, (128, 2, 256, 32)), (394, 384, 1152, (128, 1, 128, 32)),
+    (1576, 768, 3072, (64, 8, 192, 32)), (3, 64, 13, (64, 2, 64, 32)),
+    (200, 1152, 96, (64, 1, 256, 32)), (130, 512, 200, (128, 4, 256, 32)),
+    (197, 192, 537, (128, 1, 192, 64)), (300, 256, 768, (128, 3, 256, 64)),
+    (25216, 192, 768, (128, 1, 64, 64)), (70, 64, 13, (128, 1, 128, 64))])
+def test_mlp_kernel_every_plan_form_matches_twin(dev, monkeypatch, rows, dim, hidden, form):
+    x = _rnd(dev, rows, dim, scale=2.0)
+    w1, b1 = _rnd(dev, dim, hidden, scale=dim ** -0.5, seed=1), _rnd(dev, hidden, seed=2)
+    w2, b2 = _rnd(dev, hidden, dim, scale=hidden ** -0.5, seed=3), _rnd(dev, dim, seed=4)
+    r, split, nt, hc = form
+    monkeypatch.setattr(fm, "plan", lambda *a, **k: fm.Plan(r, split, nt, hc, -(-dim // nt)))
+    fm.reset_launches()
+    got = fm.mlp(x, w1, b1, w2, b2)
+    assert fm.LAUNCHES["mlp"] == 1
+    _close(got, fm.mlp_plain(x, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("rows", [197, 25216])
+def test_mlp_kernel_is_deterministic(dev, rows):
+    x = _rnd(dev, rows, 192, scale=2.0)
+    w1, b1 = _rnd(dev, 192, 768, scale=192 ** -0.5, seed=1), _rnd(dev, 768, seed=2)
+    w2, b2 = _rnd(dev, 768, 192, scale=768 ** -0.5, seed=3), _rnd(dev, 192, seed=4)
+    first = fm.mlp(x, w1, b1, w2, b2)
+    second = fm.mlp(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_layer_norm_is_one_ln_rows_launch(dev):
