@@ -85,6 +85,7 @@ last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -119,6 +120,8 @@ KERNELS = {"ln_rows": ("ln_rows.cu", f"{TPU}:54"),
            "vit_full": ("vit_full.cu", f"{PALLAS}/fused_vit_full.py:177"),
            "performer_reduce": ("performer.cu", f"{PALLAS}/performer.py:148"),
            "performer_rows": ("performer.cu", f"{PALLAS}/performer.py:148")}
+# The GEMMs of one standard-style encoder layer, as phase 3 labels them
+LINEAR_GEMMS = ("qkv", "out", "fc1 erf", "fc2")
 # The launches one encoder layer makes; stage1_kqv launches once per forward
 # that takes the stage-1 tokenizer (a T2T-ViT batch below 8).
 BF16_LAUNCHES = {"ln_rows": 2, "linear": 4, "attention_rows": 1, "quant_rows": 0, "linear_i8": 0}
@@ -240,6 +243,13 @@ def phase_build(build) -> float:
     for src, lines in report.items():
         for line in lines:
             print(f"  ptxas {src}: {line}")
+    # linear's block shapes (linear.cu, linear_rows*.cu) serve the main path's
+    # plans: none may spill
+    spills = [f"{src}: {line}" for src, lines in report.items()
+              if src == "linear" or src.startswith("linear_rows") for line in lines
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    if spills:
+        fail(f"linear spills registers: {spills}")
     return dt
 
 
@@ -358,6 +368,13 @@ def phase_kernels(torch, fe, harness):
                     reps = 2 if kname == "ln_rows" else 1
                     tk, tp = layer_ms.get(kname, (0.0, 0.0))
                     layer_ms[kname] = (tk + reps * t_k, tp + reps * t_p)
+                if (kname == "linear" and label != "linear fc1 tanh"
+                        and shape_name in ("deit_tiny b1", "deit_tiny b128")):
+                    # phase 6 prints each GEMM of a deit_tiny layer, and their sum at b1
+                    layer_ms[f"{label} {shape_name}"] = (t_k, t_p)
+                    if shape_name == "deit_tiny b1":
+                        tk, tp = layer_ms.get("linear b1", (0.0, 0.0))
+                        layer_ms["linear b1"] = (tk + t_k, tp + t_p)
     return errs, layer_ms
 
 
@@ -1324,12 +1341,18 @@ def phase_yardsticks(torch, harness):
     out["ln_rows"] = (*_bound(2 * (4 * m * dim + 4 * dim), {"fp32": 2 * 8 * m * dim}),
                       lib([(lambda: F.layer_norm(x, (dim,), g, b, 1e-6), 2)]))
     gemms = ((dim, 3 * dim, False), (dim, dim, True), (dim, mlp, False), (mlp, dim, True))
-    nbytes = sum(2 * (m * k + k * nn_ + m * nn_ * (2 if r else 1) + nn_) for k, nn_, r in gemms)
-    ops = sum(2 * m * k * nn_ for k, nn_, _ in gemms)
-    mats = [(rnd(m, k), rnd(k, nn_), rnd(nn_)) for k, nn_, _ in gemms]
-    out["linear"] = (*_bound(nbytes, {"bf16": ops}),
-                     lib([((lambda a=a, w=w, bb=bb: torch.addmm(bb, a, w)), 1)
-                          for a, w, bb in mats]))
+    for rows, tag in ((m, ""), (n, " b1")):
+        # the layer's four GEMMs at b128 (the kernels line) and at b1, and
+        # each GEMM's own bound and torch.addmm time (phase 6 prints them)
+        nbytes = ops = lib_ms = 0.0
+        for name, (k, nn_, r) in zip(LINEAR_GEMMS, gemms):
+            a, w, bb = rnd(rows, k), rnd(k, nn_), rnd(nn_)
+            gb = 2 * (rows * k + k * nn_ + rows * nn_ * (2 if r else 1) + nn_)
+            go = 2 * rows * k * nn_
+            gl = lib([(lambda a=a, w=w, bb=bb: torch.addmm(bb, a, w), 1)])
+            out[f"linear {name}{tag}"] = (*_bound(gb, {"bf16": go}), gl)
+            nbytes, ops, lib_ms = nbytes + gb, ops + go, lib_ms + gl
+        out[f"linear{tag}"] = (*_bound(nbytes, {"bf16": ops}), lib_ms)
     qkv = rnd(128, n, 3, heads, dim // heads).permute(2, 0, 3, 1, 4)
     key_mask = torch.zeros(1, 1, 1, n, dtype=torch.bfloat16, device=dev)
     out["attention_rows"] = (
@@ -1341,7 +1364,7 @@ def phase_yardsticks(torch, harness):
                                  {"fp32": sum(3 * m * k for k in widths)}), None)
     nbytes = sum(m * k + k * nn_ + 2 * m * nn_ * (2 if r else 1) + 8 * nn_ for k, nn_, r in gemms)
     mats8 = [(int8(m, k), int8(k, nn_)) for k, nn_, _ in gemms]
-    out["linear_i8"] = (*_bound(nbytes, {"int8": ops}),
+    out["linear_i8"] = (*_bound(nbytes, {"int8": sum(2 * m * k * nn_ for k, nn_, _ in gemms)}),
                         lib([((lambda q=q, w=w: torch._int_mm(q, w)), 1) for q, w in mats8]))
     tok, feat, d = 3136, 147, 192
     out["stage1_kqv"] = (*_bound(2 * 3 * 224 * 224 + 2 * 432 * d + 4 * 432 + 8 * d + 2 * tok * d,
@@ -1832,6 +1855,14 @@ def main() -> int:
     (k1, p1), (bnd1, by1, lib1) = layer_ms["mlp b1"], yard["mlp b1"]
     print(f"  mlp, one deit_tiny b1 module layer: kernel {k1:.4f} ms, twin {p1:.4f} ms, bound "
           f"{bnd1:.4f} ms ({by1}), library (torch.addmm + F.gelu + torch.addmm) {lib1:.4f} ms")
+    (k1, p1), (bnd1, by1, lib1) = layer_ms["linear b1"], yard["linear b1"]
+    print(f"  linear, one deit_tiny b1 layer (qkv, out, fc1 erf, fc2): kernel {k1:.4f} ms, twin "
+          f"{p1:.4f} ms, bound {bnd1:.4f} ms ({by1}), library (torch.addmm x4) {lib1:.4f} ms")
+    for tag, yt in (("deit_tiny b128", ""), ("deit_tiny b1", " b1")):
+        for name in LINEAR_GEMMS:
+            (kg, pg), (bg, byg, lg) = layer_ms[f"linear {name} {tag}"], yard[f"linear {name}{yt}"]
+            print(f"  linear {name:7s} {tag:14s} kernel {kg:.4f} ms, twin {pg:.4f} ms, bound "
+                  f"{bg:.4f} ms ({byg}), torch.addmm {lg:.4f} ms")
     worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr,
               worst_full)
     print(f"build {build_s:.2f} s; worst logit deviation {max(worsts):.4g} of max|logit| (deit "

@@ -1,9 +1,11 @@
 // The encoder's three kinds of work as __device__ functions over one tile:
 // a LayerNorm row, a GEMM output tile with its epilogue, an attention query
-// tile.  ln_rows.cu, linear.cu and attention_rows.cu launch one tile per
-// thread block (or warp); vit_full.cu walks every tile of a whole forward
-// inside one persistent kernel.  Both run the same arithmetic in the same
-// order, so the standalone kernels and the whole-model kernel round alike.
+// tile.  ln_rows.cu and attention_rows.cu launch one tile per thread block
+// (or warp); vit_full.cu walks every tile of a whole forward inside one
+// persistent kernel.  Both run the same arithmetic in the same order, so
+// the standalone kernels and the whole-model kernel round alike.  The GEMM
+// tile gemm::tile serves vit_full.cu alone: linear.cu has its own mma.sync
+// tile, which sums each output element in the same k16 order.
 //
 // Activation pointers carry no __restrict__ here: in vit_full.cu a tile
 // reads what other blocks wrote earlier in the same launch, which the

@@ -8,70 +8,83 @@
 //     1 CAST_THEN_BIAS_GELU     bf16(gelu_tanh(bf16(bf16(acc) + b))) (:231-235)
 //     2   (exact GELU, erff)    bf16(gelu_erf(bf16(bf16(acc) + b)))
 //     3 BIAS_RESIDUAL           bf16(acc + f32(b) + f32(res))        (:218-225, :236-243)
+//     4 ROW_BIAS                bf16(acc + f32(res)), no b
 //   The roundings are the reference's, because bf16 parity depends on them.
+//   The Swin stage (K9, bf16) and the merge reduction (K10) run the same GEMM.
 //
 // Bound on the card: at b1 (M = 197) a layer's GEMMs do 2*M*K*N flops on
 // K*N weights read once, ~200 flop/byte: below the H100's ~295 flop/byte
-// balance point, so weight bytes and launch latency bound them.  At serving
-// batches (M = 25,216 for b128) they sit far above it and the tensor cores
-// bound them (989 TFLOP/s dense bf16).
+// balance point, so weight bytes, launch latency and the serial walk over K
+// bound them.  At serving batches (M = 25,216 for deit_tiny b128) the
+// activations dominate: one layer's four GEMMs move ~175 MB for 22 GFLOP,
+// so bytes bound them (0.052 ms at 3.35 TB/s against 0.023 ms of tensor-core
+// time at 989 TFLOP/s).
 //
-// Design: a plain tiled GEMM.  128x128 output tile per thread block, 8 warps
-// each owning 32x64 of it as 2x4 WMMA 16x16x16 bf16 fragments (mma.sync on
-// the tensor cores), K in steps of 32 through a 3-stage cp.async ring in
-// shared memory (zero-filled past the ragged M, N and K edges).  The
-// epilogue stages the fp32 tile in shared memory and writes 16-byte vectors.
-// Any K and N: a pruned model's hidden width (int(0.3 * 768) = 230) leaves
-// the rows of X (K) or of W, the bias, the residual and Y (N) off 16-byte
-// boundaries.  The host picks, per operand, the 16-byte path (cp.async, and
-// vector stores in the epilogue) where the width is a multiple of 8 and the
-// pointers are 16-byte aligned, and otherwise an element-wise path that
-// masks every element against M, N and K itself; the arithmetic is the same.
-// wgmma, TMA and a persistent schedule are later work.  The tile itself is
-// gemm::tile (encoder_tiles.cuh), which vit_full.cu runs too.
-#include "encoder_tiles.cuh"
+// Design (bench/linear_ab.py times its choices; PERF.md section 6 has the numbers).
+// - The grid is the host's plan (ops/cuda/fused_encoder.py:linear_plan):
+//   blocks of `rows` (128, 64, 32 or 16) by `cols` (32, 64, 96 or 128)
+//   output elements.  Columns come in the fewest even tiles of at most 128;
+//   at small M the columns narrow, then the rows, until the blocks are as
+//   many as the SMs.  Wider tiles measured slower: their accumulators leave
+//   one block an SM, which then waits out its own loads and epilogue.
+// - Two warps across the columns, rows / 32 (or rows / 16 below 64 rows)
+//   down the rows: a warp owns a rectangle of 32 (16) rows by cols / 2
+//   columns, so each B fragment feeds two (one) row fragments and each A
+//   fragment cols / 16 column fragments.  The launch bounds ask ptxas for as
+//   many resident blocks as an estimate of the registers allows.
+// - Products on mma.sync.m16n8k16 (bf16 in, fp32 accumulators), fed by
+//   ldmatrix from tiles whose row stride is an odd multiple of 16 bytes: A
+//   from the rows of X, B from the row-major W tile [BK, cols] by
+//   ldmatrix.trans (as mlp.cu loads W1).
+// - K in steps of 64 through a 3-stage cp.async ring, zero-filled past M, N
+//   and K.  Every output element sums its K in k16 steps, in order, into one
+//   fp32 accumulator: K is never split, so a row's output does not depend on
+//   M or on the plan (bit for bit), and it matches WMMA 16x16x16, which runs
+//   the same instruction in the same k order.
+// - The epilogue runs from the accumulator registers: in the m16n8 layout a
+//   thread holds two neighbouring columns of two rows; it reads the bias and
+//   the residual as bf16x2 at those positions, and packs its two bf16
+//   results into its warp's patch of the idle ring, which the warp writes
+//   to Y as 16-byte vectors (a third less time than bf16x2 stores straight
+//   to Y).  No fp32 tile goes through shared memory.  Each element's
+//   residual is read by the thread that computes it, before its warp writes
+//   its rows, so Y may be the residual itself (in place).
+// - Any K and N: a pruned model's hidden width (int(0.3 * 768) = 230)
+//   leaves the rows of X (K) or of W, the bias, the residual and Y (N) off
+//   16-byte boundaries.  The host picks, per operand, the 16-byte path
+//   (cp.async; bf16x2 and the patch in the epilogue) where the width is a
+//   multiple of 8 and the pointers are 16-byte aligned, and otherwise an
+//   element-wise path that masks every element against M, N and K itself;
+//   the arithmetic is the same.
+// - The tile is in linear_tile.cuh; this file and linear_rows{64,32,16}.cu
+//   each compile one row count, so the 16 block shapes build side by side.
+// - Split-K, clusters, wgmma, TMA and a persistent schedule are later work.
+//   vit_full.cu keeps the WMMA tile gemm::tile of encoder_tiles.cuh.
+#include "linear_tile.cuh"
 
-namespace {
 
-using namespace gemm;
-
-template <bool VA, bool VB>
-__global__ __launch_bounds__(THREADS) void linear_kernel(
-    const bf16* __restrict__ X, const bf16* __restrict__ W, const bf16* __restrict__ bias,
-    const bf16* __restrict__ res, bf16* __restrict__ Y, int M, int N, int K, int epi) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  tile<VB>(smem, RowsA<VA>{X}, W, bias, res, Y, M, N, K, epi, M, blockIdx.y * BM,
-           blockIdx.x * BN);
+int linear_rows128(EVT_LINEAR_ARGS) {
+  return launch_cols<4, 32>(x, w, bias, res, y, M, N, K, epi, cols, va, vb, s);
 }
 
-template <bool VA, bool VB>
-int launch(const void* x, const void* w, const void* bias, const void* res, void* y, int M,
-           int N, int K, int epi, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        linear_kernel<VA, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  linear_kernel<VA, VB><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-      static_cast<const bf16*>(res), static_cast<bf16*>(y), M, N, K, epi);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
+// x [M, K], w [K, N], bias [N] (unread by ROW_BIAS), res [M, N] (read by
+// epilogues 3 and 4; may be y), y [M, N], all bf16 at any alignment.  The
+// plan (ops/cuda/fused_encoder.py:linear_plan): `rows` per block (128, 64,
+// 32 or 16) by `cols` (32, 64, 96 or 128).
 extern "C" int evt_linear(const void* x, const void* w, const void* bias, const void* res,
-                          void* y, int M, int N, int K, int epi, void* stream) {
+                          void* y, int M, int N, int K, int epi, int rows, int cols,
+                          void* stream) {
   if (M == 0 || N == 0) return 0;
+  if (K < 0 || epi < 0 || epi > ROW_BIAS) return static_cast<int>(cudaErrorInvalidValue);
   const bool va = K % 8 == 0 && aligned16(x);
   const bool vb = N % 8 == 0 && aligned16(w) && aligned16(bias) && aligned16(res) &&
                   aligned16(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (va && vb) return launch<true, true>(x, w, bias, res, y, M, N, K, epi, s);
-  if (va) return launch<true, false>(x, w, bias, res, y, M, N, K, epi, s);
-  if (vb) return launch<false, true>(x, w, bias, res, y, M, N, K, epi, s);
-  return launch<false, false>(x, w, bias, res, y, M, N, K, epi, s);
+  switch (rows) {
+    case 128: return linear_rows128(x, w, bias, res, y, M, N, K, epi, cols, va, vb, s);
+    case 64: return linear_rows64(x, w, bias, res, y, M, N, K, epi, cols, va, vb, s);
+    case 32: return linear_rows32(x, w, bias, res, y, M, N, K, epi, cols, va, vb, s);
+    case 16: return linear_rows16(x, w, bias, res, y, M, N, K, epi, cols, va, vb, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,8 +1,9 @@
-// Warp-level tensor-core tiles shared by sdpa.cu and mlp.cu: ldmatrix loads
-// of bf16 fragments from shared memory, the mma.sync.m16n8k16 product with
-// fp32 accumulators, and the packing of two fp32 accumulators into one bf16x2
-// register (in the m16n8 layout, two neighbouring n8 accumulator tiles packed
-// this way are the A fragment of one k16 step of the next product).
+// Warp-level tensor-core tiles shared by sdpa.cu, mlp.cu and linear.cu:
+// ldmatrix loads of bf16 fragments from shared memory, the mma.sync.m16n8k16
+// product with fp32 accumulators, and the packing of two fp32 accumulators
+// into one bf16x2 register (in the m16n8 layout, two neighbouring n8
+// accumulator tiles packed this way are the A fragment of one k16 step of
+// the next product).
 #pragma once
 
 #include "common.cuh"

@@ -38,6 +38,7 @@ launch adds one to :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -164,6 +165,51 @@ def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 # Kernel B: GEMM with the encoder's epilogues
 # ---------------------------------------------------------------------------
 
+# csrc/linear_tile.cuh: the K step and ring depth, and the block shapes
+# csrc/linear*.cu compile (rows by columns)
+LINEAR_BK = 64
+LINEAR_STAGES = 3
+LINEAR_ROWS = (128, 64, 32, 16)
+LINEAR_COLS = (32, 64, 96, 128)
+
+
+def _linear_smem_bytes(rows: int, cols: int) -> int:
+    """The dynamic shared memory of one block (csrc/linear_tile.cuh
+    ``smem_bytes``): the ring of A tiles [rows, BK + 8] and W tiles [BK,
+    cols + 8], bf16."""
+    return LINEAR_STAGES * (rows * (LINEAR_BK + 8) + LINEAR_BK * (cols + 8)) * 2
+
+
+def linear_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
+    """The ``(rows, cols)`` of each block of csrc/linear.cu for ``x [m, k] @
+    w [k, n]`` on a card of ``sms`` SMs.
+
+    Columns in the fewest even tiles of at most 128, each of a compiled
+    width (32, 64, 96 or 128), and 128 rows.  Where the blocks would be fewer
+    than the SMs (small ``m``), the columns narrow to 32, then the rows to
+    64, 32 and 16, until they are not.  ``bench/linear_ab.py`` chose these
+    rules on the H100 (PERF.md section 6): wider tiles take more registers
+    than two blocks an SM allow, and at b1 the most blocks win, since each
+    walks its K alone.  ``k`` never changes the grid: every block walks all
+    of it, so a row's output does not depend on the plan."""
+    del k  # the plan never splits K
+    tiles = -(-n // LINEAR_COLS[-1])
+    rows, cols = LINEAR_ROWS[0], min(c for c in LINEAR_COLS if c * tiles >= n)
+
+    def blocks() -> int:
+        return -(-m // rows) * -(-n // cols)
+
+    while cols > LINEAR_COLS[0] and blocks() < sms:
+        cols = max(c for c in LINEAR_COLS if c < cols)
+    while rows > LINEAR_ROWS[-1] and blocks() < sms:
+        rows //= 2
+    return rows, cols
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def linear_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                  epilogue: str, res: torch.Tensor | None = None,
@@ -183,8 +229,8 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
            epilogue: str, res: torch.Tensor | None = None,
            approx_gelu: bool = False) -> torch.Tensor:
     """Tiled bf16 GEMM with fp32 accumulation and a fused epilogue
-    (csrc/linear.cu), at any K and N.  ``res`` is required by
-    ``BIAS_RESIDUAL`` only."""
+    (csrc/linear.cu, one launch on the grid :func:`linear_plan` picks), at
+    any K and N.  ``res`` is required by ``BIAS_RESIDUAL`` only."""
     if (epilogue, approx_gelu) not in _EPI_CODES:
         raise ValueError(f"linear: unknown epilogue {epilogue!r}")
     if (res is not None) != (epilogue == BIAS_RESIDUAL):
@@ -200,12 +246,15 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     if b.shape != (n,) or (res is not None and res.shape != (m, n)):
         raise ValueError(f"linear: bad bias/residual shape for N={n}")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    lib = build.load()
-    rc = lib.evt_linear(_ptr(x), _ptr(w), _ptr(b),
-                        _ptr(res) if res is not None else None, _ptr(y),
-                        m, n, k, _EPI_CODES[(epilogue, approx_gelu)], _stream(x))
-    build.check(rc, "linear")
-    LAUNCHES["linear"] += 1
+    if m and n:
+        lib = build.load()
+        rows, cols = linear_plan(m, n, k, _sm_count(x.device.index or 0))
+        rc = lib.evt_linear(_ptr(x), _ptr(w), _ptr(b),
+                            _ptr(res) if res is not None else None, _ptr(y),
+                            m, n, k, _EPI_CODES[(epilogue, approx_gelu)], rows, cols,
+                            _stream(x))
+        build.check(rc, "linear")
+        LAUNCHES["linear"] += 1
     return y
 
 

@@ -16,13 +16,12 @@ f32(b2))``.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 
 from . import build
-from .fused_encoder import _on_cpu, _ptr, _stream
+from .fused_encoder import _on_cpu, _ptr, _sm_count, _stream
 from .mathlib import gelu_kernel
 
 # Kernel launches since the last reset_launches().
@@ -91,11 +90,6 @@ def plan(m: int, dim: int, hidden: int, sms: int, *, rows: int | None = None,
     if hc is None:
         hc = 64 if rows == 128 and split == 1 and _smem_bytes(dim, rows, nt, 64) <= MAX_SMEM else 32
     return Plan(rows, split, nt, hc, -(-dim // nt))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launches() -> None:

@@ -69,17 +69,87 @@ def test_ln_rows_kernel_matches_twin(dev, rows, dim):
     _close(fe.ln_rows(x, g, b, 1e-6), fe.ln_rows_plain(x, g, b, 1e-6))
 
 
+# linear's epilogues as (epilogue, approx_gelu): csrc/linear.cu codes 0-3
+LINEAR_EPILOGUES = [(fe.CAST_THEN_BIAS, False), (fe.CAST_THEN_BIAS_GELU, False),
+                    (fe.CAST_THEN_BIAS_GELU, True), (fe.BIAS_RESIDUAL, False)]
+
+
+def _linear_args(dev, m, k, n, epilogue, approx=False, seed=0):
+    x, w = _rnd(dev, m, k, seed=seed), _rnd(dev, k, n, scale=k ** -0.5, seed=seed + 1)
+    b = _rnd(dev, n, scale=0.5, seed=seed + 2)
+    res = _rnd(dev, m, n, seed=seed + 3) if epilogue == fe.BIAS_RESIDUAL else None
+    return (x, w, b), dict(epilogue=epilogue, res=res, approx_gelu=approx)
+
+
+# Swin's widths (N = 96 and 288 at stage 0, up to M = 100,352 at b32), a
+# pruned width on both sides (K = N = 230), and N = 288 at K = 230.
 @pytest.mark.parametrize("m,k,n", [(1, 8, 8), (197, 192, 576), (197, 768, 3072),
-                                   (1576, 3072, 768), (300, 200, 136)])
-@pytest.mark.parametrize("epilogue,approx", [
-    (fe.CAST_THEN_BIAS, False), (fe.CAST_THEN_BIAS_GELU, False),
-    (fe.CAST_THEN_BIAS_GELU, True), (fe.BIAS_RESIDUAL, False)])
+                                   (1576, 3072, 768), (300, 200, 136), (197, 192, 96),
+                                   (197, 230, 230), (394, 230, 288), (100352, 96, 288)])
+@pytest.mark.parametrize("epilogue,approx", LINEAR_EPILOGUES)
 def test_linear_kernel_matches_twin(dev, m, k, n, epilogue, approx):
-    x, w = _rnd(dev, m, k), _rnd(dev, k, n, scale=k ** -0.5, seed=1)
-    b = _rnd(dev, n, scale=0.5, seed=2)
-    res = _rnd(dev, m, n, seed=3) if epilogue == fe.BIAS_RESIDUAL else None
-    kw = dict(epilogue=epilogue, res=res, approx_gelu=approx)
-    _close(fe.linear(x, w, b, **kw), fe.linear_plain(x, w, b, **kw))
+    args, kw = _linear_args(dev, m, k, n, epilogue, approx)
+    fe.reset_launches()
+    got = fe.linear(*args, **kw)
+    assert fe.LAUNCHES["linear"] == 1
+    _close(got, fe.linear_plain(*args, **kw))
+
+
+# Every block shape csrc/linear.cu is compiled for, on the 16-byte path
+# (N = 576) and the element-wise one (K = N = 230), gives the default plan's
+# bits: K is never split, so no plan changes an element's sum.
+@pytest.mark.parametrize("m,k,n", [(197, 192, 576), (300, 230, 230), (25216, 768, 192)])
+def test_linear_kernel_every_plan_gives_the_same_bits(dev, monkeypatch, m, k, n):
+    outs = {}
+    for epilogue, approx in LINEAR_EPILOGUES:
+        args, kw = _linear_args(dev, m, k, n, epilogue, approx)
+        want = fe.linear(*args, **kw)
+        for rows in fe.LINEAR_ROWS:
+            for cols in fe.LINEAR_COLS:
+                monkeypatch.setattr(fe, "linear_plan", lambda *a, r=rows, c=cols, **_: (r, c))
+                outs[(epilogue, approx, rows, cols)] = (fe.linear(*args, **kw), want)
+                monkeypatch.undo()
+    torch.cuda.synchronize()
+    differ = [key for key, (got, want) in outs.items() if not torch.equal(got, want)]
+    assert not differ
+
+
+# A row's output is the same bits alone (b1, the plan's narrow tiles) and
+# as one of 128 images (128-row tiles), at every epilogue.
+@pytest.mark.parametrize("k,n", [(192, 576), (192, 192), (192, 768), (768, 192), (192, 230)])
+@pytest.mark.parametrize("epilogue,approx", LINEAR_EPILOGUES)
+def test_linear_rows_are_bit_identical_alone_and_in_a_batch(dev, k, n, epilogue, approx):
+    (x, w, b), kw = _linear_args(dev, 128 * 197, k, n, epilogue, approx)
+    sms = fe._sm_count(0)
+    assert fe.linear_plan(197, n, k, sms) != fe.linear_plan(128 * 197, n, k, sms)
+    batch = fe.linear(x, w, b, **kw)
+    alone_kw = dict(kw, res=None if kw["res"] is None else kw["res"][:197])
+    alone = fe.linear(x[:197], w, b, **alone_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, batch[:197])
+
+
+@pytest.mark.parametrize("m,k,n", [(197, 192, 192), (197, 768, 192), (394, 230, 230)])
+def test_linear_kernel_writes_over_its_own_residual(dev, m, k, n):
+    """Y may be the residual (csrc/linear.cu reads each element's residual in
+    the thread that writes it): epilogue 3 in place gives the bits of the
+    call with a separate output, and epilogue 4 (ROW_BIAS, acc + res, which
+    vit_full's tile uses) matches bf16(acc + f32(res))."""
+    from edgevisiontransformer_tpu_torch.ops.cuda import build
+
+    (x, w, b), kw = _linear_args(dev, m, k, n, fe.BIAS_RESIDUAL)
+    want = fe.linear(x, w, b, **kw)
+    lib, sms = build.load(), fe._sm_count(0)
+    rows, cols = fe.linear_plan(m, n, k, sms)
+    for epi, ref in ((3, want), (4, (x.float() @ w.float() + kw["res"].float()).bfloat16())):
+        y = kw["res"].clone()
+        build.check(lib.evt_linear(fe._ptr(x), fe._ptr(w), fe._ptr(b), fe._ptr(y), fe._ptr(y),
+                                   m, n, k, epi, rows, cols, fe._stream(x)), "linear")
+        if epi == 3:
+            torch.cuda.synchronize()
+            assert torch.equal(y, ref)
+        else:
+            _close(y, ref)
 
 
 @pytest.mark.parametrize("batch,tokens,seq_len,heads,hd", [
@@ -752,6 +822,26 @@ def test_mlp_kernel_every_plan_form_matches_twin(dev, monkeypatch, rows, dim, hi
     got = fm.mlp(x, w1, b1, w2, b2)
     assert fm.LAUNCHES["mlp"] == 1
     _close(got, fm.mlp_plain(x, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_mlp_rows_alone_and_in_a_batch_agree_within_the_twin_bound(dev, approx):
+    """The 197 rows of one image alone (the b1 plan: a cluster split of the
+    hidden width, S = 8) and as rows 0-196 of a b128 call (S = 1) at
+    deit_tiny's widths: the split sums the chunks in another order, so the
+    rows may differ; they stay within the twin bound."""
+    sms = fm._sm_count(0)
+    assert fm.plan(197, 192, 768, sms).split > 1 and fm.plan(25216, 192, 768, sms).split == 1
+    x = _rnd(dev, 25216, 192, scale=2.0)
+    w1, b1 = _rnd(dev, 192, 768, scale=192 ** -0.5, seed=1), _rnd(dev, 768, seed=2)
+    w2, b2 = _rnd(dev, 768, 192, scale=768 ** -0.5, seed=3), _rnd(dev, 192, seed=4)
+    batch = fm.mlp(x, w1, b1, w2, b2, approx_gelu=approx)[:197]
+    alone = fm.mlp(x[:197], w1, b1, w2, b2, approx_gelu=approx)
+    torch.cuda.synchronize()
+    diff = (alone.float() - batch.float()).abs()
+    print(f"mlp {'tanh' if approx else 'erf'}: b1 against rows 0-196 of b128: max |diff| "
+          f"{float(diff.max()):.6g}, {int((diff > 0).sum())} of {diff.numel()} values differ")
+    _close(alone, batch)
 
 
 @pytest.mark.parametrize("rows", [197, 25216])
