@@ -69,8 +69,11 @@ windows; stages 0 and 2 at b32), ``swin_merge`` (its three merges, b1 and
 b32), ``ln_rows`` / ``linear`` at Swin's widths, ``quant_rows`` /
 ``linear_i8`` at the int8 stages' shapes (stages 1-3, b1 and b32, bf16
 biases), ``sdpa`` (K13) and ``mlp`` (K14) at the module path's shapes,
-``layer_norm`` (K15, on ``ln_rows``), and ``linear`` / ``quant_rows`` /
-``linear_i8`` at a pruned model's hidden widths 230 and 537 to their twins.
+``layer_norm`` (K15, on ``ln_rows``), ``linear`` / ``quant_rows`` /
+``linear_i8`` at a pruned model's hidden widths 230 and 537, and
+``attention_rows`` at one head, head_dim 16 and 128, padded and masked keys
+and 577 tokens to their twins; it also checks that the 197 rows of an image
+give ``attention_rows`` the same bits alone and in b128 under every plan.
 
 The t2t_vit_14 slices of phase 4 run K16 (two launches per performer) and,
 once at b1 and b32, the static int8 stem (``prepare_t2t_stem_int8_static``,
@@ -189,6 +192,17 @@ MLP_SHAPES = {"deit_tiny b1": (197, 192, 768), "deit_tiny b128": (128 * 197, 192
               "deit_base b8": (8 * 197, 768, 3072), "t2t_vit_14 b1": (197, 384, 1152),
               "hidden 230 b1": (197, 192, 230), "hidden 230 b128": (128 * 197, 192, 230),
               "hidden 537 b1": (197, 192, 537)}
+# attention_rows at (batch, tokens, seq_len, heads, head_dim) beyond SHAPES:
+# the pruned model's one head at b1 and b128, head_dim 16 (the layerwise
+# pruned config's 5 tokens at 2 and 3 heads, and 197 tokens), head_dim 128,
+# padded and fully masked keys, and deit_base at 384 (ten 64-key tiles)
+ATTENTION_SHAPES = {"pruned h1 b1": (1, 197, 197, 1, 64),
+                    "pruned h1 b128": (128, 197, 197, 1, 64),
+                    "layerwise h2 d16": (1, 5, 5, 2, 16), "layerwise h3 d16": (1, 5, 5, 3, 16),
+                    "head_dim 16 b8": (8, 197, 197, 4, 16),
+                    "head_dim 128 b8": (8, 197, 197, 2, 128),
+                    "padded 200/197 b2": (2, 200, 197, 3, 64), "masked 70/0 b1": (1, 70, 0, 2, 64),
+                    "deit_base 384 b8": (8, 577, 577, 12, 64)}
 SHAPES = {
     "deit_tiny b1": (197, 192, 768, 3, False),
     "deit_tiny b128": (128 * 197, 192, 768, 3, False),
@@ -243,13 +257,13 @@ def phase_build(build) -> float:
     for src, lines in report.items():
         for line in lines:
             print(f"  ptxas {src}: {line}")
-    # linear's block shapes (linear.cu, linear_rows*.cu) serve the main path's
-    # plans: none may spill
+    # linear's block shapes (linear.cu, linear_rows*.cu) and attention_rows'
+    # plans serve the main path: none may spill
     spills = [f"{src}: {line}" for src, lines in report.items()
-              if src == "linear" or src.startswith("linear_rows") for line in lines
-              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+              if src in ("linear", "attention_rows") or src.startswith("linear_rows")
+              for line in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
     if spills:
-        fail(f"linear spills registers: {spills}")
+        fail(f"linear or attention_rows spills registers: {spills}")
     return dt
 
 
@@ -368,6 +382,8 @@ def phase_kernels(torch, fe, harness):
                     reps = 2 if kname == "ln_rows" else 1
                     tk, tp = layer_ms.get(kname, (0.0, 0.0))
                     layer_ms[kname] = (tk + reps * t_k, tp + reps * t_p)
+                if kname == "attention_rows" and shape_name == "deit_tiny b1":
+                    layer_ms["attention_rows b1"] = (t_k, t_p)  # phase 6's b1 row
                 if (kname == "linear" and label != "linear fc1 tanh"
                         and shape_name in ("deit_tiny b1", "deit_tiny b128")):
                     # phase 6 prints each GEMM of a deit_tiny layer, and their sum at b1
@@ -667,6 +683,45 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
         check("ln_rows", "layer_norm (ln_rows)", f"[{b}, 197, 192]",
               lambda: ln.layer_norm(x, g, bb, 1e-6), lambda: ln.layer_norm_plain(x, g, bb, 1e-6))
     return errs, layer_ms
+
+
+def phase_kernel_attention(torch, fe, harness):
+    """``attention_rows`` against its twin at ``ATTENTION_SHAPES``, and a
+    query row's bits alone and as image 0 of deit_tiny b128, under every
+    plan; returns max_abs_err."""
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(17)
+    worst = 0.0
+    for tag, (b, n, seq, h, d) in ATTENTION_SHAPES.items():
+        qkv = torch.randn(b * n, 3 * h * d, generator=gen, device=dev).to(torch.bfloat16)
+        kw = dict(heads=h, head_dim=d, tokens=n, seq_len=seq)
+        got, ref = fe.attention_rows(qkv, **kw), fe.attention_rows_plain(qkv, **kw)
+        torch.cuda.synchronize()
+        err, ok = within(got, ref, KERNEL_RTOL, KERNEL_ATOL)
+        if not ok or not torch.isfinite(got.float()).all() or (seq == 0 and got.float().any()):
+            fail(f"attention_rows at {tag}: max |kernel - twin| {err:.4g} "
+                 f"over {KERNEL_ATOL} + {KERNEL_RTOL:.4g}|twin|")
+        worst = max(worst, err)
+        time_pair(harness, tag, "attention_rows", err, lambda: fe.attention_rows(qkv, **kw),
+                  lambda: fe.attention_rows_plain(qkv, **kw))
+    qkv = torch.randn(128 * 197, 576, generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(heads=3, head_dim=64, tokens=197)
+    plan, outs = fe.attention_plan, []
+    try:
+        for warps in fe.ATTENTION_WARPS:
+            fe.attention_plan = lambda *a, w=warps: w
+            outs += [fe.attention_rows(qkv, **kw)[:197], fe.attention_rows(qkv[:197], **kw)]
+    finally:
+        fe.attention_plan = plan
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, outs[0]) for o in outs):
+        fail("attention_rows: a row's bits differ alone and in b128, or between plans")
+    print(f"  attention_rows held at {len(ATTENTION_SHAPES)} more shapes (worst {worst:.3g}); "
+          f"the 197 rows of an image give the same bits alone and in b128 under "
+          f"{len(fe.ATTENTION_WARPS)} plans (deit_tiny b1 / b128 plan "
+          f"{fe.attention_plan(1, 3, 197, fe._sm_count(0))} / "
+          f"{fe.attention_plan(128, 3, 197, fe._sm_count(0))} warps)")
+    return worst
 
 
 def phase_kernels_ragged(torch, fe, harness):
@@ -1359,6 +1414,12 @@ def phase_yardsticks(torch, harness):
         *_bound(2 * 4 * m * dim, {"bf16": 4 * 128 * heads * n * n * (dim // heads)}),
         lib([(lambda: F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
                                                      attn_mask=key_mask), 1)]))
+    # and one deit_tiny b1 layer's call (phase 6's b1 row)
+    qkv1 = rnd(1, n, 3, heads, dim // heads).permute(2, 0, 3, 1, 4)
+    out["attention_rows b1"] = (
+        *_bound(2 * 4 * n * dim, {"bf16": 4 * heads * n * n * (dim // heads)}),
+        lib([(lambda: F.scaled_dot_product_attention(qkv1[0], qkv1[1], qkv1[2],
+                                                     attn_mask=key_mask), 1)]))
     widths = (dim, dim, dim, mlp)  # the static layer quantizes qkv, out, fc1, fc2 inputs
     out["quant_rows"] = (*_bound(sum(3 * m * k for k in widths),
                                  {"fp32": sum(3 * m * k for k in widths)}), None)
@@ -1801,6 +1862,7 @@ def main() -> int:
     layer_ms.update(swin_ms)
     errs_pallas, pallas_ms = phase_kernels_pallas(torch, fe, fa, fm, ln, harness)
     errs_ragged = phase_kernels_ragged(torch, fe, harness)
+    errs_ragged["attention_rows"] = phase_kernel_attention(torch, fe, harness)
     for more in (errs_pallas, errs_ragged):
         for k, v in more.items():
             errs[k] = max(errs.get(k, 0.0), v)
@@ -1855,6 +1917,9 @@ def main() -> int:
     (k1, p1), (bnd1, by1, lib1) = layer_ms["mlp b1"], yard["mlp b1"]
     print(f"  mlp, one deit_tiny b1 module layer: kernel {k1:.4f} ms, twin {p1:.4f} ms, bound "
           f"{bnd1:.4f} ms ({by1}), library (torch.addmm + F.gelu + torch.addmm) {lib1:.4f} ms")
+    (k1, p1), (bnd1, by1, lib1) = layer_ms["attention_rows b1"], yard["attention_rows b1"]
+    print(f"  attention_rows, one deit_tiny b1 layer: kernel {k1:.4f} ms, twin {p1:.4f} ms, "
+          f"bound {bnd1:.4g} ms ({by1}), library (SDPA with a key mask) {lib1:.4f} ms")
     (k1, p1), (bnd1, by1, lib1) = layer_ms["linear b1"], yard["linear b1"]
     print(f"  linear, one deit_tiny b1 layer (qkv, out, fc1 erf, fc2): kernel {k1:.4f} ms, twin "
           f"{p1:.4f} ms, bound {bnd1:.4f} ms ({by1}), library (torch.addmm x4) {lib1:.4f} ms")

@@ -13,26 +13,36 @@ the same output bit for bit; a product with the rounded reciprocal of ``l``
 place of ``exp``; no softmax at all (the helpers return their first
 argument, so the compiler drops the sums, the exps and the divisions: the
 products, the loads and the stores only, a floor; its output is not
-attention).  Each line gives the device time per
-launch (CUDA events around 200 launches, median of 5 samples) and the
-largest difference from the committed kernel's output.  Needs a CUDA device
-and ``nvcc``; the libraries go to ``build/sdpa_ab/``.
+attention).  With ``--against DIR``, the ``sdpa.cu`` of another checkout's
+``csrc`` directory ``DIR`` (built against its own headers) joins them, so
+that a change to the shared routines can be held to the kernel it started
+from bit for bit.  Each line gives the device time per launch (CUDA events
+around 200 launches, median of 5 samples), the largest difference from the
+committed kernel's output and the number of elements that differ.  Needs a
+CUDA device and ``nvcc``; the libraries go to ``build/sdpa_ab/``.
+
+    python -m edgevisiontransformer_tpu_torch.bench.sdpa_ab [--against DIR]
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import statistics
 import subprocess
+from pathlib import Path
 
 import torch
 
 from ..ops.cuda import build
 
-# deit_tiny b128 / b1 and the pruned model (n = 197, the resident form) and
-# deit_base at 384 (n = 577, the streamed form)
+# chip_smoke.py's SDPA_SHAPES: deit_tiny b128 / b1, t2t_vit_14 b1, the
+# pruned model's one head at b1 and b128 and head_dim 32 (n = 197, the
+# resident form), and deit_base at 384 (n = 577, the streamed form)
 SHAPES = {"deit_tiny b128": (128, 3, 197, 64), "deit_tiny b1": (1, 3, 197, 64),
-          "pruned h1 b128": (128, 1, 197, 64), "deit_base 384 b8": (8, 12, 577, 64)}
+          "t2t_vit_14 b1": (1, 6, 197, 64), "pruned h1 b1": (1, 1, 197, 64),
+          "pruned h1 b128": (128, 1, 197, 64), "head_dim 32 b8": (8, 6, 197, 32),
+          "deit_base 384 b8": (8, 12, 577, 64)}
 # the bodies of the kernel's helpers normalise(e, l, y), divide_ieee(e, l)
 # and exp_shifted(s, m)
 _DIV = """  float q = __fmul_rn(e, y);
@@ -58,15 +68,22 @@ def variants(src: str) -> dict:
     }
 
 
-def build_variants() -> dict:
-    """``{name: evt_sdpa}`` of each variant, compiled side by side."""
+def build_variants(against: Path | None = None) -> dict:
+    """``{name: evt_sdpa}`` of each variant (and of ``against/sdpa.cu``, if
+    given), compiled side by side."""
     out_dir = build.BUILD_DIR.parent / "sdpa_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = []
+    sources = []
     for i, (name, code) in enumerate(variants((build.CSRC / "sdpa.cu").read_text()).items()):
-        cu, so = out_dir / f"sdpa_v{i}.cu", out_dir / f"libsdpa_v{i}.so"
+        cu = out_dir / f"sdpa_v{i}.cu"
         cu.write_text(code)
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC), "-o",
+        sources.append((name, cu, build.CSRC))
+    if against is not None:
+        sources.append((f"{against}/sdpa.cu", against / "sdpa.cu", against))
+    jobs = []
+    for i, (name, cu, include) in enumerate(sources):
+        so = out_dir / f"libsdpa_v{i}.so"
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-I", str(include), "-o",
                str(so), str(cu)]
         jobs.append((name, so, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)))
     fns = {}
@@ -106,12 +123,16 @@ def _time(call, iters: int = 200, repeats: int = 5) -> float:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", type=Path, default=None,
+                        help="another checkout's csrc directory whose sdpa.cu joins the variants")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sdpa_ab needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(card.stdout.strip() or torch.cuda.get_device_name(0))
-    fns = build_variants()
+    fns = build_variants(args.against)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for tag, (b, h, n, d) in SHAPES.items():
         qkv = torch.randn(b, n, 3 * h * d, generator=gen, device="cuda").bfloat16()
@@ -122,9 +143,10 @@ def main() -> None:
                 out = torch.empty(b, h, n, d, device="cuda", dtype=torch.bfloat16)
                 ms = _time(lambda: _launch(fns[name], q, k, v, out))
                 ref = out.clone() if ref is None else ref
-                diff = float((out.float() - ref.float()).abs().max())
+                diff = (out.float() - ref.float()).abs()
                 print(f"{tag:17s} {name:28s} {ms * 1e3:8.2f} us  max|diff vs committed| "
-                      f"{diff:.3g}")
+                      f"{float(diff.max()):.3g}  elements differing {int((diff > 0).sum())} of "
+                      f"{diff.numel()}")
 
 
 if __name__ == "__main__":

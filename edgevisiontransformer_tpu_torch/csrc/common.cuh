@@ -2,8 +2,9 @@
 // attention_rows.cu, quant_rows.cu, linear_i8.cu, t2t_stage1.cu,
 // window_attention.cu, swin_merge.cu, window_sdpa.cu, sdpa.cu, mlp.cu,
 // vit_full.cu, performer.cu; the encoder's tiles are in encoder_tiles.cuh,
-// the mma.sync / ldmatrix tiles of sdpa.cu, mlp.cu and linear.cu in
-// mma_tiles.cuh).
+// the mma.sync / ldmatrix tiles of sdpa.cu, mlp.cu, linear.cu and
+// attention_rows.cu in mma_tiles.cuh, the attention routines that sdpa.cu
+// and attention_rows.cu share in attn_tiles.cuh).
 // Plain CUDA C++ for sm_90a; no PyTorch headers, so the library builds in
 // seconds and binds through a C interface (ctypes).
 #pragma once

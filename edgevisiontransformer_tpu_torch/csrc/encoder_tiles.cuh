@@ -1,11 +1,13 @@
 // The encoder's three kinds of work as __device__ functions over one tile:
 // a LayerNorm row, a GEMM output tile with its epilogue, an attention query
-// tile.  ln_rows.cu and attention_rows.cu launch one tile per thread block
-// (or warp); vit_full.cu walks every tile of a whole forward inside one
-// persistent kernel.  Both run the same arithmetic in the same order, so
-// the standalone kernels and the whole-model kernel round alike.  The GEMM
-// tile gemm::tile serves vit_full.cu alone: linear.cu has its own mma.sync
-// tile, which sums each output element in the same k16 order.
+// tile.  ln_rows.cu launches one LayerNorm row per warp; vit_full.cu walks
+// every tile of a whole forward inside one persistent kernel, so ln_rows
+// and the whole-model kernel round alike.  The GEMM tile gemm::tile and the
+// attention tile attn::tile serve vit_full.cu alone: linear.cu has its own
+// mma.sync tile, which sums each output element in the same k16 order, and
+// attention_rows.cu its own on the mma.sync routines of attn_tiles.cuh,
+// which sums each row's p in another order (its outputs agree with
+// attn::tile's within the kernels' tolerance).
 //
 // Activation pointers carry no __restrict__ here: in vit_full.cu a tile
 // reads what other blocks wrote earlier in the same launch, which the
@@ -247,7 +249,8 @@ __device__ __forceinline__ void tile(unsigned char* smem, const ASrc& a,
 }  // namespace gemm
 
 // ---------------------------------------------------------------------------
-// Attention tile: 64 queries of one (image, head) over the fused qkv rows
+// Attention tile (vit_full.cu's; attention_rows.cu runs its own): 64
+// queries of one (image, head) over the fused qkv rows
 // [b * tokens, 3 * heads * HD] (columns (qkv, head, hd)), written to the
 // merged [b * tokens, heads * HD].  4 warps (128 threads, `tid` 0..127) each
 // own 16 query rows.  For each 64-key tile: S = q k^T on WMMA bf16 fragments

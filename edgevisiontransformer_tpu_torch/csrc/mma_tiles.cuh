@@ -1,4 +1,5 @@
-// Warp-level tensor-core tiles shared by sdpa.cu, mlp.cu and linear.cu:
+// Warp-level tensor-core tiles shared by sdpa.cu, mlp.cu, linear.cu and
+// attention_rows.cu (through attn_tiles.cuh):
 // ldmatrix loads of bf16 fragments from shared memory, the mma.sync.m16n8k16
 // product with fp32 accumulators, and the packing of two fp32 accumulators
 // into one bf16x2 register (in the m16n8 layout, two neighbouring n8

@@ -69,10 +69,11 @@
 //   tile's four warps).
 // - Epilogue: O is rounded to bf16 into the warp's own Q rows of shared
 //   memory, then written to the strided out view as 16-byte vectors.
+// - The routines it shares with attention_rows.cu (load_rows, qk, pv,
+//   store_rows, quad_sum) are in attn_tiles.cuh.
 #include <math.h>
 
-#include "common.cuh"
-#include "mma_tiles.cuh"
+#include "attn_tiles.cuh"
 
 namespace {
 
@@ -85,7 +86,7 @@ struct Strides {
 
 template <int HD>
 struct Tile {
-  static constexpr int LD = HD + 8;  // shared-memory row stride (bf16)
+  static constexpr int LD = row_ld(HD);  // shared-memory row stride (bf16)
   // The longest n of the resident form: its scores take RES_KEYS / 2
   // registers a thread, beside HD / 2 of O accumulators.
   static constexpr int RES_KEYS = HD == 128 ? 128 : 256;
@@ -123,11 +124,6 @@ __device__ __forceinline__ float quad_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 __device__ __forceinline__ float quad_min(float v) {
   v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -148,47 +144,6 @@ __device__ __forceinline__ bool exact_corrections(const float lo[2], const float
     ok &= least >= 0x1p-100f * l[r];
   }
   return __all_sync(0xffffffffu, ok);
-}
-
-// Rows [r0, r0 + rows) of one (image, head) of a [.., n, HD] operand into
-// shared memory by cp.async, zeros past token n (not waited for).
-template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src,
-                                          long long stride_n, int r0, int rows, int n, int tid) {
-  constexpr int CH = HD / 8;
-  for (int i = tid; i < rows * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int t = r0 + r;
-    const bool ok = t < n;
-    cp_async16(dst + r * Tile<HD>::LD + c, ok ? src + t * stride_n + c : src, ok);
-  }
-}
-
-// Scores of the warp's 16 query rows (sQw) against NC 16-key chunks of sK:
-// s[c][j] is the m16n8 accumulator of keys 16c + 8j .. + 7.  Thread (g =
-// lane / 4, t = lane % 4) holds rows g (s[.][.][0..1]) and g + 8 ([2..3]),
-// keys 2t and 2t + 1 of each n8 tile.
-template <int HD, int NC>
-__device__ __forceinline__ void qk(float (&s)[NC][2][4], const bf16* sQw, const bf16* sK,
-                                   int lane) {
-  constexpr int LD = Tile<HD>::LD;
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s[c][e / 4][e % 4] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, sQw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      uint32_t b[4];
-      ldsm_x4(b, sK + (c * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD + kk * 16 +
-                     ((lane >> 3) & 1) * 8);
-      mma_bf16(s[c][0], a, b[0], b[1]);
-      mma_bf16(s[c][1], a, b[2], b[3]);
-    }
-  }
 }
 
 // s = f32(q . k) * scale, -inf for keys at or past n (key0: the first key
@@ -261,52 +216,6 @@ __device__ __forceinline__ void exp_rows(float (&s)[NC][2][4], const float m[2],
     }
 }
 
-// O += bf16(P) V over NC 16-key chunks of sV, P in the score registers (two
-// n8 accumulators = one k16 A fragment).
-template <int HD, int NC>
-__device__ __forceinline__ void pv(float (&o)[HD / 8][4], const float (&p)[NC][2][4],
-                                   const bf16* sV, int lane) {
-  constexpr int LD = Tile<HD>::LD;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const uint32_t a[4] = {pack_bf16x2(p[c][0][0], p[c][0][1]),
-                           pack_bf16x2(p[c][0][2], p[c][0][3]),
-                           pack_bf16x2(p[c][1][0], p[c][1][1]),
-                           pack_bf16x2(p[c][1][2], p[c][1][3])};
-#pragma unroll
-    for (int dp = 0; dp < HD / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, sV + (c * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
-      mma_bf16(o[2 * dp], a, b[0], b[1]);
-      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// bf16(O) through the warp's own 16 rows of the Q tile to out, 16-byte
-// stores, rows past n dropped.
-template <int HD>
-__device__ __forceinline__ void store_rows(const float (&o)[HD / 8][4], bf16* sQw,
-                                           bf16* __restrict__ op, long long stride_n, int row0,
-                                           int n, int lane) {
-  constexpr int LD = Tile<HD>::LD, CH = HD / 8;
-  const int g = lane >> 2, t = lane & 3;
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(sQw + g * LD + j * 8 + 2 * t) = pack_bf16x2(o[j][0], o[j][1]);
-    *reinterpret_cast<uint32_t*>(sQw + (g + 8) * LD + j * 8 + 2 * t) =
-        pack_bf16x2(o[j][2], o[j][3]);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = (i % CH) * 8;
-    if (row0 + r < n)
-      *reinterpret_cast<uint4*>(op + (row0 + r) * stride_n + c) =
-          *reinterpret_cast<const uint4*>(sQw + r * LD + c);
-  }
-}
-
 // RC > 0: the resident form over RC 16-key chunks (n <= 16 RC); RC == 0:
 // the streamed form.
 template <int HD, int RC>
@@ -332,13 +241,13 @@ __global__ __launch_bounds__(THREADS) void sdpa_kernel(
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
 
-  load_rows<HD>(sQ, qp, st.qn, q0, QT, n, tid);
+  load_rows<HD, THREADS>(sQ, qp, st.qn, q0, QT, n, tid);
   if constexpr (RC > 0) {
     bf16* sK = sKV;
     bf16* sV = sKV + RC * 16 * LD;
-    load_rows<HD>(sK, kp, st.kn, 0, RC * 16, n, tid);
+    load_rows<HD, THREADS>(sK, kp, st.kn, 0, RC * 16, n, tid);
     cp_async_commit();  // group 0: q and k
-    load_rows<HD>(sV, vp, st.vn, 0, RC * 16, n, tid);
+    load_rows<HD, THREADS>(sV, vp, st.vn, 0, RC * 16, n, tid);
     cp_async_commit();  // group 1: v, landing while q k^T and the softmax run
     cp_async_wait<1>();
     __syncthreads();
@@ -364,8 +273,8 @@ __global__ __launch_bounds__(THREADS) void sdpa_kernel(
     auto prefetch = [&](int i) {
       bf16* sK = sKV + (i & 1) * 2 * KT * LD;
       const int t = i < tiles ? i : i - tiles;
-      load_rows<HD>(sK, kp, st.kn, t * KT, KT, n, tid);
-      if (i >= tiles) load_rows<HD>(sK + KT * LD, vp, st.vn, t * KT, KT, n, tid);
+      load_rows<HD, THREADS>(sK, kp, st.kn, t * KT, KT, n, tid);
+      if (i >= tiles) load_rows<HD, THREADS>(sK + KT * LD, vp, st.vn, t * KT, KT, n, tid);
     };
     prefetch(0);
     cp_async_commit();  // group 0: q and the first k tile

@@ -32,7 +32,7 @@ _F = ctypes.c_float
 _SIGNATURES = (
     ("evt_ln_rows", _I, (_P, _P, _P, _P, _I, _I, _F, _I, _P)),
     ("evt_linear", _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    ("evt_attention_rows", _I, (_P, _P, _I, _I, _I, _I, _I, _F, _P)),
+    ("evt_attention_rows", _I, (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P)),
     ("evt_quant_rows", _I, (_P, _P, _P, _P, _I, _I, _I, _P)),
     ("evt_linear_i8", _I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     ("evt_t2t_stage1", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P)),

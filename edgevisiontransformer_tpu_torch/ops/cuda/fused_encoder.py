@@ -263,6 +263,31 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
+# csrc/attention_rows.cu: the head dims and the warps (16-row query strips)
+# a block it is compiled for
+ATTENTION_HEAD_DIMS = (16, 32, 64, 128)
+ATTENTION_WARPS = (4, 8)
+# 8-warp blocks from this many blocks an SM on (bench/attention_ab.py)
+ATTENTION_WIDE_BLOCKS_PER_SM = 1.5
+
+
+def attention_plan(batch: int, heads: int, tokens: int, sms: int) -> int:
+    """The warps a block of csrc/attention_rows.cu holds for ``batch``
+    images of ``tokens`` rows and ``heads`` heads on a card of ``sms`` SMs:
+    8 where 8-warp blocks still number 1.5 an SM, else 4.
+
+    Every block loads all of its (image, head)'s K and V, so more warps a
+    block load less in all; but fewer, larger blocks spread less evenly
+    over the SMs.  ``bench/attention_ab.py`` set the rule on the H100
+    (PERF.md section 6): 8 warps won at deit_tiny b128, the pruned model's
+    one head at b128 and deit_base at 384, 4 at b1 and deit_base b8 (1.45
+    8-warp blocks an SM), and 1 or 2 warps nowhere, b1 included.  Each warp
+    owns 16 query rows and walks all of its keys alone, so a row's output
+    does not depend on the plan."""
+    wide = -(-tokens // (16 * 8)) * heads * batch
+    return 8 if wide >= ATTENTION_WIDE_BLOCKS_PER_SM * sms else 4
+
+
 def attention_rows_plain(qkv: torch.Tensor, *, heads: int, head_dim: int,
                          tokens: int, seq_len: int | None = None) -> torch.Tensor:
     """Per-(image, head) exp2 attention with deferred normalisation.
@@ -288,7 +313,8 @@ def attention_rows_plain(qkv: torch.Tensor, *, heads: int, head_dim: int,
 def attention_rows(qkv: torch.Tensor, *, heads: int, head_dim: int,
                    tokens: int, seq_len: int | None = None) -> torch.Tensor:
     """Attention of :func:`attention_rows_plain` (csrc/attention_rows.cu):
-    one thread block per (image, head, 64-query tile)."""
+    blocks of 16-row query strips of one (image, head), as many a block as
+    :func:`attention_plan` picks.  ``head_dim`` 16, 32, 64 or 128."""
     seq_len = tokens if seq_len is None else seq_len
     if _on_cpu("attention_rows", qkv):
         return attention_rows_plain(qkv, heads=heads, head_dim=head_dim,
@@ -298,13 +324,14 @@ def attention_rows(qkv: torch.Tensor, *, heads: int, head_dim: int,
         raise ValueError(f"attention_rows: qkv{tuple(qkv.shape)} does not fit "
                          f"heads={heads} head_dim={head_dim} tokens={tokens} "
                          f"seq_len={seq_len}")
-    if head_dim not in (32, 64, 128):
-        raise ValueError(f"attention_rows: head_dim must be 32, 64 or 128, got {head_dim}")
+    if head_dim not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"attention_rows: head_dim must be 16, 32, 64 or 128, got {head_dim}")
     out = torch.empty((rows, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     lib = build.load()
-    rc = lib.evt_attention_rows(_ptr(qkv), _ptr(out), rows // tokens, tokens,
-                                seq_len, heads, head_dim,
-                                ctypes.c_float(head_dim ** -0.5 * _LOG2E),
+    batch = rows // tokens
+    warps = attention_plan(batch, heads, tokens, _sm_count(qkv.device.index or 0))
+    rc = lib.evt_attention_rows(_ptr(qkv), _ptr(out), batch, tokens, seq_len, heads, head_dim,
+                                ctypes.c_float(head_dim ** -0.5 * _LOG2E), warps,
                                 _stream(qkv))
     build.check(rc, "attention_rows")
     LAUNCHES["attention_rows"] += 1

@@ -45,6 +45,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.bench.sdpa_ab",
     "edgevisiontransformer_tpu_torch.bench.mlp_ab",
     "edgevisiontransformer_tpu_torch.bench.linear_ab",
+    "edgevisiontransformer_tpu_torch.bench.attention_ab",
 ]
 
 

@@ -8,6 +8,8 @@ suite's conftest is left out):
 This file imports no JAX.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -152,9 +154,14 @@ def test_linear_kernel_writes_over_its_own_residual(dev, m, k, n):
             _close(y, ref)
 
 
+# deit_tiny, t2t_vit_14 (6 heads), the pruned model's one head, deit_base's
+# 12, head_dim 16 (the layerwise pruned config: 5 tokens, 2 or 3 heads) to
+# 128, padded and fully masked keys, and deit_base at 384 (ten 64-key tiles)
 @pytest.mark.parametrize("batch,tokens,seq_len,heads,hd", [
     (2, 197, 197, 3, 64), (1, 5, 5, 2, 32), (3, 64, 64, 2, 128),
-    (2, 200, 197, 2, 64), (1, 70, 0, 1, 64)])
+    (2, 200, 197, 2, 64), (1, 70, 0, 1, 64), (1, 197, 197, 6, 64), (1, 197, 197, 1, 64),
+    (128, 197, 197, 1, 64), (8, 197, 197, 12, 64), (1, 5, 5, 2, 16), (1, 5, 5, 3, 16),
+    (4, 197, 197, 3, 16), (2, 200, 197, 4, 16), (1, 33, 0, 2, 16), (2, 577, 577, 12, 64)])
 def test_attention_rows_kernel_matches_twin(dev, batch, tokens, seq_len, heads, hd):
     qkv = _rnd(dev, batch * tokens, 3 * heads * hd)
     kw = dict(heads=heads, head_dim=hd, tokens=tokens, seq_len=seq_len)
@@ -169,6 +176,54 @@ def test_attention_rows_clamp60_rows_tie(dev):
     qkv[:8, :128] *= 8  # q and k large: log2-scaled scores far above 60
     kw = dict(heads=1, head_dim=64, tokens=64)
     _close(fe.attention_rows(qkv, **kw), fe.attention_rows_plain(qkv, **kw))
+
+
+# A query row's output is the same bits alone (one image) and as image 0 of
+# 128, and under every plan: each warp walks all of its keys alone.
+@pytest.mark.parametrize("heads,hd", [(3, 64), (1, 64), (12, 64), (4, 16), (2, 128)])
+def test_attention_rows_are_bit_identical_alone_and_in_a_batch(dev, monkeypatch, heads, hd):
+    tokens = 197
+    qkv = _rnd(dev, 128 * tokens, 3 * heads * hd)
+    kw = dict(heads=heads, head_dim=hd, tokens=tokens)
+    batch = fe.attention_rows(qkv, **kw)
+    alone = fe.attention_rows(qkv[:tokens], **kw)
+    forced = {}
+    for warps in fe.ATTENTION_WARPS:
+        monkeypatch.setattr(fe, "attention_plan", lambda *a, w=warps: w)
+        forced[warps] = (fe.attention_rows(qkv, **kw), fe.attention_rows(qkv[:tokens], **kw))
+        monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert torch.equal(alone, batch[:tokens])
+    for warps, (b, a) in forced.items():
+        assert torch.equal(b, batch), warps
+        assert torch.equal(a, alone), warps
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_kernel():
+    from edgevisiontransformer_tpu_torch.bench import attention_ab
+
+    return attention_ab.build_libraries(source_variants=False)[1]
+
+
+# The kernel against attn::tile (csrc/encoder_tiles.cuh, the WMMA tile that
+# vit_full runs and attention_rows ran before its redesign), built beside
+# it: within the twin bound; -rP prints how many elements differ.
+@pytest.mark.parametrize("batch,tokens,seq_len,heads,hd", [
+    (128, 197, 197, 3, 64), (1, 197, 197, 3, 64), (1, 197, 197, 6, 64), (8, 197, 197, 12, 64),
+    (128, 197, 197, 1, 64), (2, 200, 197, 2, 128), (4, 64, 64, 2, 32), (2, 577, 577, 12, 64)])
+def test_attention_rows_agrees_with_the_wmma_tile(dev, batch, tokens, seq_len, heads, hd):
+    from edgevisiontransformer_tpu_torch.bench import attention_ab
+
+    qkv = _rnd(dev, batch * tokens, 3 * heads * hd, seed=4)
+    kw = dict(heads=heads, head_dim=hd, tokens=tokens, seq_len=seq_len)
+    got = fe.attention_rows(qkv, **kw)
+    old = torch.empty_like(got)
+    attention_ab.launch(_tile_kernel(), qkv, old, tokens, heads, hd, seq_len=seq_len)
+    _close(got, old)
+    diff = (got.float() - old.float()).abs()
+    print(f"attention_rows vs the WMMA tile, b{batch} n{tokens} s{seq_len} h{heads} d{hd}: "
+          f"{int((diff > 0).sum())} of {diff.numel()} elements differ, max {float(diff.max()):.3g}")
 
 
 @pytest.mark.parametrize("reference_residual,approx", [(False, False), (True, True)])
