@@ -52,7 +52,8 @@ Phases, in order; any failure exits non-zero before the last line:
    the eager performer chain;
    swin_tiny b1 and b32, bf16, int8 static and dynamic, and the
    ``kernel_mode="pallas"`` module (eager p50, device p50, peak memory,
-   device time by kernel at b1); the deit_tiny ``kernel_mode="pallas"``
+   device time by kernel at b1, and the module's at b32 with
+   ``window_sdpa``'s share); the deit_tiny ``kernel_mode="pallas"``
    module and the uniform pruned model (bf16 and int8 static) at b1 and b128;
    deit_base b1, int8 static against bf16 device p50; then the
    deit_tiny slices (kernel path and plain path) at b1 and b128, bf16 and
@@ -65,7 +66,9 @@ Phases, in order; any failure exits non-zero before the last line:
 
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
-windows; stages 0 and 2 at b32), ``swin_merge`` (its three merges, b1 and
+windows; stages 0 and 2 at b32; ``window_sdpa`` also at window 12, Swin-B
+at 384's first stage, shifted and not, and image 0's windows give it the
+same bits alone and in b32), ``swin_merge`` (its three merges, b1 and
 b32), ``ln_rows`` / ``linear`` at Swin's widths, ``quant_rows`` /
 ``linear_i8`` at the int8 stages' shapes (stages 1-3, b1 and b32, bf16
 biases), ``sdpa`` (K13) and ``mlp`` (K14) at the module path's shapes,
@@ -134,6 +137,9 @@ INT8_LAUNCHES = {"ln_rows": 2, "linear": 0, "attention_rows": 1, "quant_rows": 4
 # window_attention 1, a merge swin_merge 1 and linear 1
 SWIN_STAGES = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 6), (7, 768, 24, 2))
 SWIN_WINDOW = 7
+# window_sdpa at window 12: Swin-B at 384's first stage (resolution 96, 4
+# heads of 32; 64 windows of 144 tokens)
+WINDOW12_STAGE = (96, 4, 32)
 SWIN_BATCHES = (1, 32)
 SWIN_BLOCK_LAUNCHES = {"ln_rows": 2, "linear": 4, "window_attention": 1}
 SWIN_INT8_BLOCK_LAUNCHES = {"ln_rows": 2, "quant_rows": 4, "linear_i8": 4, "window_attention": 1}
@@ -605,6 +611,15 @@ def phase_kernels_swin(torch, fe, sb, sm, ws, harness):
                 check("window_sdpa", f"window_sdpa {'shifted' if shifted else 'unshifted'}", tag,
                       lambda: ws.window_sdpa(qkv_w, bias16, mk, **kw),
                       lambda: ws.window_sdpa_plain(qkv_w, bias16, mk, **kw), reps)
+            if batch > 1 and si == 0:  # a window's bits alone and in the batch
+                alone = ws.window_sdpa(qkv_w[:nwin], bias16, mask32, heads=heads,
+                                       head_dim=dim // heads)
+                full = ws.window_sdpa(qkv_w, bias16, mask32, heads=heads, head_dim=dim // heads)
+                torch.cuda.synchronize()
+                if not torch.equal(alone, full[:nwin]):
+                    fail(f"window_sdpa at {tag}: image 0's windows differ alone and in the batch")
+                print(f"  {tag:22s} window_sdpa shifted: image 0's {nwin} windows give the same "
+                      f"bits alone and in b{batch}")
             g, b = f32(dim, scale=0.5, base=1.0), f32(dim, scale=0.5)
             check("ln_rows", "ln_rows (fp32 affine)", tag, lambda: fe.ln_rows(x, g, b, 1e-5),
                   lambda: fe.ln_rows_plain(x, g, b, 1e-5))
@@ -622,6 +637,17 @@ def phase_kernels_swin(torch, fe, sb, sm, ws, harness):
                 kwl = dict(epilogue=epi or fe.CAST_THEN_BIAS, res=r)
                 check("linear", f"linear {name}", tag, lambda: fe.linear(a, wt, bvec, **kwl),
                       lambda: fe.linear_plain(a, wt, bvec, **kwl))
+    # window_sdpa at window 12 (n = 144): Swin-B at 384's first stage, b1
+    res, heads, hd = WINDOW12_STAGE
+    nwin, n12 = (res // 12) ** 2, 144
+    qkv_w = rnd(nwin, n12, 3 * heads * hd)
+    bias16 = rnd(heads, n12, n12, scale=0.5)
+    mask32 = torch.from_numpy(shifted_window_mask(res, res, 12, 6)).to(dev)
+    for mk in (None, mask32):
+        check("window_sdpa", f"window_sdpa w12 {'shifted' if mk is not None else 'unshifted'}",
+              "swin_b 384 b1 s0", lambda: ws.window_sdpa(qkv_w, bias16, mk, heads=heads,
+                                                         head_dim=hd),
+              lambda: ws.window_sdpa_plain(qkv_w, bias16, mk, heads=heads, head_dim=hd))
     return errs, b1_ms
 
 
@@ -1279,7 +1305,8 @@ def phase_time_swin(torch, harness, state, stacks, module_state):
     """swin_tiny b1 and b32, bf16, int8 static and dynamic through
     ``fused_swin_apply`` and the ``kernel_mode="pallas"`` module: eager and
     device p50, peak memory (the script's other resident models included)
-    and the device time by kernel at b1."""
+    and the device time by kernel at b1 (the module's at b32 too, with
+    ``window_sdpa``'s share)."""
     from edgevisiontransformer_tpu_torch.models.swin import fused_swin_apply
 
     model, shape, prepared = state
@@ -1306,11 +1333,16 @@ def phase_time_swin(torch, harness, state, stacks, module_state):
                 print(f"  swin_tiny {slice_name} b{batch}: eager p50 {e['p50_ms']:.4f} ms (std "
                       f"{e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device p50 "
                       f"{d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}), peak mem {peak:.1f} MiB")
-                if batch == 1:
+                if batch == 1 or slice_name == "module pallas":
                     prof = harness.device_time_by_kernel(fn)
                     busy = sum(r[2] for r in prof)
                     print(f"      traced kernel time {busy:.4f} ms (device idle "
                           f"{max(0.0, 1 - busy / e['p50_ms']):.1%} of the eager call)")
+                    if slice_name == "module pallas":
+                        sd = [r for r in prof if "window_sdpa" in r[0]]
+                        sd_ms = sum(r[2] for r in sd)
+                        print(f"      window_sdpa {sd_ms:.4f} ms in {sum(r[1] for r in sd)} "
+                              f"launches, {sd_ms / busy if busy else 0.0:.1%} of the traced time")
                     for name, calls, ms in prof[:8]:
                         print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
 

@@ -1,7 +1,7 @@
-// Warp-level attention routines shared by sdpa.cu (K13) and
-// attention_rows.cu (K1's attention): one warp owns 16 query rows, its scores
-// live in mma.sync.m16n8k16 accumulator registers, and K and V arrive in
-// shared memory by cp.async.
+// Warp-level attention routines shared by sdpa.cu (K13), attention_rows.cu
+// (K1's attention) and window_sdpa.cu (K12): one warp owns 16 query rows,
+// its scores live in mma.sync.m16n8k16 accumulator registers, and K and V
+// arrive in shared memory by cp.async.
 //
 // Shared-memory tiles hold rows of HD bf16 values at a row stride of
 // row_ld(HD) = HD + 8 elements: the 16-byte skew spreads the eight rows of an
@@ -12,7 +12,7 @@
 // Score layout: s[c][j] is the m16n8 accumulator of keys 16c + 8j .. + 7.
 // Thread (g = lane / 4, t = lane % 4) holds rows g (s[.][.][0..1]) and g + 8
 // ([2..3]), keys 2t and 2t + 1 of each n8 tile, so a score row lives in the 4
-// lanes of a quad (quad_sum reduces it), and the accumulators of two
+// lanes of a quad (quad_sum and quad_max reduce it), and the accumulators of two
 // neighbouring n8 tiles, packed to bf16x2, are the A fragment of one k16 step
 // of PV (FlashAttention-2's register reuse): P never goes to shared memory.
 #pragma once
@@ -25,6 +25,11 @@ __host__ __device__ constexpr int row_ld(int hd) { return hd + 8; }
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 // Rows [r0, r0 + rows) of one (image, head) of a [.., n, HD] operand into

@@ -3,8 +3,8 @@
 // window_attention.cu, swin_merge.cu, window_sdpa.cu, sdpa.cu, mlp.cu,
 // vit_full.cu, performer.cu; the encoder's tiles are in encoder_tiles.cuh,
 // the mma.sync / ldmatrix tiles of sdpa.cu, mlp.cu, linear.cu and
-// attention_rows.cu in mma_tiles.cuh, the attention routines that sdpa.cu
-// and attention_rows.cu share in attn_tiles.cuh).
+// attention_rows.cu in mma_tiles.cuh, the attention routines that sdpa.cu,
+// attention_rows.cu and window_sdpa.cu share in attn_tiles.cuh).
 // Plain CUDA C++ for sm_90a; no PyTorch headers, so the library builds in
 // seconds and binds through a C interface (ctypes).
 #pragma once

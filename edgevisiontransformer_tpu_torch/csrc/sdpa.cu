@@ -69,8 +69,9 @@
 //   tile's four warps).
 // - Epilogue: O is rounded to bf16 into the warp's own Q rows of shared
 //   memory, then written to the strided out view as 16-byte vectors.
-// - The routines it shares with attention_rows.cu (load_rows, qk, pv,
-//   store_rows, quad_sum) are in attn_tiles.cuh.
+// - The routines it shares with attention_rows.cu and window_sdpa.cu
+//   (load_rows, qk, pv, store_rows, quad_sum, quad_max) are in
+//   attn_tiles.cuh.
 #include <math.h>
 
 #include "attn_tiles.cuh"
@@ -117,11 +118,6 @@ __device__ __forceinline__ float normalise(float e, float l, float y) {
 // p = e / l for the rows that normalise does not take.
 __device__ __forceinline__ float divide_ieee(float e, float l) {
   return __fdiv_rn(e, l);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 __device__ __forceinline__ float quad_min(float v) {

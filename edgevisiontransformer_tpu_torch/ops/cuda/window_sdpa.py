@@ -28,7 +28,7 @@ from .fused_encoder import _on_cpu, _ptr, _stream
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"window_sdpa": 0}
 
-MAX_TOKENS = 64  # tokens per window the kernel holds (w <= 8)
+MAX_TOKENS = 144  # tokens per window the kernel holds (w <= 12)
 
 
 def reset_launches() -> None:
@@ -81,7 +81,7 @@ def window_sdpa(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None
     """:func:`window_sdpa_plain` as one kernel (csrc/window_sdpa.cu): one
     thread block per (window, head).  On the GPU ``qkv`` and ``bias`` are
     bf16, ``mask`` fp32 (the module's constant), ``head_dim`` 32 or 64 and
-    ``n <= 64``."""
+    ``n <= 144``."""
     tensors = (qkv, bias) + ((mask,) if mask is not None else ())
     if _on_cpu("window_sdpa", *tensors, dtypes={2: (torch.float32,)}):
         return window_sdpa_plain(qkv, bias, mask, heads=heads, head_dim=head_dim)

@@ -46,6 +46,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.bench.mlp_ab",
     "edgevisiontransformer_tpu_torch.bench.linear_ab",
     "edgevisiontransformer_tpu_torch.bench.attention_ab",
+    "edgevisiontransformer_tpu_torch.bench.window_sdpa_ab",
 ]
 
 

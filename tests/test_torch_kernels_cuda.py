@@ -628,10 +628,16 @@ def _sdpa_inputs(dev, batch, res, w, heads, hd, shifted, seed=0):
 @pytest.mark.parametrize("batch,res,w,heads,hd,shifted", [
     (1, 56, 7, 3, 32, False), (1, 56, 7, 3, 32, True), (1, 28, 7, 6, 32, True),
     (1, 14, 7, 12, 32, True), (1, 7, 7, 24, 32, False), (2, 28, 7, 6, 32, True),
-    (3, 8, 4, 2, 64, True), (2, 16, 8, 2, 64, True)])
+    (3, 8, 4, 2, 64, True), (2, 16, 8, 2, 64, True),
+    (32, 56, 7, 3, 32, False), (32, 56, 7, 3, 32, True), (32, 28, 7, 6, 32, False),
+    (32, 28, 7, 6, 32, True), (32, 14, 7, 12, 32, False), (32, 14, 7, 12, 32, True),
+    (32, 7, 7, 24, 32, False), (1, 96, 12, 4, 32, False), (1, 96, 12, 4, 32, True),
+    (2, 24, 12, 2, 64, True), (1, 18, 9, 2, 32, True)])
 def test_window_sdpa_kernel_matches_twin_and_counts(dev, batch, res, w, heads, hd, shifted):
-    """swin_tiny's four stage shapes at b1, the mask tiled over 2 and 3
-    images, head_dim 64 and a full 64-token window."""
+    """swin_tiny's four stage shapes at b1 and b32 (where the plan walks
+    several heads a block), the mask tiled over 2 and 3 images, head_dim 64,
+    a full 64-token window, windows of 12 (Swin-B at 384's first stage, and
+    head_dim 64) and 9 (n = 81)."""
     qkv, bias, mask = _sdpa_inputs(dev, batch, res, w, heads, hd, shifted)
     ws.reset_launches()
     got = ws.window_sdpa(qkv, bias, mask, heads=heads, head_dim=hd)
@@ -657,9 +663,67 @@ def test_window_sdpa_refuses_what_the_kernel_does_not_take(dev):
         ws.window_sdpa(qkv[:3], bias, mask, **kw)
     with pytest.raises(ValueError, match="head_dim"):
         ws.window_sdpa(_rnd(dev, 4, 49, 3 * 48), bias[:1], None, heads=1, head_dim=48)
-    q9, b9, _ = _sdpa_inputs(dev, 1, 18, 9, 1, 32, False)
-    with pytest.raises(ValueError, match="at most 64"):
-        ws.window_sdpa(q9, b9, None, heads=1, head_dim=32)
+    q13, b13, _ = _sdpa_inputs(dev, 1, 26, 13, 1, 32, False)
+    with pytest.raises(ValueError, match="at most 144"):
+        ws.window_sdpa(q13, b13, None, heads=1, head_dim=32)
+
+
+# A window's output is the same bits alone (one image) and as image 0 of
+# 32: each (window, head) runs the same instructions.
+@pytest.mark.parametrize("res,heads,w,shifted", [(56, 3, 7, True), (28, 6, 7, True),
+                                                 (14, 12, 7, False), (7, 24, 7, False),
+                                                 (24, 2, 12, True)])
+def test_window_sdpa_is_bit_identical_alone_and_in_a_batch(dev, res, heads, w, shifted):
+    qkv, bias, mask = _sdpa_inputs(dev, 32, res, w, heads, 32, shifted)
+    nwin = (res // w) ** 2
+    kw = dict(heads=heads, head_dim=32)
+    batch = ws.window_sdpa(qkv, bias, mask, **kw)
+    alone = ws.window_sdpa(qkv[:nwin], bias, mask, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, batch[:nwin])
+
+
+@functools.lru_cache(maxsize=None)
+def _wmma_window_sdpa():
+    from edgevisiontransformer_tpu_torch.bench import window_sdpa_ab
+
+    return window_sdpa_ab.build_libraries(source_variants=False)[1]
+
+
+# The kernel against the WMMA kernel it replaced (its source in
+# bench/window_sdpa_ab.py, built beside it): within the twin bound; -rP
+# prints how many elements differ.
+@pytest.mark.parametrize("batch,res,heads,shifted", [
+    (1, 56, 3, False), (1, 56, 3, True), (1, 28, 6, True), (1, 14, 12, True), (1, 7, 24, False),
+    (32, 56, 3, True), (32, 14, 12, False)])
+def test_window_sdpa_agrees_with_the_wmma_kernel(dev, batch, res, heads, shifted):
+    from edgevisiontransformer_tpu_torch.bench import window_sdpa_ab
+
+    qkv, bias, mask = _sdpa_inputs(dev, batch, res, 7, heads, 32, shifted, seed=4)
+    got = ws.window_sdpa(qkv, bias, mask, heads=heads, head_dim=32)
+    old = torch.empty_like(got)
+    window_sdpa_ab.launch(_wmma_window_sdpa(), qkv, bias, mask, old, heads, 32)
+    _close(got, old)
+    diff = (got.float() - old.float()).abs()
+    print(f"window_sdpa vs the WMMA kernel, b{batch} res{res} h{heads} "
+          f"{'shifted' if shifted else 'unshifted'}: {int((diff > 0).sum())} of {diff.numel()} "
+          f"elements differ, max {float(diff.max()):.3g}")
+
+
+@pytest.mark.parametrize("w", [7, 12])
+def test_window_sdpa_subnormal_quotients_match_the_twin(dev, w):
+    """The -100 mask with large |q . k|: many masked p = e / l are fp32
+    subnormals, which the kernel's division rounds as __fdiv_rn does."""
+    qkv, bias, mask = _sdpa_inputs(dev, 2, 4 * w, w, 2, 32, True, seed=5)
+    qkv[..., :128] *= 3
+    q, k = qkv[..., :32].float(), qkv[..., 64:96].float()  # head 0
+    s = (q @ k.transpose(-1, -2)) * 32 ** -0.5 + bias[0].float()
+    s = s + mask.repeat(2, 1, 1).bfloat16().float()
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    assert ((p > 0) & (p < 2.0 ** -126)).any()
+    got = ws.window_sdpa(qkv, bias, mask, heads=2, head_dim=32)
+    _close(got, ws.window_sdpa_plain(qkv, bias, mask, heads=2, head_dim=32))
 
 
 def _int8_stacks(model, mode):

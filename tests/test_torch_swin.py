@@ -193,6 +193,26 @@ def test_window_sdpa_plain_matches_jax_window_sdpa(dtype, masked):
     np.testing.assert_allclose(_f32(got), ref, **(SDPA_FP32 if dtype == "float32" else SDPA_BF16))
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_sdpa_plain_matches_jax_window_sdpa_at_window_12(dtype, masked):
+    """Window 12 (n = 144, Swin at 384): one image of four windows, two
+    heads of 32, as above."""
+    jd, td = DTYPES[dtype]
+    rng = np.random.default_rng(12)
+    heads, hd, n, nw = 2, 32, 144, 4
+    qkv = rng.standard_normal((nw, n, 3 * heads * hd)).astype(np.float32)
+    bias = (0.5 * rng.standard_normal((heads, n, n))).astype(np.float32)
+    mask = jswin.shifted_window_mask(24, 24, 12, 6) if masked else None
+    assert mask is None or mask.shape == (nw, n, n)
+    jq, jb = jnp.asarray(qkv).astype(jd), jnp.asarray(bias).astype(jd)
+    ref = _f32(window_sdpa(jq, jb, None if mask is None else jnp.asarray(mask), heads, hd))
+    got = tws.window_sdpa(to_torch(qkv).to(td), to_torch(bias).to(td),
+                          None if mask is None else to_torch(mask), heads=heads, head_dim=hd)
+    assert got.dtype == td and got.shape == (nw, n, heads * hd)
+    np.testing.assert_allclose(_f32(got), ref, **(SDPA_FP32 if dtype == "float32" else SDPA_BF16))
+
+
 # ---------------------------------------------------------------------------
 # fused_swin_apply
 # ---------------------------------------------------------------------------
