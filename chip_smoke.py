@@ -263,13 +263,15 @@ def phase_build(build) -> float:
     for src, lines in report.items():
         for line in lines:
             print(f"  ptxas {src}: {line}")
-    # linear's block shapes (linear.cu, linear_rows*.cu) and attention_rows'
-    # plans serve the main path: none may spill
+    # linear's and linear_i8's block shapes (linear.cu, linear_rows*.cu,
+    # linear_i8.cu, i8_rows*.cu) and attention_rows' plans serve the main
+    # path: none may spill
     spills = [f"{src}: {line}" for src, lines in report.items()
-              if src in ("linear", "attention_rows") or src.startswith("linear_rows")
+              if src in ("linear", "attention_rows", "linear_i8")
+              or src.startswith(("linear_rows", "i8_rows"))
               for line in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
     if spills:
-        fail(f"linear or attention_rows spills registers: {spills}")
+        fail(f"linear, linear_i8 or attention_rows spills registers: {spills}")
     return dt
 
 
@@ -418,7 +420,9 @@ def phase_kernels_int8(torch, fe, harness, shapes=SHAPES, bias_dtype=None, seed=
     (the encoders' by default; with ``bias_dtype`` bf16 the Swin int8
     stages', whose stacks keep bf16 biases): bit for bit, except the GELU
     epilogue (tolerance).  Returns the same as :func:`phase_kernels`; the
-    layer times are those of one static-int8 deit_tiny b128 layer."""
+    layer times are those of one static-int8 deit_tiny b128 layer, and of
+    one b1 layer's linear_i8 launches (``"linear_i8 b1"``, phase 6's b1
+    row)."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(seed)
     bias_dtype = bias_dtype or torch.float32
@@ -488,9 +492,11 @@ def phase_kernels_int8(torch, fe, harness, shapes=SHAPES, bias_dtype=None, seed=
                 t_k, t_p = time_pair(harness, shape_name, label, err,
                                      lambda: fe.linear_i8(*args, **kw),
                                      lambda: fe.linear_i8_plain(*args, **kw))
-                if b128 and mode == "static" and name != "fc1 tanh":
-                    tk, tp = layer_ms["linear_i8"]
-                    layer_ms["linear_i8"] = (tk + t_k, tp + t_p)
+                if mode == "static" and name != "fc1 tanh" and (
+                        b128 or shape_name == "deit_tiny b1"):
+                    key = "linear_i8" if b128 else "linear_i8 b1"
+                    tk, tp = layer_ms.get(key, (0.0, 0.0))
+                    layer_ms[key] = (tk + t_k, tp + t_p)
     return errs, layer_ms
 
 
@@ -1455,10 +1461,15 @@ def phase_yardsticks(torch, harness):
     widths = (dim, dim, dim, mlp)  # the static layer quantizes qkv, out, fc1, fc2 inputs
     out["quant_rows"] = (*_bound(sum(3 * m * k for k in widths),
                                  {"fp32": sum(3 * m * k for k in widths)}), None)
-    nbytes = sum(m * k + k * nn_ + 2 * m * nn_ * (2 if r else 1) + 8 * nn_ for k, nn_, r in gemms)
-    mats8 = [(int8(m, k), int8(k, nn_)) for k, nn_, _ in gemms]
-    out["linear_i8"] = (*_bound(nbytes, {"int8": sum(2 * m * k * nn_ for k, nn_, _ in gemms)}),
-                        lib([((lambda q=q, w=w: torch._int_mm(q, w)), 1) for q, w in mats8]))
+    for rows, tag in ((m, ""), (n, " b1")):
+        # a static-int8 layer's four GEMMs at b128 (the kernels line) and at
+        # b1 (phase 6's b1 row); torch._int_mm leaves out the dequant and epilogue
+        nbytes = sum(rows * k + k * nn_ + 2 * rows * nn_ * (2 if r else 1) + 8 * nn_
+                     for k, nn_, r in gemms)
+        mats8 = [(int8(rows, k), int8(k, nn_)) for k, nn_, _ in gemms]
+        out[f"linear_i8{tag}"] = (
+            *_bound(nbytes, {"int8": sum(2 * rows * k * nn_ for k, nn_, _ in gemms)}),
+            lib([((lambda q=q, w=w: torch._int_mm(q, w)), 1) for q, w in mats8]))
     tok, feat, d = 3136, 147, 192
     out["stage1_kqv"] = (*_bound(2 * 3 * 224 * 224 + 2 * 432 * d + 4 * 432 + 8 * d + 2 * tok * d,
                                  {"bf16": 2 * tok * feat * d, "fp32": 4 * tok * feat}), None)
@@ -1955,6 +1966,10 @@ def main() -> int:
     (k1, p1), (bnd1, by1, lib1) = layer_ms["linear b1"], yard["linear b1"]
     print(f"  linear, one deit_tiny b1 layer (qkv, out, fc1 erf, fc2): kernel {k1:.4f} ms, twin "
           f"{p1:.4f} ms, bound {bnd1:.4f} ms ({by1}), library (torch.addmm x4) {lib1:.4f} ms")
+    (k1, p1), (bnd1, by1, lib1) = layer_ms["linear_i8 b1"], yard["linear_i8 b1"]
+    print(f"  linear_i8, one static-int8 deit_tiny b1 layer (qkv, out, fc1 erf, fc2): kernel "
+          f"{k1:.4f} ms, twin {p1:.4f} ms, bound {bnd1:.4g} ms ({by1}), library "
+          f"(torch._int_mm x4 at 197 rows) {lib1:.4f} ms")
     for tag, yt in (("deit_tiny b128", ""), ("deit_tiny b1", " b1")):
         for name in LINEAR_GEMMS:
             (kg, pg), (bg, byg, lg) = layer_ms[f"linear {name} {tag}"], yard[f"linear {name}{yt}"]

@@ -1,15 +1,16 @@
-// Warp-level tensor-core tiles shared by sdpa.cu, mlp.cu, linear.cu and
-// attention_rows.cu (through attn_tiles.cuh):
-// ldmatrix loads of bf16 fragments from shared memory, the mma.sync.m16n8k16
-// product with fp32 accumulators, and the packing of two fp32 accumulators
-// into one bf16x2 register (in the m16n8 layout, two neighbouring n8
-// accumulator tiles packed this way are the A fragment of one k16 step of
-// the next product).
+// Warp-level tensor-core tiles shared by sdpa.cu, mlp.cu, linear.cu,
+// attention_rows.cu (through attn_tiles.cuh) and linear_i8.cu:
+// ldmatrix loads of 16-bit fragments from shared memory (int8 pairs, for
+// linear_i8), the mma.sync.m16n8k16 product with fp32 accumulators, its
+// int8 form m16n8k32 with int32 accumulators, and the packing of two fp32
+// accumulators into one bf16x2 register (in the m16n8 layout, two
+// neighbouring n8 accumulator tiles packed this way are the A fragment of
+// one k16 step of the next product).
 #pragma once
 
 #include "common.cuh"
 
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -17,7 +18,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
                : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -32,6 +33,19 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 32, row) * b (32 x 8, col), int8 in, int32 accumulators: the
+// exact sum, in the accumulator layout of mma_bf16 (rows g and g + 8,
+// columns 2t and 2t + 1).  Thread (g, t) holds bytes k = 4t..4t+3 (a[0],
+// a[1]: rows g, g + 8) and 16 + 4t.. (a[2], a[3]) of A, and of B's column g
+// bytes k = 4t.. (b0) and 16 + 4t.. (b1).
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -395,6 +396,72 @@ def quant_rows(h: torch.Tensor, act_inv: torch.Tensor | None = None, index: int 
 # ---------------------------------------------------------------------------
 
 
+# csrc/linear_i8_tile.cuh: the K step (int8 values) and ring depth, and the
+# block shapes csrc/linear_i8.cu and i8_rows*.cu compile (rows by columns):
+# linear's, since linear_i8_plan starts from linear_plan
+LINEAR_I8_BK = 128
+LINEAR_I8_STAGES = 3
+LINEAR_I8_ROWS, LINEAR_I8_COLS = LINEAR_ROWS, LINEAR_COLS
+# 128-row blocks an SM holds at once (registers and shared memory)
+LINEAR_I8_BLOCKS_PER_SM = 2
+# the K split at small M: at most this many blocks a cluster (the portable
+# cluster size), each walking at least LINEAR_I8_SPLIT_STEPS K steps, while
+# the blocks number fewer than LINEAR_I8_SPLIT_FILL an SM
+LINEAR_I8_MAX_SPLIT = 8
+LINEAR_I8_SPLIT_STEPS = 2
+LINEAR_I8_SPLIT_FILL = 2
+
+
+def _linear_i8_smem_bytes(rows: int, cols: int) -> int:
+    """The dynamic shared memory of one block (csrc/linear_i8_tile.cuh
+    ``smem_bytes``): the ring of Q tiles [rows, BK + 16] and W tiles [BK,
+    cols + 16], int8."""
+    return LINEAR_I8_STAGES * (rows * (LINEAR_I8_BK + 16) + LINEAR_I8_BK * (cols + 16))
+
+
+def linear_i8_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
+    """The ``(rows, cols, split)`` of csrc/linear_i8.cu's grid for ``q [m,
+    k] @ w_q [k, n]`` on a card of ``sms`` SMs: each block's rows and
+    columns, and the blocks of a cluster that share its K steps.
+
+    :func:`linear_plan`'s rules over the int8 tile's block shapes (the same
+    rows and column widths): columns in the fewest even tiles of at most 128
+    and 128 rows; where the blocks would be fewer than the SMs, the columns
+    narrow to 32, then the rows to 16, until they are not.  At 128 rows the
+    grid runs in waves of two blocks an SM, and the next narrower width is
+    taken where it fills the last wave better: ``bench/linear_i8_ab.py`` on
+    the H100 (PERF.md section 6) found deit_tiny b128's fc1 (N = 768) 11%
+    faster at 96 columns (5.97 waves) than at 128 (4.48), and qkv (N = 576)
+    6% slower (4.48 waves against 3.73).  Where N is not a multiple of 16,
+    W's loads and the epilogue go element by element, and narrow blocks of
+    at least 32 rows took the least time (the pruned width 230: 48.7–52.1 µs
+    at 128 x 32 against 53.3–53.9 at 128 x 128 at b128, 5.5 at 32 x 32
+    against 6.9–7.0 at 16 x 32 at b1).
+
+    Where the blocks still number fewer than ``LINEAR_I8_SPLIT_FILL`` an SM,
+    clusters of ``split`` blocks share each tile's K steps, at least
+    ``LINEAR_I8_SPLIT_STEPS`` a block, and rank 0 adds the int32 partials
+    (deit_base b1's fc2, K = 3072: 24.9 µs unsplit, 14.6 at the plan's 2;
+    every split lost at b128).  The sums are exact in any order, so a row's
+    output does not depend on the plan or the batch."""
+    rows, cols = linear_plan(m, n, k, sms)
+    if rows == LINEAR_I8_ROWS[0] and cols > LINEAR_I8_COLS[0]:
+        def last_wave(c: int) -> float:  # the filled share of the last wave
+            waves = -(-m // rows) * -(-n // c) / (LINEAR_I8_BLOCKS_PER_SM * sms)
+            return waves - math.ceil(waves) + 1
+        narrower = max(c for c in LINEAR_I8_COLS if c < cols)
+        if last_wave(narrower) > last_wave(cols):
+            cols = narrower
+    if n % 16:
+        rows, cols = max(rows, 32), LINEAR_I8_COLS[0]
+    blocks, steps = -(-m // rows) * -(-n // cols), -(-k // LINEAR_I8_BK)
+    split = 1
+    while (split < LINEAR_I8_MAX_SPLIT and blocks * split < LINEAR_I8_SPLIT_FILL * sms
+           and steps // (split + 1) >= LINEAR_I8_SPLIT_STEPS):
+        split += 1
+    return rows, cols, split
+
+
 def linear_i8_plain(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
                     w_s: torch.Tensor, b: torch.Tensor, *, epilogue: str,
                     out_dtype: torch.dtype, res: torch.Tensor | None = None,
@@ -420,9 +487,10 @@ def linear_i8(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
               w_s: torch.Tensor, b: torch.Tensor, *, epilogue: str,
               out_dtype: torch.dtype, res: torch.Tensor | None = None,
               approx_gelu: bool = False) -> torch.Tensor:
-    """:func:`linear_i8_plain` as one kernel (csrc/linear_i8.cu): int8 WMMA
-    with int32 accumulation, at any K and N.  On the GPU the output and
-    ``res`` are bf16 and ``b`` bf16 or fp32."""
+    """:func:`linear_i8_plain` as one kernel (csrc/linear_i8.cu): int8
+    ``mma.sync`` with int32 accumulation on the grid :func:`linear_i8_plan`
+    picks, at any K and N.  On the GPU the output and ``res`` are bf16 and
+    ``b`` bf16 or fp32."""
     if (epilogue, approx_gelu) not in _I8_EPI_CODES:
         raise ValueError(f"linear_i8: unknown epilogue {epilogue!r}")
     if (res is not None) != (epilogue == BIAS_RESIDUAL):
@@ -449,11 +517,12 @@ def linear_i8(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
         raise ValueError(f"linear_i8: bad scale/bias/residual shape for M={m} N={n}")
     y = torch.empty((m, n), dtype=torch.bfloat16, device=q.device)
     lib = build.load()
+    rows, cols, split = linear_i8_plan(m, n, k, _sm_count(q.device.index or 0))
     rc = lib.evt_linear_i8(_ptr(q), _ptr(s_row) if s_row is not None else None,
                            _ptr(w_q), _ptr(w_s), _ptr(b),
                            _ptr(res) if res is not None else None, _ptr(y), m, n, k,
                            _I8_EPI_CODES[(epilogue, approx_gelu)],
-                           int(b.dtype == torch.float32), _stream(q))
+                           int(b.dtype == torch.float32), rows, cols, split, _stream(q))
     build.check(rc, "linear_i8")
     LAUNCHES["linear_i8"] += 1
     return y

@@ -329,6 +329,117 @@ def test_linear_i8_kernel_matches_twin(dev, m, k, n, epilogue, approx, static):
         assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
 
 
+# linear_i8's epilogues as (epilogue, approx_gelu): csrc/linear_i8.cu codes 0-3
+LINEAR_I8_EPILOGUES = [(fe.BIAS, False), (fe.BIAS_GELU, True), (fe.BIAS_GELU, False),
+                       (fe.BIAS_RESIDUAL, False)]
+
+
+def _i8_args(dev, m, k, n, epilogue, approx, static, bias_dtype=torch.float32, seed=0):
+    """Int8 operands and scales that give a dequantized sum of order 1."""
+    unit = 1.0 / (73.0 * 73.0 * k ** 0.5)
+    q, w_q = _int8(dev, m, k, seed=seed), _int8(dev, k, n, seed=seed + 1)
+    s_row = None if static else _uniform(dev, m, seed=seed + 2) * 0.05
+    w_s = _uniform(dev, n, seed=seed + 3) * (unit if static else unit / 0.05)
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    b = torch.randn(n, generator=g, device=dev).to(bias_dtype)
+    res = _rnd(dev, m, n, seed=seed + 4) if epilogue == fe.BIAS_RESIDUAL else None
+    return (q, s_row, w_q, w_s, b), dict(epilogue=epilogue, out_dtype=torch.bfloat16, res=res,
+                                         approx_gelu=approx)
+
+
+# Every block shape csrc/linear_i8.cu is compiled for, on the 16-byte path
+# and the element-wise ones (K = 230, N = 537), gives the default plan's
+# bits in every epilogue and both modes: K is never split and int32 sums
+# are exact.
+@pytest.mark.parametrize("m,k,n", [(197, 192, 576), (197, 230, 192), (394, 192, 537),
+                                   (25216, 768, 192)])
+def test_linear_i8_every_plan_gives_the_same_bits(dev, monkeypatch, m, k, n):
+    outs = {}
+    for static in (False, True):
+        for epilogue, approx in LINEAR_I8_EPILOGUES:
+            args, kw = _i8_args(dev, m, k, n, epilogue, approx, static)
+            want = fe.linear_i8(*args, **kw)
+            for rows in fe.LINEAR_I8_ROWS:
+                for cols in fe.LINEAR_I8_COLS:
+                    monkeypatch.setattr(fe, "linear_i8_plan",
+                                        lambda *a, r=rows, c=cols, **_: (r, c, 1))
+                    outs[(static, epilogue, approx, rows, cols)] = (fe.linear_i8(*args, **kw),
+                                                                    want)
+                    monkeypatch.undo()
+    torch.cuda.synchronize()
+    differ = [key for key, (got, want) in outs.items() if not torch.equal(got, want)]
+    assert not differ
+
+
+# Every split of K's steps over a cluster (1 to 8 blocks, some with no step
+# where the steps are fewer) gives the unsplit bits: rank 0 adds exact int32
+# partials.
+@pytest.mark.parametrize("m,k,n", [(197, 768, 192), (197, 3072, 768), (49, 3072, 768),
+                                   (197, 192, 576), (197, 230, 192), (394, 1152, 537)])
+def test_linear_i8_every_split_gives_the_same_bits(dev, monkeypatch, m, k, n):
+    sms = fe._sm_count(0)
+    rows, cols, _ = fe.linear_i8_plan(m, n, k, sms)
+    outs = {}
+    for static in (False, True):
+        for epilogue, approx in LINEAR_I8_EPILOGUES:
+            args, kw = _i8_args(dev, m, k, n, epilogue, approx, static)
+            monkeypatch.setattr(fe, "linear_i8_plan", lambda *a, **_: (rows, cols, 1))
+            want = fe.linear_i8(*args, **kw)
+            for split in range(2, 9):
+                monkeypatch.setattr(fe, "linear_i8_plan", lambda *a, s=split, **_: (rows, cols, s))
+                outs[(static, epilogue, approx, split)] = (fe.linear_i8(*args, **kw), want)
+            monkeypatch.undo()
+    torch.cuda.synchronize()
+    differ = [key for key, (got, want) in outs.items() if not torch.equal(got, want)]
+    assert not differ
+
+
+# A row's output is the same bits alone (b1, the plan's narrow tiles) and
+# as one of 128 images (128-row tiles), in every epilogue and both modes.
+@pytest.mark.parametrize("k,n", [(192, 576), (192, 192), (192, 768), (768, 192), (192, 230),
+                                 (3072, 768)])
+@pytest.mark.parametrize("static", [False, True])
+def test_linear_i8_rows_are_bit_identical_alone_and_in_a_batch(dev, k, n, static):
+    sms = fe._sm_count(0)
+    assert fe.linear_i8_plan(197, n, k, sms) != fe.linear_i8_plan(128 * 197, n, k, sms)
+    for epilogue, approx in LINEAR_I8_EPILOGUES:
+        (q, s_row, w_q, w_s, b), kw = _i8_args(dev, 128 * 197, k, n, epilogue, approx, static)
+        batch = fe.linear_i8(q, s_row, w_q, w_s, b, **kw)
+        alone_kw = dict(kw, res=None if kw["res"] is None else kw["res"][:197])
+        alone = fe.linear_i8(q[:197], None if static else s_row[:197], w_q, w_s, b, **alone_kw)
+        torch.cuda.synchronize()
+        assert torch.equal(alone, batch[:197]), (epilogue, approx)
+
+
+# The kernel against the WMMA kernel it replaced (its source in
+# bench/linear_i8_ab.py): the same bits in every epilogue, both modes and
+# both bias types, at deit_tiny b1 and b128, deit_base b1, Swin's int8
+# stages (1-3 at b1, 1 at b32) and the pruned widths 230 and 537.
+@pytest.mark.parametrize("m,k,n", [(197, 192, 576), (25216, 192, 768), (25216, 768, 192),
+                                   (197, 768, 2304), (197, 3072, 768), (784, 192, 576),
+                                   (196, 384, 1536), (49, 3072, 768), (25088, 192, 576),
+                                   (197, 192, 230), (197, 230, 192), (394, 192, 537),
+                                   (197, 537, 192), (5, 13, 7)])
+def test_linear_i8_equals_the_wmma_kernel_bit_for_bit(dev, m, k, n):
+    from edgevisiontransformer_tpu_torch.bench import linear_i8_ab
+
+    parent = linear_i8_ab.wmma_kernel()
+    differ = []
+    for static in (False, True):
+        for bias_dtype in (torch.float32, torch.bfloat16):
+            for epilogue, approx in LINEAR_I8_EPILOGUES:
+                (q, s_row, w_q, w_s, b), kw = _i8_args(dev, m, k, n, epilogue, approx, static,
+                                                       bias_dtype)
+                got = fe.linear_i8(q, s_row, w_q, w_s, b, **kw)
+                old = torch.empty_like(got)
+                linear_i8_ab.launch(parent, q, s_row, w_q, w_s, b, kw["res"], old,
+                                    fe._I8_EPI_CODES[(epilogue, approx)])
+                torch.cuda.synchronize()
+                if not torch.equal(got, old):
+                    differ.append((static, bias_dtype, epilogue, approx, int((got != old).sum())))
+    assert not differ
+
+
 def test_bf16_glue_matches_twin(dev):
     """A bf16 bias (stacks_from_quantized_tree of a bf16 model) and an fp32
     LayerNorm affine (the int8 stacks)."""
