@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero before the last line:
 1. require a CUDA device; print the card (``nvidia-smi``), the torch, CUDA
    and nvcc versions, and whether ``import triton`` works;
 2. build the kernels from ``edgevisiontransformer_tpu_torch/csrc`` into
-   ``build/torch_kernels/`` and print the build time;
+   ``build/torch_kernels/`` and print the build time, ptxas's registers and
+   spills (no ``linear``, ``linear_i8`` or ``attention_rows`` instance may
+   spill) and the ``vit_full`` blocks one SM holds at each head dim;
 3. check each kernel against its plain PyTorch twin at deit_tiny shapes
    (b1 and b128), deit_base shapes (b8) and t2t_vit_14 shapes (b1 and b32,
    reference style: residual h, no qkv bias), and time both: the bf16 kernels
@@ -16,7 +18,9 @@ Phases, in order; any failure exits non-zero before the last line:
    ``linear_i8`` epilogues bit for bit, its GELU epilogue within the
    tolerance; ``stage1_kqv`` (the T2T stage-1 tokenizer) at b1 and b4 on
    random-normal and constant images, within the tolerance; ``vit_full``
-   (the whole DeiT forward, K7a/K7b) at depth 2, and ``performer_reduce`` /
+   (the whole DeiT forward, K7a/K7b) at depth 2 (b1, b8 and b128, both
+   residual forms, no final norm, head_dim 16, 32 and 128), and
+   ``performer_reduce`` /
    ``performer_rows`` (the T2T TokenPerformer, K16) at the tokenizer's two
    stage shapes and a ragged token count, within the tolerance;
 4. run the slices: ``build_model("deit_tiny")`` at full width and depth with
@@ -174,10 +178,15 @@ PRUNED_LAYERWISE = ("pruned_deit_tiny@layerwise_" + "_".join(["h1-d0.3"] * 6 + [
 MODULE_LAUNCHES = {"sdpa": 1, "mlp": 1}
 # vit_full at depth 2 in phase 3: (name, batch, config overrides); the
 # reference-residual config keeps the linear head (the whole-model path
-# refuses the two-layer one)
-FULL_CHECKS = (("deit_tiny", 1, {}), ("deit_tiny", 8, {}),
+# refuses the two-layer one); b128 takes the serving plan (128-row tiles,
+# 8-warp strips), b1 and b8 the small tiles; head_dim 16, 32 and 128 at
+# uniform narrow widths (128 runs the one-block-an-SM instance)
+FULL_CHECKS = (("deit_tiny", 1, {}), ("deit_tiny", 8, {}), ("deit_tiny", 128, {}),
                ("deit_tiny res=h tanh", 1, dict(reference_residual=True, gelu_approx=True)),
-               ("deit_tiny no final norm", 8, dict(final_norm=False)))
+               ("deit_tiny no final norm", 8, dict(final_norm=False)),
+               ("head_dim 16", 1, dict(dim=64, heads=4, mlp_dim=256)),
+               ("head_dim 32", 8, dict(dim=128, heads=4, mlp_dim=512)),
+               ("head_dim 128", 2, dict(dim=256, heads=2, mlp_dim=1024)))
 # fully_fused_vit_apply in phase 4 (on phase_slice's models) and phase 5
 FULL_REQUESTS = (("deit_tiny", 1, 2000), ("deit_tiny", 128, 2010), ("deit_base", 8, 2020))
 FULL_TIMES = (("deit_tiny", 1), ("deit_tiny", 128), ("deit_base", 1))
@@ -251,9 +260,10 @@ def phase_env(torch, build) -> str:
     return card
 
 
-def phase_build(build) -> float:
+def phase_build(build, vf) -> float:
     """Build the library (a fresh checkout has none), print ptxas's registers
-    and spills for each kernel, load it; returns the build time."""
+    and spills for each kernel and the blocks of ``vit_full`` one SM holds at
+    each head dim, load it; returns the build time."""
     t0 = time.perf_counter()
     path = build.library_path()
     report = build.compile_library(path) if not path.exists() else {}
@@ -265,13 +275,27 @@ def phase_build(build) -> float:
             print(f"  ptxas {src}: {line}")
     # linear's and linear_i8's block shapes (linear.cu, linear_rows*.cu,
     # linear_i8.cu, i8_rows*.cu) and attention_rows' plans serve the main
-    # path: none may spill
+    # path: none may spill.  vit_full's head_dim <= 64 instance spills a few
+    # words of its layer loop's state (PERF.md section 6): its lines are
+    # printed apart, not held to none
+    spill = re.compile(r"[1-9]\d* bytes spill (stores|loads)")
     spills = [f"{src}: {line}" for src, lines in report.items()
               if src in ("linear", "attention_rows", "linear_i8")
               or src.startswith(("linear_rows", "i8_rows"))
-              for line in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+              for line in lines if spill.search(line)]
     if spills:
         fail(f"linear, linear_i8 or attention_rows spills registers: {spills}")
+    for line in report.get("vit_full", []):
+        if "spill" in line:
+            print(f"  vit_full instance: {line}")
+    for hd in vf.VIT_FULL_HEAD_DIMS:  # the instances of deit_tiny b128's and b1's plans
+        dim, heads = 192, max(1, 192 // hd)
+        for b in (128, 1):
+            plan = vf.vit_full_plan(b, 197, dim, heads, hd, 768, 1000, 132)
+            per_sm = vf.resident_blocks_per_sm(hd, plan.blocks,
+                                               vf.vit_full_smem_bytes(plan, hd, dim))
+            print(f"  vit_full head_dim {hd}, deit_tiny b{b}'s plan: {per_sm} blocks an SM "
+                  f"(the instance built for {plan.blocks})")
     return dt
 
 
@@ -1401,7 +1425,7 @@ def phase_yardsticks(torch, harness):
     quant_rows and linear_i8 static; sdpa and mlp: the kernel_mode="pallas"
     module's), one t2t_vit_14 b1 stage1_kqv call, one swin_tiny b1 forward
     (window_attention, swin_merge; window_sdpa: the kernel_mode="pallas"
-    module's), one deit_tiny b128 forward (vit_full), one t2t_vit_14 b1
+    module's), one deit_tiny b128 and one b1 forward (vit_full), one t2t_vit_14 b1
     tokenizer's two performers (performer_reduce, performer_rows).  Bytes
     count each
     input read once and each output written once; operations are the
@@ -1530,15 +1554,16 @@ def phase_yardsticks(torch, harness):
     out["mlp b1"] = (*_bound(2 * (2 * n * dim + 2 * dim * mlp + mlp + dim),
                              {"bf16": 4 * n * dim * mlp}),
                      lib([(lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, x1, w1)), w2), 1)]))
-    # vit_full: one deit_tiny b128 forward (12 layers, fp32 image in, bf16
-    # logits out); inputs are the image and every weight, read once
-    b, depth, pin, classes = 128, 12, 768, 1000
+    # vit_full: one deit_tiny b128 forward and one b1 (12 layers, fp32 image
+    # in, bf16 logits out); inputs are the image and every weight, read once
+    depth, pin, classes = 12, 768, 1000
     wbytes = 2 * (pin * dim + n * dim + 2 * dim + dim * classes + classes + depth * (
         3 * dim * dim + 3 * dim + dim * dim + dim + 4 * dim + 2 * dim * mlp + mlp + dim))
-    flops = 2 * b * ((n - 1) * pin * dim + dim * classes
-                     + depth * (n * (4 * dim * dim + 2 * dim * mlp) + 2 * n * n * dim))
-    out["vit_full"] = (*_bound(wbytes + 4 * b * 3 * 224 * 224 + 2 * b * classes,
-                               {"bf16": flops}), None)
+    for b, key in ((128, "vit_full"), (1, "vit_full b1")):
+        flops = 2 * b * ((n - 1) * pin * dim + dim * classes
+                         + depth * (n * (4 * dim * dim + 2 * dim * mlp) + 2 * n * n * dim))
+        out[key] = (*_bound(wbytes + 4 * b * 3 * 224 * 224 + 2 * b * classes,
+                            {"bf16": flops}), None)
     # K16 at one t2t_vit_14 b1 tokenizer: both performers (n = 3136, 784);
     # ts = 64, m = 32, 256-token chunks
     ts, mf, rb, rf, rrows, rrows16 = 64, 32, 0, 0, 0, 0
@@ -1799,12 +1824,13 @@ def phase_time_full(torch, harness, vf, models, preps):
     """``fully_fused_vit_apply`` beside ``fused_vit_apply`` at ``FULL_TIMES``:
     eager p50, device p50 (CUDA-graph replay), the device's idle share of the
     eager call; the cost of one grid barrier at the forward's block count.
-    Returns (ms, plain_ms): device p50 of one deit_tiny b128 forward on the
-    kernel and on its twin."""
+    Returns {"vit_full": (ms, plain_ms), "vit_full b1": (ms, plain_ms)}:
+    device p50 of one deit_tiny b128 and one b1 forward on the kernel and on
+    its twin."""
     from edgevisiontransformer_tpu_torch.models.vit import (fully_fused_vit_apply,
                                                              fused_vit_apply, prepare_vit_full)
 
-    row = None
+    rows = {}
     with torch.no_grad():
         for name, batch in FULL_TIMES:
             model, shape, stacked = models[(name, "standard")]
@@ -1831,16 +1857,17 @@ def phase_time_full(torch, harness, vf, models, preps):
             vf.barrier_probe(img.device, grid, 10)
             t = harness.measure_op_time(lambda: vf.barrier_probe(img.device, grid, 1000), (),
                                         iters=3, repeats=5)["p50_ms"]
-            n_bar = 1 + 7 * model.config.depth
+            n_bar = vf.barriers(model.config.depth)
             print(f"  {name} b{batch}: one grid barrier at {grid} blocks {t:.4f} us (1000 in one "
                   f"launch); {n_bar} per forward, {n_bar * t / 1e3:.4f} ms, "
                   f"{n_bar * t / 1e3 / device['fully_fused_vit_apply']:.1%} of its device p50")
-            if (name, batch) == ("deit_tiny", 128):
+            if name == "deit_tiny":
                 plain = harness.measure_graph_time(
                     lambda: fully_fused_vit_apply(model, img, prepared=prep, plain=True),
                     iters=5, repeats=3)["p50_ms"]
-                row = (device["fully_fused_vit_apply"], plain)
-    return row
+                rows["vit_full" if batch == 128 else f"vit_full b{batch}"] = (
+                    device["fully_fused_vit_apply"], plain)
+    return rows
 
 
 def phase_time_base(torch, harness, models, stacks):
@@ -1887,7 +1914,7 @@ def main() -> int:
     print("== phase 1: environment")
     card = phase_env(torch, build)
     print("== phase 2: build")
-    build_s = phase_build(build)
+    build_s = phase_build(build, vf)
     print(f"== phase 3: kernels against twins (bf16 kernels, stage1_kqv and the int8 GELU "
           f"epilogue: |err| <= {KERNEL_ATOL} + {KERNEL_RTOL:.4g}|twin|; quant_rows and the "
           f"other linear_i8 epilogues bit for bit); times on {card}")
@@ -1945,7 +1972,7 @@ def main() -> int:
     phase_time_pallas(torch, harness, vit_module_state, pruned_state)
     del vit_module_state, pruned_state
     torch.cuda.empty_cache()
-    layer_ms["vit_full"] = phase_time_full(torch, harness, vf, models, full_preps)
+    layer_ms.update(phase_time_full(torch, harness, vf, models, full_preps))
     del full_preps
     phase_time_base(torch, harness, models, stacks)
     # deit_tiny's peak memory is read with deit_base's weights freed
@@ -1966,6 +1993,9 @@ def main() -> int:
     (k1, p1), (bnd1, by1, lib1) = layer_ms["linear b1"], yard["linear b1"]
     print(f"  linear, one deit_tiny b1 layer (qkv, out, fc1 erf, fc2): kernel {k1:.4f} ms, twin "
           f"{p1:.4f} ms, bound {bnd1:.4f} ms ({by1}), library (torch.addmm x4) {lib1:.4f} ms")
+    (k1, p1), (bnd1, by1, _) = layer_ms["vit_full b1"], yard["vit_full b1"]
+    print(f"  vit_full, one deit_tiny b1 forward: kernel {k1:.4f} ms, twin {p1:.4f} ms, bound "
+          f"{bnd1:.4g} ms ({by1}), library none")
     (k1, p1), (bnd1, by1, lib1) = layer_ms["linear_i8 b1"], yard["linear_i8 b1"]
     print(f"  linear_i8, one static-int8 deit_tiny b1 layer (qkv, out, fc1 erf, fc2): kernel "
           f"{k1:.4f} ms, twin {p1:.4f} ms, bound {bnd1:.4g} ms ({by1}), library "

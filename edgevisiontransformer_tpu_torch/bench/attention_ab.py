@@ -1,13 +1,15 @@
 """What the parts of ``csrc/attention_rows.cu`` (K1's attention) cost on the
 card: the kernel as committed against variants of its source, against
-other plans of its grid, against the WMMA tile that ``vit_full`` runs and
-against SDPA, each timed on the same inputs.
+other plans of its grid, against the WMMA tile it replaced and against
+SDPA, each timed on the same inputs.
 
     python -m edgevisiontransformer_tpu_torch.bench.attention_ab
 
-Source variants, each built into its own library: the committed kernel (a
-2-stage ring of 64-key tiles); a 3-stage ring; a 4-stage ring (at n <= 256
-every K and V tile is in flight from the start: the resident form); no
+Source variants of ``csrc/attention_strip.cuh`` (the query strip) and
+``csrc/attention_rows.cu`` (its kernel and dispatch), each pair built into
+its own library: the committed kernel (a 2-stage ring of 64-key tiles); a
+3-stage ring; a 4-stage ring (at n <= 256 every K and V tile is in flight
+from the start: the resident form); no
 softmax (the helper ``softmax_p`` returns its argument: the products, the
 loads, the row sums and the stores only, a floor; its output is not
 attention); blocks of 1 and 2 warps compiled beside the committed 4 and 8.
@@ -47,8 +49,11 @@ SHAPES = {"deit_tiny b128": (128, 197, 3, 64), "deit_tiny b1": (1, 197, 3, 64),
           "pruned h1 b1": (1, 197, 1, 64),
           "pruned h1 b128": (128, 197, 1, 64), "deit_base b8": (8, 197, 12, 64),
           "deit_base 384 b8": (8, 577, 12, 64)}
-# the ring's depth, the body of the softmax helper softmax_p(s), and the
-# last case of the dispatch over the warps a block
+# the ring's depth and the body of the softmax helper softmax_p(s) in the
+# strip's header, and the last case of the dispatch over the warps a block
+# in the kernel's source
+STRIP = "attention_strip.cuh"
+ENTRY = "attention_rows.cu"
 _STAGES = "constexpr int KT = 64, STAGES = 2;"
 _SOFTMAX = "return exp2f(fminf(s, kClamp));"
 _CASE8 = "    case 8: return launch<HD, 8>(qkv, out, batch, tokens, seq_len, heads, scale2, s);\n"
@@ -103,19 +108,23 @@ TILE = "WMMA tile"
 NARROW = "1 and 2 warps"
 
 
-def variants(src: str) -> dict:
-    """``{name: source of attention_rows.cu}`` for each variant of ``src``."""
-    for anchor in (_STAGES, _SOFTMAX, _CASE8):
-        if src.count(anchor) != 1:
-            raise ValueError(f"csrc/attention_rows.cu no longer holds {anchor!r} once")
+def variants(strip: str, entry: str) -> dict:
+    """``{name: {STRIP: source, ENTRY: source}}`` for each variant of the
+    strip's header ``strip`` and the kernel's source ``entry``."""
+    for src, anchors in ((strip, (_STAGES, _SOFTMAX)), (entry, (_CASE8,))):
+        for anchor in anchors:
+            if src.count(anchor) != 1:
+                raise ValueError(f"csrc/{STRIP} or {ENTRY} no longer holds {anchor!r} once")
     narrow = "".join(_CASE8.replace("8", str(w)) for w in (1, 2))
 
     def stages(k):
-        return src.replace(_STAGES, _STAGES.replace("STAGES = 2", f"STAGES = {k}"))
+        return {STRIP: strip.replace(_STAGES, _STAGES.replace("STAGES = 2", f"STAGES = {k}")),
+                ENTRY: entry}
 
-    return {"committed": src, "3 stages": stages(3), "4 stages (resident)": stages(4),
-            "no softmax": src.replace(_SOFTMAX, "return s;"),
-            NARROW: src.replace(_CASE8, _CASE8 + narrow)}
+    return {"committed": {STRIP: strip, ENTRY: entry}, "3 stages": stages(3),
+            "4 stages (resident)": stages(4),
+            "no softmax": {STRIP: strip.replace(_SOFTMAX, "return s;"), ENTRY: entry},
+            NARROW: {STRIP: strip, ENTRY: entry.replace(_CASE8, _CASE8 + narrow)}}
 
 
 def _compile(jobs: list) -> None:
@@ -139,14 +148,18 @@ def build_libraries(source_variants: bool = True) -> tuple:
     kernel, compiled side by side."""
     out_dir = build.BUILD_DIR.parent / "attention_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    srcs = variants((build.CSRC / "attention_rows.cu").read_text())
+    srcs = variants((build.CSRC / STRIP).read_text(), (build.CSRC / ENTRY).read_text())
     if not source_variants:
         srcs = {"committed": srcs["committed"]}
-    srcs[TILE] = TILE_SOURCE
+    srcs[TILE] = {"tile.cu": TILE_SOURCE}
     jobs, libs = [], {}
-    for i, (name, code) in enumerate(srcs.items()):
-        cu, so = out_dir / f"attention_v{i}.cu", out_dir / f"libattention_v{i}.so"
-        cu.write_text(code)
+    for i, (name, files) in enumerate(srcs.items()):
+        vdir = out_dir / f"v{i}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        for fname, code in files.items():  # the entry includes the header beside it
+            (vdir / fname).write_text(code)
+        cu = vdir / next(f for f in files if f.endswith(".cu"))
+        so = vdir / f"libattention_v{i}.so"
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC), "-o",
                str(so), str(cu)]
         jobs.append((name, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)))

@@ -57,133 +57,24 @@
 //   warps.  A warp whose 16 rows all lie past `tokens` skips its arithmetic.
 // - Epilogue: O * (1 / max(r, 1e-30)) in registers, rounded to bf16 through
 //   the warp's own Q rows of shared memory and stored as 16-byte vectors.
-// - vit_full.cu runs the WMMA tile attn::tile of encoder_tiles.cuh instead,
-//   inside its persistent kernel.
-#include "attn_tiles.cuh"
+// - The strip is a __device__ routine (attention_strip.cuh): this kernel runs
+//   one a block, vit_full.cu the strips of its attention phase inside its
+//   persistent kernel, so the whole-model forward takes the same bits.
+#include "attention_strip.cuh"
 
 namespace {
 
-constexpr int KT = 64, STAGES = 2;
-constexpr float kClamp = 60.0f;
+using arows::STAGES;
 
-// p of one log2-scaled score, common.softmax_unnorm's max-free softmax
-// (bench/attention_ab.py builds a variant without it).
-__device__ __forceinline__ float softmax_p(float s) {
-  return exp2f(fminf(s, kClamp));
-}
-
-// In place over NC 16-key chunks from key key0: s becomes p = softmax_p(s *
-// scale2), 0 for a key at or past seq_len when MASK; r[0] (row g) and r[1]
-// (row g + 8) add this thread's share of p, in fp32.
-template <int NC, bool MASK>
-__device__ __forceinline__ void exp2_rows(float (&s)[NC][2][4], int key0, int seq_len,
-                                          float scale2, int lane, float (&r)[2]) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float& x = s[c][e / 4][e % 4];
-      x = softmax_p(__fmul_rn(x, scale2));
-      if (MASK && key0 + c * 16 + (e / 4) * 8 + 2 * (lane & 3) + (e & 1) >= seq_len) x = 0.0f;
-      r[(e % 4) / 2] = __fadd_rn(r[(e % 4) / 2], x);
-    }
-}
-
-// One tile of NC chunks: S = Q K^T, p and r, O += bf16(p) V.
-template <int HD, int NC, bool MASK>
-__device__ __forceinline__ void tile_step(float (&o)[HD / 8][4], float (&r)[2], const bf16* sQw,
-                                          const bf16* sK, const bf16* sV, int key0, int seq_len,
-                                          float scale2, int lane) {
-  float s[NC][2][4];
-  qk<HD, NC>(s, sQw, sK, lane);
-  exp2_rows<NC, MASK>(s, key0, seq_len, scale2, lane, r);
-  pv<HD, NC>(o, s, sV, lane);
-}
-
-// Dynamic shared memory: W * 16 Q rows, then `stages` ring stages of a K
-// and a V tile.
-template <int HD>
-constexpr int smem_bytes(int warps, int stages) {
-  return (warps * 16 + stages * 2 * KT) * row_ld(HD) * 2;
-}
-
+// One strip a block: block i is strip i % strips of (image, head) i / strips.
 template <int HD, int W>
 __global__ __launch_bounds__(W * 32) void attention_rows_kernel(
     const bf16* __restrict__ qkv, bf16* __restrict__ out, int tokens, int seq_len, int heads,
     int strips, float scale2) {
-  constexpr int NT = W * 32, LD = row_ld(HD), STAGE = 2 * KT * LD;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* ring = sQ + W * 16 * LD;
-
-  const int strip = blockIdx.x % strips, bh = blockIdx.x / strips;
-  const int img = bh / heads, head = bh % heads;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = strip * W * 16, row0 = q0 + warp * 16;
-  const bool active = row0 < tokens;
-  const long long ld = 3LL * heads * HD, ldo = static_cast<long long>(heads) * HD;
-  const bf16* qp = qkv + static_cast<long long>(img) * tokens * ld + head * HD;
-  const bf16* kp = qp + heads * HD;
-  const bf16* vp = kp + heads * HD;
-  bf16* op = out + static_cast<long long>(img) * tokens * ldo + head * HD;
-  bf16* sQw = sQ + warp * 16 * LD;
-
-  // the 16-key chunks that hold a key below seq_len, four to a 64-key tile
-  const int chunks = (seq_len + 15) / 16, tiles = (chunks + 3) / 4;
-  auto prefetch = [&](int t) {
-    bf16* sK = ring + (t % STAGES) * STAGE;
-    const int rows = min(KT, 16 * chunks - t * KT);
-    load_rows<HD, NT>(sK, kp, ld, t * KT, rows, tokens, tid);
-    load_rows<HD, NT>(sK + KT * LD, vp, ld, t * KT, rows, tokens, tid);
-  };
-  load_rows<HD, NT>(sQ, qp, ld, q0, W * 16, tokens, tid);
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < tiles) prefetch(t);
-    cp_async_commit();  // group t: tile t (group 0 holds Q too)
-  }
-
-  float o[HD / 8][4], r[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<STAGES - 2>();
-    // tile t landed; every warp is done with tile t - 1, whose stage the
-    // prefetch below refills
-    __syncthreads();
-    if (t + STAGES - 1 < tiles) prefetch(t + STAGES - 1);
-    cp_async_commit();
-    if (!active) continue;
-    const bf16* sK = ring + (t % STAGES) * STAGE;
-    const bf16* sV = sK + KT * LD;
-    const int key0 = t * KT;
-    if (t + 1 < tiles) {
-      tile_step<HD, 4, false>(o, r, sQw, sK, sV, key0, seq_len, scale2, lane);
-      continue;
-    }
-    switch (chunks - 4 * t) {  // the last tile, masked
-      case 1: tile_step<HD, 1, true>(o, r, sQw, sK, sV, key0, seq_len, scale2, lane); break;
-      case 2: tile_step<HD, 2, true>(o, r, sQw, sK, sV, key0, seq_len, scale2, lane); break;
-      case 3: tile_step<HD, 3, true>(o, r, sQw, sK, sV, key0, seq_len, scale2, lane); break;
-      default: tile_step<HD, 4, true>(o, r, sQw, sK, sV, key0, seq_len, scale2, lane); break;
-    }
-  }
-  if (tiles == 0) {  // seq_len = 0: Q's loads were never waited for, and its rows take the output
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-  if (!active) return;
-
-  const float inv[2] = {__frcp_rn(fmaxf(quad_sum(r[0]), 1e-30f)),
-                        __frcp_rn(fmaxf(quad_sum(r[1]), 1e-30f))};
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    o[j][0] = __fmul_rn(o[j][0], inv[0]);
-    o[j][1] = __fmul_rn(o[j][1], inv[0]);
-    o[j][2] = __fmul_rn(o[j][2], inv[1]);
-    o[j][3] = __fmul_rn(o[j][3], inv[1]);
-  }
-  store_rows<HD>(o, sQw, op, ldo, row0, tokens, lane);
+  const int bh = blockIdx.x / strips;
+  arows::strip<HD, W>(smem, qkv, out, tokens, seq_len, heads, scale2, blockIdx.x % strips,
+                      bh / heads, bh % heads, threadIdx.x, 0);
 }
 
 template <int HD, int W>
@@ -193,7 +84,7 @@ int launch(const void* qkv, void* out, int batch, int tokens, int seq_len, int h
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(attention_rows_kernel<HD, W>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               smem_bytes<HD>(W, STAGES));
+                                               arows::smem_bytes<HD>(W, STAGES));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
@@ -203,7 +94,7 @@ int launch(const void* qkv, void* out, int batch, int tokens, int seq_len, int h
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   attention_rows_kernel<HD, W>
       <<<static_cast<unsigned>(blocks), W * 32,
-         smem_bytes<HD>(W, tiles < STAGES ? tiles : STAGES), stream>>>(
+         arows::smem_bytes<HD>(W, tiles < STAGES ? tiles : STAGES), stream>>>(
           static_cast<const bf16*>(qkv), static_cast<bf16*>(out), tokens, seq_len, heads, strips,
           scale2);
   return static_cast<int>(cudaGetLastError());

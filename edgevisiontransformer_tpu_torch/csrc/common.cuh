@@ -1,11 +1,12 @@
 // Shared device helpers for the kernels (ln_rows.cu, linear.cu,
 // attention_rows.cu, quant_rows.cu, linear_i8.cu, t2t_stage1.cu,
 // window_attention.cu, swin_merge.cu, window_sdpa.cu, sdpa.cu, mlp.cu,
-// vit_full.cu, performer.cu; the encoder's tiles are in encoder_tiles.cuh,
-// the mma.sync / ldmatrix tiles of sdpa.cu, mlp.cu, linear.cu,
-// attention_rows.cu and linear_i8.cu in mma_tiles.cuh, the attention
-// routines that sdpa.cu, attention_rows.cu and window_sdpa.cu share in
-// attn_tiles.cuh).
+// vit_full.cu, performer.cu; the LayerNorm row is in ln_row.cuh, the
+// mma.sync / ldmatrix tiles of sdpa.cu, mlp.cu, linear.cu, attention_rows.cu
+// and linear_i8.cu in mma_tiles.cuh, the attention routines that sdpa.cu,
+// attention_rows.cu and window_sdpa.cu share in attn_tiles.cuh, the GEMM
+// tile and the attention strip that vit_full.cu shares with linear.cu and
+// attention_rows.cu in linear_tile.cuh and attention_strip.cuh).
 // Plain CUDA C++ for sm_90a; no PyTorch headers, so the library builds in
 // seconds and binds through a C interface (ctypes).
 #pragma once

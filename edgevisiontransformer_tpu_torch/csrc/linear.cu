@@ -59,7 +59,9 @@
 // - The tile is in linear_tile.cuh; this file and linear_rows{64,32,16}.cu
 //   each compile one row count, so the 16 block shapes build side by side.
 // - Split-K, clusters, wgmma, TMA and a persistent schedule are later work.
-//   vit_full.cu keeps the WMMA tile gemm::tile of encoder_tiles.cuh.
+//   The tile is a __device__ routine (gemm_tile): vit_full.cu runs it for
+//   every GEMM tile of its persistent kernel, so the whole-model forward
+//   takes the same bits.
 #include "linear_tile.cuh"
 
 

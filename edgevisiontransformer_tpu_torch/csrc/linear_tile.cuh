@@ -1,8 +1,12 @@
 // The tile of csrc/linear.cu (its header comment has the design): an
-// mma.sync GEMM block of WM x 2 warps, each owning TM rows by TN columns,
+// mma.sync GEMM tile of WM x 2 warps, each owning TM rows by TN columns,
 // with its epilogue from the accumulator registers.  linear.cu and
 // linear_rows{64,32,16}.cu each compile the blocks of one row count (one
 // nvcc process each, side by side); linear.cu dispatches on the plan.
+// gemm_tile is the tile as a __device__ routine over one output tile, run
+// by a group of WM x 2 warps on its own named barrier: linear_kernel runs
+// it once with the whole block, vit_full.cu for every tile its warp groups
+// take in a GEMM phase of the whole forward.
 #pragma once
 
 #include "common.cuh"
@@ -78,26 +82,50 @@ __device__ __forceinline__ void load_masked(bf16* dst, int dld, const bf16* __re
   }
 }
 
-// One K step: X[m0:m0+BM, k0:k0+BK] and W[k0:k0+BK, n0:n0+BN] into stage
-// buffers a and b, zeros past M, K and N.  va / vb: X's / W's rows are 16-byte
-// aligned (cp.async of 8 values, all in or all out); otherwise each element
-// is loaded and masked.
-template <int THREADS, int BM, int BN>
-__device__ __forceinline__ void load_stage(bf16* a, bf16* b, const bf16* __restrict__ X,
-                                           const bf16* __restrict__ W, int M, int N, int K,
-                                           int m0, int n0, int k0, bool va, bool vb, int tid) {
-  constexpr int BS = BN + 8;
-  if (va) {
+// A barrier of the NT threads of one warp group: named barrier `id` (0, with
+// NT the whole block, is __syncthreads).  Groups of one block that run
+// tiles independently each take their own id.
+template <int NT>
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(NT) : "memory");
+}
+
+// The A operand as the rows of X [M, K]: X[m0:m0+BM, k0:k0+BK] into stage
+// buffer a, zeros past M and K.  va: X's rows are 16-byte aligned (cp.async
+// of 8 values, all in or all out, read from L2); otherwise each element is
+// loaded and masked.  vit_full.cu passes va = true only: its activations are
+// written earlier in the same launch, which the read-only path the
+// element-wise loads may take must not serve.
+struct RowsA {
+  const bf16* __restrict__ X;
+  bool va;
+
+  template <int THREADS, int BM>
+  __device__ __forceinline__ void load(bf16* a, int M, int K, int m0, int k0, int tid) const {
+    if (va) {
 #pragma unroll
-    for (int i = tid; i < BM * (BK / 8); i += THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const bool ok = m0 + r < M && k0 + c < K;
-      cp_async16(a + r * AS + c, ok ? X + static_cast<size_t>(m0 + r) * K + k0 + c : X, ok);
+      for (int i = tid; i < BM * (BK / 8); i += THREADS) {
+        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+        const bool ok = m0 + r < M && k0 + c < K;
+        cp_async16(a + r * AS + c, ok ? X + static_cast<size_t>(m0 + r) * K + k0 + c : X, ok);
+      }
+    } else {
+      load_masked<THREADS, BM, BK>(a, AS, X + static_cast<size_t>(m0) * K + k0, K, M - m0,
+                                   K - k0, tid);
     }
-  } else {
-    load_masked<THREADS, BM, BK>(a, AS, X + static_cast<size_t>(m0) * K + k0, K, M - m0, K - k0,
-                                 tid);
   }
+};
+
+// One K step: the A tile [BM, BK] from `src` (an A source: RowsA, or
+// vit_full.cu's patch gather) and W[k0:k0+BK, n0:n0+BN] into stage buffers a
+// and b, zeros past M, K and N.  vb: W's rows are 16-byte aligned (cp.async);
+// otherwise each element is loaded and masked.
+template <int THREADS, int BM, int BN, class ASrc>
+__device__ __forceinline__ void load_stage(bf16* a, bf16* b, const ASrc& src,
+                                           const bf16* __restrict__ W, int M, int N, int K,
+                                           int m0, int n0, int k0, bool vb, int tid) {
+  constexpr int BS = BN + 8;
+  src.template load<THREADS, BM>(a, M, K, m0, k0, tid);
   if (vb) {
 #pragma unroll
     for (int i = tid; i < BK * (BN / 8); i += THREADS) {
@@ -120,11 +148,12 @@ __device__ __forceinline__ void load_stage(bf16* a, bf16* b, const bf16* __restr
 // [TM, TN + 8] of the idle ring (the row stride an odd multiple of 16
 // bytes); the warp then writes its rows to Y as 16-byte vectors.  Otherwise
 // it reads and writes element by element, masked.  r0, c0: the warp's first
-// row and column.
+// row and column.  ROW_BIAS reads the residual's row gm % res_rows (the ViT
+// embedding's per-token bias, one row a token); the others row gm.
 template <int EPI, int FM, int FN>
 __device__ __forceinline__ void store_tile(const float (&acc)[FM][FN][4], const bf16* bias,
-                                           const bf16* res, bf16* Y, int M, int N, int r0,
-                                           int c0, bool vb, int lane, bf16* patch) {
+                                           const bf16* res, bf16* Y, int M, int N, int res_rows,
+                                           int r0, int c0, bool vb, int lane, bf16* patch) {
   constexpr int TM = FM * 16, TN = FN * 8, PLD = TN + 8;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -145,11 +174,13 @@ __device__ __forceinline__ void store_tile(const float (&acc)[FM][FN][4], const 
         const size_t off = static_cast<size_t>(gm) * N + gn;
         float2 rv = make_float2(0.0f, 0.0f);
         if constexpr (EPI == 3 || EPI == ROW_BIAS) {
+          const size_t roff =
+              EPI == ROW_BIAS ? static_cast<size_t>(gm % res_rows) * N + gn : off;
           if (gm < M && in) {
-            if (vb) rv = load_bf16x2(res + off);
+            if (vb) rv = load_bf16x2(res + roff);
             else
-              rv = make_float2(__bfloat162float(res[off]),
-                               pair ? __bfloat162float(res[off + 1]) : 0.0f);
+              rv = make_float2(__bfloat162float(res[roff]),
+                               pair ? __bfloat162float(res[roff + 1]) : 0.0f);
           }
         }
         const float y0 = epilogue<EPI>(acc[i][j][2 * h], bv.x, rv.x);
@@ -172,22 +203,26 @@ __device__ __forceinline__ void store_tile(const float (&acc)[FM][FN][4], const 
   }
 }
 
-// A block of WM x WN warps, each owning TM rows by TN columns; grid (column
-// tiles, row tiles).  bias, res and Y carry no __restrict__: Y may be res.
-template <int WM, int TM, int TN>
-__global__ __launch_bounds__(WM * WN * 32, min_blocks(WM * WN * 32, TM / 16 * TN / 8 * 4))
-void linear_kernel(
-    const bf16* __restrict__ X, const bf16* __restrict__ W, const bf16* bias, const bf16* res,
-    bf16* Y, int M, int N, int K, int epi, bool va, bool vb) {
+// Y[m0:m0+BM, n0:n0+BN] = epilogue(A @ W) on a group of WM x WN warps, each
+// owning TM rows by TN columns; `tid` is the thread's index in the group,
+// `bar` the group's named barrier, `smem` its ring.  Every output element
+// sums its K in k16 steps, in order, into one fp32 accumulator.  On return
+// the group's warps may still read their patches of the ring: a caller that
+// runs another tile on the same ring passes the group's barrier first.
+// bias, res and Y carry no __restrict__: Y may be res.
+template <int WM, int TM, int TN, class ASrc>
+__device__ __forceinline__ void gemm_tile(unsigned char* smem, const ASrc& src,
+                                          const bf16* __restrict__ W, const bf16* bias,
+                                          const bf16* res, bf16* Y, int M, int N, int K, int epi,
+                                          int res_rows, int m0, int n0, bool vb, int tid,
+                                          int bar) {
   constexpr int THREADS = WM * WN * 32, BM = WM * TM, BN = WN * TN, BS = BN + 8;
   constexpr int FM = TM / 16, FN = TN / 8;  // a warp's m16 and n8 fragments
   constexpr int A_STAGE = BM * AS, B_STAGE = BK * BS;
-  extern __shared__ __align__(128) unsigned char smem[];
   bf16* sA = reinterpret_cast<bf16*>(smem);
   bf16* sB = sA + STAGES * A_STAGE;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int warp = tid >> 5, lane = tid & 31;
   const int wm = (warp / WN) * TM, wn = (warp % WN) * TN;
   const bool active = m0 + wm < M;  // warps wholly past M skip the products
 
@@ -201,19 +236,19 @@ void linear_kernel(
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < KT)
-      load_stage<THREADS, BM, BN>(sA + s * A_STAGE, sB + s * B_STAGE, X, W, M, N, K, m0, n0,
-                                  s * BK, va, vb, tid);
+      load_stage<THREADS, BM, BN>(sA + s * A_STAGE, sB + s * B_STAGE, src, W, M, N, K, m0, n0,
+                                  s * BK, vb, tid);
     cp_async_commit();
   }
 
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<STAGES - 2>();
-    __syncthreads();  // step kt landed; every warp is done with step kt - 1
+    group_sync<THREADS>(bar);  // step kt landed; every warp is done with step kt - 1
     const int nk = kt + STAGES - 1;
     if (nk < KT) {
       const int s = nk % STAGES;
-      load_stage<THREADS, BM, BN>(sA + s * A_STAGE, sB + s * B_STAGE, X, W, M, N, K, m0, n0,
-                                  nk * BK, va, vb, tid);
+      load_stage<THREADS, BM, BN>(sA + s * A_STAGE, sB + s * B_STAGE, src, W, M, N, K, m0, n0,
+                                  nk * BK, vb, tid);
     }
     cp_async_commit();
     if (!active) continue;
@@ -237,19 +272,33 @@ void linear_kernel(
       }
     }
   }
-  cp_async_wait<0>();  // no copy outlives the block (the last groups are empty)
-  __syncthreads();     // every warp is done with the ring: it holds the warps' patches
+  cp_async_wait<0>();        // no copy outlives the tile (the last groups are empty)
+  group_sync<THREADS>(bar);  // every warp is done with the ring: it holds the warps' patches
   if (!active) return;
 
   bf16* patch = sA + warp * TM * (TN + 8);
   const int r0 = m0 + wm, c0 = n0 + wn;
+#define EVT_STORE(E) \
+  store_tile<E, FM, FN>(acc, bias, res, Y, M, N, res_rows, r0, c0, vb, lane, patch)
   switch (epi) {
-    case 0: store_tile<0, FM, FN>(acc, bias, res, Y, M, N, r0, c0, vb, lane, patch); break;
-    case 1: store_tile<1, FM, FN>(acc, bias, res, Y, M, N, r0, c0, vb, lane, patch); break;
-    case 2: store_tile<2, FM, FN>(acc, bias, res, Y, M, N, r0, c0, vb, lane, patch); break;
-    case 3: store_tile<3, FM, FN>(acc, bias, res, Y, M, N, r0, c0, vb, lane, patch); break;
-    default: store_tile<ROW_BIAS, FM, FN>(acc, bias, res, Y, M, N, r0, c0, vb, lane, patch);
+    case 0: EVT_STORE(0); break;
+    case 1: EVT_STORE(1); break;
+    case 2: EVT_STORE(2); break;
+    case 3: EVT_STORE(3); break;
+    default: EVT_STORE(ROW_BIAS);
   }
+#undef EVT_STORE
+}
+
+// A block of WM x WN warps, one gemm_tile; grid (column tiles, row tiles).
+template <int WM, int TM, int TN>
+__global__ __launch_bounds__(WM * WN * 32, min_blocks(WM * WN * 32, TM / 16 * TN / 8 * 4))
+void linear_kernel(
+    const bf16* __restrict__ X, const bf16* __restrict__ W, const bf16* bias, const bf16* res,
+    bf16* Y, int M, int N, int K, int epi, bool va, bool vb) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  gemm_tile<WM, TM, TN>(smem, RowsA{X, va}, W, bias, res, Y, M, N, K, epi, M,
+                        blockIdx.y * WM * TM, blockIdx.x * WN * TN, vb, threadIdx.x, 0);
 }
 
 template <int WM, int TM, int TN>

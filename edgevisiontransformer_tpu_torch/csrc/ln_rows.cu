@@ -17,8 +17,8 @@
 // passes exactly as the reference does (mean, then the mean of squared
 // deviations), then rsqrt(var + eps) * g + b in fp32 and one cast to bf16.
 // The second and third passes re-read the row, which stays in L1.  The row
-// itself is ln_row (encoder_tiles.cuh), which vit_full.cu runs too.
-#include "encoder_tiles.cuh"
+// itself is ln_row (ln_row.cuh), which vit_full.cu runs too.
+#include "ln_row.cuh"
 
 namespace {
 

@@ -167,12 +167,13 @@ def test_attention_plan_at_deit_tiny_and_deit_base():
 
 
 def test_attention_ab_finds_every_anchor_in_the_committed_source():
-    src = (build.CSRC / "attention_rows.cu").read_text()
-    found = attention_ab.variants(src)
+    src = {name: (build.CSRC / name).read_text()
+           for name in (attention_ab.STRIP, attention_ab.ENTRY)}
+    found = attention_ab.variants(src[attention_ab.STRIP], src[attention_ab.ENTRY])
     assert list(found) == ["committed", "3 stages", "4 stages (resident)", "no softmax",
                            attention_ab.NARROW]
     assert found["committed"] == src
-    others = [code for name, code in found.items() if name != "committed"]
-    assert all(code != src for code in others) and len(set(others)) == len(others)
+    others = [tuple(files.items()) for name, files in found.items() if name != "committed"]
+    assert all(dict(files) != src for files in others) and len(set(others)) == len(others)
     assert "attn::tile<HD>" in attention_ab.TILE_SOURCE
     assert "namespace attn {" in (build.CSRC / "encoder_tiles.cuh").read_text()

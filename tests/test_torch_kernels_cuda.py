@@ -207,7 +207,7 @@ def _tile_kernel():
 
 
 # The kernel against attn::tile (csrc/encoder_tiles.cuh, the WMMA tile that
-# vit_full runs and attention_rows ran before its redesign), built beside
+# attention_rows and vit_full ran before their redesigns), built beside
 # it: within the twin bound; -rP prints how many elements differ.
 @pytest.mark.parametrize("batch,tokens,seq_len,heads,hd", [
     (128, 197, 197, 3, 64), (1, 197, 197, 3, 64), (1, 197, 197, 6, 64), (8, 197, 197, 12, 64),
@@ -1190,10 +1190,80 @@ def test_pruned_fused_vit_apply_int8_on_kernels_matches_plain_and_counts(dev, en
 # ---------------------------------------------------------------------------
 
 
-def _full_model(dev, style="standard", **kw):
-    cfg = deit_config("tiny", style, depth=2, dtype=torch.bfloat16, **kw)
+def _full_model(dev, style="standard", size="tiny", **kw):
+    cfg = deit_config(size, style, depth=2, dtype=torch.bfloat16, **kw)
     model = ViT(cfg, device=dev, generator=torch.Generator().manual_seed(3))
     return model, tvit.prepare_vit_full(model)
+
+
+def _full_args(model):
+    cfg = model.config
+    return dict(heads=cfg.heads, head_dim=cfg.resolved_head_dim, eps=cfg.layernorm_eps,
+                reference_residual=cfg.reference_residual, approx_gelu=cfg.gelu_approx,
+                final_norm=cfg.final_norm)
+
+
+# The whole forward against its twin under every plan form: b1 and b8 (16 x
+# 32 tiles, 4-warp strips), b128 (128-row tiles, 8-warp strips), deit_base
+# b8, both residual forms, no final norm, head_dim 16, 32 and 128 (the
+# one-block-an-SM instance); chip_smoke.py's bound, 0.01 + 2^-6 max|twin|
+@pytest.mark.parametrize("size,batch,kw", [
+    ("tiny", 1, dict()), ("tiny", 8, dict()), ("tiny", 128, dict()), ("base", 8, dict()),
+    ("tiny", 2, dict(reference_residual=True, gelu_approx=True)),
+    ("tiny", 128, dict(reference_residual=True, gelu_approx=True)),
+    ("tiny", 8, dict(final_norm=False)),
+    ("tiny", 1, dict(dim=64, heads=4, mlp_dim=256)), ("tiny", 8, dict(dim=64, heads=4, mlp_dim=256)),
+    ("tiny", 3, dict(dim=128, heads=4, mlp_dim=512)),
+    ("tiny", 1, dict(dim=256, heads=2, mlp_dim=1024)),
+    ("tiny", 16, dict(dim=256, heads=2, mlp_dim=1024))])
+def test_vit_full_kernel_matches_twin_under_every_plan_form(dev, size, batch, kw):
+    model, prep = _full_model(dev, size=size, **kw)
+    img = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(8)).to(dev)
+    with torch.no_grad():
+        vf.reset_launches()
+        got = vf.vit_full_forward(img, prep, **_full_args(model))
+        launches = vf.LAUNCHES["vit_full"]
+        ref = vf.vit_full_forward_plain(img, prep, **_full_args(model))
+    torch.cuda.synchronize()
+    assert launches == 1 and got.shape == ref.shape and torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs().max()
+    assert err <= ATOL + RTOL * ref.float().abs().max(), err
+
+
+def test_vit_full_image_is_the_same_bits_alone_and_in_a_batch(dev):
+    """b128 runs 128-row tiles and 8-warp strips, b1 16 x 32 tiles and 4-warp
+    strips: K is never split and no strip splits the keys, so an image's
+    logits do not move."""
+    model, prep = _full_model(dev)
+    img = torch.randn(128, 3, 224, 224, generator=torch.Generator().manual_seed(9)).to(dev)
+    with torch.no_grad():
+        batch = tvit.fully_fused_vit_apply(model, img, prepared=prep)
+        alone = [tvit.fully_fused_vit_apply(model, img[i:i + 1], prepared=prep)
+                 for i in (0, 77, 127)]
+    torch.cuda.synchronize()
+    for i, one in zip((0, 77, 127), alone):
+        torch.testing.assert_close(one[0], batch[i], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_vit_full_gives_the_same_bits_under_every_grid_and_tile_height(dev, batch):
+    """The plan's grid against caps of 7 and 1 blocks, 16 x 32 tiles against
+    128-row tiles, and each on both kernel instances (one and two blocks an
+    SM): the same logits bit for bit."""
+    model, prep = _full_model(dev)
+    img = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(10)).to(dev)
+    cfg, fn = model.config, vf.build.load().evt_vit_full
+    args = (batch, 197, cfg.dim, cfg.heads, cfg.resolved_head_dim, cfg.mlp_dim, cfg.num_classes,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+    plans = [vf.vit_full_plan(*args), vf.vit_full_plan(*args, grid=7),
+             vf.vit_full_plan(*args, grid=1), vf.vit_full_plan(*args, rows=128),
+             vf.vit_full_plan(*args, blocks=2), vf.vit_full_plan(*args, rows=128, blocks=1)]
+    with torch.no_grad():
+        outs = [vf.launch(fn, img, prep, plan=p, **_full_args(model)) for p in plans]
+    torch.cuda.synchronize()
+    assert [grid for _, grid in outs][1:3] == [7, 1]
+    for logits, _ in outs[1:]:
+        torch.testing.assert_close(logits, outs[0][0], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("batch", [1, 3])
