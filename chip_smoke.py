@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero before the last line:
    and nvcc versions, and whether ``import triton`` works;
 2. build the kernels from ``edgevisiontransformer_tpu_torch/csrc`` into
    ``build/torch_kernels/`` and print the build time, ptxas's registers and
-   spills (no ``linear``, ``linear_i8`` or ``attention_rows`` instance may
-   spill) and the ``vit_full`` blocks one SM holds at each head dim;
+   spills (no ``linear``, ``linear_i8``, ``attention_rows`` or
+   ``window_attention`` instance may spill) and the ``vit_full`` blocks one
+   SM holds at each head dim;
 3. check each kernel against its plain PyTorch twin at deit_tiny shapes
    (b1 and b128), deit_base shapes (b8) and t2t_vit_14 shapes (b1 and b32,
    reference style: residual h, no qkv bias), and time both: the bf16 kernels
@@ -56,8 +57,9 @@ Phases, in order; any failure exits non-zero before the last line:
    the eager performer chain;
    swin_tiny b1 and b32, bf16, int8 static and dynamic, and the
    ``kernel_mode="pallas"`` module (eager p50, device p50, peak memory,
-   device time by kernel at b1, and the module's at b32 with
-   ``window_sdpa``'s share); the deit_tiny ``kernel_mode="pallas"``
+   device time by kernel at b1, and at b32 bf16's with
+   ``window_attention``'s share and the module's with ``window_sdpa``'s);
+   the deit_tiny ``kernel_mode="pallas"``
    module and the uniform pruned model (bf16 and int8 static) at b1 and b128;
    deit_base b1, int8 static against bf16 device p50; then the
    deit_tiny slices (kernel path and plain path) at b1 and b128, bf16 and
@@ -70,10 +72,10 @@ Phases, in order; any failure exits non-zero before the last line:
 
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
-windows; stages 0 and 2 at b32; ``window_sdpa`` also at window 12, Swin-B
-at 384's first stage, shifted and not, and image 0's windows give it the
-same bits alone and in b32), ``swin_merge`` (its three merges, b1 and
-b32), ``ln_rows`` / ``linear`` at Swin's widths, ``quant_rows`` /
+windows; stages 0 and 2 at b32; both also at window 12, Swin-B at 384's
+first stage, shifted and not, and image 0's windows give each the same bits
+alone and in b32, at stage 0 and at window 12), ``swin_merge`` (its three
+merges, b1 and b32), ``ln_rows`` / ``linear`` at Swin's widths, ``quant_rows`` /
 ``linear_i8`` at the int8 stages' shapes (stages 1-3, b1 and b32, bf16
 biases), ``sdpa`` (K13) and ``mlp`` (K14) at the module path's shapes,
 ``layer_norm`` (K15, on ``ln_rows``), ``linear`` / ``quant_rows`` /
@@ -141,8 +143,8 @@ INT8_LAUNCHES = {"ln_rows": 2, "linear": 0, "attention_rows": 1, "quant_rows": 4
 # window_attention 1, a merge swin_merge 1 and linear 1
 SWIN_STAGES = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 6), (7, 768, 24, 2))
 SWIN_WINDOW = 7
-# window_sdpa at window 12: Swin-B at 384's first stage (resolution 96, 4
-# heads of 32; 64 windows of 144 tokens)
+# window_attention and window_sdpa at window 12: Swin-B at 384's first
+# stage (resolution 96, 4 heads of 32; 64 windows of 144 tokens)
 WINDOW12_STAGE = (96, 4, 32)
 SWIN_BATCHES = (1, 32)
 SWIN_BLOCK_LAUNCHES = {"ln_rows": 2, "linear": 4, "window_attention": 1}
@@ -274,17 +276,19 @@ def phase_build(build, vf) -> float:
         for line in lines:
             print(f"  ptxas {src}: {line}")
     # linear's and linear_i8's block shapes (linear.cu, linear_rows*.cu,
-    # linear_i8.cu, i8_rows*.cu) and attention_rows' plans serve the main
-    # path: none may spill.  vit_full's head_dim <= 64 instance spills a few
-    # words of its layer loop's state (PERF.md section 6): its lines are
-    # printed apart, not held to none
+    # linear_i8.cu, i8_rows*.cu), attention_rows' plans and
+    # window_attention's instances serve the main path: none may spill.
+    # vit_full's head_dim <= 64 instance spills a few words of its layer
+    # loop's state (PERF.md section 6): its lines are printed apart, not
+    # held to none
     spill = re.compile(r"[1-9]\d* bytes spill (stores|loads)")
     spills = [f"{src}: {line}" for src, lines in report.items()
-              if src in ("linear", "attention_rows", "linear_i8")
+              if src in ("linear", "attention_rows", "linear_i8", "window_attention")
               or src.startswith(("linear_rows", "i8_rows"))
               for line in lines if spill.search(line)]
     if spills:
-        fail(f"linear, linear_i8 or attention_rows spills registers: {spills}")
+        fail(f"linear, linear_i8, attention_rows or window_attention spills registers: "
+             f"{spills}")
     for line in report.get("vit_full", []):
         if "spill" in line:
             print(f"  vit_full instance: {line}")
@@ -597,6 +601,17 @@ def phase_kernels_swin(torch, fe, sb, sm, ws, harness):
             tk, tp = b1_ms[kname]
             b1_ms[kname] = (tk + reps * t_k, tp + reps * t_p)
 
+    def wa_bits(qkv, bias, mask, res, w, heads, hd, tag):
+        # image 0's windows through window_attention alone and in the batch
+        kw = dict(res=res, window=w, shift=w // 2, heads=heads, head_dim=hd)
+        alone = sb.window_attention(qkv[:res * res], bias, mask, **kw)
+        full = sb.window_attention(qkv, bias, mask, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(alone, full[:res * res]):
+            fail(f"window_attention at {tag}: image 0's windows differ alone and in the batch")
+        print(f"  {tag:22s} window_attention shifted: image 0's {(res // w) ** 2} windows give "
+              f"the same bits alone and in b{qkv.shape[0] // (res * res)}")
+
     w = SWIN_WINDOW
     n = w * w
     for batch in SWIN_BATCHES:
@@ -642,6 +657,7 @@ def phase_kernels_swin(torch, fe, sb, sm, ws, harness):
                       lambda: ws.window_sdpa(qkv_w, bias16, mk, **kw),
                       lambda: ws.window_sdpa_plain(qkv_w, bias16, mk, **kw), reps)
             if batch > 1 and si == 0:  # a window's bits alone and in the batch
+                wa_bits(qkv, bias, mask, res, w, heads, dim // heads, tag)
                 alone = ws.window_sdpa(qkv_w[:nwin], bias16, mask32, heads=heads,
                                        head_dim=dim // heads)
                 full = ws.window_sdpa(qkv_w, bias16, mask32, heads=heads, head_dim=dim // heads)
@@ -667,9 +683,21 @@ def phase_kernels_swin(torch, fe, sb, sm, ws, harness):
                 kwl = dict(epilogue=epi or fe.CAST_THEN_BIAS, res=r)
                 check("linear", f"linear {name}", tag, lambda: fe.linear(a, wt, bvec, **kwl),
                       lambda: fe.linear_plain(a, wt, bvec, **kwl))
-    # window_sdpa at window 12 (n = 144): Swin-B at 384's first stage, b1
+    # window_attention and window_sdpa at window 12 (n = 144): Swin-B at
+    # 384's first stage, b1 (and b32 for window_attention's bits)
     res, heads, hd = WINDOW12_STAGE
     nwin, n12 = (res // 12) ** 2, 144
+    qkv = rnd(max(SWIN_BATCHES) * res * res, 3 * heads * hd)
+    bias = f32(heads, n12, n12, scale=0.5 * LOG2E)
+    mask = torch.from_numpy(shifted_window_mask(res, res, 12, 6)).to(dev) * LOG2E
+    q1 = qkv[:res * res]
+    for mk in (None, mask):
+        kw = dict(res=res, window=12, shift=6 if mk is not None else 0, heads=heads, head_dim=hd)
+        check("window_attention",
+              f"window_attention w12 {'shifted' if mk is not None else 'unshifted'}",
+              "swin_b 384 b1 s0", lambda: sb.window_attention(q1, bias, mk, **kw),
+              lambda: sb.window_attention_plain(q1, bias, mk, **kw))
+    wa_bits(qkv, bias, mask, res, 12, heads, hd, "swin_b 384 s0")
     qkv_w = rnd(nwin, n12, 3 * heads * hd)
     bias16 = rnd(heads, n12, n12, scale=0.5)
     mask32 = torch.from_numpy(shifted_window_mask(res, res, 12, 6)).to(dev)
@@ -1335,8 +1363,8 @@ def phase_time_swin(torch, harness, state, stacks, module_state):
     """swin_tiny b1 and b32, bf16, int8 static and dynamic through
     ``fused_swin_apply`` and the ``kernel_mode="pallas"`` module: eager and
     device p50, peak memory (the script's other resident models included)
-    and the device time by kernel at b1 (the module's at b32 too, with
-    ``window_sdpa``'s share)."""
+    and the device time by kernel at b1 (bf16's and the module's at b32 too,
+    with ``window_attention``'s and ``window_sdpa``'s share)."""
     from edgevisiontransformer_tpu_torch.models.swin import fused_swin_apply
 
     model, shape, prepared = state
@@ -1349,6 +1377,9 @@ def phase_time_swin(torch, harness, state, stacks, module_state):
                                                       int8_prepared=stacks["dynamic"]),
         "module pallas": lambda img: module(img),
     }
+    # the slices traced at b32 too, and the window attention kernel whose
+    # share of the traced time each prints
+    attention = {"bf16": "window_attention", "module pallas": "window_sdpa"}
     with torch.no_grad():
         for slice_name, apply in slices.items():
             for batch in SWIN_BATCHES:
@@ -1363,15 +1394,16 @@ def phase_time_swin(torch, harness, state, stacks, module_state):
                 print(f"  swin_tiny {slice_name} b{batch}: eager p50 {e['p50_ms']:.4f} ms (std "
                       f"{e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device p50 "
                       f"{d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}), peak mem {peak:.1f} MiB")
-                if batch == 1 or slice_name == "module pallas":
+                if batch == 1 or slice_name in attention:
                     prof = harness.device_time_by_kernel(fn)
                     busy = sum(r[2] for r in prof)
                     print(f"      traced kernel time {busy:.4f} ms (device idle "
                           f"{max(0.0, 1 - busy / e['p50_ms']):.1%} of the eager call)")
-                    if slice_name == "module pallas":
-                        sd = [r for r in prof if "window_sdpa" in r[0]]
+                    if slice_name in attention:
+                        kname = attention[slice_name]
+                        sd = [r for r in prof if kname in r[0]]
                         sd_ms = sum(r[2] for r in sd)
-                        print(f"      window_sdpa {sd_ms:.4f} ms in {sum(r[1] for r in sd)} "
+                        print(f"      {kname} {sd_ms:.4f} ms in {sum(r[1] for r in sd)} "
                               f"launches, {sd_ms / busy if busy else 0.0:.1%} of the traced time")
                     for name, calls, ms in prof[:8]:
                         print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")

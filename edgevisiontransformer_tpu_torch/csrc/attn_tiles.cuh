@@ -1,7 +1,10 @@
 // Warp-level attention routines shared by sdpa.cu (K13), attention_rows.cu
-// (K1's attention) and window_sdpa.cu (K12): one warp owns 16 query rows,
-// its scores live in mma.sync.m16n8k16 accumulator registers, and K and V
-// arrive in shared memory by cp.async.
+// (K1's attention), window_sdpa.cu (K12) and window_attention.cu (K9's
+// attention): one warp owns 16 query rows, its scores live in
+// mma.sync.m16n8k16 accumulator registers, and K and V arrive in shared
+// memory by cp.async (window_attention.cu gathers and scatters its rows
+// through a table of source rows: load_rows_gather, store_rows_scatter;
+// both window kernels stage a bias tile with load_tile).
 //
 // Shared-memory tiles hold rows of HD bf16 values at a row stride of
 // row_ld(HD) = HD + 8 elements: the 16-byte skew spreads the eight rows of an
@@ -44,6 +47,54 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ sr
     const int t = r0 + r;
     const bool ok = t < n;
     cp_async16(dst + r * row_ld(HD) + c, ok ? src + t * stride_n + c : src, ok);
+  }
+}
+
+// Rows [0, rows) of a gathered operand into shared memory by cp.async from
+// the NT threads of a block: row r from src + off[r] * stride_n, zeros from
+// row n on, where off is not read (not waited for).
+template <int HD, int NT>
+__device__ __forceinline__ void load_rows_gather(bf16* dst, const bf16* __restrict__ src,
+                                                 const int* off, long long stride_n, int rows,
+                                                 int n, int tid) {
+  constexpr int CH = HD / 8;
+  for (int i = tid; i < rows * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r < n;
+    cp_async16(dst + r * row_ld(HD) + c, ok ? src + off[r] * stride_n + c : src, ok);
+  }
+}
+
+// Elements of T that a staged n x n tile takes: its n * n values from the
+// 16-byte boundary at or below its start, in whole 16-byte chunks.
+template <typename T>
+__host__ __device__ constexpr int tile_elems(int n) {
+  constexpr int V = 16 / sizeof(T);
+  return (V - 1 + n * n + V - 1) / V * V;
+}
+
+// 16-byte cp.async of which only the first `bytes` (0-16) are read, the
+// rest zero-filled.
+__device__ __forceinline__ void cp_async_bytes(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes));
+}
+
+// The n x n tile that starts at element e0 of src (a bias or mask whose
+// rows have the odd length n) into dst by cp.async from the NT threads of a
+// block, as one flat run of 16-byte chunks (not waited for): element (q, c)
+// lands at dst[e0 % V + q * n + c], V = 16 / sizeof(T).
+template <typename T, int NT>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, long long e0, int n,
+                                          int tid) {
+  constexpr int V = 16 / sizeof(T);
+  const long long a0 = e0 - e0 % V, end = e0 + static_cast<long long>(n) * n;
+  for (int i = tid; i < tile_elems<T>(n) / V; i += NT) {
+    const long long from = a0 + static_cast<long long>(i) * V;
+    const long long left = end - from;
+    const int bytes = left >= V ? 16 : (left > 0 ? static_cast<int>(left * sizeof(T)) : 0);
+    cp_async_bytes(dst + i * V, bytes > 0 ? src + from : src, bytes);
   }
 }
 
@@ -114,6 +165,34 @@ __device__ __forceinline__ void store_rows(const float (&o)[HD / 8][4], bf16* sQ
     const int r = i / CH, c = (i % CH) * 8;
     if (row0 + r < n)
       *reinterpret_cast<uint4*>(op + (row0 + r) * stride_n + c) =
+          *reinterpret_cast<const uint4*>(sQw + r * LD + c);
+  }
+}
+
+// bf16(O * inv) through the warp's own 16 rows of the Q tile to out: inv[0]
+// scales row g and inv[1] row g + 8 (one fp32 product an element), and the
+// strip's row r goes to op + off[row0 + r] * stride_n, as 16-byte stores,
+// rows past n dropped.
+template <int HD>
+__device__ __forceinline__ void store_rows_scatter(const float (&o)[HD / 8][4],
+                                                   const float (&inv)[2], bf16* sQw,
+                                                   bf16* __restrict__ op, long long stride_n,
+                                                   const int* off, int row0, int n, int lane) {
+  constexpr int LD = row_ld(HD), CH = HD / 8;
+  const int g = lane >> 2, t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(sQw + g * LD + j * 8 + 2 * t) =
+        pack_bf16x2(__fmul_rn(o[j][0], inv[0]), __fmul_rn(o[j][1], inv[0]));
+    *reinterpret_cast<uint32_t*>(sQw + (g + 8) * LD + j * 8 + 2 * t) =
+        pack_bf16x2(__fmul_rn(o[j][2], inv[1]), __fmul_rn(o[j][3], inv[1]));
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = (i % CH) * 8;
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(op + off[row0 + r] * stride_n + c) =
           *reinterpret_cast<const uint4*>(sQw + r * LD + c);
   }
 }

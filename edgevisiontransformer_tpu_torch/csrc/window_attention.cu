@@ -1,5 +1,6 @@
 // window_attention: shifted-window multi-head attention of a Swin block,
-// reading and writing token-major rows in image raster order.
+// reading and writing token-major rows in image raster order: the attention
+// of the Swin chain (ops/cuda/swin_block.py).
 //
 // Replaces: the attention step of the TPU Swin kernels in
 //   edgevisiontransformer_tpu/ops/pallas/swin_block.py:
@@ -14,208 +15,224 @@
 // the row of pixel ((wy*w + ty + shift) % res, (wx*w + tx + shift) % res)
 // and writes its output row back to that pixel: that is jnp.roll(-shift),
 // window_partition, attention, window_reverse and jnp.roll(+shift), with no
-// permutation pass.  Per (image, window, head), in fp32:
+// permutation pass.  Per (image, window, head), in fp32, K9's math:
 //   s = (q . k) * hd^-1/2 * log2(e) + bias[h] (+ mask[window], shifted blocks)
 //   p = exp2(min(s, 60)) over the n = w*w keys, r = max(sum p, 1e-30)
-//   o = bf16((bf16(p) @ v) * (1 / r))
+//   o = bf16(f32(bf16(p) @ v) * (1 / r)), 1 / r exact, one a row
 // bias [heads, n, n] and mask [nW, n, n] come pre-scaled by log2(e), as
 // K9's kernel-ready bias does.  The score is rounded after the product and
 // again after each add (__fmul_rn / __fadd_rn), in the reference's order,
-// so nvcc contracts nothing into an FMA.
+// so nvcc contracts nothing into an FMA.  r sums the unrounded p.
 //
 // Bound on the card: a swin_tiny window does 4 * n^2 * HD = 0.3 MFLOP per
 // head on 3 * n * HD * 2 = 9.4 KB of q, k, v (HD 32, n 49): ~33 flop/byte,
 // far below the H100's ~295 flop/byte balance point, so bytes bound it:
 // qkv read once and the output written once (stage 0, b1: 2.4 MB, ~0.7 us
-// at 3.35 TB/s).  The bias and mask (9.6 KB per head or window) are read
-// by every image and stay in L2.
+// at 3.35 TB/s).  The bias and mask (9.6 KB per head or window at n = 49)
+// are read by every image and stay in L2.  In practice each block's chain
+// of loads, products and softmax decides the time
+// (bench/window_attention_ab.py).
 //
-// Design (simple first): one thread block of 4 warps per (window, head,
-// image), each warp owning 16 of the 64 query rows.  The n <= 64 tokens'
-// q, k and v are gathered into shared memory with 16-byte loads, padded to
-// 64 rows with zeros; S = q k^T and O = bf16(p) v run on WMMA 16x16x16 bf16
-// fragments with fp32 accumulation; keys >= n get p = 0.  The score and
-// probability tiles never leave shared memory.  Several heads or windows
-// per block, wgmma, and keeping the bias in shared memory across windows
-// are later work.
-#include <mma.h>
+// Design (bench/window_attention_ab.py times its choices; PERF.md section 6
+// has the numbers), on the mma.sync routines of attn_tiles.cuh, as
+// window_sdpa.cu (K12):
+// - One block of 4 warps per (window, head, image): more, shorter blocks
+//   in flight beat blocks that walk several heads (window_sdpa.cu's A/B),
+//   and a window's blocks do not depend on the batch.
+// - The gather: the block computes its window tokens' pixel rows once
+//   (sRow), and q, k and v arrive from those rows by cp.async
+//   (load_rows_gather), zero-filled past n: q and k in a first group, v in
+//   a second, landing while Q K^T and the softmax run.
+// - Scores in registers: each warp owns 16 query rows (the warps walk the
+//   window's ceil(n / 16) strips in rounds); Q K^T runs on
+//   mma.sync.m16n8k16 (qk) over NC 16-key chunks, NC = 4 (n <= 64, windows
+//   up to 8) or 9 (n <= 144, windows up to 12), the fewest that hold n.
+//   Scale, bias, mask, the clamp and exp2 act on the accumulators in place
+//   (probs); the row sum runs per thread in key order, then over the 4
+//   lanes of a quad (quad_sum); p, packed to bf16x2, is PV's A fragment
+//   (pv).  No score and no p goes through shared memory.
+// - A shifted window's fp32 mask is read element by element from L2 where
+//   the scores need it, and so is the fp32 bias of an unshifted block.
+//   Where the block reads the mask, the bias tile (9.6 KB at n = 49, 81 KB
+//   at n = 144) is staged in shared memory by cp.async with q and k
+//   instead, as one flat run of 16-byte chunks from the boundary at or
+//   below its start (load_tile): with both read from L2, a shifted launch
+//   took 1.8x an unshifted one (swin_tiny b1 stage 0: 9.5-9.9 against
+//   5.2-5.3 us), and staging the bias brought it to 5.7; staging it for an
+//   unshifted block measured slower at every shape (at window 12, 36
+//   against 19 us: the tile leaves room for one block an SM).  The bits do
+//   not depend on where the bias is read (stage_bias).
+// - The store: O * (1 / r) in fp32 from the accumulators, packed to bf16,
+//   leaves through the warp's own Q rows to the pixel row its query came
+//   from, as 16-byte stores (store_rows_scatter).
+// - Every (window, head, image) runs the same instructions whatever the
+//   batch, so a window's output is the same bits alone and in a batch.
+#include <math.h>
 
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "attn_tiles.cuh"
 
 namespace {
 
-constexpr int T = 64, WARPS = 4, THREADS = WARPS * 32;
+constexpr int WARPS = 4, THREADS = WARPS * 32;
 constexpr float kClamp = 60.0f;
+// Where the scores read the fp32 bias: true, from its n x n tile staged in
+// shared memory by cp.async with q and k; false, from L2, element by
+// element.  Staged where the block also reads a shifted window's mask.
+template <bool MASK>
+__host__ __device__ constexpr bool stage_bias() { return MASK; }
 
-template <int HD>
-struct Smem {
-  static constexpr int LD = HD + 8;  // q, k, v row stride (bf16)
-  static constexpr int SLD = T + 4;  // scores / output row stride (fp32); HD + 4 <= SLD
-  static constexpr int PLD = T + 8;  // probabilities row stride (bf16)
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + T * LD * 2;
-  static constexpr int V_OFF = K_OFF + T * LD * 2;
-  static constexpr int S_OFF = V_OFF + T * LD * 2;
-  static constexpr int P_OFF = S_OFF + T * SLD * 4;
-  static constexpr int R_OFF = P_OFF + T * PLD * 2;
-  static constexpr int BYTES = R_OFF + T * 4;
-};
+// In place over the scores of the strip at row0: p = exp2(min(s * scale2 +
+// bias (+ mask), 60)) for a key below n, 0 for a key at or past n (whose
+// bias and mask are never read); l[0] / l[1] become the fp32 sums of rows g
+// / g + 8 over the unrounded p.  eb and em point at their tile's element
+// (0, 0); rows past n read row n - 1 (never stored).
+template <int NC, bool MASK>
+__device__ __forceinline__ void probs(float (&s)[NC][2][4], const float* eb, const float* em,
+                                      int row0, int n, float scale2, int lane, float (&l)[2]) {
+  const int g = lane >> 2, t = lane & 3;
+  const int at[2] = {min(row0 + g, n - 1) * n, min(row0 + g + 8, n - 1) * n};
+  l[0] = l[1] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int r = (e % 4) / 2, key = c * 16 + (e / 4) * 8 + 2 * t + (e & 1);
+      float& x = s[c][e / 4][e % 4];
+      if (key < n) {
+        x = __fadd_rn(__fmul_rn(x, scale2), eb[at[r] + key]);
+        if (MASK) x = __fadd_rn(x, em[at[r] + key]);
+        x = exp2f(fminf(x, kClamp));
+      } else {
+        x = 0.0f;
+      }
+      l[r] = __fadd_rn(l[r], x);
+    }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+}
 
-template <int HD>
+// Dynamic shared memory: q, k, v (16 NC rows each), then the staged bias
+// tile (stage_bias).
+template <int HD, int NC, bool MASK>
 __global__ __launch_bounds__(THREADS) void window_attention_kernel(
     const bf16* __restrict__ qkv, const float* __restrict__ bias, const float* __restrict__ mask,
     bf16* __restrict__ out, int res, int w, int shift, int heads, float scale2) {
-  using L = Smem<HD>;
+  constexpr int LD = row_ld(HD), ROWS = 16 * NC;
+  constexpr bool STAGE = stage_bias<MASK>();
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::K_OFF);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::V_OFF);
-  float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  float* sR = reinterpret_cast<float*>(smem + L::R_OFF);
-  __shared__ int sRow[T];  // the pixel row of each window token, -1 past n
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + ROWS * LD;
+  bf16* sV = sK + ROWS * LD;
+  float* sB = reinterpret_cast<float*>(sV + ROWS * LD);
+  __shared__ int sRow[ROWS];  // the pixel row of each window token
 
   const int win = blockIdx.x, head = blockIdx.y, img = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n = w * w, nwx = res / w;
   const int wy = win / nwx, wx = win % nwx;
-  const int ld = 3 * heads * HD;
-  const size_t img_row0 = static_cast<size_t>(img) * res * res;
+  const long long ld = 3LL * heads * HD, ldo = static_cast<long long>(heads) * HD;
+  const long long nn = static_cast<long long>(n) * n;
+  const long long row0 = static_cast<long long>(img) * res * res;  // the image's first row
 
-  if (tid < T) {
-    int row = -1;
-    if (tid < n) {
-      const int py = (wy * w + tid / w + shift) % res;
-      const int px = (wx * w + tid % w + shift) % res;
-      row = py * res + px;
-    }
-    sRow[tid] = row;
-  }
+  for (int t = tid; t < n; t += THREADS)
+    sRow[t] = ((wy * w + t / w + shift) % res) * res + (wx * w + t % w + shift) % res;
   __syncthreads();
-
-  // Gather q, k, v of the window's tokens; rows >= n are zero.
-  constexpr int CH = HD / 8;
-  for (int i = tid; i < 3 * T * CH; i += THREADS) {
-    const int part = i / (T * CH), r = (i / CH) % T, c = (i % CH) * 8;
-    const int row = sRow[r];
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row >= 0)
-      v = *reinterpret_cast<const uint4*>(qkv + (img_row0 + row) * ld +
-                                          (part * heads + head) * HD + c);
-    bf16* dst = part == 0 ? sQ : (part == 1 ? sK : sV);
-    *reinterpret_cast<uint4*>(dst + r * L::LD + c) = v;
-  }
+  const bf16* ip = qkv + row0 * ld + head * HD;
+  load_rows_gather<HD, THREADS>(sQ, ip, sRow, ld, ROWS, n, tid);
+  load_rows_gather<HD, THREADS>(sK, ip + heads * HD, sRow, ld, ROWS, n, tid);
+  if (STAGE) load_tile<float, THREADS>(sB, bias, head * nn, n, tid);
+  cp_async_commit();  // group 0: q and k (and the bias tile)
+  load_rows_gather<HD, THREADS>(sV, ip + 2 * heads * HD, sRow, ld, ROWS, n, tid);
+  cp_async_commit();  // group 1: v, landing while q k^T and the softmax run
+  cp_async_wait<1>();
   __syncthreads();
-
-  const int wr = warp * 16;  // this warp's first query row
-  // S[wr:wr+16, 0:64] = q k^T
-#pragma unroll
-  for (int j = 0; j < T / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-    wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, sQ + wr * L::LD + kk * 16, L::LD);
-      wmma::load_matrix_sync(b, sK + j * 16 * L::LD + kk * 16, L::LD);
-      wmma::mma_sync(s, a, b, s);
+  const float* eb = STAGE ? sB + head * nn % 4 : bias + head * nn;
+  const float* em = MASK ? mask + win * nn : nullptr;
+  bf16* op = out + row0 * ldo + head * HD;
+  const int strips = (n + 15) / 16;
+  // in rounds of one strip a warp, so that every warp meets the barrier
+  for (int first = 0; first < strips; first += WARPS) {
+    const int strip = first + warp;
+    float s[NC][2][4], l[2];
+    if (strip < strips) {
+      qk<HD, NC>(s, sQ + strip * 16 * LD, sK, lane);
+      probs<NC, MASK>(s, eb, em, strip * 16, n, scale2, lane, l);
     }
-    wmma::store_matrix_sync(sS + wr * L::SLD + j * 16, s, L::SLD, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  // p = exp2(min(s * scale2 + bias (+ mask), 60)) for keys < n, else 0;
-  // query rows >= n are padding and get p = 0 (nothing reads them).
-  const float* bh = bias + static_cast<size_t>(head) * n * n;
-  const float* mw = mask != nullptr ? mask + static_cast<size_t>(win) * n * n : nullptr;
-#pragma unroll 4
-  for (int r = 0; r < 16; ++r) {
-    const int q = wr + r;
-    float part = 0.0f;
-#pragma unroll
-    for (int c = lane; c < T; c += 32) {
-      float p = 0.0f;
-      if (q < n && c < n) {
-        float s = __fadd_rn(__fmul_rn(sS[q * L::SLD + c], scale2), bh[q * n + c]);
-        if (mw != nullptr) s = __fadd_rn(s, mw[q * n + c]);
-        p = exp2f(fminf(s, kClamp));
-      }
-      part += p;
-      sP[q * L::PLD + c] = __float2bfloat16_rn(p);
+    if (first == 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // v landed
     }
-    part = warp_sum(part);
-    if (lane == 0) sR[q] = 1.0f / fmaxf(part, 1e-30f);
-  }
-  __syncwarp();
-
-  // O = bf16(p) v
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[HD / 16];
+    if (strip < strips) {
+      float o[HD / 8][4];
 #pragma unroll
-  for (int d = 0; d < HD / 16; ++d) {
-    wmma::fill_fragment(o[d], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < T / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, sP + wr * L::PLD + kk * 16, L::PLD);
-      wmma::load_matrix_sync(b, sV + kk * 16 * L::LD + d * 16, L::LD);
-      wmma::mma_sync(o[d], a, b, o[d]);
+      for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+      pv<HD, NC>(o, s, sV, lane);
+      const float inv[2] = {1.0f / fmaxf(l[0], 1e-30f), 1.0f / fmaxf(l[1], 1e-30f)};
+      store_rows_scatter<HD>(o, inv, sQ + strip * 16 * LD, op, ldo, sRow, strip * 16, n, lane);
     }
-  }
-  // The warp's own score rows become its fp32 output rows (HD + 4 <= SLD).
-  __syncwarp();
-#pragma unroll
-  for (int d = 0; d < HD / 16; ++d)
-    wmma::store_matrix_sync(sS + wr * L::SLD + d * 16, o[d], L::SLD, wmma::mem_row_major);
-  __syncwarp();
-
-  const int ldo = heads * HD;
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int q = wr + r;
-    if (q >= n) continue;
-    const float inv = sR[q];
-    float v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = sS[q * L::SLD + c + e] * inv;
-    *reinterpret_cast<uint4*>(out + (img_row0 + sRow[q]) * ldo + head * HD + c) = pack8(v);
   }
 }
 
-template <int HD>
+template <int HD, int NC, bool MASK>
+constexpr int smem_bytes(int n) {
+  return 3 * 16 * NC * row_ld(HD) * 2 + (stage_bias<MASK>() ? tile_elems<float>(n) * 4 : 0);
+}
+
+template <int HD, int NC, bool MASK>
 int launch(const void* qkv, const void* bias, const void* mask, void* out, int batch, int res,
            int w, int shift, int heads, float scale2, cudaStream_t stream) {
   static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(window_attention_kernel<HD>,
+  if (!configured) {  // the most an instance asks for: n = 16 NC
+    const cudaError_t e = cudaFuncSetAttribute(window_attention_kernel<HD, NC, MASK>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               Smem<HD>::BYTES);
+                                               smem_bytes<HD, NC, MASK>(16 * NC));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const int nwx = res / w;
   const dim3 grid(nwx * nwx, heads, batch);
-  window_attention_kernel<HD><<<grid, THREADS, Smem<HD>::BYTES, stream>>>(
+  window_attention_kernel<HD, NC, MASK>
+      <<<grid, THREADS, smem_bytes<HD, NC, MASK>(w * w), stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<bf16*>(out), res, w, shift, heads, scale2);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD, int NC>
+int launch_mask(const void* qkv, const void* bias, const void* mask, void* out, int batch,
+                int res, int w, int shift, int heads, float scale2, cudaStream_t s) {
+  if (mask != nullptr)
+    return launch<HD, NC, true>(qkv, bias, mask, out, batch, res, w, shift, heads, scale2, s);
+  return launch<HD, NC, false>(qkv, bias, mask, out, batch, res, w, shift, heads, scale2, s);
+}
+
+// The fewest 16-key chunks that hold n: 4 (windows up to 8) or 9 (up to 12).
+template <int HD>
+int launch_chunks(const void* qkv, const void* bias, const void* mask, void* out, int batch,
+                  int res, int w, int shift, int heads, float scale2, cudaStream_t s) {
+  if (w * w <= 64)
+    return launch_mask<HD, 4>(qkv, bias, mask, out, batch, res, w, shift, heads, scale2, s);
+  return launch_mask<HD, 9>(qkv, bias, mask, out, batch, res, w, shift, heads, scale2, s);
+}
+
 }  // namespace
 
+// qkv [batch * res * res, 3 * heads * head_dim], out [batch * res * res,
+// heads * head_dim] bf16, bias [heads, n, n] and mask [(res / w)^2, n, n]
+// fp32 (mask null for an unshifted block), all 16-byte aligned.
 extern "C" int evt_window_attention(const void* qkv, const void* bias, const void* mask, void* out,
                                     int batch, int res, int w, int shift, int heads, int head_dim,
                                     float scale2, void* stream) {
   if (batch == 0) return 0;
-  if (w <= 0 || w * w > T || res % w != 0 || shift < 0 || shift >= w)
+  if (batch < 0 || batch > 65535 || heads <= 0 || heads > 65535 || w <= 0 || w * w > 144 ||
+      res <= 0 || res % w != 0 || shift < 0 || shift >= w)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 32: return launch<32>(qkv, bias, mask, out, batch, res, w, shift, heads, scale2, s);
-    case 64: return launch<64>(qkv, bias, mask, out, batch, res, w, shift, heads, scale2, s);
+    case 32:
+      return launch_chunks<32>(qkv, bias, mask, out, batch, res, w, shift, heads, scale2, s);
+    case 64:
+      return launch_chunks<64>(qkv, bias, mask, out, batch, res, w, shift, heads, scale2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

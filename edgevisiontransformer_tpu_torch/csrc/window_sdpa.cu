@@ -41,7 +41,7 @@
 //   second, landing while Q K^T and the softmax run (load_rows of
 //   attn_tiles.cuh, rows 3 * heads * HD apart).  The n x n bias tile, whose
 //   rows have the odd length n, is copied as one flat run of 16-byte chunks
-//   from the 16-byte boundary at or below its start (load_bias).  A shifted
+//   from the 16-byte boundary at or below its start (load_tile).  A shifted
 //   window's fp32 mask is read element by element from L2 where the scores
 //   need it: staging its tile too (9.4 KB at n = 49) measured no faster at
 //   any swin_tiny shape and slower at b1's shifted stages, where it holds
@@ -70,31 +70,6 @@
 namespace {
 
 constexpr int WARPS = 4, THREADS = WARPS * 32;
-
-// bf16 elements the staged n x n bias tile takes: its n * n values from the
-// 16-byte boundary at or below its start, in whole 16-byte chunks.
-__host__ __device__ constexpr int bias_elems(int n) { return (7 + n * n + 7) / 8 * 8; }
-
-// 16-byte cp.async of which only the first `bytes` (0-16) are read, the
-// rest zero-filled.
-__device__ __forceinline__ void cp_async_bytes(void* smem, const void* gmem, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes));
-}
-
-// The n x n tile that starts at element e0 of `bias` into dst by cp.async
-// (not waited for): element (q, c) lands at dst[e0 % 8 + q * n + c].
-__device__ __forceinline__ void load_bias(bf16* dst, const bf16* __restrict__ bias, long long e0,
-                                          int n, int tid) {
-  const long long a0 = e0 - e0 % 8, end = e0 + static_cast<long long>(n) * n;
-  for (int i = tid; i < bias_elems(n) / 8; i += THREADS) {
-    const long long from = a0 + static_cast<long long>(i) * 8;
-    const long long left = end - from;
-    const int bytes = left >= 8 ? 16 : (left > 0 ? static_cast<int>(left) * 2 : 0);
-    cp_async_bytes(dst + i * 8, bytes > 0 ? bias + from : bias, bytes);
-  }
-}
 
 // p = e / l correctly rounded, the value of __fdiv_rn(e, l), for e in [0, 1]
 // and l in [1, 2^9), given y = __frcp_rn(l) (one per row).  sdpa.cu's
@@ -197,7 +172,7 @@ __global__ __launch_bounds__(THREADS) void window_sdpa_kernel(
 
   load_rows<HD, THREADS>(sQ, wq, ld, 0, ROWS, n, tid);
   load_rows<HD, THREADS>(sK, wq + heads * HD, ld, 0, ROWS, n, tid);
-  load_bias(sB, bias, b0, n, tid);
+  load_tile<bf16, THREADS>(sB, bias, b0, n, tid);
   cp_async_commit();  // group 0: q, k and the bias tile
   load_rows<HD, THREADS>(sV, wq + 2 * heads * HD, ld, 0, ROWS, n, tid);
   cp_async_commit();  // group 1: v, landing while q k^T and the softmax run
@@ -232,7 +207,7 @@ __global__ __launch_bounds__(THREADS) void window_sdpa_kernel(
 
 template <int HD, int NC>
 constexpr int smem_bytes(int n) {
-  return 3 * 16 * NC * row_ld(HD) * 2 + bias_elems(n) * 2;
+  return 3 * 16 * NC * row_ld(HD) * 2 + tile_elems<bf16>(n) * 2;
 }
 
 template <int HD, int NC, bool MASK>

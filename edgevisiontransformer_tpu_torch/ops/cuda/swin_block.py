@@ -58,7 +58,7 @@ from .fused_encoder import (BIAS, BIAS_GELU, BIAS_RESIDUAL, CAST_THEN_BIAS, CAST
 LAUNCHES = {"window_attention": 0}
 
 _LOG2E = 1.4426950408889634
-MAX_TOKENS = 64  # tokens per window the kernel holds (w <= 8)
+MAX_TOKENS = 144  # tokens per window the kernel holds (w <= 12)
 # A stage's matmul weights, in the order of the int8 stacks' ``act_inv``
 # columns (JAX ``models/swin.prepare_swin_int8``'s quantize keys).
 MATMUL_KEYS = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
@@ -123,7 +123,8 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor |
                      head_dim: int) -> torch.Tensor:
     """:func:`window_attention_plain` as one kernel (csrc/window_attention.cu):
     one thread block per (window, head, image).  On the GPU ``qkv`` is bf16,
-    ``bias`` and ``mask`` fp32, ``head_dim`` 32 or 64 and ``window**2 <= 64``."""
+    ``bias`` and ``mask`` fp32, ``head_dim`` 32 or 64 and ``window**2 <=
+    144`` (windows up to 12)."""
     tensors = (qkv, bias) + ((mask,) if mask is not None else ())
     f32 = (torch.float32,)
     if _on_cpu("window_attention", *tensors, dtypes={1: f32, 2: f32}):

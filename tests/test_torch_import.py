@@ -48,6 +48,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.bench.linear_i8_ab",
     "edgevisiontransformer_tpu_torch.bench.attention_ab",
     "edgevisiontransformer_tpu_torch.bench.window_sdpa_ab",
+    "edgevisiontransformer_tpu_torch.bench.window_attention_ab",
     "edgevisiontransformer_tpu_torch.bench.vit_full_ab",
 ]
 

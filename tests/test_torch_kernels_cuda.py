@@ -610,8 +610,13 @@ def _window_inputs(dev, batch, res, w, heads, hd, shifted, seed=0):
 @pytest.mark.parametrize("batch,res,w,heads,hd,shifted", [
     (1, 56, 7, 3, 32, False), (1, 56, 7, 3, 32, True), (2, 28, 7, 6, 32, True),
     (2, 14, 7, 12, 32, True), (2, 7, 7, 24, 32, False), (2, 8, 4, 2, 64, True),
-    (1, 16, 8, 2, 64, True)])
+    (1, 16, 8, 2, 64, True), (2, 18, 9, 2, 32, False), (2, 18, 9, 2, 32, True),
+    (1, 96, 12, 4, 32, False), (1, 96, 12, 4, 32, True), (2, 24, 12, 2, 64, False),
+    (2, 24, 12, 2, 64, True)])
 def test_window_attention_kernel_matches_twin_and_counts(dev, batch, res, w, heads, hd, shifted):
+    """swin_tiny's four stage shapes, head_dim 64, a full 64-token window,
+    windows of 9 (n = 81: 9 chunks, 63 keys zero-filled) and of 12 (Swin-B
+    at 384's first stage, and head_dim 64), shifted and not."""
     qkv, bias, mask = _window_inputs(dev, batch, res, w, heads, hd, shifted)
     kw = dict(res=res, window=w, shift=w // 2 if shifted else 0, heads=heads, head_dim=hd)
     sb.reset_launches()
@@ -640,9 +645,53 @@ def test_window_attention_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         sb.window_attention(_rnd(dev, 196, 3 * 48), bias[:1], mask,
                             **{**kw, "heads": 1, "head_dim": 48})
-    q9, b9, _ = _window_inputs(dev, 1, 18, 9, 1, 32, False)
-    with pytest.raises(ValueError, match="at most 64"):
-        sb.window_attention(q9, b9, None, res=18, window=9, shift=0, heads=1, head_dim=32)
+    q13, b13, _ = _window_inputs(dev, 1, 26, 13, 1, 32, False)
+    with pytest.raises(ValueError, match="at most 144"):
+        sb.window_attention(q13, b13, None, res=26, window=13, shift=0, heads=1, head_dim=32)
+
+
+# A window's output is the same bits alone (one image) and as image 0 of
+# 32: each (window, head, image) runs the same instructions.
+@pytest.mark.parametrize("res,heads,w,shifted", [(56, 3, 7, True), (28, 6, 7, True),
+                                                 (14, 12, 7, False), (7, 24, 7, False),
+                                                 (24, 2, 12, True), (24, 2, 12, False)])
+def test_window_attention_is_bit_identical_alone_and_in_a_batch(dev, res, heads, w, shifted):
+    qkv, bias, mask = _window_inputs(dev, 32, res, w, heads, 32, shifted)
+    kw = dict(res=res, window=w, shift=w // 2 if shifted else 0, heads=heads, head_dim=32)
+    batch = sb.window_attention(qkv, bias, mask, **kw)
+    alone = sb.window_attention(qkv[:res * res], bias, mask, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, batch[:res * res])
+
+
+@functools.lru_cache(maxsize=None)
+def _wmma_window_attention():
+    from edgevisiontransformer_tpu_torch.bench import window_attention_ab
+
+    return window_attention_ab.build_libraries(source_variants=False)[1]
+
+
+# The kernel against the WMMA kernel it replaced (its source in
+# bench/window_attention_ab.py, built beside it): within the twin bound;
+# -rP prints how many elements differ.
+@pytest.mark.parametrize("batch,res,heads,shifted", [
+    (1, 56, 3, False), (1, 56, 3, True), (1, 28, 6, True), (1, 14, 12, True), (1, 7, 24, False),
+    (32, 56, 3, True), (32, 14, 12, False)])
+def test_window_attention_agrees_with_the_wmma_kernel(dev, batch, res, heads, shifted):
+    from edgevisiontransformer_tpu_torch.bench import window_attention_ab
+
+    qkv, bias, mask = _window_inputs(dev, batch, res, 7, heads, 32, shifted, seed=4)
+    shift = 3 if shifted else 0
+    got = sb.window_attention(qkv, bias, mask, res=res, window=7, shift=shift, heads=heads,
+                              head_dim=32)
+    old = torch.empty_like(got)
+    window_attention_ab.launch(_wmma_window_attention(), qkv, bias, mask, old, res, 7, shift,
+                               heads, 32)
+    _close(got, old)
+    diff = (got.float() - old.float()).abs()
+    print(f"window_attention vs the WMMA kernel, b{batch} res{res} h{heads} "
+          f"{'shifted' if shifted else 'unshifted'}: {int((diff > 0).sum())} of {diff.numel()} "
+          f"elements differ, max {float(diff.max()):.3g}")
 
 
 @pytest.mark.parametrize("affine", ["float32", "bfloat16"])

@@ -184,10 +184,11 @@ def _jax_stage_kernel(blocks, mask, x, *, res, w, heads, dt):
     ("float32", 14, 64, 2, 2),    # R = 4 * 56 = 224 rows: the one-hot permutation
     ("bfloat16", 14, 64, 2, 2),
     ("float32", 56, 32, 1, 1),    # R = 3584 > 1024: the banded permutation
+    ("float32", 24, 64, 2, 1),    # window 12 (Swin at 384): n = 144, K9 pads to 144
 ])
 def test_stage_forward_plain_matches_jax_stage_kernel(dtype, res, c, heads, b):
     jd, td = DTYPES[dtype]
-    w = 7
+    w = 12 if res == 24 else 7
     blocks, mask = _random_stage(3, 2, c, 2 * c, heads, w, res)
     x, tx = _image(4, b, res, c, td)
     ref = _jax_stage_kernel(blocks, mask, x, res=res, w=w, heads=heads, dt=jd)
