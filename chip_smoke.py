@@ -9,9 +9,9 @@ Phases, in order; any failure exits non-zero before the last line:
    and nvcc versions, and whether ``import triton`` works;
 2. build the kernels from ``edgevisiontransformer_tpu_torch/csrc`` into
    ``build/torch_kernels/`` and print the build time, ptxas's registers and
-   spills (no ``linear``, ``linear_i8``, ``attention_rows`` or
-   ``window_attention`` instance may spill) and the ``vit_full`` blocks one
-   SM holds at each head dim;
+   spills (no ``linear``, ``linear_i8``, ``attention_rows``,
+   ``window_attention``, ``performer_reduce`` or ``performer_rows`` instance
+   may spill) and the ``vit_full`` blocks one SM holds at each head dim;
 3. check each kernel against its plain PyTorch twin at deit_tiny shapes
    (b1 and b128), deit_base shapes (b8) and t2t_vit_14 shapes (b1 and b32,
    reference style: residual h, no qkv bias), and time both: the bf16 kernels
@@ -23,7 +23,9 @@ Phases, in order; any failure exits non-zero before the last line:
    residual forms, no final norm, head_dim 16, 32 and 128), and
    ``performer_reduce`` /
    ``performer_rows`` (the T2T TokenPerformer, K16) at the tokenizer's two
-   stage shapes and a ragged token count, within the tolerance;
+   stage shapes (b1, b4, b32) and ragged token counts, within the
+   tolerance, with image 0's output the same bits alone and in b32 and a
+   CUDA graph of both replayed twice equal to the eager call;
 4. run the slices: ``build_model("deit_tiny")`` at full width and depth with
    seeded random weights through ``fused_vit_apply`` on the kernels — three
    b1 requests and one b128 in standard style, one b1 in reference style,
@@ -52,9 +54,9 @@ Phases, in order; any failure exits non-zero before the last line:
 5. time ``fully_fused_vit_apply`` at deit_tiny b1 and b128 and deit_base b1
    beside ``fused_vit_apply`` (eager and device p50, idle share) and the cost
    of one grid barrier; t2t_vit_14 b1 and b32, bf16, int8 static and int8
-   static with the int8 stem (eager p50, device p50, device time by kernel at
-   b1) and its two tokenizer forms at b1, b8 and b32, each with K16 and with
-   the eager performer chain;
+   static with the int8 stem (eager p50, device p50, device time by kernel
+   with K16's share at b1 and at bf16 b32) and its two tokenizer forms at b1,
+   b8 and b32, each with K16 and with the eager performer chain;
    swin_tiny b1 and b32, bf16, int8 static and dynamic, and the
    ``kernel_mode="pallas"`` module (eager p50, device p50, peak memory,
    device time by kernel at b1, and at b32 bf16's with
@@ -68,7 +70,8 @@ Phases, in order; any failure exits non-zero before the last line:
 6. the yardsticks of every kernel's row: its bound (the larger of the bytes
    its launches must move over 3.35 TB/s and their operations over the peak
    rate for their type) and, where one PyTorch call computes the same
-   function, that call's device time at the same shapes.
+   function, that call's device time at the same shapes; K16's rows at one
+   t2t_vit_14 tokenizer at b1 and at b32, beside the eager performer chain.
 
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
@@ -193,8 +196,9 @@ FULL_CHECKS = (("deit_tiny", 1, {}), ("deit_tiny", 8, {}), ("deit_tiny", 128, {}
 FULL_REQUESTS = (("deit_tiny", 1, 2000), ("deit_tiny", 128, 2010), ("deit_base", 8, 2020))
 FULL_TIMES = (("deit_tiny", 1), ("deit_tiny", 128), ("deit_base", 1))
 # K16 at (batch, tokens): stage 1 (56 x 56) and stage 2 (28 x 28) of a
-# 224 x 224 image at b1 and b4, and token counts off the 64-row tile
-PERFORMER_SHAPES = ((1, 3136), (4, 3136), (1, 784), (4, 784), (2, 300), (1, 50))
+# 224 x 224 image at b1, b4 and b32, and token counts off the 64-row tile
+PERFORMER_SHAPES = ((1, 3136), (4, 3136), (1, 784), (4, 784), (32, 3136), (32, 784), (2, 300),
+                    (1, 50))
 # sdpa at the module path's shapes, [b, h, n, d]: deit_tiny b1 and b128,
 # t2t_vit_14 b1, pruned h1 b1 and b128, head_dim 32 (the kernel's resident
 # form), and deit_base at 384 (n = 577, its streamed form)
@@ -276,19 +280,20 @@ def phase_build(build, vf) -> float:
         for line in lines:
             print(f"  ptxas {src}: {line}")
     # linear's and linear_i8's block shapes (linear.cu, linear_rows*.cu,
-    # linear_i8.cu, i8_rows*.cu), attention_rows' plans and
-    # window_attention's instances serve the main path: none may spill.
+    # linear_i8.cu, i8_rows*.cu), attention_rows' plans, window_attention's
+    # instances and the two performer kernels serve the main path: none may
+    # spill.
     # vit_full's head_dim <= 64 instance spills a few words of its layer
     # loop's state (PERF.md section 6): its lines are printed apart, not
     # held to none
     spill = re.compile(r"[1-9]\d* bytes spill (stores|loads)")
     spills = [f"{src}: {line}" for src, lines in report.items()
-              if src in ("linear", "attention_rows", "linear_i8", "window_attention")
+              if src in ("linear", "attention_rows", "linear_i8", "window_attention", "performer")
               or src.startswith(("linear_rows", "i8_rows"))
               for line in lines if spill.search(line)]
     if spills:
-        fail(f"linear, linear_i8, attention_rows or window_attention spills registers: "
-             f"{spills}")
+        fail(f"linear, linear_i8, attention_rows, window_attention or a performer kernel spills "
+             f"registers: {spills}")
     for line in report.get("vit_full", []):
         if "spill" in line:
             print(f"  vit_full instance: {line}")
@@ -921,16 +926,20 @@ def performer_params(torch, gen):
 
 
 def phase_kernel_performer(torch, pf, harness):
-    """``performer_reduce`` (its chunk partials) and ``performer_rows`` (on the
-    twin's partials) against their twins at ``PERFORMER_SHAPES``, both GELU
-    forms; returns ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} summed
-    over one t2t_vit_14 b1 tokenizer's two performers)."""
+    """``performer_reduce`` (an image's sums) and ``performer_rows`` (on the
+    twin's sums) against their twins at ``PERFORMER_SHAPES``, both GELU
+    forms; at b32 image 0's output the same bits alone and in the batch; a
+    CUDA graph of ``performer_rest`` replayed twice equal to the eager call;
+    returns ({kernel: max_abs_err}, {row: (ms, plain_ms)}: each kernel's
+    launches in one t2t_vit_14 tokenizer's two performers at b1 and, as
+    ``"<kernel> b32"``, at b32)."""
     gen = torch.Generator(device=DEVICE).manual_seed(17)
     p, w = performer_params(torch, gen)
+    ops = pf.performer_operands(p, w)
     errs = {"performer_reduce": 0.0, "performer_rows": 0.0}
-    b1_ms = {"performer_reduce": (0.0, 0.0), "performer_rows": (0.0, 0.0)}
+    ms = {f"{k}{tag}": (0.0, 0.0) for k in errs for tag in ("", " b32")}
 
-    def check(kname, label, tag, kern, plain, reps):
+    def check(kname, label, tag, kern, plain, row):
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -940,27 +949,61 @@ def phase_kernel_performer(torch, pf, harness):
                  f"{KERNEL_RTOL:.4g}|twin|")
         errs[kname] = max(errs[kname], err)
         t_k, t_p = time_pair(harness, tag, label, err, kern, plain)
-        tk, tp = b1_ms[kname]
-        b1_ms[kname] = (tk + reps * t_k, tp + reps * t_p)
+        if row is not None:
+            tk, tp = ms[row]
+            ms[row] = (tk + t_k, tp + t_p)
 
     for batch, n in PERFORMER_SHAPES:
         x = (torch.randn(batch, n, 192, generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
         tag = f"performer b{batch} n{n}"
-        reps = int(batch == 1 and n in (3136, 784))  # a t2t_vit_14 b1 tokenizer
-        check("performer_reduce", "performer_reduce", tag, lambda: pf.performer_reduce(x, w),
-              lambda: pf.performer_reduce_plain(x, w), reps)
-        partial = pf.performer_reduce_plain(x, w)
+        # the launches of a t2t_vit_14 tokenizer (n = 3136 and 784) at b1 and b32
+        tok = n in (3136, 784) and batch in (1, 32)
+        row = ("" if batch == 1 else " b32") if tok else None
+        check("performer_reduce", "performer_reduce", tag,
+              lambda: pf.performer_reduce(x, w, operands=ops),
+              lambda: pf.performer_reduce_plain(x, w),
+              f"performer_reduce{row}" if tok else None)
+        sums = pf.performer_reduce_plain(x, w)
         for approx in (True, False):
             kw = dict(eps_ln=1e-5, approx_gelu=approx)
             check("performer_rows", f"performer_rows {'tanh' if approx else 'erf'}", tag,
-                  lambda: pf.performer_rows(x, partial, p, w, **kw),
-                  lambda: pf.performer_rows_plain(x, partial, p, w, **kw), reps * int(approx))
-            got = pf.performer_rest(x, p, w, **kw)
+                  lambda: pf.performer_rows(x, sums, p, w, operands=ops, **kw),
+                  lambda: pf.performer_rows_plain(x, sums, p, w, **kw),
+                  f"performer_rows{row}" if tok and approx else None)
+            got = pf.performer_rest(x, p, w, operands=ops, **kw)
             torch.cuda.synchronize()
             err, ok = within(got, pf.performer_rest_plain(x, p, w, **kw), KERNEL_RTOL, KERNEL_ATOL)
             if not ok:
                 fail(f"performer_rest at {tag}: max |kernels - twins| {err:.4g}")
-    return errs, b1_ms
+        if batch == 32:
+            kw = dict(eps_ln=1e-5, approx_gelu=True, operands=ops)
+            together = pf.performer_rest(x, p, w, **kw)
+            alone = pf.performer_rest(x[:1].contiguous(), p, w, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(alone[0], together[0]):
+                fail(f"performer_rest at {tag}: image 0's output differs alone and in the batch")
+            print(f"  {tag}: image 0's output the same bits alone and in b{batch}")
+    # a CUDA graph replayed twice: the counters are zeroed inside the graph
+    x = (torch.randn(4, 784, 192, generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
+    kw = dict(eps_ln=1e-5, approx_gelu=True, operands=ops)
+    eager = pf.performer_rest(x, p, w, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pf.performer_rest(x, p, w, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pf.performer_rest(x, p, w, **kw)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            fail("performer_rest: a CUDA graph replay differs from the eager call")
+    print("  performer b4 n784: two CUDA graph replays equal the eager call bit for bit")
+    del graph
+    return errs, ms
 
 
 def phase_slice_t2t(torch, counter):
@@ -1030,8 +1073,9 @@ def phase_slice_t2t(torch, counter):
 
 def phase_time_t2t(torch, harness, state):
     """t2t_vit_14 b1 and b32, bf16, int8 static and int8 static with the int8
-    stem: eager and device p50 (device time by kernel at b1); then the two
-    tokenizer forms at b1, b8 and b32, with K16 and with the eager chain."""
+    stem: eager and device p50 (device time by kernel, with K16's share, at
+    b1 and at bf16 b32); then the two tokenizer forms at b1, b8 and b32,
+    with K16 and with the eager chain."""
     from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
 
     model, shape, prepared, stacked, sq, stem = state
@@ -1053,11 +1097,14 @@ def phase_time_t2t(torch, harness, state):
                 print(f"  t2t_vit_14 {slice_name} b{batch}: eager p50 {e['p50_ms']:.4f} ms "
                       f"(std {e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device "
                       f"p50 {d['p50_ms']:.4f} ms (std {d['std_ms']:.4f})")
-                if batch == 1:
+                if batch == 1 or slice_name == "bf16":
                     prof = harness.device_time_by_kernel(fn)
                     busy = sum(r[2] for r in prof)
+                    k16 = sum(r[2] for r in prof if "performer_" in r[0])
                     print(f"      traced kernel time {busy:.4f} ms (device idle "
-                          f"{max(0.0, 1 - busy / e['p50_ms']):.1%} of the eager call)")
+                          f"{max(0.0, 1 - busy / e['p50_ms']):.1%} of the eager call); K16 "
+                          f"(performer_reduce + performer_rows) {k16:.4f} ms, "
+                          f"{k16 / max(busy, 1e-9):.1%} of it")
                     for name, calls, ms in prof[:8]:
                         print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
         forms = {
@@ -1458,15 +1505,17 @@ def phase_yardsticks(torch, harness):
     module's), one t2t_vit_14 b1 stage1_kqv call, one swin_tiny b1 forward
     (window_attention, swin_merge; window_sdpa: the kernel_mode="pallas"
     module's), one deit_tiny b128 and one b1 forward (vit_full), one t2t_vit_14 b1
-    tokenizer's two performers (performer_reduce, performer_rows).  Bytes
-    count each
+    tokenizer's two performers (performer_reduce, performer_rows; and at b32,
+    as ``"<kernel> b32"``).  Bytes count each
     input read once and each output written once; operations are the
     tensor-core products for the GEMMs and attention (bf16 or int8), ~8
     fp32 operations per element for a LayerNorm, 3 for a quantization.  The
     library call is one PyTorch call of the same function at the same shapes
     (device p50, CUDA-graph replay; the GEMM calls leave out the epilogue);
-    None where no one call computes it.  Returns {kernel: (bound_ms,
-    bound_by, library_ms)}."""
+    None where no one call computes it.  Returns ({kernel: (bound_ms,
+    bound_by, library_ms)}, {"": K16's yardstick at b1, " b32": at b32}: the
+    eager performer chain's device p50 over one tokenizer's two
+    performers)."""
     import torch.nn.functional as F
 
     from edgevisiontransformer_tpu_torch.models.swin import shifted_window_mask
@@ -1596,35 +1645,47 @@ def phase_yardsticks(torch, harness):
                          + depth * (n * (4 * dim * dim + 2 * dim * mlp) + 2 * n * n * dim))
         out[key] = (*_bound(wbytes + 4 * b * 3 * 224 * 224 + 2 * b * classes,
                             {"bf16": flops}), None)
-    # K16 at one t2t_vit_14 b1 tokenizer: both performers (n = 3136, 784);
-    # ts = 64, m = 32, 256-token chunks
-    ts, mf, rb, rf, rrows, rrows16 = 64, 32, 0, 0, 0, 0
-    rrows_bytes = 0
-    for nt in (3136, 784):
-        chunks = -(-nt // 256)
-        rb += 2 * nt * 2 * ts + 2 * mf * ts + 4 * chunks * mf * (1 + ts)
-        rf += nt * (4 * mf * ts + ts + mf)
-        rrows_bytes += (2 * nt * 2 * ts + 4 * chunks * mf * (1 + ts) + 2 * (mf * ts + 3 * ts * ts)
-                        + 4 * 5 * ts + 2 * nt * ts)
-        rrows += nt * (4 * mf * ts + 2 * mf + ts)
-        rrows16 += 3 * 2 * nt * ts * ts
-    out["performer_reduce"] = (*_bound(rb, {"fp32": rf}), None)
-    out["performer_rows"] = (*_bound(rrows_bytes, {"fp32": rrows, "bf16": rrows16}), None)
+    # K16 at one t2t_vit_14 tokenizer (both performers, n = 3136 and 784) at
+    # b1 (the kernels line) and at b32, K16's own work whatever the kernels'
+    # design: each kernel reads its thirds of x_kqv (k, v; q, v) and its
+    # weights once, performer_reduce writes an image's sums [m + ts m] in
+    # fp32 once and performer_rows reads them once and writes the output;
+    # products of bf16 operands (t w^T, the three ts x ts products) at the
+    # bf16 rate, the rest in fp32: |t|^2 2 ts, the exponent 2 m, kp_sum m,
+    # v^T kp and y 2 ts m each, d 2 m, the division ts, the bias adds and
+    # skips 5 ts, the LayerNorm 8 ts, GELU 8 ts
     from edgevisiontransformer_tpu_torch.config import ViTConfig
     from edgevisiontransformer_tpu_torch.models.t2t_vit import _performer_rest
 
+    ts, mf = 64, 32
+    sums_bytes, weight_bytes = 4 * mf * (1 + ts), 2 * (mf * ts + 3 * ts * ts) + 4 * 5 * ts
     pp, pw = performer_params(torch, gen)
     cfg = ViTConfig(dtype=torch.bfloat16, gelu_approx=True)
-    chain = 0.0
-    for nt in (3136, 784):
-        xk = rnd(1, nt, 192)
-        chain += harness.measure_graph_time(lambda: _performer_rest(xk, pp, pw, cfg))["p50_ms"]
-    print(f"  K16's yardstick, the eager performer chain (_performer_rest, ~40 torch ops) at one "
-          f"t2t_vit_14 b1 tokenizer's two performers: {chain:.4f} ms")
+    chains = {}
+    for b, tag in ((1, ""), (32, " b32")):
+        rb = rbf = rf = wb = wbf = wf = 0
+        chain = 0.0
+        for nt in (3136, 784):
+            tok = b * nt
+            rb += 2 * tok * 2 * ts + 2 * mf * ts + b * sums_bytes
+            rbf += 2 * tok * mf * ts
+            rf += tok * (2 * ts + 2 * mf + mf + 2 * ts * mf)
+            wb += 2 * tok * 2 * ts + weight_bytes + b * sums_bytes + 2 * tok * ts
+            wbf += tok * (2 * mf * ts + 3 * 2 * ts * ts)
+            wf += tok * (2 * ts + 2 * mf + 2 * mf + 2 * ts * mf + ts + 5 * ts + 8 * ts + 8 * ts)
+            xk = rnd(b, nt, 192)
+            chain += harness.measure_graph_time(
+                lambda: _performer_rest(xk, pp, pw, cfg))["p50_ms"]
+            del xk
+        out[f"performer_reduce{tag}"] = (*_bound(rb, {"bf16": rbf, "fp32": rf}), None)
+        out[f"performer_rows{tag}"] = (*_bound(wb, {"bf16": wbf, "fp32": wf}), None)
+        chains[tag] = chain
+        print(f"  K16's yardstick, the eager performer chain (_performer_rest, ~40 torch ops) at "
+              f"one t2t_vit_14 b{b} tokenizer's two performers: {chain:.4f} ms")
     for k, (bnd, by, lib_ms) in out.items():
         print(f"  {k:16s} bound {bnd:.4f} ms ({by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-    return out
+    return out, chains
 
 
 def first_parting_layer(torch, fe, model, img, sq):
@@ -2015,7 +2076,7 @@ def main() -> int:
     del models, stacks
     torch.cuda.empty_cache()
     print(f"== phase 6: bounds and library yardsticks, on {card}")
-    yard = phase_yardsticks(torch, harness)
+    yard, chains = phase_yardsticks(torch, harness)
     (k1, p1), (bnd1, by1, lib1) = layer_ms["mlp b1"], yard["mlp b1"]
     print(f"  mlp, one deit_tiny b1 module layer: kernel {k1:.4f} ms, twin {p1:.4f} ms, bound "
           f"{bnd1:.4f} ms ({by1}), library (torch.addmm + F.gelu + torch.addmm) {lib1:.4f} ms")
@@ -2032,6 +2093,16 @@ def main() -> int:
     print(f"  linear_i8, one static-int8 deit_tiny b1 layer (qkv, out, fc1 erf, fc2): kernel "
           f"{k1:.4f} ms, twin {p1:.4f} ms, bound {bnd1:.4g} ms ({by1}), library "
           f"(torch._int_mm x4 at 197 rows) {lib1:.4f} ms")
+    for tag, batch in (("", 1), (" b32", 32)):
+        both = 0.0
+        for k in ("performer_reduce", "performer_rows"):
+            (kk, pk), (bk, byk, _) = layer_ms[k + tag], yard[k + tag]
+            both += kk
+            print(f"  {k}, one t2t_vit_14 b{batch} tokenizer's two performers: kernel {kk:.4f} "
+                  f"ms, twin {pk:.4f} ms, bound {bk:.4g} ms ({byk}), kernel / bound "
+                  f"{kk / bk:.1f}")
+        print(f"  K16, one t2t_vit_14 b{batch} tokenizer: both kernels {both:.4f} ms, the eager "
+              f"performer chain {chains[tag]:.4f} ms")
     for tag, yt in (("deit_tiny b128", ""), ("deit_tiny b1", " b1")):
         for name in LINEAR_GEMMS:
             (kg, pg), (bg, byg, lg) = layer_ms[f"linear {name} {tag}"], yard[f"linear {name}{yt}"]

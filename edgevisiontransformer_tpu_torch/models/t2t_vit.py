@@ -28,7 +28,7 @@ from torch import nn
 from ..config import REFERENCE_STYLE, STANDARD_STYLE, ViTConfig
 from ..ops.activations import get_gelu
 from ..ops.cuda.fused_encoder import BIAS, linear_i8, linear_i8_plain, quant_rows, quant_rows_plain
-from ..ops.cuda.performer import performer_rest, performer_rest_plain
+from ..ops.cuda.performer import performer_operands, performer_rest, performer_rest_plain
 from ..ops.cuda.t2t_stage1 import (FEATURES, K9, S2D, SHIFTS, shift_concat, stage1_kqv,
                                    stage1_kqv_plain)
 from ..ops.layers import layer_norm, mlp_block
@@ -268,14 +268,21 @@ def build_stage1_weights(kqv_kernel, kqv_bias, g, b):
 def prepare_t2t_fused(model: T2TViT) -> dict:
     """The stage-1 weights of :func:`build_stage1_weights` on the model's
     device, built once: ``W9`` in the compute dtype (as every form uses it),
-    ``M9``, ``c1`` and ``c2`` in fp32.  Pass as ``prepared=`` to keep the
-    host work (and a host round trip) out of every forward."""
-    p = model.params()["tokens_to_token"]["performer1"]
+    ``M9``, ``c1`` and ``c2`` in fp32; and each performer's K16 operands
+    (``"performer1"``, ``"performer2"``: ``ops/cuda/performer.performer_operands``,
+    its weights in bf16 and its vectors in fp32).  Pass as ``prepared=`` to
+    keep the host work (and a host round trip) and the casts out of every
+    forward."""
+    tok = model.params()["tokens_to_token"]
+    t2t = model.tokens_to_token
+    p = tok["performer1"]
     W9, M9, c1, c2 = build_stage1_weights(p["kqv"]["kernel"], p["kqv"].get("bias"),
                                           p["norm1_scale"], p["norm1_bias"])
     dev = model.cls_token.device
     return {"W9": W9.to(dev, model.config.dtype), "M9": M9.to(dev), "c1": c1.to(dev),
-            "c2": c2.to(dev)}
+            "c2": c2.to(dev),
+            "performer1": performer_operands(tok["performer1"], t2t.performer1.w),
+            "performer2": performer_operands(tok["performer2"], t2t.performer2.w)}
 
 
 def fast_stage1_kqv(img: torch.Tensor, W9: torch.Tensor, M9: torch.Tensor, c1: torch.Tensor,
@@ -318,18 +325,19 @@ def _performer_rest(x_kqv: torch.Tensor, p: dict, w: torch.Tensor,
 
 
 def _performer_dispatch(x_kqv: torch.Tensor, p: dict, w: torch.Tensor, cfg: ViTConfig,
-                        plain: bool = False) -> torch.Tensor:
+                        plain: bool = False, operands: dict | None = None) -> torch.Tensor:
     """The TokenPerformer after kqv: K16 (``ops/cuda/performer.performer_rest``,
-    two kernels) on a CUDA tensor at every batch, its twin with
-    ``plain``, and on a CPU tensor the eager chain :func:`_performer_rest`,
-    which the JAX package dispatches to everywhere (its K16 lost a TPU A/B,
+    two kernels, on ``operands`` where :func:`prepare_t2t_fused` built them)
+    on a CUDA tensor at every batch, its twin with ``plain``, and on a CPU
+    tensor the eager chain :func:`_performer_rest`, which the JAX package
+    dispatches to everywhere (its K16 lost a TPU A/B,
     ``ops/pallas/performer.py:22-29``, which does not carry over)."""
     kw = dict(eps_ln=TokenPerformer.layernorm_eps, approx_gelu=cfg.gelu_approx)
     if plain:
         return performer_rest_plain(x_kqv, p, w, **kw)
     if x_kqv.device.type == "cpu":
         return _performer_rest(x_kqv, p, w, cfg)
-    return performer_rest(x_kqv, p, w, **kw)
+    return performer_rest(x_kqv, p, w, operands=operands, **kw)
 
 
 def _stem_matmul(x: torch.Tensor, entry: dict, dt: torch.dtype, plain: bool) -> torch.Tensor:
@@ -375,9 +383,11 @@ def t2t_tokenize(model: T2TViT, img: torch.Tensor, *, params: dict | None = None
     static int8: stage-1 kqv in the plain-unfold form only (the fast form
     keeps its float kernel, as the reference does), stage-2 kqv and the
     projection in both.  ``plain=True`` takes the kernels' plain twins.
-    ``prepared`` defaults to :func:`prepare_t2t_fused`; ``params`` (a
-    Flax-keyed tree, float tokenizer) to ``model.params()``.  The performer
-    matrices and the position table are the model's buffers."""
+    ``prepared`` defaults to :func:`prepare_t2t_fused` in the fast form (the
+    plain-unfold form without it casts the performers' weights on each
+    call); ``params`` (a Flax-keyed tree, float tokenizer) to
+    ``model.params()``.  The performer matrices and the position table are
+    the model's buffers."""
     if stage1_impl not in STAGE1_IMPLS:
         raise ValueError(f"unknown stage1_impl {stage1_impl!r}; one of {STAGE1_IMPLS}")
     cfg = model.config
@@ -403,7 +413,8 @@ def t2t_tokenize(model: T2TViT, img: torch.Tensor, *, params: dict | None = None
         x = layer_norm(unfold(img, 7, 4, 2), p1["norm1_scale"], p1["norm1_bias"], eps)
         x = (_stem_matmul(x, stem_q["kqv1"], dt, plain) if stem_q is not None
              else _kqv_dense(x, p1["kqv"], dt))
-    x = _performer_dispatch(x, p1, t2t.performer1.w, cfg, plain)
+    ops = prepared or {}
+    x = _performer_dispatch(x, p1, t2t.performer1.w, cfg, plain, ops.get("performer1"))
 
     bsz = x.shape[0]
     s0 = unfold_output_size(cfg.image_size, 7, 4, 2)
@@ -412,7 +423,7 @@ def t2t_tokenize(model: T2TViT, img: torch.Tensor, *, params: dict | None = None
     x = layer_norm(x, p2["norm1_scale"], p2["norm1_bias"], eps)
     x = (_stem_matmul(x, stem_q["kqv2"], dt, plain) if stem_q is not None
          else _kqv_dense(x, p2["kqv"], dt))
-    x = _performer_dispatch(x, p2, t2t.performer2.w, cfg, plain)
+    x = _performer_dispatch(x, p2, t2t.performer2.w, cfg, plain, ops.get("performer2"))
     x = unfold(x.reshape(bsz, s1, s1, ts).permute(0, 3, 1, 2), 3, 2, 1)
     if stem_q is not None:
         x = _stem_matmul(x, stem_q["project"], dt, plain)

@@ -44,8 +44,8 @@ _SIGNATURES = (
     ("evt_vit_full", _I, (_P, _P, _P, _P)),
     ("evt_vit_full_blocks_per_sm", _I, (_I, _I, _I, _P)),
     ("evt_vit_full_barrier_probe", _I, (_I, _I, _P)),
-    ("evt_performer_reduce", _I, (_P, _P, _P, _I, _I, _P)),
-    ("evt_performer_rows", _I, (_P, _I, _I, _F, _I, _P)),
+    ("evt_performer_reduce", _I, (_P, _P, _P, _P, _P, _I, _I, _P)),
+    ("evt_performer_rows", _I, (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
     ("evt_error_string", ctypes.c_char_p, (_I,)),
 )
 

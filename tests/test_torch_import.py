@@ -50,6 +50,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.bench.window_sdpa_ab",
     "edgevisiontransformer_tpu_torch.bench.window_attention_ab",
     "edgevisiontransformer_tpu_torch.bench.vit_full_ab",
+    "edgevisiontransformer_tpu_torch.bench.performer_ab",
 ]
 
 

@@ -1412,7 +1412,12 @@ def _performer_inputs(dev, batch, n, seed=0):
     return x, p, w
 
 
-@pytest.mark.parametrize("batch,n", [(1, 3136), (2, 784), (1, 50), (3, 100), (2, 300)])
+# chip_smoke.py's PERFORMER_SHAPES (t2t_vit_14's two stages at b1, b4 and
+# b32, ragged token counts), a few more ragged ones, and 50 tiles an image
+# (8 groups of tiles: the group partials added in two batches)
+@pytest.mark.parametrize("batch,n", [(1, 3136), (2, 784), (1, 50), (3, 100), (2, 300),
+                                     (4, 3136), (1, 784), (4, 784), (32, 3136), (32, 784),
+                                     (2, 3200)])
 @pytest.mark.parametrize("approx", [True, False])
 def test_performer_kernels_match_twin_and_count(dev, batch, n, approx):
     x, p, w = _performer_inputs(dev, batch, n)
@@ -1420,6 +1425,99 @@ def test_performer_kernels_match_twin_and_count(dev, batch, n, approx):
     got = pf.performer_rest(x, p, w, eps_ln=1e-5, approx_gelu=approx)
     assert pf.LAUNCHES == {"performer_reduce": 1, "performer_rows": 1}
     _close(got, pf.performer_rest_plain(x, p, w, eps_ln=1e-5, approx_gelu=approx))
+    _close(pf.performer_reduce(x, w), pf.performer_reduce_plain(x, w))
+
+
+@pytest.mark.parametrize("batch,n", [(4, 3136), (32, 3136), (4, 784), (32, 784), (4, 300)])
+def test_performer_is_bit_identical_alone_and_in_a_batch(dev, batch, n):
+    """performer_reduce's partition is a constant, its sum over an image's
+    tiles runs once in tile order, and a performer_rows warp carries its
+    tokens alone: image 0's output is the same bits alone and in the batch
+    (at b32 and alone)."""
+    x, p, w = _performer_inputs(dev, batch, n, seed=3)
+    kw = dict(eps_ln=1e-5, approx_gelu=True)
+    together = pf.performer_rest(x, p, w, **kw)
+    alone = pf.performer_rest(x[:1].contiguous(), p, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], together[0])
+    assert torch.equal(pf.performer_reduce(x[:1].contiguous(), w)[0], pf.performer_reduce(x, w)[0])
+
+
+def test_performer_graph_replays_equal_the_eager_call(dev):
+    """A CUDA graph of performer_rest replayed twice gives the eager call's
+    bits: the arrival counters' zeroing is captured with the launch."""
+    x, p, w = _performer_inputs(dev, 4, 784, seed=5)
+    ops = pf.performer_operands(p, w)
+    kw = dict(eps_ln=1e-5, approx_gelu=True, operands=ops)
+    eager = pf.performer_rest(x, p, w, **kw)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        pf.performer_rest(x, p, w, **kw)  # warm up off the default stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pf.performer_rest(x, p, w, **kw)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_performer_on_two_streams_at_once_matches_the_twin(dev):
+    """Calls on two streams at once share no arrival counters: each stream's
+    results stay the twin's and the eager call's bits."""
+    kw = dict(eps_ln=1e-5, approx_gelu=True)
+    inputs = [_performer_inputs(dev, 4, 3136, seed=8), _performer_inputs(dev, 4, 3136, seed=9)]
+    eager = [pf.performer_rest(x, p, w, **kw) for x, p, w in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(8):  # interleaved launches, so the streams' kernels overlap
+        for (x, p, w), s, o in zip(inputs, streams, outs):
+            with torch.cuda.stream(s):
+                o.append(pf.performer_rest(x, p, w, **kw))
+    torch.cuda.synchronize()
+    for (x, p, w), ref, o in zip(inputs, eager, outs):
+        _close(o[0], pf.performer_rest_plain(x, p, w, **kw))
+        assert all(torch.equal(got, ref) for got in o)
+
+
+def test_performer_operands_give_the_bits_of_the_cast_per_call(dev):
+    x, p, w = _performer_inputs(dev, 2, 784, seed=6)
+    kw = dict(eps_ln=1e-5, approx_gelu=False)
+    cast = pf.performer_rest(x, p, w, **kw)
+    prepared = pf.performer_rest(x, p, w, operands=pf.performer_operands(p, w), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(cast, prepared)
+
+
+@functools.lru_cache(maxsize=None)
+def _old_performer():
+    from edgevisiontransformer_tpu_torch.bench import performer_ab
+
+    return performer_ab.build_libraries(source_variants=False)[1]
+
+
+# The kernels against the kernels they replaced (their source in
+# bench/performer_ab.py, built beside): within the twin bound; -rP prints
+# how many elements differ.
+@pytest.mark.parametrize("batch,n", [(1, 3136), (1, 784), (32, 3136), (32, 784), (2, 300)])
+def test_performer_agrees_with_the_old_kernels(dev, batch, n):
+    from edgevisiontransformer_tpu_torch.bench import performer_ab
+
+    x, p, w = _performer_inputs(dev, batch, n, seed=7)
+    got = pf.performer_rest(x, p, w, eps_ln=1e-5, approx_gelu=True)
+    run_reduce, run_rows, old, _ = performer_ab.old_calls(_old_performer(), x, p, w, approx=True)
+    run_reduce()
+    run_rows()
+    torch.cuda.synchronize()
+    _close(got, old)
+    diff = (got.float() - old.float()).abs()
+    print(f"performer vs the old kernels, b{batch} n{n}: {int((diff > 0).sum())} of "
+          f"{diff.numel()} elements differ, max {float(diff.max()):.3g}")
 
 
 def test_performer_refuses_what_the_kernels_do_not_take(dev):
