@@ -10,15 +10,17 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build the kernels from ``edgevisiontransformer_tpu_torch/csrc`` into
    ``build/torch_kernels/`` and print the build time, ptxas's registers and
    spills (no ``linear``, ``linear_i8``, ``attention_rows``,
-   ``window_attention``, ``performer_reduce`` or ``performer_rows`` instance
-   may spill) and the ``vit_full`` blocks one SM holds at each head dim;
+   ``window_attention``, ``performer_reduce``, ``performer_rows``,
+   ``swin_merge`` or ``t2t_stage1`` instance may spill) and the ``vit_full``
+   blocks one SM holds at each head dim;
 3. check each kernel against its plain PyTorch twin at deit_tiny shapes
    (b1 and b128), deit_base shapes (b8) and t2t_vit_14 shapes (b1 and b32,
    reference style: residual h, no qkv bias), and time both: the bf16 kernels
    within a tolerance; ``quant_rows`` (dynamic and static) and the non-GELU
    ``linear_i8`` epilogues bit for bit, its GELU epilogue within the
    tolerance; ``stage1_kqv`` (the T2T stage-1 tokenizer) at b1 and b4 on
-   random-normal and constant images, within the tolerance; ``vit_full``
+   random-normal and constant images, within the tolerance, with image 2's
+   output the same bits alone and in b4; ``vit_full``
    (the whole DeiT forward, K7a/K7b) at depth 2 (b1, b8 and b128, both
    residual forms, no final norm, head_dim 16, 32 and 128), and
    ``performer_reduce`` /
@@ -71,7 +73,8 @@ Phases, in order; any failure exits non-zero before the last line:
    its launches must move over 3.35 TB/s and their operations over the peak
    rate for their type) and, where one PyTorch call computes the same
    function, that call's device time at the same shapes; K16's rows at one
-   t2t_vit_14 tokenizer at b1 and at b32, beside the eager performer chain.
+   t2t_vit_14 tokenizer at b1 and at b32, beside the eager performer chain;
+   ``stage1_kqv``'s rows at t2t_vit_14 b1 and b4.
 
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
@@ -281,19 +284,20 @@ def phase_build(build, vf) -> float:
             print(f"  ptxas {src}: {line}")
     # linear's and linear_i8's block shapes (linear.cu, linear_rows*.cu,
     # linear_i8.cu, i8_rows*.cu), attention_rows' plans, window_attention's
-    # instances and the two performer kernels serve the main path: none may
-    # spill.
+    # instances, the two performer kernels, swin_merge's block shapes and the
+    # stage-1 tokenizer serve the main path: none may spill.
     # vit_full's head_dim <= 64 instance spills a few words of its layer
     # loop's state (PERF.md section 6): its lines are printed apart, not
     # held to none
     spill = re.compile(r"[1-9]\d* bytes spill (stores|loads)")
     spills = [f"{src}: {line}" for src, lines in report.items()
-              if src in ("linear", "attention_rows", "linear_i8", "window_attention", "performer")
+              if src in ("linear", "attention_rows", "linear_i8", "window_attention", "performer",
+                         "swin_merge", "t2t_stage1")
               or src.startswith(("linear_rows", "i8_rows"))
               for line in lines if spill.search(line)]
     if spills:
-        fail(f"linear, linear_i8, attention_rows, window_attention or a performer kernel spills "
-             f"registers: {spills}")
+        fail(f"linear, linear_i8, attention_rows, window_attention, a performer kernel, "
+             f"swin_merge or t2t_stage1 spills registers: {spills}")
     for line in report.get("vit_full", []):
         if "spill" in line:
             print(f"  vit_full instance: {line}")
@@ -535,8 +539,9 @@ def phase_kernels_int8(torch, fe, harness, shapes=SHAPES, bias_dtype=None, seed=
 
 def phase_kernel_stage1(torch, ts, harness):
     """``stage1_kqv`` against its twin at t2t_vit_14's shapes (d = 192) on
-    random-normal and all-ones images, b1 and b4; returns (max_abs_err,
-    (ms, plain_ms) at b1)."""
+    random-normal and all-ones images, b1 and b4, and image 2's bits alone
+    and in b4; returns (max_abs_err, {"stage1_kqv": (ms, plain_ms) at b1,
+    "stage1_kqv b4": at b4})."""
     import numpy as np
 
     from edgevisiontransformer_tpu_torch.models.t2t_vit import build_stage1_weights
@@ -548,7 +553,7 @@ def phase_kernel_stage1(torch, ts, harness):
                              1.0 + 0.1 * rng.randn(147), 0.1 * rng.randn(147))
     w = (w[0].to(dev, torch.bfloat16), w[1].to(dev), w[2].to(dev), w[3].to(dev))
     gen = torch.Generator(device=dev).manual_seed(4)
-    worst, b1_ms = 0.0, None
+    worst, ms = 0.0, {}
     for batch in (1, 4):
         for kind in ("normal", "ones"):
             img = (torch.randn(batch, 3, 224, 224, generator=gen, device=dev)
@@ -565,9 +570,16 @@ def phase_kernel_stage1(torch, ts, harness):
             worst = max(worst, err)
             times = time_pair(harness, f"t2t_vit_14 b{batch}", label, err,
                               lambda: ts.stage1_kqv(img, *w), lambda: ts.stage1_kqv_plain(img, *w))
-            if batch == 1 and kind == "normal":
-                b1_ms = times
-    return worst, b1_ms
+            if kind == "normal":
+                ms["stage1_kqv" + ("" if batch == 1 else f" b{batch}")] = times
+            if batch == 4 and kind == "normal":  # an image's bits alone and in the batch
+                alone = ts.stage1_kqv(img[2:3].contiguous(), *w)
+                torch.cuda.synchronize()
+                if not torch.equal(alone, got[2:3]):
+                    fail("stage1_kqv: image 2 differs alone and in b4")
+                print("  t2t_vit_14 b4      stage1_kqv: image 2 gives the same bits alone and "
+                      "in b4")
+    return worst, ms
 
 
 def phase_kernels_swin(torch, fe, sb, sm, ws, harness):
@@ -1502,9 +1514,10 @@ def phase_yardsticks(torch, harness):
     """Each kernel's bound and library yardstick over the launches its JSON
     row times: one deit_tiny b128 layer (ln_rows, linear, attention_rows;
     quant_rows and linear_i8 static; sdpa and mlp: the kernel_mode="pallas"
-    module's), one t2t_vit_14 b1 stage1_kqv call, one swin_tiny b1 forward
-    (window_attention, swin_merge; window_sdpa: the kernel_mode="pallas"
-    module's), one deit_tiny b128 and one b1 forward (vit_full), one t2t_vit_14 b1
+    module's), one t2t_vit_14 b1 stage1_kqv call (and one at b4, as
+    ``"stage1_kqv b4"``), one swin_tiny b1 forward (window_attention,
+    swin_merge; window_sdpa: the kernel_mode="pallas" module's), one
+    deit_tiny b128 and one b1 forward (vit_full), one t2t_vit_14 b1
     tokenizer's two performers (performer_reduce, performer_rows; and at b32,
     as ``"<kernel> b32"``).  Bytes count each
     input read once and each output written once; operations are the
@@ -1514,8 +1527,7 @@ def phase_yardsticks(torch, harness):
     (device p50, CUDA-graph replay; the GEMM calls leave out the epilogue);
     None where no one call computes it.  Returns ({kernel: (bound_ms,
     bound_by, library_ms)}, {"": K16's yardstick at b1, " b32": at b32}: the
-    eager performer chain's device p50 over one tokenizer's two
-    performers)."""
+    eager performer chain's device p50 over one tokenizer's two performers)."""
     import torch.nn.functional as F
 
     from edgevisiontransformer_tpu_torch.models.swin import shifted_window_mask
@@ -1576,8 +1588,10 @@ def phase_yardsticks(torch, harness):
             *_bound(nbytes, {"int8": sum(2 * rows * k * nn_ for k, nn_, _ in gemms)}),
             lib([((lambda q=q, w=w: torch._int_mm(q, w)), 1) for q, w in mats8]))
     tok, feat, d = 3136, 147, 192
-    out["stage1_kqv"] = (*_bound(2 * 3 * 224 * 224 + 2 * 432 * d + 4 * 432 + 8 * d + 2 * tok * d,
-                                 {"bf16": 2 * tok * feat * d, "fp32": 4 * tok * feat}), None)
+    for b, tag in ((1, ""), (4, " b4")):
+        out[f"stage1_kqv{tag}"] = (
+            *_bound(b * 2 * 3 * 224 * 224 + 2 * 432 * d + 4 * 432 + 8 * d + b * 2 * tok * d,
+                    {"bf16": b * 2 * tok * feat * d, "fp32": b * 4 * tok * feat}), None)
 
     w, nw_ops, wa_bytes, wa_calls, sd_bytes, sd_calls = SWIN_WINDOW, 0, 0, [], 0, []
     nt = w * w
@@ -2015,7 +2029,8 @@ def main() -> int:
     errs8, layer_ms8 = phase_kernels_int8(torch, fe, harness)
     errs.update(errs8)
     layer_ms.update(layer_ms8)
-    errs["stage1_kqv"], layer_ms["stage1_kqv"] = phase_kernel_stage1(torch, ts, harness)
+    errs["stage1_kqv"], stage1_ms = phase_kernel_stage1(torch, ts, harness)
+    layer_ms.update(stage1_ms)
     errs_swin, swin_ms = phase_kernels_swin(torch, fe, sb, sm, ws, harness)
     errs_swin8, _ = phase_kernels_int8(torch, fe, harness, shapes=SWIN_INT8_SHAPES,
                                        bias_dtype=torch.bfloat16, seed=7)
@@ -2093,6 +2108,10 @@ def main() -> int:
     print(f"  linear_i8, one static-int8 deit_tiny b1 layer (qkv, out, fc1 erf, fc2): kernel "
           f"{k1:.4f} ms, twin {p1:.4f} ms, bound {bnd1:.4g} ms ({by1}), library "
           f"(torch._int_mm x4 at 197 rows) {lib1:.4f} ms")
+    for tag in ("", " b4"):
+        (k1, p1), (bnd1, by1, _) = layer_ms["stage1_kqv" + tag], yard["stage1_kqv" + tag]
+        print(f"  stage1_kqv, one t2t_vit_14 b{tag.strip(' b') or 1} call: kernel {k1:.4f} ms, "
+              f"twin {p1:.4f} ms, bound {bnd1:.4g} ms ({by1}), kernel / bound {k1 / bnd1:.1f}")
     for tag, batch in (("", 1), (" b32", 32)):
         both = 0.0
         for k in ("performer_reduce", "performer_rows"):

@@ -6,7 +6,10 @@
 // gemm_tile is the tile as a __device__ routine over one output tile, run
 // by a group of WM x 2 warps on its own named barrier: linear_kernel runs
 // it once with the whole block, vit_full.cu for every tile its warp groups
-// take in a GEMM phase of the whole forward.
+// take in a GEMM phase of the whole forward.  A K step's W copy
+// (load_w_async) and products (mma_step) are routines of their own, which
+// bench/swin_merge_fused.cu and bench/swin_merge_resident.cu (fused forms
+// of Swin patch merging, timed by bench/swin_merge_ab.py) share.
 #pragma once
 
 #include "common.cuh"
@@ -116,6 +119,20 @@ struct RowsA {
   }
 };
 
+// W[k0:k0+BK, n0:n0+BN] into stage buffer b (row stride BN + 8) by
+// cp.async, zeros past K and N; W's rows are 16-byte aligned.
+template <int THREADS, int BN>
+__device__ __forceinline__ void load_w_async(bf16* b, const bf16* __restrict__ W, int N, int K,
+                                             int n0, int k0, int tid) {
+  constexpr int BS = BN + 8;
+#pragma unroll
+  for (int i = tid; i < BK * (BN / 8); i += THREADS) {
+    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+    const bool ok = k0 + r < K && n0 + c < N;
+    cp_async16(b + r * BS + c, ok ? W + static_cast<size_t>(k0 + r) * N + n0 + c : W, ok);
+  }
+}
+
 // One K step: the A tile [BM, BK] from `src` (an A source: RowsA, or
 // vit_full.cu's patch gather) and W[k0:k0+BK, n0:n0+BN] into stage buffers a
 // and b, zeros past M, K and N.  vb: W's rows are 16-byte aligned (cp.async);
@@ -124,18 +141,37 @@ template <int THREADS, int BM, int BN, class ASrc>
 __device__ __forceinline__ void load_stage(bf16* a, bf16* b, const ASrc& src,
                                            const bf16* __restrict__ W, int M, int N, int K,
                                            int m0, int n0, int k0, bool vb, int tid) {
-  constexpr int BS = BN + 8;
   src.template load<THREADS, BM>(a, M, K, m0, k0, tid);
-  if (vb) {
+  if (vb) load_w_async<THREADS, BN>(b, W, N, K, n0, k0, tid);
+  else
+    load_masked<THREADS, BK, BN>(b, BN + 8, W + static_cast<size_t>(k0) * N + n0, N, K - k0,
+                                 N - n0, tid);
+}
+
+// The products of one K step on a warp's FM x FN fragments: ta is the
+// warp's first A row of the step (row stride lda), tb its first W column
+// (row stride WN * TN + 8); four k16 steps, in order, each accumulated into
+// acc by mma.sync.
+template <int FM, int FN>
+__device__ __forceinline__ void mma_step(float (&acc)[FM][FN][4], const bf16* ta, const bf16* tb,
+                                         int lane, int lda = AS) {
+  constexpr int TN = FN * 8, BS = WN * TN + 8;
 #pragma unroll
-    for (int i = tid; i < BK * (BN / 8); i += THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const bool ok = k0 + r < K && n0 + c < N;
-      cp_async16(b + r * BS + c, ok ? W + static_cast<size_t>(k0 + r) * N + n0 + c : W, ok);
+  for (int kk = 0; kk < BK; kk += 16) {
+    uint32_t a[FM][4];
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+      ldsm_x4(a[i], ta + (i * 16 + (lane & 15)) * lda + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < TN / 16; ++np) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, tb + (kk + (lane & 15)) * BS + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        mma_bf16(acc[i][2 * np], a[i], b[0], b[1]);
+        mma_bf16(acc[i][2 * np + 1], a[i], b[2], b[3]);
+      }
     }
-  } else {
-    load_masked<THREADS, BK, BN>(b, BS, W + static_cast<size_t>(k0) * N + n0, N, K - k0, N - n0,
-                                 tid);
   }
 }
 
@@ -251,26 +287,9 @@ __device__ __forceinline__ void gemm_tile(unsigned char* smem, const ASrc& src,
                                   nk * BK, vb, tid);
     }
     cp_async_commit();
-    if (!active) continue;
-    const bf16* ta = sA + (kt % STAGES) * A_STAGE + wm * AS;
-    const bf16* tb = sB + (kt % STAGES) * B_STAGE + wn;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[FM][4];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        ldsm_x4(a[i], ta + (i * 16 + (lane & 15)) * AS + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < TN / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, tb + (kk + (lane & 15)) * BS + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int i = 0; i < FM; ++i) {
-          mma_bf16(acc[i][2 * np], a[i], b[0], b[1]);
-          mma_bf16(acc[i][2 * np + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
+    if (active)
+      mma_step(acc, sA + (kt % STAGES) * A_STAGE + wm * AS, sB + (kt % STAGES) * B_STAGE + wn,
+               lane);
   }
   cp_async_wait<0>();        // no copy outlives the tile (the last groups are empty)
   group_sync<THREADS>(bar);  // every warp is done with the ring: it holds the warps' patches

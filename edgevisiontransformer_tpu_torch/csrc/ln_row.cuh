@@ -1,6 +1,11 @@
 // LayerNorm of one row, one warp: ln_rows.cu launches one row a warp;
 // vit_full.cu walks every row of its LayerNorm phases inside its persistent
-// kernel, so ln_rows and the whole-model kernel round alike.
+// kernel, so ln_rows and the whole-model kernel round alike.  The row's
+// steps (a lane's share of the two sums, the warp's statistics, the
+// normalize-and-affine of one 8-value chunk) are helpers of their own:
+// swin_merge.cu computes its merged rows' statistics and normalizes their
+// chunks with the same helpers, so it compiles the same rounding and
+// contraction and its values equal ln_rows' bit for bit.
 //
 // Pointers carry no __restrict__ here: in vit_full.cu a row reads what other
 // blocks wrote earlier in the same launch, which the non-coherent read-only
@@ -8,6 +13,38 @@
 #pragma once
 
 #include "common.cuh"
+
+// A lane's running sum of a chunk's values, in order.
+__device__ __forceinline__ void ln_add_sum(float& sum, const float f[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sum += f[i];
+}
+
+// A lane's running sum of a chunk's squared deviations from mean, in order.
+__device__ __forceinline__ void ln_add_sq(float& sq, const float f[8], float mean) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float d = f[i] - mean;
+    sq += d * d;
+  }
+}
+
+// The warp's mean and rsqrt(var + eps) from its lanes' shares.
+__device__ __forceinline__ float ln_mean(float sum, int dim) {
+  return warp_sum(sum) / static_cast<float>(dim);
+}
+
+__device__ __forceinline__ float ln_rstd(float sq, int dim, float eps) {
+  const float var = warp_sum(sq) / static_cast<float>(dim);
+  return rsqrtf(var + eps);
+}
+
+// (f - mean) * rs * g + b in fp32, one chunk in place.
+__device__ __forceinline__ void ln_affine(float f[8], float mean, float rs, const float g[8],
+                                          const float b[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = (f[i] - mean) * rs * g[i] + b[i];
+}
 
 // ---------------------------------------------------------------------------
 // LayerNorm of one row (one warp): fp32 mean, fp32 mean of squared
@@ -23,30 +60,23 @@ __device__ __forceinline__ void ln_row(const bf16* xr, const void* g, const void
   float sum = 0.f;
   for (int c = lane; c < chunks; c += 32) {
     unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sum += f[i];
+    ln_add_sum(sum, f);
   }
-  const float mean = warp_sum(sum) / static_cast<float>(dim);
+  const float mean = ln_mean(sum, dim);
 
   float sq = 0.f;
   for (int c = lane; c < chunks; c += 32) {
     unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float d = f[i] - mean;
-      sq += d * d;
-    }
+    ln_add_sq(sq, f, mean);
   }
-  const float var = warp_sum(sq) / static_cast<float>(dim);
-  const float rs = rsqrtf(var + eps);
+  const float rs = ln_rstd(sq, dim, eps);
 
   float gf[8], bf[8];
   for (int c = lane; c < chunks; c += 32) {
     unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
     load8_either(g, c, affine_f32, gf);
     load8_either(b, c, affine_f32, bf);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = (f[i] - mean) * rs * gf[i] + bf[i];
+    ln_affine(f, mean, rs, gf, bf);
     store(c, f);
   }
 }

@@ -35,7 +35,7 @@ _SIGNATURES = (
     ("evt_attention_rows", _I, (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P)),
     ("evt_quant_rows", _I, (_P, _P, _P, _P, _I, _I, _I, _P)),
     ("evt_linear_i8", _I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
-    ("evt_t2t_stage1", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P)),
+    ("evt_t2t_stage1", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
     ("evt_window_attention", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
     ("evt_swin_merge", _I, (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     ("evt_window_sdpa", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),

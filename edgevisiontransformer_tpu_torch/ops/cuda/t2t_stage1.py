@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .fused_encoder import _on_cpu, _ptr, _stream
+from .fused_encoder import _on_cpu, _ptr, _sm_count, _stream
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"stage1_kqv": 0}
@@ -39,7 +39,8 @@ S2D = 48                   # 3 channels x 4 x 4 phases per s2d cell
 SHIFTS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 K9 = len(SHIFTS) * S2D     # 432 rows of W9
 FEATURES = 147             # 3 x 7 x 7 unfold features (the mask's ones)
-MAX_D = 256                # the kernel runs d / 16 warps per block
+MAX_D = 256                # the widest d the kernel takes
+STAGE1_COLS = (64, 96)     # the columns a block of the kernel may take
 
 
 def reset_launches() -> None:
@@ -51,6 +52,25 @@ def check_image(img: torch.Tensor, what: str) -> None:
     if img.dim() != 4 or tuple(img.shape[1:]) != (3, IMAGE, IMAGE):
         raise ValueError(f"{what}: the stage-1 tokenizer is built for [b, 3, {IMAGE}, {IMAGE}] "
                          f"images, got {tuple(img.shape)} (use fast=False for other sizes)")
+
+
+def stage1_plan(batch: int, d: int, sms: int) -> int:
+    """The columns each block of csrc/t2t_stage1.cu takes for ``batch``
+    images of ``d`` columns on a card of ``sms`` SMs: 96 where 64-column
+    blocks would put two blocks on some SM and 96-column blocks would not
+    (t2t_vit_14 b1: 112 blocks against 168), else 64.
+    ``bench/stage1_ab.py`` times both; a token's output does not depend on
+    the plan."""
+    blocks = lambda cols: batch * GRID * -(-d // cols)  # noqa: E731
+    return 96 if blocks(64) > sms >= blocks(96) else 64
+
+
+def _smem_bytes(cols: int) -> int:
+    """The dynamic shared memory of one block (csrc/t2t_stage1.cu
+    ``smem_bytes``): the W9 slice [432, cols + 8] bf16, the three staged s2d
+    rows [3, 66, 56] bf16, the mask and the statistics in fp32, and the
+    eight warps' patches [16, cols / 2 + 8] bf16."""
+    return K9 * (cols + 8) * 2 + 3 * 66 * 56 * 2 + (K9 + 2 * 64) * 4 + 8 * 16 * (cols // 2 + 8) * 2
 
 
 def shift_concat(img: torch.Tensor) -> torch.Tensor:
@@ -83,7 +103,8 @@ def stage1_kqv_plain(img: torch.Tensor, W9: torch.Tensor, M9: torch.Tensor,
 def stage1_kqv(img: torch.Tensor, W9: torch.Tensor, M9: torch.Tensor, c1: torch.Tensor,
                c2: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """:func:`stage1_kqv_plain` as one kernel (csrc/t2t_stage1.cu): one thread
-    block per (image, token row).  On the GPU ``img [b, 3, 224, 224]`` and
+    block per (image, token row, the columns :func:`stage1_plan` picks),
+    products on ``mma.sync``.  On the GPU ``img [b, 3, 224, 224]`` and
     ``W9 [432, d]`` are bf16, ``M9 [432, 1]``, ``c1`` and ``c2 [d]`` fp32,
     and ``d`` a multiple of 16 up to 256; the result is ``[b, 3136, d]``."""
     f32 = (torch.float32,)
@@ -104,8 +125,9 @@ def stage1_kqv(img: torch.Tensor, W9: torch.Tensor, M9: torch.Tensor, c1: torch.
     if bsz == 0:
         return out
     lib = build.load()
+    cols = stage1_plan(bsz, d, _sm_count(img.device.index or 0))
     rc = lib.evt_t2t_stage1(_ptr(img), _ptr(W9), _ptr(M9), _ptr(c1), _ptr(c2), _ptr(out),
-                            bsz, d, ctypes.c_float(eps), _stream(img))
+                            bsz, d, ctypes.c_float(eps), cols, _stream(img))
     build.check(rc, "stage1_kqv")
     LAUNCHES["stage1_kqv"] += 1
     return out

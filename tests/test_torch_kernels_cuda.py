@@ -541,6 +541,66 @@ def test_stage1_kqv_kernel_matches_twin_and_counts(dev, batch, d, kind):
     _close(got, ts.stage1_kqv_plain(img, *w))
 
 
+def test_stage1_kqv_image_bits_alone_and_in_a_batch(dev):
+    """Each block reads and writes one image: image 2 of b4 is image 2 alone."""
+    img, w = _images(dev, "normal", 4), _stage1_weights(dev)
+    both, alone = ts.stage1_kqv(img, *w), ts.stage1_kqv(img[2:3].contiguous(), *w)
+    torch.cuda.synchronize()
+    assert torch.equal(both[2:3], alone)
+
+
+@pytest.mark.parametrize("batch,d", [(1, 192), (2, 64)])
+def test_stage1_kqv_every_plan_gives_the_same_bits(dev, monkeypatch, batch, d):
+    img, w = _images(dev, "normal", batch), _stage1_weights(dev, d)
+    ref = ts.stage1_kqv(img, *w)
+    for cols in ts.STAGE1_COLS:
+        monkeypatch.setattr(ts, "stage1_plan", lambda *_, cols=cols: cols)
+        got = ts.stage1_kqv(img, *w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), cols
+
+
+def test_stage1_kqv_graph_replays_equal_the_eager_call(dev):
+    img, w = _images(dev, "normal", 2), _stage1_weights(dev)
+    eager = ts.stage1_kqv(img, *w)
+    _graph_replays_equal(lambda: ts.stage1_kqv(img, *w), eager)
+
+
+@functools.lru_cache(maxsize=None)
+def _parent_stage1():
+    from edgevisiontransformer_tpu_torch.bench import stage1_ab
+
+    return stage1_ab.build_libraries()[1]
+
+
+@pytest.mark.parametrize("batch,d", [(1, 192), (4, 192), (2, 64)])
+def test_stage1_kqv_agrees_with_the_parent_kernel(dev, batch, d):
+    from edgevisiontransformer_tpu_torch.bench import stage1_ab
+
+    img, w = _images(dev, "normal", batch), _stage1_weights(dev, d)
+    got = ts.stage1_kqv(img, *w)
+    run, old = stage1_ab.call(_parent_stage1(), img, w, cols=0)
+    run()
+    _close(got, old)
+    diff = (got.float() - old.float()).abs()
+    print(f"stage1_kqv vs the parent's WMMA kernel, b{batch} d{d}: {int((diff > 0).sum())} of "
+          f"{diff.numel()} elements differ, max {float(diff.max()):.3g}")
+
+
+def _graph_replays_equal(fn, eager):
+    """Capture ``fn`` in a CUDA graph; two replays give the eager call's bits."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
 def test_stage1_kqv_empty_batch_launches_nothing(dev):
     ts.reset_launches()
     got = ts.stage1_kqv(_images(dev, "zeros", 0), *_stage1_weights(dev))
@@ -586,6 +646,8 @@ def test_stage1_kqv_refuses_what_the_kernel_does_not_take(dev):
     w24 = _stage1_weights(dev, 24)
     with pytest.raises(ValueError, match="multiple of 16"):
         ts.stage1_kqv(img, *w24)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ts.stage1_kqv(img, *_stage1_weights(dev, 272))
 
 
 # ---------------------------------------------------------------------------
@@ -694,17 +756,44 @@ def test_window_attention_agrees_with_the_wmma_kernel(dev, batch, res, heads, sh
           f"elements differ, max {float(diff.max()):.3g}")
 
 
+def _merge_args(dev, batch, res, c, affine="float32", seed=0):
+    """x and the affine g, b (``affine``) of one merge."""
+    x = _rnd(dev, batch * res * res, c, scale=3.0, seed=seed)
+    dt = getattr(torch, affine)
+    g = (_rnd(dev, 4 * c, seed=seed + 1, scale=0.5) + 1).to(dt)
+    b = _rnd(dev, 4 * c, seed=seed + 2, scale=0.5).to(dt)
+    return x, g, b
+
+
+# swin_tiny's three merges at 224: (C, resolution)
+SWIN_TINY_MERGES = [(96, 56), (192, 28), (384, 14)]
+
+
 @pytest.mark.parametrize("affine", ["float32", "bfloat16"])
 @pytest.mark.parametrize("batch,res,c", [(1, 56, 96), (2, 28, 192), (2, 14, 384), (3, 8, 16)])
 def test_swin_merge_kernel_matches_twin_and_counts(dev, batch, res, c, affine):
-    x = _rnd(dev, batch * res * res, c, scale=3.0)
-    dt = getattr(torch, affine)
-    g = (_rnd(dev, 4 * c, seed=1, scale=0.5) + 1).to(dt)
-    b = _rnd(dev, 4 * c, seed=2, scale=0.5).to(dt)
+    x, g, b = _merge_args(dev, batch, res, c, affine)
     sm.reset_launches()
     got = sm.swin_merge(x, g, b, res=res, eps=1e-5)
     assert sm.LAUNCHES["swin_merge"] == 1 and got.shape == (batch * (res // 2) ** 2, 4 * c)
     _close(got, sm.swin_merge_plain(x, g, b, res=res, eps=1e-5))
+
+
+@pytest.mark.parametrize("c,res", SWIN_TINY_MERGES)
+def test_swin_merge_image_bits_alone_and_in_a_batch(dev, c, res):
+    x, g, b = _merge_args(dev, 32, res, c, seed=7)
+    both = sm.swin_merge(x, g, b, res=res, eps=1e-5)
+    rows, out = res * res, (res // 2) ** 2
+    alone = sm.swin_merge(x[5 * rows:6 * rows].contiguous(), g, b, res=res, eps=1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(both[5 * out:6 * out], alone)
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+def test_swin_merge_graph_replays_equal_the_eager_call(dev, batch):
+    x, g, b = _merge_args(dev, batch, 56, 96, seed=9)
+    eager = sm.swin_merge(x, g, b, res=56, eps=1e-5)
+    _graph_replays_equal(lambda: sm.swin_merge(x, g, b, res=56, eps=1e-5), eager)
 
 
 def test_swin_merge_refuses_what_the_kernel_does_not_take(dev):
