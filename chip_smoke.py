@@ -74,7 +74,23 @@ Phases, in order; any failure exits non-zero before the last line:
    rate for their type) and, where one PyTorch call computes the same
    function, that call's device time at the same shapes; K16's rows at one
    t2t_vit_14 tokenizer at b1 and at b32, beside the eager performer chain;
-   ``stage1_kqv``'s rows at t2t_vit_14 b1 and b4.
+   ``stage1_kqv``'s rows at t2t_vit_14 b1 and b4;
+7. finetuning on the card and its result served on the kernels:
+   deit_tiny (standard, full width and depth, fp32, seeded random weights)
+   trained by SGD at b32 through ``parallel/train.make_train_step`` (plain
+   PyTorch autograd, as the JAX package trains through XLA): the loss
+   finite and falling on the repeated batch, every gradient finite and
+   non-zero, ``remat`` against the plain backward, two steps against the
+   same two on the CPU, a checkpoint resumed in a fresh model against the
+   uninterrupted steps; two static-aware QAT steps, whose forward is held
+   against the fp32 static-int8 oracle on the same weights and scales, its
+   logits and each of its matmuls (an unquantized matmul must fail that
+   bound), and the int8 kernels on the QAT weights against their twins;
+   ``smooth_vit`` (the function kept) and the smoothed model in static int8
+   at b1 and b32, ``cast_params(bf16)`` through ``fused_vit_apply`` and
+   ``make_eval_step`` over it; ``smooth_t2t`` on t2t_vit_14 in static int8
+   at b1 (K8, K16): logits against the twins, exact launch counts; the
+   train and QAT steps' times and the phase's peak memory.
 
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
@@ -103,10 +119,12 @@ last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # |kernel - twin| <= ATOL + RTOL * |twin| for one kernel's bf16 output: both
 # sides round the same fp32 values at the same points, so they differ only
@@ -1995,6 +2013,379 @@ def phase_time_base(torch, harness, models, stacks):
           f"int8 / bf16 {d8['p50_ms'] / d16['p50_ms']:.3f}")
 
 
+# Phase 7: training on the card.  deit_tiny standard, fp32 parameters and
+# compute, SGD with momentum; the batch of the step timings and checks.
+TRAIN_BATCH = 32
+TRAIN_LR = 0.01
+TRAIN_STEPS = 4
+# two train steps on the card against the same two on the CPU (TF32 off):
+# losses within 1e-4 relative, every param within one fp32 spacing plus
+# 1e-3 of the largest update (cuBLAS and the CPU's BLAS sum in other orders
+# through 12 layers, forward and backward)
+CPU_LOSS_RTOL = 1e-4
+CPU_STEP_REL = 1e-3
+# remat's gradients against the plain backward's: the recompute runs the
+# same kernels on the same inputs, so equal; the bound leaves 1e-6 of the
+# leaf's largest gradient for a reduction the library might reorder
+REMAT_REL = 1e-6
+# The static-aware QAT forward (fp32, as it trains) against the fp32
+# static-int8 oracle (int8_vit_apply_static) on the same weights and scales,
+# logits at b32: the JAX package's bound, 2e-2 of max|logit|
+# (tests/test_quant.py:419-421).  Through 12 layers the logits part by
+# chance as much as by quantization (PERF.md section 6), so the check that
+# tells a quantizing forward from one that does not is made per matmul:
+# each encoder matmul's input in the oracle's forward, through the QAT
+# forward's product fq(x) @ fq(w), against the oracle's int8 product, within
+# QAT_MM_REL of that product's max|.|; the unquantized x @ w must part by
+# more.  The QAT forward divides by the scale (as JAX's does) where the
+# deployment multiplies by its reciprocal, so a few inputs a matmul that sit
+# on a rounding tie take the other integer: each moves its row by one
+# quantum times a weight row.
+QAT_REL = 2e-2
+QAT_MM_REL = 5e-3
+# the smoothed fp32 forward against the unsmoothed one: the same function
+# re-parameterized, the folded scales rounded once each
+SMOOTH_REL = 1e-3
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def _step_dev(torch, got, want, start):
+    """max |got - want| less one fp32 spacing of ``want``, and the largest
+    update |want - start|."""
+    from edgevisiontransformer_tpu_torch.utils.jax_bridge import flatten_tree
+
+    w, s = flatten_tree(want), flatten_tree(start)
+    dev = upd = 0.0
+    for k, g in flatten_tree(got).items():
+        ref = w[k].float().cpu()
+        spacing = torch.nextafter(ref.abs(), torch.full_like(ref, float("inf"))) - ref.abs()
+        dev = max(dev, float(((g.float().cpu() - ref).abs() - spacing).clamp(min=0).max()))
+        upd = max(upd, float((ref - s[k].float().cpu()).abs().max()))
+    return dev, upd
+
+
+def phase_train(torch, harness, counter, card):
+    """Finetuning, QAT and SmoothQuant on the card, then the trained model
+    served on the kernels: (a) SGD steps at b32 on deit_tiny (standard, full
+    width and depth, fp32), the loss finite and falling on the repeated
+    batch, every parameter's gradient finite and non-zero, two steps against
+    the same two on the CPU, ``remat`` against the plain backward; (b) a
+    checkpoint and a resume into a fresh model against the uninterrupted
+    steps; (c) two static-aware QAT steps on ``calibrate_vit``'s scales,
+    whose forward is then held against the fp32 static-int8 oracle (logits,
+    and each matmul on the oracle's input:
+    ``bench/qat_oracle.matmul_deviation``), and the int8 kernels on the QAT
+    weights against their twins; (d)
+    ``smooth_vit`` (n = 8), the smoothed forward against the unsmoothed one,
+    then the smoothed model calibrated, prepared and served in static int8
+    at b1 and b32, and ``cast_params(bf16)`` served by ``fused_vit_apply``;
+    (e) ``smooth_t2t`` on t2t_vit_14 (reference style), served in static
+    int8 at b1 (K8, K16); (f) ``make_eval_step`` over ``fused_vit_apply``.
+    Prints each request's launch counts, the train and QAT steps' times and
+    the phase's peak memory; returns the worst logit deviation."""
+    from edgevisiontransformer_tpu_torch.bench.qat_oracle import matmul_deviation
+    from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+    from edgevisiontransformer_tpu_torch.models.vit import (ViT, apply_params,
+                                                             fused_vit_apply,
+                                                             fused_vit_apply_int8, load_params,
+                                                             prepare_vit_fused,
+                                                             prepare_vit_int8_static)
+    from edgevisiontransformer_tpu_torch.ops import quant
+    from edgevisiontransformer_tpu_torch.parallel.train import (cross_entropy, make_eval_step,
+                                                                make_train_step)
+    from edgevisiontransformer_tpu_torch.utils.checkpoint import (load_checkpoint, load_meta,
+                                                                  save_checkpoint)
+    from edgevisiontransformer_tpu_torch.utils.finetune import FinetuneConfig, build_optimizer
+    from edgevisiontransformer_tpu_torch.utils.jax_bridge import flatten_tree
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    model, shape = build_model("deit_tiny", style="standard", device=DEVICE,
+                               generator=torch.Generator().manual_seed(0))
+    cfg = model.config
+    classes = cfg.num_classes
+    data = torch.Generator().manual_seed(2100)
+    batches = [(torch.randn(TRAIN_BATCH, *shape, generator=data).to(DEVICE),
+                torch.randint(0, classes, (TRAIN_BATCH,), generator=data).to(DEVICE))
+               for _ in range(TRAIN_STEPS)]
+    img, labels = batches[0]
+    apply = lambda p, x: apply_params(model, p, x)  # noqa: E731
+    opt = build_optimizer(FinetuneConfig(lr=TRAIN_LR, optimizer="sgd"))
+    step = make_train_step(apply, opt)
+    clone = lambda tree: _tree_map(lambda t: t.detach().clone(), tree)  # noqa: E731
+    init = clone(model.params())
+
+    # (a) every parameter's gradient, with and without remat
+    def grads_of(m, tree):
+        live = _tree_map(lambda t: t.detach().clone().requires_grad_(), tree)
+        loss = cross_entropy(apply_params(m, live, img), labels)
+        flat = flatten_tree(live)
+        return dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+
+    g = grads_of(model, init)
+    bad = [k for k, v in g.items() if not torch.isfinite(v).all() or not bool(v.any())]
+    if bad:
+        fail(f"train: non-finite or all-zero gradients in {bad}")
+    remat = ViT(cfg.replace(remat=True), device=DEVICE,
+                generator=torch.Generator().manual_seed(1))
+    g_r = grads_of(remat, init)
+    remat_dev = max(float((g_r[k] - v).abs().max() / v.abs().max()) for k, v in g.items())
+    remat_same = all(torch.equal(g_r[k], v) for k, v in g.items())
+    if remat_dev > REMAT_REL:
+        fail(f"train: remat's gradients part from the plain backward's by {remat_dev:.3g} "
+             f"of a leaf's largest gradient (> {REMAT_REL})")
+    del remat, g_r
+
+    # (a) SGD steps on the repeated batch: finite, falling, the first two
+    # against the CPU's
+    params, state = model.params(), opt.init(model.params())
+    losses = []
+    for i in range(TRAIN_STEPS):
+        params, state, m = step(params, state, img, labels)
+        losses.append(float(m["loss"]))
+        if i == 1:
+            after_two = clone(params)
+    with torch.no_grad():
+        final = float(cross_entropy(apply(params, img), labels))
+    if not all(math.isfinite(v) for v in losses + [final]) or not final < losses[0]:
+        fail(f"train: losses {losses}, then {final} on the repeated batch: not finite and "
+             f"falling")
+    cpu_model = ViT(cfg, device="cpu")
+    cpu_params = _tree_map(lambda t: t.to("cpu", copy=True), init)
+    cpu_state = opt.init(cpu_params)
+    cpu_step = make_train_step(lambda p, x: apply_params(cpu_model, p, x), opt)
+    t0 = time.perf_counter()
+    cpu_losses = []
+    for _ in range(2):
+        cpu_params, cpu_state, m = cpu_step(cpu_params, cpu_state, img.cpu(), labels.cpu())
+        cpu_losses.append(float(m["loss"]))
+    cpu_s = time.perf_counter() - t0
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:2], cpu_losses))
+    dev, upd = _step_dev(torch, after_two, cpu_params, init)
+    print(f"  deit_tiny SGD b{TRAIN_BATCH} (lr {TRAIN_LR}, momentum 0.9), {TRAIN_STEPS} steps on "
+          f"one batch: losses {[round(v, 4) for v in losses]}, then {final:.4f}; every "
+          f"gradient finite and non-zero; remat's gradients "
+          f"{'bit for bit' if remat_same else f'within {remat_dev:.3g}'} the plain "
+          f"backward's")
+    print(f"  two steps card / CPU ({cpu_s:.1f} s on the CPU): losses "
+          f"{[round(v, 6) for v in losses[:2]]} / {[round(v, 6) for v in cpu_losses]} (max "
+          f"rel {loss_rel:.3g}), params max |card - CPU| {dev:.3g} beyond one spacing, the "
+          f"largest update {upd:.3g}")
+    if loss_rel > CPU_LOSS_RTOL or not dev <= CPU_STEP_REL * upd:
+        fail(f"train: two steps on the card part from the CPU's (losses rel {loss_rel:.3g} > "
+             f"{CPU_LOSS_RTOL}, or params {dev:.3g} > {CPU_STEP_REL} x {upd:.3g})")
+    del cpu_model, cpu_params, cpu_state, after_two
+
+    # (b) checkpoint and resume: 2 + 2 steps against 4
+    ref, ref_state = clone(init), opt.init(init)
+    for x, y in batches:
+        ref, ref_state, _ = step(ref, ref_state, x, y)
+    p2, s2 = clone(init), opt.init(init)
+    for x, y in batches[:2]:
+        p2, s2, _ = step(p2, s2, x, y)
+    ck = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoint"
+    save_checkpoint(ck, {"params": p2, "opt_state": s2}, meta={"step": 2})
+    fresh = ViT(cfg, device=DEVICE, generator=torch.Generator().manual_seed(3))
+    loaded = load_checkpoint(ck, {"params": fresh.params(), "opt_state": opt.init(init)})
+    load_params(fresh, loaded["params"])
+    p4, s4 = fresh.params(), loaded["opt_state"]
+    fresh_step = make_train_step(lambda p, x: apply_params(fresh, p, x), opt)
+    for x, y in batches[2:]:
+        p4, s4, _ = fresh_step(p4, s4, x, y)
+    ref_flat = flatten_tree(ref)
+    resume_dev = max(float((v - ref_flat[k]).abs().max()) for k, v in flatten_tree(p4).items())
+    print(f"  checkpoint at step {load_meta(ck)['step']}, resumed in a fresh model: 2 + 2 "
+          f"steps against 4, max |dp| {resume_dev:.3g}")
+    if resume_dev != 0.0:
+        fail(f"train: the resumed run parts from the uninterrupted one by {resume_dev:.3g}")
+    del fresh, loaded, p2, s2, p4, s4, ref, ref_state
+
+    # timing of the train step (on a copy: the steps update it)
+    def timed(tag, step_fn):
+        tp = clone(params)
+        ts = opt.init(tp)
+        fn = lambda: step_fn(tp, ts, img, labels)  # noqa: E731
+        e = harness.measure_op_time(fn, (), iters=5, repeats=5, warmup=2)
+        prof = harness.device_time_by_kernel(fn)
+        busy = sum(r[2] for r in prof)
+        # the host time of binding a torch.optim object, as every step does
+        leaves = {k: v.detach().requires_grad_() for k, v in flatten_tree(tp).items()}
+        t0 = time.perf_counter()
+        for _ in range(20):
+            opt.bind(leaves, ts)
+        bind_ms = (time.perf_counter() - t0) * 1e3 / 20
+        print(f"  {tag} step b{TRAIN_BATCH}: eager p50 {e['p50_ms']:.4f} ms (std "
+              f"{e['std_ms']:.4f}, {TRAIN_BATCH * 1e3 / e['p50_ms']:.1f} img/s), traced kernel "
+              f"time {busy:.4f} ms (device idle {max(0.0, 1 - busy / e['p50_ms']):.1%} of the "
+              f"eager step), binding the optimizer {bind_ms:.4f} ms of host time "
+              f"({bind_ms / e['p50_ms']:.1%} of the eager step), on {card}")
+        for name, calls, ms in prof[:4]:
+            print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
+
+    timed("train (SGD, fp32)", step)
+    trained = model.params()
+
+    worst = 0.0
+
+    def served(tag, fn, batch, want):
+        """One request on the kernels, its launch counts checked, against
+        the twins; returns the logits."""
+        nonlocal worst
+        with torch.no_grad():
+            counter.reset()
+            logits = fn(False)
+            torch.cuda.synchronize()
+            counts = counter.read()
+            ref = fn(True)
+        if counts != want:
+            fail(f"{tag}: launch counts {counts}, expected {want}")
+        rel, err, scale, agree = check_logits(tag, logits, ref, batch, classes)
+        worst = max(worst, rel)
+        print(f"  {tag:40s} max|kern-twin| {err:.4g} (max|logit| {scale:.4g}), top-1 "
+              f"agreement {agree:.3f}, launches { {k: v for k, v in counts.items() if v} }")
+        return logits
+
+    calib = lambda: quant.representative_batches(n=8, shape=shape)  # noqa: E731
+    bf16_cfg = cfg.replace(dtype=torch.bfloat16)
+    int8_want = want_launches(INT8_LAUNCHES, cfg.depth)
+
+    # (c) static-aware QAT on calibrate_vit's scales, then its forward against
+    # the int8 kernels on the same weights and scales
+    with torch.no_grad():
+        scales = quant.calibrate_vit(model, trained, batches=calib())
+    qat_params = clone(trained)
+    qat_apply = lambda p, x: quant.fake_quant_vit_apply_static(model, p, scales, x)  # noqa: E731
+    qat_step = make_train_step(qat_apply, opt)
+    live = _tree_map(lambda t: t.detach().clone().requires_grad_(), qat_params)
+    flat = flatten_tree(live)
+    q_grads = dict(zip(flat, torch.autograd.grad(cross_entropy(qat_apply(live, img), labels),
+                                                 list(flat.values()))))
+    if not all(torch.isfinite(v).all() for v in q_grads.values()) or not bool(
+            q_grads["block_0.attn.qkv_kernel"].any()):
+        fail("QAT: non-finite gradients, or none through the weight STE")
+    q_state = opt.init(qat_params)
+    q_losses = []
+    for _ in range(2):
+        qat_params, q_state, m = qat_step(qat_params, q_state, img, labels)
+        q_losses.append(float(m["loss"]))
+    if not all(math.isfinite(v) for v in q_losses):
+        fail(f"QAT: losses {q_losses}")
+    serve = ViT(bf16_cfg, device=DEVICE)
+    load_params(serve, qat_params)
+    sq = prepare_vit_int8_static(serve, act_scales=scales)
+    kern = served(f"QAT deit_tiny int8 static b{TRAIN_BATCH}", lambda plain: fused_vit_apply_int8(
+        serve, img, stacked_q=sq, plain=plain), TRAIN_BATCH, int8_want)
+    with torch.no_grad():
+        fq32 = qat_apply(qat_params, img)
+        fq16 = quant.fake_quant_vit_apply_static(serve, qat_params, scales, img).float()
+        qparams = quant.quantize_vit_params_int8_static(qat_params, scales)
+        oracle = quant.int8_vit_apply_static(model, qparams, img)
+        unquantized = apply(qat_params, img)
+    rel = lambda a, b: float((a.float() - b).abs().max() / b.abs().max())  # noqa: E731
+    qat_rel, plain_rel = rel(fq32, oracle), rel(unquantized, oracle)
+    agree = float((fq32.argmax(-1) == oracle.argmax(-1)).float().mean())
+    mm = matmul_deviation(cfg, qat_params, qparams, scales, img)
+    mm_qat, mm_plain = mm["qat_max"], mm["plain_max"]
+    print(f"  QAT: losses {[round(v, 4) for v in q_losses]}; against the fp32 static-int8 "
+          f"oracle on the same weights and scales, max |err| / max|logit|: its fp32 forward "
+          f"{qat_rel:.4g} (bound {QAT_REL}, top-1 agreement {agree:.3f}), the unquantized "
+          f"forward {plain_rel:.4g}; each of the {4 * cfg.depth} matmuls on the oracle's input, "
+          f"max |err| / max|product|: the QAT product {mm_qat:.4g} (bound {QAT_MM_REL}), the "
+          f"unquantized {mm_plain:.4g} (must exceed it); against the int8 kernels (not held): "
+          f"its fp32 forward {rel(fq32, kern.float()):.4g}, its bf16 forward "
+          f"{rel(fq16, kern.float()):.4g}")
+    if qat_rel > QAT_REL:
+        fail(f"QAT: its forward parts from the static-int8 oracle by {qat_rel:.4g} of "
+             f"max|logit| (> {QAT_REL})")
+    if mm_qat > QAT_MM_REL or mm_plain <= QAT_MM_REL:
+        fail(f"QAT: a matmul of its forward parts from the oracle's int8 product by "
+             f"{mm_qat:.4g} (> {QAT_MM_REL}), or an unquantized one by only {mm_plain:.4g}")
+    timed("QAT (static-aware, fp32)", qat_step)
+    del qat_params, q_state, live, flat, q_grads
+
+    # (d) SmoothQuant on the trained model, served in static int8; the cast
+    # to bf16 served by fused_vit_apply
+    with torch.no_grad():
+        sm = quant.smooth_vit(model, trained, n=8)
+        ref = apply(trained, img)
+        out = apply(sm, img)
+    sm_rel = float((out - ref).abs().max() / ref.abs().max())
+    print(f"  smooth_vit (n = 8): the smoothed fp32 forward against the unsmoothed one, max "
+          f"|err| / max|logit| {sm_rel:.3g} (bound {SMOOTH_REL})")
+    if sm_rel > SMOOTH_REL:
+        fail(f"smooth_vit changed the function: {sm_rel:.3g} of max|logit|")
+    load_params(serve, sm)
+    with torch.no_grad():
+        act = quant.calibrate_vit(serve, batches=calib())
+    sq = prepare_vit_int8_static(serve, act_scales=act)
+    img1 = torch.randn(1, *shape, generator=torch.Generator().manual_seed(2200)).to(DEVICE)
+    for x in (img1, img):
+        k = served(f"smoothed deit_tiny int8 static b{x.shape[0]}",
+                   lambda plain, x=x: fused_vit_apply_int8(serve, x, stacked_q=sq, plain=plain),
+                   x.shape[0], int8_want)
+    # what smoothing does to static int8 here: the kernels' logits against the
+    # fp32 model, smoothed and not
+    load_params(serve, trained)
+    with torch.no_grad():
+        k0 = fused_vit_apply_int8(serve, img, stacked_q=prepare_vit_int8_static(
+            serve, act_scales=quant.calibrate_vit(serve, batches=calib())))
+    print(f"  static int8 against the fp32 model at b{TRAIN_BATCH}, max |err| / max|logit|: "
+          f"smoothed {float((k.float() - ref).abs().max() / ref.abs().max()):.4g}, unsmoothed "
+          f"{float((k0.float() - ref).abs().max() / ref.abs().max()):.4g}")
+    del serve, sq, sm
+    bfm = ViT(cfg.replace(dtype=torch.bfloat16, param_dtype=torch.bfloat16), device=DEVICE)
+    load_params(bfm, quant.cast_params(trained, torch.bfloat16))
+    stacked = prepare_vit_fused(bfm)
+    bf16_want = want_launches(BF16_LAUNCHES, cfg.depth)
+    served(f"cast_params(bf16) deit_tiny b{TRAIN_BATCH}", lambda plain: fused_vit_apply(
+        bfm, img, stacked=stacked, plain=plain), TRAIN_BATCH, bf16_want)
+
+    # (f) the eval step over fused_vit_apply counts what its logits' argmax gives
+    seen = []
+
+    def eval_apply(_, x):
+        seen.append(fused_vit_apply(bfm, x, stacked=stacked))
+        return seen[-1]
+
+    counter.reset()
+    n_correct, n_total = make_eval_step(eval_apply)(None, img, labels)
+    torch.cuda.synchronize()
+    counts = counter.read()
+    if counts != bf16_want:
+        fail(f"eval: launch counts {counts}, expected {bf16_want}")
+    want_correct = int((seen[-1].argmax(-1) == labels).sum())
+    print(f"  make_eval_step over fused_vit_apply b{TRAIN_BATCH}: {int(n_correct)} of {n_total} "
+          f"(the argmax of its logits: {want_correct}), launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if int(n_correct) != want_correct or n_total != TRAIN_BATCH:
+        fail(f"eval: counted {int(n_correct)} of {n_total}, the logits give {want_correct}")
+    del bfm, stacked, seen, model, params, state, trained
+
+    # (e) T2T: smooth_t2t, then static int8 on the kernels at b1 (K8, K16)
+    tmodel, tshape = build_model("t2t_vit_14", style="reference", dtype=torch.bfloat16,
+                                 device=DEVICE, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        load_params(tmodel, quant.smooth_t2t(tmodel, n=8))
+        act = quant.calibrate_t2t(tmodel, batches=quant.representative_batches(n=8,
+                                                                               shape=tshape))
+        tsq = t2t.prepare_t2t_int8_static(tmodel, act_scales=act)
+        prepared = t2t.prepare_t2t_fused(tmodel)
+    timg = torch.randn(1, *tshape, generator=torch.Generator().manual_seed(2300)).to(DEVICE)
+    served("smoothed t2t_vit_14 int8 static b1", lambda plain: t2t.fused_t2t_apply_int8(
+        tmodel, timg, stacked_q=tsq, prepared=prepared, plain=plain), 1,
+        want_launches(INT8_LAUNCHES, tmodel.config.depth, stage1=1, performers=2))
+    del tmodel, tsq, prepared
+    torch.cuda.synchronize()
+    print(f"  phase 7: {time.perf_counter() - t_phase:.1f} s, peak device memory "
+          f"{harness.device_mem_mb():.1f} MiB, on {card}")
+    return worst
+
+
 def main() -> int:
     import torch
 
@@ -2127,12 +2518,16 @@ def main() -> int:
             (kg, pg), (bg, byg, lg) = layer_ms[f"linear {name} {tag}"], yard[f"linear {name}{yt}"]
             print(f"  linear {name:7s} {tag:14s} kernel {kg:.4f} ms, twin {pg:.4f} ms, bound "
                   f"{bg:.4f} ms ({byg}), torch.addmm {lg:.4f} ms")
+    print(f"== phase 7: finetune, QAT and SmoothQuant on the card, the results served on the "
+          f"kernels, on {card}")
+    worst_train = phase_train(torch, harness, counter, card)
     worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr,
-              worst_full)
+              worst_full, worst_train)
     print(f"build {build_s:.2f} s; worst logit deviation {max(worsts):.4g} of max|logit| (deit "
           f"bf16 {worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 {worst_t2t:.4g}, swin_tiny bf16 "
           f"{worst_swin:.4g}, int8 {worst_swin8:.4g}, swin module pallas {worst_mod:.4g}, ViT / T2T "
-          f"module pallas {worst_vm:.4g}, pruned {worst_pr:.4g}, fully fused {worst_full:.4g})")
+          f"module pallas {worst_vm:.4g}, pruned {worst_pr:.4g}, fully fused {worst_full:.4g}, "
+          f"trained and smoothed {worst_train:.4g})")
 
     src = "edgevisiontransformer_tpu_torch/csrc/"
     print("kernel ms / plain_ms / bound_ms / library_ms: device time (CUDA-graph replay) of "

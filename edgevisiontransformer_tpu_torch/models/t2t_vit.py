@@ -35,8 +35,8 @@ from ..ops.layers import layer_norm, mlp_block
 from ..ops.quant import _dense, _unwrap, int8_matmul_static, quantize_weight_int8
 from ..ops.unfold import unfold, unfold_output_size
 from .vit import (INT8_VARIANTS, Dense, EncoderBlock, LayerNormP, _check_fused, _fused_head,
-                  _param, lecun_normal_, model_device, nested_tree, prepare_vit_fused,
-                  xavier_uniform_)
+                  _param, _remat_block, lecun_normal_, model_device, nested_tree,
+                  prepare_vit_fused, xavier_uniform_)
 
 
 def sinusoid_encoding(n_position: int, d_hid: int) -> np.ndarray:
@@ -77,7 +77,7 @@ class TokenPerformer(nn.Module):
     initialised as ``orthogonal * sqrt(m)`` from the model's generator; the
     JAX package draws it from ``jax.random.key(42)``, so parity comes from
     copying its ``constants`` (``utils/jax_bridge.load_jax_variables``).
-    Dropout (``dp1``, ``dp2``) applies in training mode only."""
+    Dropout (``dp1``, ``dp2``) applies with ``train=True`` only."""
 
     kernel_ratio = 0.5
     eps = 1e-8
@@ -101,17 +101,17 @@ class TokenPerformer(nn.Module):
         self.mlp_fc2_bias = _param((hs,), cfg)
         self.register_buffer("w", torch.empty(int(hs * self.kernel_ratio), hs))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.config.dtype
         x = layer_norm(x, self.norm1_scale, self.norm1_bias, self.layernorm_eps)
         y, vf = _linear_attention(self.kqv(x), self.w, self.eps)
-        y = vf + F.dropout(self.attn_output(y.to(dt)), self.dp1, self.training).float()
+        y = vf + F.dropout(self.attn_output(y.to(dt)), self.dp1, train).float()
         y = y.to(dt)
         h = layer_norm(y, self.norm2_scale, self.norm2_bias, self.layernorm_eps)
         h = mlp_block(h, self.mlp_fc1_kernel.to(dt), self.mlp_fc1_bias.to(dt),
                       self.mlp_fc2_kernel.to(dt), self.mlp_fc2_bias.to(dt),
                       get_gelu(self.config.gelu_approx))
-        return y + F.dropout(h, self.dp2, self.training)
+        return y + F.dropout(h, self.dp2, train)
 
 
 class T2TModule(nn.Module):
@@ -125,14 +125,14 @@ class T2TModule(nn.Module):
         self.performer2 = TokenPerformer(cfg, token_size * 9, token_size)
         self.project = Dense(cfg, token_size * 9, cfg.dim)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, train: bool = False) -> torch.Tensor:
         cfg, ts = self.config, self.token_size
         b = img.shape[0]
         s0 = unfold_output_size(cfg.image_size, 7, 4, 2)
         s1 = unfold_output_size(s0, 3, 2, 1)
-        x = self.performer1(unfold(img.to(cfg.dtype), 7, 4, 2))
+        x = self.performer1(unfold(img.to(cfg.dtype), 7, 4, 2), train)
         x = unfold(x.reshape(b, s0, s0, ts).permute(0, 3, 1, 2), 3, 2, 1)
-        x = self.performer2(x)
+        x = self.performer2(x, train)
         x = unfold(x.reshape(b, s1, s1, ts).permute(0, 3, 1, 2), 3, 2, 1)
         return self.project(x)
 
@@ -146,9 +146,9 @@ class T2TViT(nn.Module):
     the Flax initialisers do (lecun-normal Dense kernels, xavier-uniform
     performer MLP and encoder kernels, normal(0.02) cls token, zero biases,
     unit norm scales), then moved to ``device``, the card unless the caller
-    names another (``models/vit.model_device``).  The model is built in
-    eval mode, as ``model.apply`` runs with ``train=False``;
-    ``model.train()`` turns the performers' dropout on."""
+    names another (``models/vit.model_device``).  Dropout follows
+    ``forward``'s ``train`` argument, as ``model.apply``'s, and not the
+    module's training mode; the model is built in eval mode all the same."""
 
     def __init__(self, cfg: ViTConfig, token_size: int = 64, *, device="cuda",
                  generator: torch.Generator | None = None):
@@ -197,14 +197,20 @@ class T2TViT(nn.Module):
         """The buffers as the Flax ``constants`` tree."""
         return nested_tree(self.named_buffers())
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """``model.apply(variables, img, train)``: dropout (the performers'
+        and the blocks') only with ``train=True``; with ``cfg.remat`` and
+        grad mode on, each encoder block is recomputed in the backward
+        (``models/vit._remat_block``; the JAX model ignores ``remat``, and
+        the values are the same)."""
         cfg = self.config
         dt = cfg.dtype
-        x = self.tokens_to_token(img)
+        x = self.tokens_to_token(img, train)
         cls = self.cls_token.to(dt).expand(x.shape[0], 1, cfg.dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(dt)
+        remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks():
-            x = blk(x)
+            x = _remat_block(blk, x, train) if remat else blk(x, train)
         return self.head(self.final_norm(x)[:, 0])
 
 

@@ -4,7 +4,9 @@ Parameters keep the Flax names and layouts (a dense kernel is ``[in, out]``,
 applied as ``x @ w``), so ``named_parameters()`` matches the Flax
 ``variables["params"]`` tree leaf for leaf: ``block_0.attn.qkv_kernel`` is
 ``params["block_0"]["attn"]["qkv_kernel"]``.  :meth:`ViT.params` returns that
-tree.  ``ViT.forward`` has ``model.apply``'s eager semantics; with
+tree, :func:`load_params` copies one into a model and :func:`apply_params`
+runs the model on one (``model.apply(params, img)``, differentiable in the
+tree).  ``ViT.forward`` has ``model.apply``'s eager semantics; with
 ``kernel_mode="pallas"`` its attention core runs on the ``sdpa`` kernel and
 its MLP on the ``mlp`` kernel.  :func:`fused_vit_apply` runs the encoder on
 the hand-written kernels, one chain per uniform run of layers for
@@ -20,6 +22,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import REFERENCE_STYLE, STANDARD_STYLE, ViTConfig, decode_prune_encoding
@@ -55,6 +58,48 @@ def nested_tree(named) -> dict:
             node = node.setdefault(k, {})
         node[leaf] = t.detach()
     return tree
+
+
+def _flat_params(model: nn.Module, params: dict) -> dict:
+    """``params`` (a bare tree or ``{"params": tree}``) by dotted name;
+    raises ``KeyError`` unless the names are ``model``'s parameters'."""
+    from ..utils.jax_bridge import flatten_tree
+
+    flat = flatten_tree(params.get("params", params))
+    names = {n for n, _ in model.named_parameters()}
+    if set(flat) != names:
+        raise KeyError(f"param tree and model differ: missing {sorted(names - set(flat))}, "
+                       f"unexpected {sorted(set(flat) - names)}")
+    return flat
+
+
+def load_params(model: nn.Module, params: dict) -> nn.Module:
+    """Copy a parameter tree keyed as :func:`nested_tree`'s (a bare tree or
+    ``{"params": tree}``) into ``model``'s parameters in place.  Raises
+    ``KeyError`` when either side has a leaf the other lacks and
+    ``ValueError`` on a shape or dtype mismatch: nothing is cast."""
+    flat = _flat_params(model, params)
+    named = dict(model.named_parameters())
+    for name, dst in named.items():
+        src = flat[name]
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(f"{name}: tree {tuple(src.shape)} {src.dtype} vs model "
+                             f"{tuple(dst.shape)} {dst.dtype}")
+    with torch.no_grad():
+        for name, dst in named.items():
+            dst.copy_(flat[name])
+    return model
+
+
+def apply_params(model: nn.Module, params: dict, img: torch.Tensor, *,
+                 train: bool = False) -> torch.Tensor:
+    """``model.apply(params, img, train)``: ``model``'s forward on the
+    parameter tree ``params`` (a bare tree or ``{"params": tree}``, keyed as
+    ``model.params()``, every parameter and nothing else) in place of its
+    own parameters (``torch.func.functional_call``); gradients flow to the
+    tree's leaves."""
+    return torch.func.functional_call(model, _flat_params(model, params), (img,),
+                                      {"train": train})
 
 
 def model_device(device) -> torch.device:
@@ -161,18 +206,33 @@ class EncoderBlock(nn.Module):
         self.ln1 = LayerNormP(cfg, cfg.dim)
         self.ln2 = LayerNormP(cfg, cfg.dim)
 
-    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+    def _drop(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         p = self.config.dropout_rate
-        return F.dropout(x, p, training=True) if self.training and p > 0 else x
+        return F.dropout(x, p, training=True) if train and p > 0 else x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Dropout applies with ``train=True`` only, as in the Flax block."""
         if self.config.reference_residual:
             h = self.ln1(x)
-            x = self._drop(self.attn(h)) + h
+            x = self._drop(self.attn(h), train) + h
             h = self.ln2(x)
-            return self._drop(self.ffn(h)) + h
-        x = x + self._drop(self.attn(self.ln1(x)))
-        return x + self._drop(self.ffn(self.ln2(x)))
+            return self._drop(self.ffn(h), train) + h
+        x = x + self._drop(self.attn(self.ln1(x)), train)
+        return x + self._drop(self.ffn(self.ln2(x)), train)
+
+
+def _remat_block(blk: EncoderBlock, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """``blk(x, train)`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward, one block at a time (``cfg.remat``, Flax's
+    ``nn.remat``).  The block's parameters enter the checkpoint as inputs, so
+    the recompute sees the tensors the forward saw, under
+    :func:`apply_params` (``functional_call``) too."""
+    names, tensors = zip(*blk.named_parameters())
+
+    def run(x_, *ts):
+        return torch.func.functional_call(blk, dict(zip(names, ts)), (x_, train))
+
+    return torch.utils.checkpoint.checkpoint(run, x, *tensors, use_reentrant=False)
 
 
 class ViT(nn.Module):
@@ -229,15 +289,19 @@ class ViT(nn.Module):
         """The parameters as a nested dict keyed as the Flax tree."""
         return nested_tree(self.named_parameters())
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """``model.apply(variables, img, train)``: dropout only with
+        ``train=True``; with ``cfg.remat`` and grad mode on, each block is
+        recomputed in the backward (:func:`_remat_block`)."""
         cfg = self.config
         dt = cfg.dtype
         x = patch_embed(img.to(dt), self.patch_kernel.to(dt),
                         self.patch_bias.to(dt), cfg.patch_size)
         cls = self.cls_token.to(dt).expand(x.shape[0], 1, cfg.dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(dt)
+        remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks():
-            x = blk(x)
+            x = _remat_block(blk, x, train) if remat else blk(x, train)
         if cfg.final_norm:
             x = self.final_norm(x)
         x = x[:, 0]

@@ -24,6 +24,7 @@ import torch
 
 from ..attention import qkv_split
 from . import build
+from .common import no_backward
 from .fused_encoder import _ptr, _stream
 
 # Kernel launches since the last reset_launches().
@@ -73,6 +74,7 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
+@no_backward
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          scale: Optional[float] = None, *, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention ``[b, h, n, d] -> [b, h, n, d]``: K13 as

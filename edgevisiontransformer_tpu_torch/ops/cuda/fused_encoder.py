@@ -44,7 +44,7 @@ import math
 import torch
 
 from . import build
-from .common import softmax_unnorm
+from .common import no_backward, softmax_unnorm
 from .mathlib import gelu_kernel
 
 # Kernel launches since the last reset_launches(), by kernel.
@@ -139,6 +139,7 @@ def ln_rows_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype)
 
 
+@no_backward
 def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
             eps: float) -> torch.Tensor:
     """LayerNorm of each row of ``x [rows, dim]`` (csrc/ln_rows.cu).  On the
@@ -226,6 +227,7 @@ def linear_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return y
 
 
+@no_backward
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
            epilogue: str, res: torch.Tensor | None = None,
            approx_gelu: bool = False) -> torch.Tensor:
@@ -311,6 +313,7 @@ def attention_rows_plain(qkv: torch.Tensor, *, heads: int, head_dim: int,
     return o.permute(0, 2, 1, 3).reshape(rows, heads * head_dim).to(dt)
 
 
+@no_backward
 def attention_rows(qkv: torch.Tensor, *, heads: int, head_dim: int,
                    tokens: int, seq_len: int | None = None) -> torch.Tensor:
     """Attention of :func:`attention_rows_plain` (csrc/attention_rows.cu):
@@ -368,6 +371,7 @@ def quant_rows_plain(h: torch.Tensor, act_inv: torch.Tensor | None = None,
     return q, s
 
 
+@no_backward
 def quant_rows(h: torch.Tensor, act_inv: torch.Tensor | None = None, index: int = 0):
     """:func:`quant_rows_plain` as one kernel (csrc/quant_rows.cu), at any
     K.  Static mode reads ``inv_a`` from ``act_inv`` on the device (flat
@@ -483,6 +487,7 @@ def linear_i8_plain(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tens
     return y
 
 
+@no_backward
 def linear_i8(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
               w_s: torch.Tensor, b: torch.Tensor, *, epilogue: str,
               out_dtype: torch.dtype, res: torch.Tensor | None = None,

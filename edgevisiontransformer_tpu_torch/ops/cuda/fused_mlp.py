@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from . import build
+from .common import no_backward
 from .fused_encoder import _on_cpu, _ptr, _sm_count, _stream
 from .mathlib import gelu_kernel
 
@@ -108,6 +109,7 @@ def mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     return (h.float() @ w2.float() + b2.float()).to(dt)
 
 
+@no_backward
 def mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
         b2: torch.Tensor, *, approx_gelu: bool = False) -> torch.Tensor:
     """``x [..., dim] -> [..., dim]`` with ``w1 [dim, hidden]``, ``w2

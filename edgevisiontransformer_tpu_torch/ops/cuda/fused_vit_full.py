@@ -34,6 +34,7 @@ from dataclasses import dataclass
 import torch
 
 from . import build
+from .common import no_backward
 from .fused_encoder import (_LOG2E, _linear_smem_bytes, _on_cpu, _sm_count, _stream,
                             attention_plan, encoder_forward_plain, ln_rows_plain)
 
@@ -213,6 +214,7 @@ def vit_full_forward_plain(img: torch.Tensor, prepared: dict, *, heads: int, hea
                       prepared["head_b"], eps=eps, final_norm=final_norm)
 
 
+@no_backward
 def vit_full_forward(img: torch.Tensor, prepared: dict, *, heads: int, head_dim: int,
                      eps: float, reference_residual: bool, approx_gelu: bool,
                      final_norm: bool) -> torch.Tensor:

@@ -38,6 +38,7 @@ import math
 import torch
 
 from . import build
+from .common import no_backward
 from .fused_encoder import _on_cpu, _ptr, _stream, ln_rows_plain
 from .mathlib import gelu_kernel
 
@@ -165,6 +166,7 @@ def _check_x(x_kqv: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: at most {MAX_BATCH} images a launch, got {x_kqv.shape[0]}")
 
 
+@no_backward
 def performer_reduce(x_kqv: torch.Tensor, w: torch.Tensor, *,
                      operands: dict | None = None) -> torch.Tensor:
     """:func:`performer_reduce_plain` as one kernel (csrc/performer.cu): one
@@ -194,6 +196,7 @@ def performer_reduce(x_kqv: torch.Tensor, w: torch.Tensor, *,
     return sums
 
 
+@no_backward
 def performer_rows(x_kqv: torch.Tensor, sums: torch.Tensor, p: dict, w: torch.Tensor, *,
                    eps_ln: float, approx_gelu: bool,
                    operands: dict | None = None) -> torch.Tensor:

@@ -49,7 +49,7 @@ import ctypes
 import torch
 
 from . import build
-from .common import round_up, softmax_unnorm
+from .common import no_backward, round_up, softmax_unnorm
 from .fused_encoder import (BIAS, BIAS_GELU, BIAS_RESIDUAL, CAST_THEN_BIAS, CAST_THEN_BIAS_GELU,
                             _on_cpu, _ptr, _stream, linear, linear_i8, linear_i8_plain,
                             linear_plain, ln_rows, ln_rows_plain, quant_rows, quant_rows_plain)
@@ -118,6 +118,7 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Te
     return out.reshape(bsz * res * res, heads * head_dim)
 
 
+@no_backward
 def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None, *,
                      res: int, window: int, shift: int, heads: int,
                      head_dim: int) -> torch.Tensor:

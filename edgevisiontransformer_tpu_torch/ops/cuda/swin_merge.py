@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from . import build
+from .common import no_backward
 from .fused_encoder import _BF16_F32, _on_cpu, _ptr, _stream, ln_rows_plain
 
 # Kernel launches since the last reset_launches().
@@ -58,6 +59,7 @@ def swin_merge_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *, res: 
     return ln_rows_plain(merge_gather(x, res), g, b, eps)
 
 
+@no_backward
 def swin_merge(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *, res: int,
                eps: float) -> torch.Tensor:
     """:func:`swin_merge_plain` as one kernel (csrc/swin_merge.cu): one warp

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .common import no_backward
 from .fused_encoder import _on_cpu, _ptr, _sm_count, _stream
 
 # Kernel launches since the last reset_launches().
@@ -100,6 +101,7 @@ def stage1_kqv_plain(img: torch.Tensor, W9: torch.Tensor, M9: torch.Tensor,
     return y.to(dt)
 
 
+@no_backward
 def stage1_kqv(img: torch.Tensor, W9: torch.Tensor, M9: torch.Tensor, c1: torch.Tensor,
                c2: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """:func:`stage1_kqv_plain` as one kernel (csrc/t2t_stage1.cu): one thread

@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from . import build
+from .common import no_backward
 from .fused_encoder import _on_cpu, _ptr, _stream
 
 # Kernel launches since the last reset_launches().
@@ -76,6 +77,7 @@ def window_sdpa_plain(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor 
     return o.permute(0, 2, 1, 3).reshape(bw, n, heads * head_dim).to(dt)
 
 
+@no_backward
 def window_sdpa(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None, *,
                 heads: int, head_dim: int) -> torch.Tensor:
     """:func:`window_sdpa_plain` as one kernel (csrc/window_sdpa.cu): one

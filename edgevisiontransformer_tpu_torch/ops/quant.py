@@ -1,5 +1,6 @@
-"""Int8 quantization of ViT encoders (port of the int8 part of
-``edgevisiontransformer_tpu/ops/quant.py``).
+"""Quantization of ViT encoders (port of ``edgevisiontransformer_tpu/ops/quant.py``):
+the parameter cast, int8 (dynamic and static, with calibration),
+quantization-aware training and SmoothQuant.
 
 Weights are quantized symmetrically per output channel; activations per row
 at run time (dynamic, the TFLite dynamic-range mode) or per tensor with
@@ -18,6 +19,7 @@ Python scalar into a product with its reciprocal).
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict
 
 import numpy as np
@@ -26,6 +28,21 @@ import torch
 from .activations import get_gelu
 from .attention import merge_heads, qkv_split, sdpa
 from .layers import layer_norm, patch_embed
+
+# ---------------------------------------------------------------------------
+# Casting (float16 / bfloat16 mode)
+# ---------------------------------------------------------------------------
+
+
+def cast_params(params, dtype: torch.dtype = torch.bfloat16):
+    """Every floating leaf of a nested dict of tensors cast to ``dtype``;
+    the other leaves as they are (the float16 / bfloat16 conversion)."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, torch.Tensor) and params.is_floating_point():
+        return params.to(dtype)
+    return params
+
 
 # ---------------------------------------------------------------------------
 # Weights and activations
@@ -48,6 +65,98 @@ def quantize_weight_int8(w: torch.Tensor):
 def dequantize_weight_int8(q: torch.Tensor, scale: torch.Tensor,
                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return q.to(dtype) * scale[None, :].to(dtype)
+
+
+def _true_div(x: torch.Tensor, scale) -> torch.Tensor:
+    """``x / scale`` as an IEEE quotient on any device: a divisor that is a
+    Python number or a CPU scalar becomes a product with its reciprocal on
+    a CUDA tensor, and a flipped rounding tie there moves a whole quantum."""
+    return x / torch.as_tensor(scale, dtype=x.dtype, device=x.device)
+
+
+class _FakeQuantSTE(torch.autograd.Function):
+    """Per-output-channel int8 round trip of a weight ``[in, out]``; the
+    backward is the identity (straight-through)."""
+
+    @staticmethod
+    def forward(ctx, w):
+        q, scale = quantize_weight_int8(w)
+        return dequantize_weight_int8(q, scale, w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def fake_quant_ste(w: torch.Tensor) -> torch.Tensor:
+    """QAT weight fake quant: the deployment quantizer's round trip
+    (:func:`quantize_weight_int8`, :func:`dequantize_weight_int8`) with a
+    straight-through gradient."""
+    return _FakeQuantSTE.apply(w)
+
+
+def fake_quant_tree(params, min_ndim: int = 2):
+    """Fake-quantize every leaf of at least ``min_ndim`` dims of a nested
+    dict of tensors (the QAT training forward)."""
+    if isinstance(params, dict):
+        return {k: fake_quant_tree(v, min_ndim) for k, v in params.items()}
+    return fake_quant_ste(params) if getattr(params, "ndim", 0) >= min_ndim else params
+
+
+def fake_quant_vit_encoder(params: Dict) -> Dict:
+    """QAT fake quant of the encoder matmul kernels only (``_VIT_MATMUL_KEYS``),
+    the ones the int8 paths quantize: embeddings and heads stay float at
+    deployment, so training against their quantization noise would be
+    training against noise the deployment does not have."""
+    p = _unwrap(params)
+    new_p = dict(p)
+    for name, blk in p.items():
+        if not name.startswith("block_"):
+            continue
+        blk = _copy_block(blk)
+        for sub, key in _VIT_MATMUL_KEYS:
+            blk[sub][key] = fake_quant_ste(blk[sub][key])
+        new_p[name] = blk
+    return {**params, "params": new_p} if "params" in params else new_p
+
+
+class _FakeQuantActSTE(torch.autograd.Function):
+    """Symmetric int8 round trip of an activation at a fixed scale; the
+    backward passes the gradient where ``|x / scale| <= 127`` and zeroes it
+    in the saturated region, where the forward is flat."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        xs = _true_div(x, scale)
+        ctx.save_for_backward(xs.abs() <= 127.0)
+        q = torch.clamp(torch.round(xs), -127, 127)
+        return (q * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return torch.where(mask, g, torch.zeros_like(g)), None
+
+
+def fake_quant_act_ste(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Static-QAT activation fake quant at a fixed calibrated ``scale`` (a
+    Python number) with the clip-masked straight-through gradient; with the
+    weight STE it makes the static-int8-aware forward
+    (:func:`fake_quant_vit_apply_static`).  For a scale that changes during
+    training use :func:`fake_quant_act`."""
+    return _FakeQuantActSTE.apply(x, float(scale))
+
+
+def fake_quant_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """:func:`fake_quant_act_ste` with ``scale`` a tensor (the live-observer
+    path, whose scales move during training): the same forward and the same
+    clip-masked straight-through gradient, through the ``detach``
+    identity ``passthrough + (fq(x) - passthrough).detach()``."""
+    xs = _true_div(x.float(), scale)
+    q = (torch.clamp(torch.round(xs), -127, 127) * scale).to(x.dtype)
+    mask = (xs.abs() <= 127.0).to(x.dtype)
+    passthrough = x * mask
+    return passthrough + (q - passthrough).detach()
 
 
 def _int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -214,6 +323,42 @@ def _embed_vit(cfg, p: Dict, img: torch.Tensor) -> torch.Tensor:
                     cfg.patch_size)
     cls = p["cls_token"].to(dt).expand(x.shape[0], 1, cfg.dim)
     return torch.cat([cls, x], dim=1) + p["pos_embedding"].to(dt)
+
+
+def _fake_quant_vit(model, params: Dict, act_scales, img: torch.Tensor, seen=None):
+    cfg = model.config
+    p = _unwrap(params)
+    scales = torch.as_tensor(act_scales, dtype=torch.float32, device=img.device)
+    counter = itertools.count()
+
+    def mm(x_, w):
+        i, j = divmod(next(counter), 4)
+        if seen is not None:
+            seen.append(x_.detach().abs().max().float())
+        xq = fake_quant_act(x_, scales[i, j])
+        return xq @ fake_quant_ste(w).to(xq.dtype)
+
+    x = _int8_encoder_blocks(cfg, p, _embed_vit(cfg, p, img), mm)
+    return _vit_head(cfg, p, x)
+
+
+def fake_quant_vit_apply_static(model, params: Dict, act_scales, img: torch.Tensor
+                                ) -> torch.Tensor:
+    """Differentiable ViT forward that sees the static-int8 deployment's
+    quantization: every encoder matmul runs ``fq(x; calibrated scale) @
+    fq(w)`` with straight-through gradients, embeddings and head float.
+    ``act_scales [depth, 4]`` (:func:`calibrate_vit`) may change between
+    calls; ``params`` is a Flax-keyed tree, bare or under ``"params"``."""
+    return _fake_quant_vit(model, params, act_scales, img)
+
+
+def fake_quant_vit_apply_observed(model, params: Dict, act_scales, img: torch.Tensor):
+    """:func:`fake_quant_vit_apply_static` that also returns the batch
+    absmax of every matmul input it saw, ``[depth, 4]`` fp32, detached: the
+    live observer a training loop updates its scales from."""
+    seen: list = []
+    logits = _fake_quant_vit(model, params, act_scales, img, seen)
+    return logits, torch.stack(seen).reshape(model.config.depth, 4)
 
 
 def int8_vit_apply(model, qparams: Dict, img: torch.Tensor) -> torch.Tensor:
@@ -451,3 +596,121 @@ def int8_t2t_apply_static(model, qparams: Dict, img: torch.Tensor) -> torch.Tens
     :func:`quantize_vit_params_int8_static`): the eager oracle of
     ``fused_t2t_apply_int8`` on a ``prepare_t2t_int8_static`` stack."""
     return _int8_t2t(model, qparams, img, _mm_int8_static)
+
+
+# ---------------------------------------------------------------------------
+# SmoothQuant: offline scale migration (static-int8 preprocessing)
+# ---------------------------------------------------------------------------
+
+# The matmul inputs whose per-channel outlier spread folds exactly into the
+# weights: qkv_in and fc1_in come out of a LayerNorm (1/s folds into its
+# scale and bias, valid only when the LayerNorm output feeds nothing but the
+# matmul: not with reference_residual, whose skip reuses LN(x)); out_in is
+# the merged attention context, whose channel c is v's column c (softmax
+# mixes tokens, not channels), so 1/s folds into the v columns of the fused
+# qkv kernel and bias and s into the out kernel's rows, in both residual
+# forms.  fc2_in sits behind the GELU and cannot be folded.
+SMOOTH_KEYS = ("qkv_in", "out_in", "fc1_in")
+
+
+def _collect_channel_maxes(embed_fn, model, variables: Dict, batches=None,
+                           n: int = 32) -> Dict:
+    """Per-channel absmax of the smoothable matmul inputs over representative
+    batches (``n`` random-normal ones by default): ``{"block_i": {key:
+    np.float32[channels]}}`` for ``key`` in :data:`SMOOTH_KEYS`.
+    ``embed_fn(p, img)`` embeds a batch with the bare tree ``p``; the
+    running max stays on the device until the end."""
+    cfg = model.config
+    if batches is None:
+        batches = representative_batches(n=n, shape=(3, cfg.image_size, cfg.image_size))
+    p = _unwrap(variables)
+    device = p["block_0"]["ln1"]["scale"].device
+    run_max: Dict[tuple, torch.Tensor] = {}
+    with torch.no_grad():
+        for batch in batches:
+            img = torch.as_tensor(np.asarray(batch), device=device)
+            acts = encoder_collect_matmul_inputs(cfg, p, embed_fn(p, img))
+            for i in range(cfg.depth):
+                for key in SMOOTH_KEYS:
+                    a = acts[f"block_{i}/{key}"]
+                    m = a.float().abs().reshape(-1, a.shape[-1]).amax(dim=0)
+                    k = (i, key)
+                    run_max[k] = m if k not in run_max else torch.maximum(run_max[k], m)
+    return {f"block_{i}": {key: run_max[(i, key)].cpu().numpy() for key in SMOOTH_KEYS}
+            for i in range(cfg.depth)}
+
+
+def smooth_encoder_params(cfg, params: Dict, ch_maxes: Dict, alpha: float = 0.5) -> Dict:
+    """Fold per-channel smoothing scales ``s`` (:func:`_smooth_s`) into an
+    encoder param tree: a new float tree whose forward is the same function,
+    re-parameterized so that the outlier channels of the smoothed matmul
+    inputs shrink toward the weights, and the per-tensor static activation
+    scales lose less resolution.  Offline only; the kernels are unchanged.
+    With ``cfg.reference_residual`` only the ``out_in`` fold applies."""
+
+    def strength(act_max: np.ndarray, w: torch.Tensor) -> torch.Tensor:
+        w_in_max = w.abs().amax(dim=1).cpu().numpy()
+        return torch.as_tensor(_smooth_s(act_max, w_in_max, alpha), device=w.device)
+
+    p = _unwrap(params)
+    new_p = dict(p)
+    for name, blk in p.items():
+        if not name.startswith("block_"):
+            continue
+        blk = _copy_block(blk)
+        mx = ch_maxes[name]
+        qkv_w = blk["attn"]["qkv_kernel"].float()
+        if not cfg.reference_residual:
+            # qkv_in and fc1_in: 1/s into the LayerNorm's affine, s into the
+            # kernel's rows
+            sj = strength(mx["qkv_in"], qkv_w)
+            blk["ln1"] = {k: v / sj for k, v in blk["ln1"].items()}
+            qkv_w = qkv_w * sj[:, None]
+            fc1_w = blk["ffn"]["fc1_kernel"].float()
+            sj = strength(mx["fc1_in"], fc1_w)
+            blk["ln2"] = {k: v / sj for k, v in blk["ln2"].items()}
+            blk["ffn"]["fc1_kernel"] = fc1_w * sj[:, None]
+        # out_in: 1/s into the v columns [2W/3, W) of the fused qkv kernel
+        # and bias (ctx channel c is v column v0 + c), s into the out
+        # kernel's rows
+        out_w = blk["attn"]["out_kernel"].float()
+        v0 = 2 * (qkv_w.shape[1] // 3)
+        sj = strength(mx["out_in"], out_w)
+        inv = 1.0 / sj
+        qkv_w = torch.cat([qkv_w[:, :v0], qkv_w[:, v0:] * inv[None, :]], dim=1)
+        if cfg.qkv_bias:
+            qb = blk["attn"]["qkv_bias"].float()
+            blk["attn"]["qkv_bias"] = torch.cat([qb[..., :v0], qb[..., v0:] * inv], dim=-1)
+        blk["attn"]["qkv_kernel"] = qkv_w
+        blk["attn"]["out_kernel"] = out_w * sj[:, None]
+        new_p[name] = blk
+    return {**params, "params": new_p} if "params" in params else new_p
+
+
+def smooth_vit(model, variables: Dict | None = None, batches=None, n: int = 32,
+               alpha: float = 0.5) -> Dict:
+    """SmoothQuant preprocessing for the ViT family: per-channel activation
+    maxima on representative data, folded into the param tree
+    (``variables`` defaults to ``model.params()``).  The result goes
+    through :func:`calibrate_vit` and the static-int8 preparation as any
+    tree does."""
+    if variables is None:
+        variables = model.params()
+    ch = _collect_channel_maxes(lambda p, im: _embed_vit(model.config, p, im), model,
+                                variables, batches=batches, n=n)
+    return smooth_encoder_params(model.config, variables, ch, alpha=alpha)
+
+
+def smooth_t2t(model, variables: Dict | None = None, batches=None, n: int = 32,
+               alpha: float = 0.5) -> Dict:
+    """:func:`smooth_vit` for T2T-ViT: the tokenizer (its plain-unfold form,
+    ``t2t_tokenize(fast=False)``) embeds and stays float; the encoder
+    blocks share the ViT layout."""
+    from ..models.t2t_vit import t2t_tokenize
+
+    if variables is None:
+        variables = model.params()
+    ch = _collect_channel_maxes(
+        lambda p, im: t2t_tokenize(model, im, params=p, fast=False), model, variables,
+        batches=batches, n=n)
+    return smooth_encoder_params(model.config, variables, ch, alpha=alpha)

@@ -41,6 +41,12 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.models.swin",
     "edgevisiontransformer_tpu_torch.models.registry",
     "edgevisiontransformer_tpu_torch.utils.jax_bridge",
+    "edgevisiontransformer_tpu_torch.utils.checkpoint",
+    "edgevisiontransformer_tpu_torch.utils.metrics",
+    "edgevisiontransformer_tpu_torch.utils.finetune",
+    "edgevisiontransformer_tpu_torch.utils.imagenet",
+    "edgevisiontransformer_tpu_torch.parallel",
+    "edgevisiontransformer_tpu_torch.parallel.train",
     "edgevisiontransformer_tpu_torch.bench.harness",
     "edgevisiontransformer_tpu_torch.bench.sdpa_ab",
     "edgevisiontransformer_tpu_torch.bench.mlp_ab",
@@ -53,6 +59,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.bench.performer_ab",
     "edgevisiontransformer_tpu_torch.bench.swin_merge_ab",
     "edgevisiontransformer_tpu_torch.bench.stage1_ab",
+    "edgevisiontransformer_tpu_torch.bench.qat_oracle",
 ]
 
 

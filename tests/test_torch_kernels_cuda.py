@@ -1648,3 +1648,38 @@ def _all_counts():
 def _reset_all():
     for m in (fe, ts, sb, sm, ws, fa, fm, vf, pf):
         m.reset_launches()
+
+
+def test_kernel_backward_raises_on_the_card_and_the_forward_is_unchanged(dev):
+    """No kernel has a backward: with grad on and an input that requires
+    grad, a wrapper's output is the no-grad call's, bit for bit, and its
+    backward raises instead of leaving the weights without a gradient; the
+    ViT module path (``sdpa``, ``mlp``) and ``fused_vit_apply`` alike."""
+    x = _rnd(dev, 197, 192)
+    w = _rnd(dev, 192, 576, scale=192 ** -0.5, seed=1).requires_grad_()
+    b = _rnd(dev, 576, seed=2)
+    calls = {
+        "linear": lambda: fe.linear(x, w, b, epilogue=fe.CAST_THEN_BIAS),
+        "ln_rows": lambda: fe.ln_rows(x, w[:, 0].detach().clone().requires_grad_(), b[:192],
+                                      1e-6),
+        "attention_rows": lambda: fe.attention_rows(x @ w, heads=3, head_dim=64, tokens=197),
+        "quant_rows": lambda: fe.quant_rows(x @ w[:, :192])[1],
+        "mlp": lambda: fm.mlp(x[None], w[:, :192].contiguous(), b[:192],
+                              w[:, :192].T.contiguous(), b[:192]),
+    }
+    for name, call in calls.items():
+        got = call()
+        with torch.no_grad():
+            ref = call()
+        torch.cuda.synchronize()
+        assert got.requires_grad and torch.equal(got.detach(), ref), name
+        with pytest.raises(RuntimeError, match=f"{name}: no backward kernel yet"):
+            got.float().sum().backward()
+    model = ViT(deit_config("tiny", depth=2, dtype=torch.bfloat16, kernel_mode="pallas"),
+                device=dev, generator=torch.Generator().manual_seed(0))
+    img = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(1)).to(dev)
+    with pytest.raises(RuntimeError, match="no backward kernel yet"):
+        model(img).float().sum().backward()
+    bf = ViT(deit_config("tiny", depth=2, dtype=torch.bfloat16), device=dev)
+    with pytest.raises(RuntimeError, match="no backward kernel yet"):
+        fused_vit_apply(bf, img.requires_grad_()).float().sum().backward()
