@@ -90,7 +90,28 @@ Phases, in order; any failure exits non-zero before the last line:
    at b1 and b32, ``cast_params(bf16)`` through ``fused_vit_apply`` and
    ``make_eval_step`` over it; ``smooth_t2t`` on t2t_vit_14 in static int8
    at b1 (K8, K16): logits against the twins, exact launch counts; the
-   train and QAT steps' times and the phase's peak memory.
+   train and QAT steps' times and the phase's peak memory;
+8. head and movement pruning on the card (``edgevisiontransformer_tpu_torch/
+   pruning``, plain PyTorch autograd), the pruned models served on the
+   kernels: deit_tiny (standard, full width and depth, fp32, seeded random
+   weights, synthetic b32 images): ``calculate_head_importance`` over four
+   batches against the CPU's (1e-4), ``iterative_head_prune`` to 9 and 18
+   heads (a 2-step finetune as retrain, checkpoints and accuracy markers)
+   with each level's heads against the CPU's (a pair within 1e-4 printed
+   where they part); ``run_sparse_finetune`` on the
+   ``topk-hybrid-struct-layerwise-tiny`` preset (12 steps, the dense model as
+   teacher), its first two steps against the CPU's (params and scores within
+   one spacing + 1e-3 of the largest update, the key bias aside; masks at the
+   final thresholds parting only within that of their cut), the compiled
+   model's per-layer heads and widths; every level and the compiled model
+   through ``fused_vit_apply`` (the compiled one segmented and packed) and
+   static ``fused_vit_apply_int8`` at b1 and b32; a 4-step run with the
+   LayerNorm and GELU transitions compiled to NoNorm / ReLU, refused by
+   ``fused_vit_apply`` and served by the ``kernel_mode="pallas"`` module at
+   b1 (``sdpa``): logits against the twins, exact launch counts; the times of
+   one importance batch and of the sparse step (eager, traced kernels,
+   idle), each served model's device p50 at b1 and b32 beside dense
+   deit_tiny's, and the phase's seconds and peak memory.
 
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
@@ -2048,21 +2069,20 @@ QAT_MM_REL = 5e-3
 SMOOTH_REL = 1e-3
 
 
-def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
-
-
-def _step_dev(torch, got, want, start):
+def _step_dev(torch, got, want, start, keep=None):
     """max |got - want| less one fp32 spacing of ``want``, and the largest
-    update |want - start|."""
+    update |want - start|; ``keep(name, t)``, where given, picks the
+    elements of each leaf that count."""
     from edgevisiontransformer_tpu_torch.utils.jax_bridge import flatten_tree
 
     w, s = flatten_tree(want), flatten_tree(start)
+    pick = keep or (lambda name, t: t)
     dev = upd = 0.0
     for k, g in flatten_tree(got).items():
         ref = w[k].float().cpu()
         spacing = torch.nextafter(ref.abs(), torch.full_like(ref, float("inf"))) - ref.abs()
-        dev = max(dev, float(((g.float().cpu() - ref).abs() - spacing).clamp(min=0).max()))
+        dev = max(dev, float(pick(k, ((g.float().cpu() - ref).abs() - spacing).clamp(min=0))
+                             .max()))
         upd = max(upd, float((ref - s[k].float().cpu()).abs().max()))
     return dev, upd
 
@@ -2100,7 +2120,7 @@ def phase_train(torch, harness, counter, card):
     from edgevisiontransformer_tpu_torch.utils.checkpoint import (load_checkpoint, load_meta,
                                                                   save_checkpoint)
     from edgevisiontransformer_tpu_torch.utils.finetune import FinetuneConfig, build_optimizer
-    from edgevisiontransformer_tpu_torch.utils.jax_bridge import flatten_tree
+    from edgevisiontransformer_tpu_torch.utils.jax_bridge import flatten_tree, tree_map
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2117,12 +2137,12 @@ def phase_train(torch, harness, counter, card):
     apply = lambda p, x: apply_params(model, p, x)  # noqa: E731
     opt = build_optimizer(FinetuneConfig(lr=TRAIN_LR, optimizer="sgd"))
     step = make_train_step(apply, opt)
-    clone = lambda tree: _tree_map(lambda t: t.detach().clone(), tree)  # noqa: E731
+    clone = lambda tree: tree_map(lambda t: t.detach().clone(), tree)  # noqa: E731
     init = clone(model.params())
 
     # (a) every parameter's gradient, with and without remat
     def grads_of(m, tree):
-        live = _tree_map(lambda t: t.detach().clone().requires_grad_(), tree)
+        live = tree_map(lambda t: t.detach().clone().requires_grad_(), tree)
         loss = cross_entropy(apply_params(m, live, img), labels)
         flat = flatten_tree(live)
         return dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
@@ -2156,7 +2176,7 @@ def phase_train(torch, harness, counter, card):
         fail(f"train: losses {losses}, then {final} on the repeated batch: not finite and "
              f"falling")
     cpu_model = ViT(cfg, device="cpu")
-    cpu_params = _tree_map(lambda t: t.to("cpu", copy=True), init)
+    cpu_params = tree_map(lambda t: t.to("cpu", copy=True), init)
     cpu_state = opt.init(cpu_params)
     cpu_step = make_train_step(lambda p, x: apply_params(cpu_model, p, x), opt)
     t0 = time.perf_counter()
@@ -2261,7 +2281,7 @@ def phase_train(torch, harness, counter, card):
     qat_params = clone(trained)
     qat_apply = lambda p, x: quant.fake_quant_vit_apply_static(model, p, scales, x)  # noqa: E731
     qat_step = make_train_step(qat_apply, opt)
-    live = _tree_map(lambda t: t.detach().clone().requires_grad_(), qat_params)
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(), qat_params)
     flat = flatten_tree(live)
     q_grads = dict(zip(flat, torch.autograd.grad(cross_entropy(qat_apply(live, img), labels),
                                                  list(flat.values()))))
@@ -2382,6 +2402,428 @@ def phase_train(torch, harness, counter, card):
     del tmodel, tsq, prepared
     torch.cuda.synchronize()
     print(f"  phase 7: {time.perf_counter() - t_phase:.1f} s, peak device memory "
+          f"{harness.device_mem_mb():.1f} MiB, on {card}")
+    return worst
+
+
+# Phase 8: head and movement pruning on the card (deit_tiny standard, full
+# width and depth, fp32 with TF32 off, seeded random weights, synthetic
+# images and labels), the pruned models served on the kernels.
+PRUNE_BATCH = 32
+IMPORTANCE_BATCHES = 4
+# The layer-normalized head importance, card against CPU: the same fp32
+# gradient summed in other orders through 12 layers, forward and backward
+IMPORTANCE_ATOL = 1e-4
+PRUNE_NUMBERS = (9, 18)
+SPARSE_PRESET = "topk-hybrid-struct-layerwise-tiny"
+# 2 of 3 heads (ceil(0.34 * 3)) in the first six layers, 1 in the last six
+SPARSE_LAYERWISE = "-".join(["h_0.34_d_0.3"] * 6 + ["h_0.3_d_0.5"] * 6)
+SPARSE_STEPS = 12
+# graph replays of 10 calls each behind a served model's device p50: at 5 the
+# spread of one b32 figure reached 13% in one run
+PRUNE_TIME_REPEATS = 15
+SPARSE_WARMUP = 2
+TRANSITION_STEPS = 4
+# Adam divides each gradient by its own size, g / (|g| + 1e-8): where a
+# gradient is near zero (the key bias, exactly zero in exact arithmetic: the
+# softmax ignores a per-query constant) the card's and the CPU's rounding
+# noise become steps of up to lr of either sign.  The two sparse steps are
+# compared where the card's or the CPU's root-mean-square gradient over them
+# is above this floor, as tests/test_torch_train.py compares AdamW with
+# optax; the leaves whose elements it leaves out are printed
+ADAM_GRAD_FLOOR = 1e-5
+
+
+def _above_floor(states, name, steps):
+    """The elements of leaf ``name`` whose root-mean-square gradient over
+    ``steps`` Adam steps, from the second moment of any of the Adam states
+    ``states`` (the card's and the CPU's), is above ``ADAM_GRAD_FLOOR``."""
+    keep = None
+    for st in states:
+        rms = (st[name]["exp_avg_sq"].float().cpu() / (1 - 0.999 ** steps)).sqrt()
+        keep = rms > ADAM_GRAD_FLOOR if keep is None else keep | (rms > ADAM_GRAD_FLOOR)
+    return keep
+
+
+def _floor_report(states, steps, top=4) -> str:
+    """The share of elements ``_above_floor`` keeps, and the ``top`` leaves
+    it leaves the most elements out of (left out / size)."""
+    n = m = 0
+    out = []
+    for name in states[0]:
+        keep = _above_floor(states, name, steps)
+        n, m = n + int(keep.sum()), m + keep.numel()
+        if not keep.all():
+            out.append((int((~keep).sum()), keep.numel(), name))
+    out.sort(reverse=True)
+    leaves = ", ".join(f"{name} {k}/{size}" for k, size, name in out[:top])
+    return f"{n / m:.2%} ({len(out)} leaves cut{': ' + leaves if leaves else ''})"
+
+
+def phase_prune(torch, harness, counter, fa, fm, card):
+    """Head pruning and movement pruning on the card, their models served on
+    the kernels.  (a) ``calculate_head_importance`` over 4 batches of b32,
+    card against CPU; ``iterative_head_prune`` to 9 and 18 heads (at least
+    one a layer, structural, a 2-step SGD ``finetune`` as retrain,
+    ``make_eval_step`` as eval, checkpoints and accuracy markers under
+    ``build/``), each level's heads against the CPU's; each level served
+    by ``fused_vit_apply`` (bf16) and static ``fused_vit_apply_int8`` at b1
+    and b32.  (b) ``run_sparse_finetune`` on ``SPARSE_PRESET`` with
+    ``SPARSE_LAYERWISE``, 12 steps at b32 with the dense model as teacher;
+    its first two steps repeated on the CPU (params, scores, and the masks
+    at the final thresholds); the compiled model served segmented, packed
+    and in static int8 at b1 and b32.  (c) a 4-step run with the LayerNorm
+    and GELU transitions, compiled to NoNorm / ReLU: the fused path refuses
+    it and the ``kernel_mode="pallas"`` module serves it at b1 (``sdpa``).
+    Each request's launch counts are checked and its logits held to the
+    twins; prints the times and the phase's seconds and peak memory;
+    returns the worst logit deviation."""
+    import shutil
+
+    import numpy as np
+
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+    from edgevisiontransformer_tpu_torch.models.vit import (ViT, apply_params,
+                                                             fused_vit_apply,
+                                                             fused_vit_apply_int8, load_params,
+                                                             prepare_vit_fused,
+                                                             prepare_vit_int8_static)
+    from edgevisiontransformer_tpu_torch.ops.quant import representative_batches
+    from edgevisiontransformer_tpu_torch.parallel.train import make_eval_step
+    from edgevisiontransformer_tpu_torch.pruning.head_importance import (
+        calculate_head_importance, head_importance_batch)
+    from edgevisiontransformer_tpu_torch.pruning.iterative import (IterativePruneConfig,
+                                                                    iterative_head_prune)
+    from edgevisiontransformer_tpu_torch.pruning.movement import (init_mask_scores,
+                                                                   parse_layerwise_thresholds,
+                                                                   quantile_linear,
+                                                                   schedule_thresholds,
+                                                                   topk_mask)
+    from edgevisiontransformer_tpu_torch.pruning.policy import parse_head_pruning_descriptors
+    from edgevisiontransformer_tpu_torch.pruning.sparse_driver import (run_sparse_finetune,
+                                                                        sparse_config_from_preset,
+                                                                        sparse_optimizers)
+    from edgevisiontransformer_tpu_torch.pruning.sparse_train import make_sparse_train_step
+    from edgevisiontransformer_tpu_torch.utils.checkpoint import load_meta
+    from edgevisiontransformer_tpu_torch.utils.finetune import FinetuneConfig, finetune
+    from edgevisiontransformer_tpu_torch.utils.imagenet import has_accuracy_marker
+    from edgevisiontransformer_tpu_torch.utils.jax_bridge import tree_map
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    model, shape = build_model("deit_tiny", style="standard", device=DEVICE,
+                               generator=torch.Generator().manual_seed(0))
+    cfg = model.config
+    classes = cfg.num_classes
+    clone = lambda tree: tree_map(lambda t: t.detach().clone(), tree)  # noqa: E731
+    to_cpu = lambda tree: tree_map(lambda t: t.detach().to("cpu", copy=True), tree)  # noqa: E731
+    init = clone(model.params())
+    data = torch.Generator().manual_seed(2400)
+    imp_batches = [torch.randn(PRUNE_BATCH, *shape, generator=data)
+                   for _ in range(IMPORTANCE_BATCHES)]
+    train = [(torch.randn(PRUNE_BATCH, *shape, generator=data),
+              torch.randint(0, classes, (PRUNE_BATCH,), generator=data)) for _ in range(2)]
+    val_x = torch.randn(PRUNE_BATCH, *shape, generator=data)
+    val_y = torch.randint(0, classes, (PRUNE_BATCH,), generator=data)
+    img1 = torch.randn(1, *shape, generator=torch.Generator().manual_seed(2410)).to(DEVICE)
+    img32 = torch.randn(PRUNE_BATCH, *shape,
+                        generator=torch.Generator().manual_seed(2420)).to(DEVICE)
+    calib = lambda: representative_batches(n=8, shape=shape)  # noqa: E731
+    bf16_want = want_launches(BF16_LAUNCHES, cfg.depth)
+    int8_want = want_launches(INT8_LAUNCHES, cfg.depth)
+    worst = 0.0
+    served_models = {}
+
+    def served(tag, fn, batch, want):
+        """One request on the kernels, its launch counts checked, against
+        the twins."""
+        nonlocal worst
+        with torch.no_grad():
+            counter.reset()
+            logits = fn(False)
+            torch.cuda.synchronize()
+            counts = counter.read()
+            ref = fn(True)
+        if counts != want:
+            fail(f"{tag}: launch counts {counts}, expected {want}")
+        rel, err, scale, agree = check_logits(tag, logits, ref, batch, classes)
+        worst = max(worst, rel)
+        print(f"  {tag:44s} max|kern-twin| {err:.4g} (max|logit| {scale:.4g}), top-1 "
+              f"agreement {agree:.3f}, launches { {k: v for k, v in counts.items() if v} }")
+
+    def serve(tag, c, p, pack=False):
+        """``(c, p)`` in bf16 through ``fused_vit_apply`` (segmented, and
+        packed with ``pack``) and static ``fused_vit_apply_int8`` at b1 and
+        b32; keeps the model and its stacks for the timing below."""
+        m = ViT(c.replace(dtype=torch.bfloat16), device=DEVICE)
+        load_params(m, p)
+        with torch.no_grad():
+            stacks = {"bf16": prepare_vit_fused(m)}
+            if pack:
+                stacks["packed"] = prepare_vit_fused(m, pack_layers=True)
+            stacks["int8"] = prepare_vit_int8_static(m, calib_batches=calib())
+        for img in (img1, img32):
+            b = img.shape[0]
+            served(f"{tag} bf16 segmented b{b}", lambda plain: fused_vit_apply(
+                m, img, stacked=stacks["bf16"], plain=plain), b, bf16_want)
+            if pack:
+                served(f"{tag} bf16 packed b{b}", lambda plain: fused_vit_apply(
+                    m, img, stacked=stacks["packed"], pack_layers=True, plain=plain), b, bf16_want)
+            served(f"{tag} int8 static b{b}", lambda plain: fused_vit_apply_int8(
+                m, img, stacked_q=stacks["int8"], plain=plain), b, int8_want)
+        served_models[tag] = (m, stacks)
+
+    # (a) head importance, card against CPU
+    cpu_init = to_cpu(init)
+    t0 = time.perf_counter()
+    imp = calculate_head_importance(cfg, init, imp_batches)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_imp = calculate_head_importance(cfg, cpu_init, imp_batches)
+    cpu_s = time.perf_counter() - t0
+    imp_dev = float(np.abs(imp - cpu_imp).max())
+    x0 = imp_batches[0].to(DEVICE)
+    e = harness.measure_op_time(lambda: head_importance_batch(cfg, init, x0), (), iters=3,
+                                repeats=5, warmup=1)
+    print(f"  head importance, {IMPORTANCE_BATCHES} batches of b{PRUNE_BATCH}: card {card_s:.2f} "
+          f"s, CPU {cpu_s:.2f} s; layer-normalized, max |card - CPU| {imp_dev:.3g} (bound "
+          f"{IMPORTANCE_ATOL}); one batch's importance (forward and backward) eager p50 "
+          f"{e['p50_ms']:.4f} ms (std {e['std_ms']:.4f}), on {card}")
+    if not np.isfinite(imp).all() or imp_dev > IMPORTANCE_ATOL:
+        fail(f"head importance: card and CPU part by {imp_dev:.3g} (> {IMPORTANCE_ATOL})")
+
+    # (a) iterative head pruning, card and CPU
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_pruned"
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def retrain(device):
+        def fn(c, p):
+            m = ViT(c, device=device)
+            return finetune(lambda q, x: apply_params(m, q, x), p, lambda: iter(train),
+                            FinetuneConfig(lr=TRAIN_LR, optimizer="sgd", max_steps=2),
+                            log=lambda s: None)
+        return fn
+
+    def evaluate(c, p):
+        m = ViT(c, device=DEVICE)
+        n, total = make_eval_step(lambda q, x: apply_params(m, q, x))(p, val_x.to(DEVICE),
+                                                                       val_y.to(DEVICE))
+        return int(n) / total
+
+    prune_kw = dict(prune_numbers=PRUNE_NUMBERS, at_least_x_heads_per_layer=1,
+                    actually_prune=True, output_dir=str(out_dir), model_tag="deit_tiny")
+    t0 = time.perf_counter()
+    levels = list(iterative_head_prune(cfg, init, IterativePruneConfig(**prune_kw),
+                                       importance_batches=lambda: iter(imp_batches),
+                                       eval_fn=evaluate, retrain_fn=retrain(DEVICE), save=True))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_levels = list(iterative_head_prune(cfg, cpu_init, IterativePruneConfig(**prune_kw),
+                                           importance_batches=lambda: iter(imp_batches),
+                                           retrain_fn=retrain("cpu")))
+    cpu_s = time.perf_counter() - t0
+    print(f"  iterative_head_prune {PRUNE_NUMBERS}: card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+    diverged = False
+    for lv, cl in zip(levels, cpu_levels):
+        heads = parse_head_pruning_descriptors(lv.descriptor.split())
+        cpu_heads = parse_head_pruning_descriptors(cl.descriptor.split())
+        flat = lambda d: {(layer, h) for layer, hs in d.items() for h in hs}  # noqa: E731
+        only_card, only_cpu = sorted(flat(heads) - flat(cpu_heads)), sorted(
+            flat(cpu_heads) - flat(heads))
+        pairs = [(a, b, abs(lv.importance[a] - lv.importance[b]))
+                 for a, b in zip(only_card, only_cpu)]
+        meta = load_meta(lv.save_dir)
+        print(f"  level {lv.level}: {lv.n_pruned_total} heads pruned, heads per layer "
+              f"{lv.cfg.heads_per_layer}, accuracy marker {has_accuracy_marker(lv.save_dir)} "
+              f"(eval {lv.accuracy}), checkpoint meta {meta['descriptor'] == lv.descriptor}; "
+              f"the CPU's heads {'the same' if not only_card else f'differ: {pairs}'}")
+        if meta["descriptor"] != lv.descriptor or has_accuracy_marker(lv.save_dir) is None:
+            fail(f"iterative_head_prune level {lv.level}: checkpoint or marker missing")
+        if diverged:
+            continue  # the CPU pruned from other heads at an earlier level
+        if len(only_card) != len(only_cpu) or any(d > IMPORTANCE_ATOL for _, _, d in pairs):
+            fail(f"iterative_head_prune level {lv.level}: card {lv.descriptor!r}, CPU "
+                 f"{cl.descriptor!r}, not a near-tie (pairs {pairs})")
+        diverged = bool(only_card)
+    for lv in levels:
+        serve(f"prune{lv.n_pruned_total}", lv.cfg, lv.params)
+    del cpu_levels, cpu_init
+
+    # (b) movement pruning: run_sparse_finetune's first two steps, each repeated on the
+    # CPU from the card's state before it
+    sparse = sparse_config_from_preset(SPARSE_PRESET, warmup_steps=SPARSE_WARMUP,
+                                       layerwise_thresholds=SPARSE_LAYERWISE)
+    teach = lambda tp, x: apply_params(model, tp, x)  # noqa: E731
+    opt_p, opt_s = sparse_optimizers()
+    scores0 = init_mask_scores(cfg, sparse, torch.Generator().manual_seed(0), device=DEVICE)
+    step = make_sparse_train_step(teach, cfg, sparse, opt_p, opt_s, teach,
+                                  with_teacher_params=True)
+    cpu_model = ViT(cfg, device="cpu")
+    cpu_apply = lambda tp, x: apply_params(cpu_model, tp, x)  # noqa: E731
+    cpu_step = make_sparse_train_step(cpu_apply, cfg, sparse, opt_p, opt_s, cpu_apply,
+                                      with_teacher_params=True)
+    cpu_teacher = to_cpu(init)
+
+    def on(device, state):
+        """A copy of (params, scores, their optimizer states) on ``device``;
+        Adam's step counts stay on the CPU, where torch.optim keeps them."""
+        return [tree_map(lambda t: t.detach().clone() if t.dim() == 0
+                          else t.detach().to(device, copy=True), tree) for tree in state]
+
+    state = [clone(init), scores0, opt_p.init(init), opt_s.init(scores0)]
+    cpu_s, rows = 0.0, []
+    for i in range(2):
+        thr, mul = schedule_thresholds(i, SPARSE_STEPS, cfg, sparse)
+        x, y = train[i]
+        *card_st, m = step(*on(DEVICE, state), x.to(DEVICE), y.to(DEVICE),
+                        torch.tensor(thr, device=DEVICE), torch.tensor(mul, device=DEVICE), init)
+        t0 = time.perf_counter()
+        *cpu_st, cm = cpu_step(*on("cpu", state), x, y, torch.tensor(thr), torch.tensor(mul),
+                            cpu_teacher)
+        cpu_s += time.perf_counter() - t0
+        opt_states = [(card_st[2], cpu_st[2]), (card_st[3], cpu_st[3])]
+        dev_p, upd_p = _step_dev(torch, card_st[0], cpu_st[0], state[0],
+                                 keep=lambda k, t: t[_above_floor(opt_states[0], k, i + 1)])
+        dev_s, upd_s = _step_dev(torch, card_st[1], cpu_st[1], state[1],
+                                 keep=lambda k, t: t[_above_floor(opt_states[1], k, i + 1)])
+        rows.append(f"step {i}: loss {float(m['loss']):.6f} / {float(cm['loss']):.6f}, params "
+                    f"{dev_p:.3g} (update {upd_p:.3g}), scores {dev_s:.3g} (update {upd_s:.3g}); "
+                    f"params compared {_floor_report(opt_states[0], i + 1)}; scores compared "
+                    f"{_floor_report(opt_states[1], i + 1)}")
+        if not dev_p <= CPU_STEP_REL * upd_p or not dev_s <= CPU_STEP_REL * upd_s:
+            fail(f"sparse step {i}: card and CPU part from the same state (params {dev_p:.3g} > "
+                 f"{CPU_STEP_REL} x {upd_p:.3g}, or scores {dev_s:.3g} > {CPU_STEP_REL} x "
+                 f"{upd_s:.3g})")
+        state = card_st
+    final, _ = schedule_thresholds(10**9, 10**9, cfg, sparse)
+    flips = 0
+    for i in range(cfg.depth):
+        for name in ("q", "k", "v", "out", "fc1", "fc2"):
+            thr = final[i][0 if name in ("q", "k", "v", "out") else 1]
+            card_s_, cpu_s_ = card_st[1][f"block_{i}"][name].cpu(), cpu_st[1][f"block_{i}"][name]
+            differ = topk_mask(card_s_, thr) != topk_mask(cpu_s_, thr)
+            if differ.any():
+                # a score and the cut (two scores interpolated) each part by
+                # at most the step bound beyond a spacing: a mask may part
+                # only where the score lies within twice that of the cut
+                flat_ = cpu_s_.reshape(-1)
+                cut = quantile_linear(flat_, torch.tensor(min(max(1.0 - thr, 0.0),
+                                                              1.0 - 1.0 / flat_.numel())))
+                far = float((cpu_s_[differ] - cut).abs().max())
+                near = 2 * (CPU_STEP_REL * upd_s
+                            + float(torch.nextafter(cut.abs(), cut.abs() + 1) - cut.abs()))
+                if far > near:
+                    fail(f"sparse steps: block {i} {name}'s mask parts card / CPU at a score "
+                         f"{far:.3g} from its cut (bound {near:.3g})")
+                flips += int(differ.sum())
+    print(f"  sparse step (AdamW lr 5e-5, Adam on the scores lr 1e-2, teacher), "
+          f"run_sparse_finetune's first two steps, each on the card and on the CPU "
+          f"({cpu_s:.1f} s) from the card's state before it; max |card - CPU| beyond one "
+          f"spacing where the card's or the CPU's RMS gradient is above {ADAM_GRAD_FLOOR} "
+          f"(the share compared, and the leaves the floor cuts most, left out / size):")
+    for row in rows:
+        print(f"    {row}")
+    print(f"    masks at the final thresholds: {flips} elements part, each within the bound of "
+          f"its cut")
+    p2, s2, sp2, ss2 = card_st
+    del cpu_st, cpu_model, cpu_teacher, state
+
+    # the sparse step's time, on a copy of the state (the step updates it)
+    xs, ys = train[0][0].to(DEVICE), train[0][1].to(DEVICE)
+    thr_t = torch.tensor(final, device=DEVICE)
+    mul_t = torch.tensor(1.0, device=DEVICE)
+    fn = lambda: step(p2, s2, sp2, ss2, xs, ys, thr_t, mul_t, init)  # noqa: E731
+    e = harness.measure_op_time(fn, (), iters=3, repeats=5, warmup=1)
+    prof = harness.device_time_by_kernel(fn)
+    busy = sum(r[2] for r in prof)
+    print(f"  sparse step with teacher b{PRUNE_BATCH} (fp32): eager p50 {e['p50_ms']:.4f} ms (std "
+          f"{e['std_ms']:.4f}, {PRUNE_BATCH * 1e3 / e['p50_ms']:.1f} img/s), traced kernel time "
+          f"{busy:.4f} ms (device idle {max(0.0, 1 - busy / e['p50_ms']):.1%} of the eager step), "
+          f"on {card}")
+    for name, calls, ms in prof[:4]:
+        print(f"      {ms:9.4f} ms {calls:5d}x  {name[:90]}")
+    del p2, s2, sp2, ss2, step
+
+    # (b) run_sparse_finetune end to end, then its compiled model served
+    t0 = time.perf_counter()
+    res = run_sparse_finetune(teach, cfg, clone(init), sparse, lambda: iter(train),
+                              total_steps=SPARSE_STEPS, teacher_apply=teach, teacher_params=init,
+                              log=lambda s: print(f"    {s}"))
+    torch.cuda.synchronize()
+    ccfg = res.compiled_cfg
+    print(f"  run_sparse_finetune {SPARSE_PRESET}, {SPARSE_STEPS} steps b{PRUNE_BATCH}: "
+          f"{time.perf_counter() - t0:.2f} s; compiled heads_per_layer {ccfg.heads_per_layer}, "
+          f"mlp_dim_per_layer {ccfg.mlp_dim_per_layer}, zeros {res.sparsity['__overall__']:.4f}")
+    heads = tuple(max(1, math.ceil(h * cfg.heads))
+                  for h, _ in parse_layerwise_thresholds(SPARSE_LAYERWISE, cfg.depth))
+    if ccfg.heads_per_layer != heads or not all(ccfg.mlp_dim_per_layer):
+        fail(f"compile_sparse_model: heads {ccfg.heads_per_layer}, hidden "
+             f"{ccfg.mlp_dim_per_layer}")
+    serve("movement", ccfg, res.compiled_params, pack=True)
+    del res
+
+    # (c) the transitions, compiled to NoNorm / ReLU
+    sparse_t = sparse_config_from_preset(
+        SPARSE_PRESET, warmup_steps=SPARSE_WARMUP, layerwise_thresholds=SPARSE_LAYERWISE,
+        layer_norm_patch=True, gelu_patch=True, layer_norm_patch_steps=TRANSITION_STEPS,
+        gelu_patch_steps=TRANSITION_STEPS)
+    res = run_sparse_finetune(None, cfg, clone(init), sparse_t, lambda: iter(train),
+                              total_steps=TRANSITION_STEPS, log=lambda s: None)
+    tcfg = res.compiled_cfg
+    tm = ViT(tcfg.replace(dtype=torch.bfloat16), device=DEVICE)
+    load_params(tm, res.compiled_params)
+    try:
+        fused_vit_apply(tm, img1)
+        fail("fused_vit_apply took a NoNorm / ReLU model")
+    except ValueError as err:
+        refusal = str(err)
+    module = ViT(tcfg.replace(dtype=torch.bfloat16, kernel_mode="pallas"), device=DEVICE)
+    load_params(module, res.compiled_params)
+
+    def module_run(plain):
+        if not plain:
+            return module(img1)
+        with module_twins(fa, fm):
+            return module(img1)
+
+    print(f"  transitions ({TRANSITION_STEPS} steps): norm_mode {tcfg.norm_mode!r}, act "
+          f"{tcfg.act!r}, heads {tcfg.heads_per_layer}; fused_vit_apply refuses it: "
+          f"{refusal[:70]}...")
+    served("transitions module pallas b1", module_run, 1,
+           want_launches({"sdpa": 1}, tcfg.depth))
+    del res, tm
+
+    # device times: dense deit_tiny beside every served pruned model
+    dense = ViT(cfg.replace(dtype=torch.bfloat16), device=DEVICE)
+    load_params(dense, init)
+    with torch.no_grad():
+        served_models["dense"] = (dense, {"bf16": prepare_vit_fused(dense),
+                                          "int8": prepare_vit_int8_static(
+                                              dense, calib_batches=calib())})
+    runs = {"bf16": lambda m, st, x: fused_vit_apply(m, x, stacked=st),
+            "packed": lambda m, st, x: fused_vit_apply(m, x, stacked=st, pack_layers=True),
+            "int8": lambda m, st, x: fused_vit_apply_int8(m, x, stacked_q=st)}
+    with torch.no_grad():
+        for tag in ["dense"] + [t for t in served_models if t != "dense"]:
+            m, stacks = served_models[tag]
+            for kind, st in stacks.items():
+                times = []
+                for img in (img1, img32):
+                    d = harness.measure_graph_time(lambda: runs[kind](m, st, img), iters=10,
+                                                   repeats=PRUNE_TIME_REPEATS)
+                    times.append(f"b{img.shape[0]} {d['p50_ms']:.4f} ms (std {d['std_ms']:.4f})")
+                print(f"  device p50 {tag} {kind}: {', '.join(times)}")
+        d = harness.measure_graph_time(lambda: module(img1), iters=10,
+                                       repeats=PRUNE_TIME_REPEATS)
+        print(f"  device p50 transitions module pallas: b1 {d['p50_ms']:.4f} ms (std "
+              f"{d['std_ms']:.4f})")
+    del served_models, module, dense, model, init
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    print(f"  phase 8: {time.perf_counter() - t_phase:.1f} s, peak device memory "
           f"{harness.device_mem_mb():.1f} MiB, on {card}")
     return worst
 
@@ -2521,13 +2963,18 @@ def main() -> int:
     print(f"== phase 7: finetune, QAT and SmoothQuant on the card, the results served on the "
           f"kernels, on {card}")
     worst_train = phase_train(torch, harness, counter, card)
+    torch.cuda.empty_cache()
+    print(f"== phase 8: head and movement pruning on the card, the pruned models served on the "
+          f"kernels, on {card}")
+    worst_prune = phase_prune(torch, harness, counter, fa, fm, card)
     worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr,
-              worst_full, worst_train)
+              worst_full, worst_train, worst_prune)
     print(f"build {build_s:.2f} s; worst logit deviation {max(worsts):.4g} of max|logit| (deit "
           f"bf16 {worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 {worst_t2t:.4g}, swin_tiny bf16 "
           f"{worst_swin:.4g}, int8 {worst_swin8:.4g}, swin module pallas {worst_mod:.4g}, ViT / T2T "
           f"module pallas {worst_vm:.4g}, pruned {worst_pr:.4g}, fully fused {worst_full:.4g}, "
-          f"trained and smoothed {worst_train:.4g})")
+          f"trained and smoothed {worst_train:.4g}, pruned on the card "
+          f"{worst_prune:.4g})")
 
     src = "edgevisiontransformer_tpu_torch/csrc/"
     print("kernel ms / plain_ms / bound_ms / library_ms: device time (CUDA-graph replay) of "

@@ -82,8 +82,10 @@ def measure_graph_time(fn: Callable, iters: int = 20, repeats: int = 5,
 def device_time_by_kernel(fn: Callable, tries: int = 8) -> list:
     """One traced call of ``fn()``: ``[(kernel name, calls, device ms)]``,
     largest first, from ``torch.profiler``'s CUDA activity.  Only the
-    kernels' own events count (the host-side operators that launched them
-    would count the same time twice).  ``fn`` must launch device work: the
+    kernels' own events count: the host-side operators that launched them,
+    and the device-side rows of ``record_function`` regions (such as
+    ``Optimizer.step#AdamW.step``), span kernels counted already and would
+    count the same time twice.  ``fn`` must launch device work: the
     tracer now and then loses every kernel record of a trace (on the H100,
     1 trace in 18, sometimes twice in a row), so a trace that holds no
     kernel is taken again, ``tries`` times in all, and ``[]`` means that
@@ -99,7 +101,8 @@ def device_time_by_kernel(fn: Callable, tries: int = 8) -> list:
             torch.cuda.synchronize()
         rows = [(ev.key, ev.count, ev.self_device_time_total / 1e3)
                 for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+                if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                and not ev.is_user_annotation]
         if rows:
             break
     return sorted(rows, key=lambda r: -r[2])

@@ -53,6 +53,8 @@ _STATE = {
     torch.optim.SGD: lambda p: {"momentum_buffer": torch.zeros_like(p)},
     torch.optim.AdamW: lambda p: {"step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
                                   "exp_avg_sq": torch.zeros_like(p)},
+    torch.optim.Adam: lambda p: {"step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
+                                 "exp_avg_sq": torch.zeros_like(p)},
 }
 
 
@@ -60,7 +62,8 @@ _STATE = {
 class Optimizer:
     """A ``torch.optim`` class and its hyper-parameters, in optax's two
     parts: :meth:`init` builds the state tree, :meth:`apply` updates the
-    parameters from their gradients.  SGD with momentum and AdamW, in their
+    parameters from their gradients.  SGD with momentum, Adam (the mask
+    scores' optimizer of ``pruning/sparse_train``) and AdamW, in their
     default (for-each) form: the state table is theirs (``_STATE``), and a
     fused or capturable AdamW keeps its ``step`` on the device instead.
 

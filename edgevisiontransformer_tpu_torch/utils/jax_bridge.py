@@ -33,6 +33,20 @@ def flatten_tree(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a nested dict, the same nesting."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_to_torch(tree_np: dict) -> dict:
+    """A nested dict of numpy leaves (a JAX params tree, a movement-pruning
+    mask-score tree, LayerNorm transition accumulators) as the same tree of
+    exact torch copies on the CPU."""
+    return tree_map(to_torch, tree_np)
+
+
 def _matched(tree_np: dict, named: dict, what: str) -> list:
     """``[(port tensor, exact torch copy of the flax leaf)]`` for a numpy
     tree against ``{dotted name: tensor}``; raise ``KeyError`` on a missing

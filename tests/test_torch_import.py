@@ -47,6 +47,16 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.utils.imagenet",
     "edgevisiontransformer_tpu_torch.parallel",
     "edgevisiontransformer_tpu_torch.parallel.train",
+    "edgevisiontransformer_tpu_torch.pruning",
+    "edgevisiontransformer_tpu_torch.pruning.policy",
+    "edgevisiontransformer_tpu_torch.pruning.magnitude_pruners",
+    "edgevisiontransformer_tpu_torch.pruning.apply",
+    "edgevisiontransformer_tpu_torch.pruning.head_importance",
+    "edgevisiontransformer_tpu_torch.pruning.iterative",
+    "edgevisiontransformer_tpu_torch.pruning.movement",
+    "edgevisiontransformer_tpu_torch.pruning.sparse_train",
+    "edgevisiontransformer_tpu_torch.pruning.transitions",
+    "edgevisiontransformer_tpu_torch.pruning.sparse_driver",
     "edgevisiontransformer_tpu_torch.bench.harness",
     "edgevisiontransformer_tpu_torch.bench.sdpa_ab",
     "edgevisiontransformer_tpu_torch.bench.mlp_ab",

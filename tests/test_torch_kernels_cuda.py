@@ -1683,3 +1683,102 @@ def test_kernel_backward_raises_on_the_card_and_the_forward_is_unchanged(dev):
     bf = ViT(deit_config("tiny", depth=2, dtype=torch.bfloat16), device=dev)
     with pytest.raises(RuntimeError, match="no backward kernel yet"):
         fused_vit_apply(bf, img.requires_grad_()).float().sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# The shapes a compiled sparse model reaches: hidden widths down to one unit
+# (compile keeps at least one), one head of three
+# ---------------------------------------------------------------------------
+
+COMPILED_WIDTHS = (1, 7, 24)
+
+
+@pytest.mark.parametrize("width", COMPILED_WIDTHS)
+@pytest.mark.parametrize("m", [197, 32 * 197])
+def test_linear_kernel_at_compiled_widths_matches_twin(dev, width, m):
+    """fc1 (K = 192 -> N = width, GELU) and fc2 (K = width -> N = 192, the
+    residual) of a deit_tiny layer pruned to ``width`` hidden units."""
+    for k, n, epilogue in ((192, width, fe.CAST_THEN_BIAS_GELU), (width, 192, fe.BIAS_RESIDUAL)):
+        args, kw = _linear_args(dev, m, k, n, epilogue)
+        fe.reset_launches()
+        got = fe.linear(*args, **kw)
+        assert fe.LAUNCHES["linear"] == 1
+        _close(got, fe.linear_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("width", COMPILED_WIDTHS)
+@pytest.mark.parametrize("m", [197, 32 * 197])
+def test_int8_kernels_at_compiled_widths_match_twin(dev, width, m, static):
+    """quant_rows of the hidden activation (K = width), and linear_i8's fc1
+    (192 -> width, GELU) and fc2 (width -> 192, the residual): bit for bit
+    but the GELU epilogue."""
+    h = _rnd(dev, m, width, scale=3.0)
+    act_inv = (30.0 * _uniform(dev, 3, 4, seed=1)).contiguous() if static else None
+    q, s = fe.quant_rows(h, act_inv, 2)
+    q_p, s_p = fe.quant_rows_plain(h, act_inv, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_p) and (static or torch.equal(s, s_p))
+    for k, n, epilogue in ((192, width, fe.BIAS_GELU), (width, 192, fe.BIAS_RESIDUAL)):
+        unit = 1.0 / (73.0 * 73.0 * k ** 0.5)
+        q, w_q = _int8(dev, m, k), _int8(dev, k, n, seed=1)
+        s_row = None if static else _uniform(dev, m, seed=2) * 0.05
+        w_s = _uniform(dev, n, seed=3) * (unit if static else unit / 0.05)
+        b = torch.randn(n, device=dev)
+        res = _rnd(dev, m, n, seed=4) if epilogue == fe.BIAS_RESIDUAL else None
+        kw = dict(epilogue=epilogue, out_dtype=torch.bfloat16, res=res)
+        got = fe.linear_i8(q, s_row, w_q, w_s, b, **kw)
+        ref = fe.linear_i8_plain(q, s_row, w_q, w_s, b, **kw)
+        if epilogue == fe.BIAS_GELU:
+            _close(got, ref)
+        else:
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+def test_attention_rows_one_head_of_three_matches_twin(dev, batch):
+    """deit_tiny's attention pruned to one of its three heads (head_dim 64)."""
+    qkv = _rnd(dev, batch * 197, 3 * 64)
+    kw = dict(heads=1, head_dim=64, tokens=197)
+    _close(fe.attention_rows(qkv, **kw), fe.attention_rows_plain(qkv, **kw))
+
+
+# twelve layers, each its own (heads, hidden): every segment one layer
+COMPILED_LAYERS = ((1, 1), (2, 7), (3, 24), (1, 64), (2, 230), (3, 537), (1, 768), (2, 1),
+                   (3, 7), (1, 24), (2, 100), (3, 333))
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+def test_twelve_layers_each_its_own_shape_on_the_kernels(dev, batch):
+    """A deit_tiny whose every layer has its own heads and hidden width
+    through ``fused_vit_apply`` (segmented and packed) and static
+    ``fused_vit_apply_int8``: the logits against the twins within 5% of
+    max|logit|, the launches of twelve layers."""
+    heads, hidden = zip(*COMPILED_LAYERS)
+    cfg = deit_config("tiny", heads_per_layer=heads, mlp_dim_per_layer=hidden, head_dim=64,
+                      dtype=torch.bfloat16)
+    model = ViT(cfg, device=dev, generator=torch.Generator().manual_seed(4))
+    assert len(tvit.encoder_segments(cfg)) == 12
+    img = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(5)).to(dev)
+    with torch.no_grad():
+        sq = prepare_vit_int8_static(model, calib_batches=[img[:1].cpu().numpy()])
+        runs = {
+            "segmented": (lambda plain: fused_vit_apply(model, img, plain=plain),
+                          {"ln_rows": 24, "linear": 48, "attention_rows": 12}),
+            "packed": (lambda plain: fused_vit_apply(model, img, pack_layers=True, plain=plain),
+                       {"ln_rows": 24, "linear": 48, "attention_rows": 12}),
+            "int8 static": (lambda plain: fused_vit_apply_int8(model, img, stacked_q=sq,
+                                                               plain=plain),
+                            {"ln_rows": 24, "attention_rows": 12, "quant_rows": 48,
+                             "linear_i8": 48}),
+        }
+        for name, (run, want) in runs.items():
+            fe.reset_launches()
+            got = run(False)
+            counts = {k: v for k, v in fe.LAUNCHES.items() if v}
+            ref = run(True)
+            torch.cuda.synchronize()
+            assert counts == want, name
+            assert got.shape == (batch, 1000) and torch.isfinite(got.float()).all(), name
+            assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max(), name
