@@ -8,11 +8,11 @@ Phases, in order; any failure exits non-zero before the last line:
 1. require a CUDA device; print the card (``nvidia-smi``), the torch, CUDA
    and nvcc versions, and whether ``import triton`` works;
 2. build the kernels from ``edgevisiontransformer_tpu_torch/csrc`` into
-   ``build/torch_kernels/`` and print the build time, ptxas's registers and
-   spills (no ``linear``, ``linear_i8``, ``attention_rows``,
-   ``window_attention``, ``performer_reduce``, ``performer_rows``,
-   ``swin_merge`` or ``t2t_stage1`` instance may spill) and the ``vit_full``
-   blocks one SM holds at each head dim;
+   ``build/torch_kernels/`` (every source twice: its bf16 and its fp16
+   instance) and print the build time, ptxas's registers and spills (no
+   kernel of either instance may spill but ``vit_full``, whose lines are
+   printed apart) and the ``vit_full`` blocks one SM holds at each head dim
+   for both instances;
 3. check each kernel against its plain PyTorch twin at deit_tiny shapes
    (b1 and b128), deit_base shapes (b8) and t2t_vit_14 shapes (b1 and b32,
    reference style: residual h, no qkv bias), and time both: the bf16 kernels
@@ -111,7 +111,22 @@ Phases, in order; any failure exits non-zero before the last line:
    b1 (``sdpa``): logits against the twins, exact launch counts; the times of
    one importance batch and of the sparse step (eager, traced kernels,
    idle), each served model's device p50 at b1 and b32 beside dense
-   deit_tiny's, and the phase's seconds and peak memory.
+   deit_tiny's, and the phase's seconds and peak memory;
+9. float16: every kernel's fp16 instance against its fp16 twin at the shape
+   of its row in the kernels line, with phase 3's bounds (``quant_rows`` and
+   the non-GELU ``linear_i8`` epilogues bit for bit), timed beside its twin;
+   the rows' bounds and fp16 library calls; the fp16 models on the card at
+   b1 and b32 -- deit_tiny through ``fused_vit_apply``, static
+   ``fused_vit_apply_int8``, ``fully_fused_vit_apply`` and the
+   ``kernel_mode="pallas"`` module, t2t_vit_14 through ``fused_t2t_apply`` and
+   static ``fused_t2t_apply_int8``, swin_tiny through ``fused_swin_apply``
+   (float and static int8) and its module -- each request's launch counts
+   read from zero and held to the bf16 path's, its logits within
+   ``LOGIT_REL`` of the twins; then device p50 (CUDA-graph replay) of the
+   ``F16_TIMES`` cells in bf16 and in fp16, one after the other, and the
+   ``linear``, ``attention_rows``, ``vit_full`` and ``window_attention`` rows
+   at fp16 beside bf16.  The kernels line carries a ``<kernel> fp16`` row for
+   each kernel's fp16 instance.
 
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
@@ -205,7 +220,7 @@ SWIN_INT8_SHAPES = {f"swin_tiny b{b} s{si}": (b * res * res, dim, 4 * dim, heads
                     if si in SWIN_INT8_STAGES}
 # The H100 SXM's published peaks (PERF.md section 3) for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp16": 989e12, "int8": 1979e12, "fp32": 67e12}
 LOG2E = 1.4426950408889634
 # t2t_vit_14 batches: the stage-1 kernel path (b1) and the plain-unfold
 # tokenizer (b32) in phases 4 and 5; the tokenizer forms are timed at b1,
@@ -308,7 +323,7 @@ def phase_env(torch, build) -> str:
     return card
 
 
-def phase_build(build, vf) -> float:
+def phase_build(torch, build, vf) -> float:
     """Build the library (a fresh checkout has none), print ptxas's registers
     and spills for each kernel and the blocks of ``vit_full`` one SM holds at
     each head dim, load it; returns the build time."""
@@ -321,33 +336,29 @@ def phase_build(build, vf) -> float:
     for src, lines in report.items():
         for line in lines:
             print(f"  ptxas {src}: {line}")
-    # linear's and linear_i8's block shapes (linear.cu, linear_rows*.cu,
-    # linear_i8.cu, i8_rows*.cu), attention_rows' plans, window_attention's
-    # instances, the two performer kernels, swin_merge's block shapes and the
-    # stage-1 tokenizer serve the main path: none may spill.
-    # vit_full's head_dim <= 64 instance spills a few words of its layer
-    # loop's state (PERF.md section 6): its lines are printed apart, not
-    # held to none
+    # Every kernel of every object, bf16 and fp16 (the _f16 objects), serves
+    # the main path: none may spill, but vit_full's: its head_dim <= 64
+    # instance spills a few words of its layer loop's state (PERF.md section
+    # 6), and its lines (both dtypes') are printed apart, not held to none
     spill = re.compile(r"[1-9]\d* bytes spill (stores|loads)")
     spills = [f"{src}: {line}" for src, lines in report.items()
-              if src in ("linear", "attention_rows", "linear_i8", "window_attention", "performer",
-                         "swin_merge", "t2t_stage1")
-              or src.startswith(("linear_rows", "i8_rows"))
+              if src not in ("vit_full", f"vit_full{build.F16_SUFFIX}")
               for line in lines if spill.search(line)]
     if spills:
-        fail(f"linear, linear_i8, attention_rows, window_attention, a performer kernel, "
-             f"swin_merge or t2t_stage1 spills registers: {spills}")
-    for line in report.get("vit_full", []):
-        if "spill" in line:
-            print(f"  vit_full instance: {line}")
-    for hd in vf.VIT_FULL_HEAD_DIMS:  # the instances of deit_tiny b128's and b1's plans
-        dim, heads = 192, max(1, 192 // hd)
-        for b in (128, 1):
-            plan = vf.vit_full_plan(b, 197, dim, heads, hd, 768, 1000, 132)
-            per_sm = vf.resident_blocks_per_sm(hd, plan.blocks,
-                                               vf.vit_full_smem_bytes(plan, hd, dim))
-            print(f"  vit_full head_dim {hd}, deit_tiny b{b}'s plan: {per_sm} blocks an SM "
-                  f"(the instance built for {plan.blocks})")
+        fail(f"a kernel other than vit_full spills registers: {spills}")
+    for src in ("vit_full", f"vit_full{build.F16_SUFFIX}"):
+        for line in report.get(src, []):
+            if "spill" in line:
+                print(f"  {src} instance: {line}")
+    for dtype in (torch.bfloat16, torch.float16):
+        for hd in vf.VIT_FULL_HEAD_DIMS:  # the instances of deit_tiny b128's and b1's plans
+            dim, heads = 192, max(1, 192 // hd)
+            for b in (128, 1):
+                plan = vf.vit_full_plan(b, 197, dim, heads, hd, 768, 1000, 132)
+                per_sm = vf.resident_blocks_per_sm(hd, plan.blocks,
+                                                   vf.vit_full_smem_bytes(plan, hd, dim), dtype)
+                print(f"  vit_full {str(dtype)[6:]} head_dim {hd}, deit_tiny b{b}'s plan: "
+                      f"{per_sm} blocks an SM (the instance built for {plan.blocks})")
     return dt
 
 
@@ -1549,7 +1560,7 @@ def _bound(nbytes: float, ops: dict):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_yardsticks(torch, harness):
+def phase_yardsticks(torch, harness, dt=None):
     """Each kernel's bound and library yardstick over the launches its JSON
     row times: one deit_tiny b128 layer (ln_rows, linear, attention_rows;
     quant_rows and linear_i8 static; sdpa and mlp: the kernel_mode="pallas"
@@ -1566,16 +1577,21 @@ def phase_yardsticks(torch, harness):
     (device p50, CUDA-graph replay; the GEMM calls leave out the epilogue);
     None where no one call computes it.  Returns ({kernel: (bound_ms,
     bound_by, library_ms)}, {"": K16's yardstick at b1, " b32": at b32}: the
-    eager performer chain's device p50 over one tokenizer's two performers)."""
+    eager performer chain's device p50 over one tokenizer's two performers).
+    ``dt``: the activations' dtype, bf16 (the default) or fp16 (phase 9's
+    rows): the same bytes, the products at the same peak, the library calls
+    on fp16 operands."""
     import torch.nn.functional as F
 
     from edgevisiontransformer_tpu_torch.models.swin import shifted_window_mask
     from edgevisiontransformer_tpu_torch.ops.cuda.swin_block import window_rows
 
     dev = DEVICE
+    dt = dt or torch.bfloat16
+    tc = "fp16" if dt == torch.float16 else "bf16"  # the tensor-core products' peak
     gen = torch.Generator(device=dev).manual_seed(9)
 
-    def rnd(*shape, dtype=torch.bfloat16):
+    def rnd(*shape, dtype=dt):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     def int8(*shape):
@@ -1599,19 +1615,19 @@ def phase_yardsticks(torch, harness):
             gb = 2 * (rows * k + k * nn_ + rows * nn_ * (2 if r else 1) + nn_)
             go = 2 * rows * k * nn_
             gl = lib([(lambda a=a, w=w, bb=bb: torch.addmm(bb, a, w), 1)])
-            out[f"linear {name}{tag}"] = (*_bound(gb, {"bf16": go}), gl)
+            out[f"linear {name}{tag}"] = (*_bound(gb, {tc: go}), gl)
             nbytes, ops, lib_ms = nbytes + gb, ops + go, lib_ms + gl
-        out[f"linear{tag}"] = (*_bound(nbytes, {"bf16": ops}), lib_ms)
+        out[f"linear{tag}"] = (*_bound(nbytes, {tc: ops}), lib_ms)
     qkv = rnd(128, n, 3, heads, dim // heads).permute(2, 0, 3, 1, 4)
-    key_mask = torch.zeros(1, 1, 1, n, dtype=torch.bfloat16, device=dev)
+    key_mask = torch.zeros(1, 1, 1, n, dtype=dt, device=dev)
     out["attention_rows"] = (
-        *_bound(2 * 4 * m * dim, {"bf16": 4 * 128 * heads * n * n * (dim // heads)}),
+        *_bound(2 * 4 * m * dim, {tc: 4 * 128 * heads * n * n * (dim // heads)}),
         lib([(lambda: F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
                                                      attn_mask=key_mask), 1)]))
     # and one deit_tiny b1 layer's call (phase 6's b1 row)
     qkv1 = rnd(1, n, 3, heads, dim // heads).permute(2, 0, 3, 1, 4)
     out["attention_rows b1"] = (
-        *_bound(2 * 4 * n * dim, {"bf16": 4 * heads * n * n * (dim // heads)}),
+        *_bound(2 * 4 * n * dim, {tc: 4 * heads * n * n * (dim // heads)}),
         lib([(lambda: F.scaled_dot_product_attention(qkv1[0], qkv1[1], qkv1[2],
                                                      attn_mask=key_mask), 1)]))
     widths = (dim, dim, dim, mlp)  # the static layer quantizes qkv, out, fc1, fc2 inputs
@@ -1630,7 +1646,7 @@ def phase_yardsticks(torch, harness):
     for b, tag in ((1, ""), (4, " b4")):
         out[f"stage1_kqv{tag}"] = (
             *_bound(b * 2 * 3 * 224 * 224 + 2 * 432 * d + 4 * 432 + 8 * d + b * 2 * tok * d,
-                    {"bf16": b * 2 * tok * feat * d, "fp32": b * 4 * tok * feat}), None)
+                    {tc: b * 2 * tok * feat * d, "fp32": b * 4 * tok * feat}), None)
 
     w, nw_ops, wa_bytes, wa_calls, sd_bytes, sd_calls = SWIN_WINDOW, 0, 0, [], 0, []
     nt = w * w
@@ -1650,7 +1666,7 @@ def phase_yardsticks(torch, harness):
             if shifted:
                 mk = torch.from_numpy(shifted_window_mask(res, res, w, w // 2)).to(dev) * LOG2E
                 am, mask_b = (bias[None] + mk[:, None]) / LOG2E, 4 * nwin * nt * nt
-            am = am.to(torch.bfloat16).expand(nwin, sheads, nt, nt).contiguous()
+            am = am.to(dt).expand(nwin, sheads, nt, nt).contiguous()
             wa_bytes += reps * (2 * 4 * rows * sdim + 4 * sheads * nt * nt + mask_b)
             nw_ops += reps * 4 * nwin * sheads * nt * nt * hd
             wa_calls.append(((lambda q=q, k=k, v=v, am=am:
@@ -1659,7 +1675,7 @@ def phase_yardsticks(torch, harness):
             # mask [nW, n, n]; SDPA on the same window-major q, k, v with their sum
             sm_ = (torch.from_numpy(shifted_window_mask(res, res, w, w // 2)).to(dev)[:, None]
                    if shifted else 0.0)
-            am16 = (bias.to(torch.bfloat16).float()[None] + sm_).to(torch.bfloat16)
+            am16 = (bias.to(dt).float()[None] + sm_).to(dt)
             am16 = am16.expand(nwin, sheads, nt, nt).contiguous()
             sd_bytes += reps * (2 * 4 * rows * sdim + 2 * sheads * nt * nt + mask_b)
             sd_calls.append(((lambda q=q, k=k, v=v, am=am16:
@@ -1667,26 +1683,26 @@ def phase_yardsticks(torch, harness):
         if si < len(SWIN_STAGES) - 1:
             merge_bytes += 2 * rows * sdim + 2 * rows * sdim + 2 * 4 * 4 * sdim
             merge_ops += 8 * rows * sdim
-    out["window_attention"] = (*_bound(wa_bytes, {"bf16": nw_ops}), lib(wa_calls))
+    out["window_attention"] = (*_bound(wa_bytes, {tc: nw_ops}), lib(wa_calls))
     out["swin_merge"] = (*_bound(merge_bytes, {"fp32": merge_ops}), None)
-    out["window_sdpa"] = (*_bound(sd_bytes, {"bf16": nw_ops}), lib(sd_calls))
+    out["window_sdpa"] = (*_bound(sd_bytes, {tc: nw_ops}), lib(sd_calls))
 
     # sdpa: one deit_tiny b128 layer's call, q, k, v as views of the fused qkv;
     # the library call is SDPA on the same views (no mask: n is not padded)
     b, hd = 128, dim // heads
     qkv5 = rnd(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    out["sdpa"] = (*_bound(2 * 4 * b * heads * n * hd, {"bf16": 4 * b * heads * n * n * hd}),
+    out["sdpa"] = (*_bound(2 * 4 * b * heads * n * hd, {tc: 4 * b * heads * n * n * hd}),
                    lib([(lambda: F.scaled_dot_product_attention(qkv5[0], qkv5[1], qkv5[2]), 1)]))
     # mlp: one deit_tiny b128 layer (erf GELU); the library yardstick is
     # torch.addmm + F.gelu + torch.addmm timed as one sum
     xm, w1, b1, w2, b2 = rnd(m, dim), rnd(dim, mlp), rnd(mlp), rnd(mlp, dim), rnd(dim)
     out["mlp"] = (*_bound(2 * (2 * m * dim + 2 * dim * mlp + mlp + dim),
-                          {"bf16": 4 * m * dim * mlp}),
+                          {tc: 4 * m * dim * mlp}),
                   lib([(lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, xm, w1)), w2), 1)]))
     # and one deit_tiny b1 layer, where the module loses its time
     x1 = xm[:n]
     out["mlp b1"] = (*_bound(2 * (2 * n * dim + 2 * dim * mlp + mlp + dim),
-                             {"bf16": 4 * n * dim * mlp}),
+                             {tc: 4 * n * dim * mlp}),
                      lib([(lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, x1, w1)), w2), 1)]))
     # vit_full: one deit_tiny b128 forward and one b1 (12 layers, fp32 image
     # in, bf16 logits out); inputs are the image and every weight, read once
@@ -1697,7 +1713,7 @@ def phase_yardsticks(torch, harness):
         flops = 2 * b * ((n - 1) * pin * dim + dim * classes
                          + depth * (n * (4 * dim * dim + 2 * dim * mlp) + 2 * n * n * dim))
         out[key] = (*_bound(wbytes + 4 * b * 3 * 224 * 224 + 2 * b * classes,
-                            {"bf16": flops}), None)
+                            {tc: flops}), None)
     # K16 at one t2t_vit_14 tokenizer (both performers, n = 3136 and 784) at
     # b1 (the kernels line) and at b32, K16's own work whatever the kernels'
     # design: each kernel reads its thirds of x_kqv (k, v; q, v) and its
@@ -1713,7 +1729,7 @@ def phase_yardsticks(torch, harness):
     ts, mf = 64, 32
     sums_bytes, weight_bytes = 4 * mf * (1 + ts), 2 * (mf * ts + 3 * ts * ts) + 4 * 5 * ts
     pp, pw = performer_params(torch, gen)
-    cfg = ViTConfig(dtype=torch.bfloat16, gelu_approx=True)
+    cfg = ViTConfig(dtype=dt, gelu_approx=True)
     chains = {}
     for b, tag in ((1, ""), (32, " b32")):
         rb = rbf = rf = wb = wbf = wf = 0
@@ -1730,8 +1746,8 @@ def phase_yardsticks(torch, harness):
             chain += harness.measure_graph_time(
                 lambda: _performer_rest(xk, pp, pw, cfg))["p50_ms"]
             del xk
-        out[f"performer_reduce{tag}"] = (*_bound(rb, {"bf16": rbf, "fp32": rf}), None)
-        out[f"performer_rows{tag}"] = (*_bound(wb, {"bf16": wbf, "fp32": wf}), None)
+        out[f"performer_reduce{tag}"] = (*_bound(rb, {tc: rbf, "fp32": rf}), None)
+        out[f"performer_rows{tag}"] = (*_bound(wb, {tc: wbf, "fp32": wf}), None)
         chains[tag] = chain
         print(f"  K16's yardstick, the eager performer chain (_performer_rest, ~40 torch ops) at "
               f"one t2t_vit_14 b{b} tokenizer's two performers: {chain:.4f} ms")
@@ -2828,6 +2844,408 @@ def phase_prune(torch, harness, counter, fa, fm, card):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: float16
+# ---------------------------------------------------------------------------
+
+# the fp16 cells timed beside bf16: (model, path, batch)
+F16_BATCHES = (1, 32)
+F16_TIMES = (("deit_tiny", "chain", 1), ("deit_tiny", "chain", 128),
+             ("deit_tiny", "int8 static", 1), ("deit_tiny", "int8 static", 128),
+             ("deit_tiny", "fully fused", 1), ("deit_tiny", "fully fused", 128),
+             ("deit_tiny", "module", 128),
+             ("t2t_vit_14", "chain", 1), ("t2t_vit_14", "chain", 32),
+             ("swin_tiny", "chain", 1), ("swin_tiny", "chain", 32))
+
+
+def phase_kernels_f16(torch, mods, harness):
+    """Each kernel's fp16 instance against its fp16 twin, at the shape of
+    its row in the kernels line (phase 3's rows: one deit_tiny b128 layer,
+    one swin_tiny b1 forward, ...), with phase 3's bounds; ``quant_rows``
+    and the non-GELU ``linear_i8`` epilogues bit for bit, and every output
+    fp16.  Returns ({kernel: max_abs_err}, {kernel: (ms, plain_ms)}: device
+    p50 of CUDA-graph replay summed over the row's launches)."""
+    import numpy as np
+
+    from edgevisiontransformer_tpu_torch.models.swin import shifted_window_mask
+    from edgevisiontransformer_tpu_torch.models.t2t_vit import build_stage1_weights
+    from edgevisiontransformer_tpu_torch.models.vit import ViT, deit_config, prepare_vit_full
+
+    fe, sb, sm, ws, fa, fm, ts, vf, pf = (mods[k] for k in (
+        "fe", "sb", "sm", "ws", "fa", "fm", "ts", "vf", "pf"))
+    dev, f16 = DEVICE, torch.float16
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(f16)
+
+    def f32(*shape, scale=1.0, base=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + base
+
+    def uniform(*shape, lo=0.5, hi=1.5):
+        return torch.rand(*shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    errs, ms = {}, {}
+
+    def check(kname, label, kern, plain, reps=1, exact=False, bound=None):
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        outs = got if isinstance(got, tuple) else (got,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        want = {"quant_rows": torch.int8, "performer_reduce": torch.float32}.get(kname, f16)
+        if outs[0].dtype != want:
+            fail(f"{label}: the fp16 instance returned {outs[0].dtype}, not {want}")
+        if exact:
+            for o, r in zip(outs, refs):
+                if (o is None) != (r is None) or (o is not None and not torch.equal(o, r)):
+                    fail(f"{label} (fp16): differs from the twin (must be bit for bit)")
+            err = 0.0
+        elif bound is None:
+            err, ok = within(got, ref, KERNEL_RTOL, KERNEL_ATOL)
+        else:  # a whole forward's logits, bounded as a whole
+            err = float((got.float() - ref.float()).abs().max())
+            ok = err <= bound
+        if not exact and (not ok or not torch.isfinite(got.float()).all()):
+            fail(f"{label} (fp16): max |kernel - twin| {err:.4g} over phase 3's bound")
+        errs[kname] = max(errs.get(kname, 0.0), err)
+        if reps:
+            t_k = harness.measure_graph_time(kern)["p50_ms"]
+            t_p = harness.measure_graph_time(plain)["p50_ms"]
+            tk, tp = ms.get(kname, (0.0, 0.0))
+            ms[kname] = (tk + reps * t_k, tp + reps * t_p)
+            print(f"  fp16 {label:36s} device: kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+                  f"(x{reps} in the row) | max|err| {err:.3g}")
+        else:
+            print(f"  fp16 {label:36s} max|err| {err:.3g}")
+
+    # one deit_tiny b128 layer: ln_rows x2, the four GEMMs, attention_rows,
+    # and its static int8 form (quant_rows x4, linear_i8 x4)
+    m, dim, mlp, heads = SHAPES["deit_tiny b128"][:4]
+    x = rnd(m, dim, scale=2.0)
+    g, b = rnd(dim, scale=0.5) + 1, rnd(dim, scale=0.5)
+    check("ln_rows", "ln_rows deit_tiny b128", lambda: fe.ln_rows(x, g, b, 1e-6),
+          lambda: fe.ln_rows_plain(x, g, b, 1e-6), reps=2)
+    for name, k, n, epi, approx in (("qkv", dim, 3 * dim, fe.CAST_THEN_BIAS, False),
+                                    ("out", dim, dim, fe.BIAS_RESIDUAL, False),
+                                    ("fc1 erf", dim, mlp, fe.CAST_THEN_BIAS_GELU, False),
+                                    ("fc1 tanh", dim, mlp, fe.CAST_THEN_BIAS_GELU, True),
+                                    ("fc2", mlp, dim, fe.BIAS_RESIDUAL, False)):
+        a, w, bias = rnd(m, k), rnd(k, n, scale=k ** -0.5), rnd(n, scale=0.5)
+        kw = dict(epilogue=epi, res=x if epi == fe.BIAS_RESIDUAL else None, approx_gelu=approx)
+        check("linear", f"linear {name} deit_tiny b128",
+              lambda: fe.linear(a, w, bias, **kw), lambda: fe.linear_plain(a, w, bias, **kw),
+              reps=int(name != "fc1 tanh"))
+    qkv = rnd(m, 3 * dim)
+    akw = dict(heads=heads, head_dim=dim // heads, tokens=197)
+    check("attention_rows", "attention_rows deit_tiny b128",
+          lambda: fe.attention_rows(qkv, **akw), lambda: fe.attention_rows_plain(qkv, **akw))
+    qkv_m = rnd(2 * 200, 3 * 2 * 64)  # padded and masked keys: seq_len 197 of 200
+    pkw = dict(heads=2, head_dim=64, tokens=200, seq_len=197)
+    check("attention_rows", "attention_rows padded 200/197 b2",
+          lambda: fe.attention_rows(qkv_m, **pkw), lambda: fe.attention_rows_plain(qkv_m, **pkw),
+          reps=0)
+    act_inv = (127.0 / (4.0 * uniform(12, 4))).contiguous()
+    for k, reps in ((dim, 3), (mlp, 1)):
+        h = rnd(m, k, scale=2.0)
+        h[1] = 0
+        check("quant_rows", f"quant_rows static K={k}", lambda: fe.quant_rows(h, act_inv, 5),
+              lambda: fe.quant_rows_plain(h, act_inv, 5), reps=reps, exact=True)
+        check("quant_rows", f"quant_rows dynamic K={k}", lambda: fe.quant_rows(h),
+              lambda: fe.quant_rows_plain(h), reps=0, exact=True)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    for name, k, n, epi, approx in (("qkv", dim, 3 * dim, fe.BIAS, False),
+                                    ("out", dim, dim, fe.BIAS_RESIDUAL, False),
+                                    ("fc1 erf", dim, mlp, fe.BIAS_GELU, False),
+                                    ("fc1 tanh", dim, mlp, fe.BIAS_GELU, True),
+                                    ("fc2", mlp, dim, fe.BIAS_RESIDUAL, False)):
+        unit = 1.0 / (73.0 * 73.0 * k ** 0.5)
+        q, w_q = int8(m, k), int8(k, n)
+        for bias_dt in (torch.float32, f16):  # the encoder stacks' fp32, Swin's compute dtype
+            bias = (torch.randn(n, generator=gen, device=dev) * 0.5).to(bias_dt)
+            for mode in ("static", "dynamic"):
+                s_row = uniform(m) * 0.05 if mode == "dynamic" else None
+                w_s = uniform(n) * (unit / 0.05 if mode == "dynamic" else unit)
+                args = (q, s_row, w_q, w_s, bias)
+                kw = dict(epilogue=epi, out_dtype=f16,
+                          res=x if epi == fe.BIAS_RESIDUAL else None, approx_gelu=approx)
+                row = mode == "static" and bias_dt == torch.float32 and name != "fc1 tanh"
+                check("linear_i8", f"linear_i8 {name} {mode} {str(bias_dt)[6:]} bias",
+                      lambda: fe.linear_i8(*args, **kw), lambda: fe.linear_i8_plain(*args, **kw),
+                      reps=int(row), exact=epi != fe.BIAS_GELU)
+
+    # one t2t_vit_14 b1 stage-1 call
+    rng = np.random.RandomState(3)
+    w9 = build_stage1_weights(rng.randn(147, 192) * 147 ** -0.5, rng.randn(192) * 0.1,
+                              1.0 + 0.1 * rng.randn(147), 0.1 * rng.randn(147))
+    w9 = (w9[0].to(dev, f16), w9[1].to(dev), w9[2].to(dev), w9[3].to(dev))
+    img = rnd(1, 3, 224, 224)
+    check("stage1_kqv", "stage1_kqv t2t_vit_14 b1", lambda: ts.stage1_kqv(img, *w9),
+          lambda: ts.stage1_kqv_plain(img, *w9))
+
+    # one swin_tiny b1 forward's window_attention and swin_merge launches,
+    # and one kernel_mode="pallas" module forward's window_sdpa launches
+    w, n = SWIN_WINDOW, SWIN_WINDOW ** 2
+    for si, (res, sdim, sheads, depth) in enumerate(SWIN_STAGES):
+        nwin, hd = (res // w) ** 2, sdim // sheads
+        if si < len(SWIN_STAGES) - 1:
+            xs = rnd(res * res, sdim, scale=2.0)
+            g4, b4 = f32(4 * sdim, scale=0.5, base=1.0), f32(4 * sdim, scale=0.5)
+            check("swin_merge", f"swin_merge swin_tiny b1 s{si}",
+                  lambda: sm.swin_merge(xs, g4, b4, res=res, eps=1e-5),
+                  lambda: sm.swin_merge_plain(xs, g4, b4, res=res, eps=1e-5))
+        qkv_s = rnd(res * res, 3 * sdim)
+        bias = f32(sheads, n, n, scale=0.5 * LOG2E)
+        qkv_w = rnd(nwin, n, 3 * sdim)
+        bias16 = rnd(sheads, n, n, scale=0.5)
+        odd = depth // 2 if nwin > 1 else 0
+        for shifted, reps in ((False, depth - odd), (True, odd)):
+            if reps == 0:
+                continue
+            mk = (torch.from_numpy(shifted_window_mask(res, res, w, w // 2)).to(dev)
+                  if shifted else None)
+            wkw = dict(res=res, window=w, shift=w // 2 if shifted else 0, heads=sheads,
+                       head_dim=hd)
+            mk2 = mk * LOG2E if shifted else None
+            tag = f"swin_tiny b1 s{si} {'shifted' if shifted else 'unshifted'}"
+            check("window_attention", f"window_attention {tag}",
+                  lambda: sb.window_attention(qkv_s, bias, mk2, **wkw),
+                  lambda: sb.window_attention_plain(qkv_s, bias, mk2, **wkw), reps=reps)
+            skw = dict(heads=sheads, head_dim=hd)
+            check("window_sdpa", f"window_sdpa {tag}",
+                  lambda: ws.window_sdpa(qkv_w, bias16, mk, **skw),
+                  lambda: ws.window_sdpa_plain(qkv_w, bias16, mk, **skw), reps=reps)
+    res, sheads, hd = WINDOW12_STAGE  # window 12, Swin-B at 384's first stage
+    q12 = rnd(res * res, 3 * sheads * hd)
+    bias12 = f32(sheads, 144, 144, scale=0.5 * LOG2E)
+    mask12 = torch.from_numpy(shifted_window_mask(res, res, 12, 6)).to(dev) * LOG2E
+    wkw = dict(res=res, window=12, shift=6, heads=sheads, head_dim=hd)
+    check("window_attention", "window_attention w12 shifted",
+          lambda: sb.window_attention(q12, bias12, mask12, **wkw),
+          lambda: sb.window_attention_plain(q12, bias12, mask12, **wkw), reps=0)
+
+    # the module path's sdpa and mlp, one deit_tiny b128 layer
+    qkv5 = rnd(128, 197, 3 * dim)
+    q, k, v = qkv5.view(128, 197, 3, heads, dim // heads).permute(2, 0, 3, 1, 4)
+    check("sdpa", "sdpa deit_tiny b128", lambda: fa.sdpa(q, k, v), lambda: fa.sdpa_plain(q, k, v))
+    qkv6 = rnd(8, 577, 3 * 12 * 64)  # deit_base at 384: the streamed form
+    q6, k6, v6 = qkv6.view(8, 577, 3, 12, 64).permute(2, 0, 3, 1, 4)
+    check("sdpa", "sdpa deit_base 384 b8", lambda: fa.sdpa(q6, k6, v6),
+          lambda: fa.sdpa_plain(q6, k6, v6), reps=0)
+    w1, b1 = rnd(dim, mlp, scale=dim ** -0.5), rnd(mlp)
+    w2, b2 = rnd(mlp, dim, scale=mlp ** -0.5), rnd(dim)
+    for approx in (False, True):
+        check("mlp", f"mlp {'tanh' if approx else 'erf'} deit_tiny b128",
+              lambda: fm.mlp(x, w1, b1, w2, b2, approx_gelu=approx),
+              lambda: fm.mlp_plain(x, w1, b1, w2, b2, approx_gelu=approx), reps=int(not approx))
+
+    # vit_full: held at depth 2 (phase 3's bound on the logits), timed on one
+    # deit_tiny b128 forward at full depth
+    for batch, depth in ((8, 2), (128, 12)):
+        cfg = deit_config("tiny", depth=depth, dtype=f16)
+        model = ViT(cfg, device=dev, generator=torch.Generator().manual_seed(21))
+        prep = prepare_vit_full(model)
+        img = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(22))
+        img = img.to(dev)
+        args = dict(heads=cfg.heads, head_dim=cfg.resolved_head_dim, eps=cfg.layernorm_eps,
+                    reference_residual=cfg.reference_residual, approx_gelu=cfg.gelu_approx,
+                    final_norm=cfg.final_norm)
+        with torch.no_grad():
+            ref = vf.vit_full_forward_plain(img, prep, **args)
+        scale = float(ref.float().abs().max())
+        bound = (KERNEL_ATOL + KERNEL_RTOL * scale) if depth == 2 else LOGIT_REL * scale
+        with torch.no_grad():
+            check("vit_full", f"vit_full deit_tiny d{depth} b{batch}",
+                  lambda: vf.vit_full_forward(img, prep, **args),
+                  lambda: vf.vit_full_forward_plain(img, prep, **args),
+                  reps=int(batch == 128), bound=bound)
+        del model, prep
+
+    # K16 at one t2t_vit_14 b1 tokenizer (n = 3136 and 784), on fp16 operands
+    p, wr = performer_params(torch, gen)
+    ops = pf.performer_operands(p, wr, f16)
+    for n_tok in (3136, 784):
+        xk = (torch.randn(1, n_tok, 192, generator=gen, device=dev) * 0.5).to(f16)
+        check("performer_reduce", f"performer_reduce t2t_vit_14 b1 n{n_tok}",
+              lambda: pf.performer_reduce(xk, wr, operands=ops),
+              lambda: pf.performer_reduce_plain(xk, wr))
+        sums = pf.performer_reduce_plain(xk, wr)
+        pkw = dict(eps_ln=1e-5, approx_gelu=True)
+        check("performer_rows", f"performer_rows t2t_vit_14 b1 n{n_tok}",
+              lambda: pf.performer_rows(xk, sums, p, wr, operands=ops, **pkw),
+              lambda: pf.performer_rows_plain(xk, sums, p, wr, **pkw))
+    missing = [k for k in KERNELS if k not in ms]
+    if missing:
+        fail(f"fp16: no row for {missing}")
+    return errs, ms
+
+
+def f16_paths(torch, dt, mods, with_twins=True):
+    """The served paths of phase 9 at the dtype ``dt`` (bf16 or fp16), on the
+    models of phase 4's seeds: ``{(model, path): (apply(img, plain), want
+    launches at batch b (a function of b), image shape, classes)}``, and
+    what they hold."""
+    from edgevisiontransformer_tpu_torch.models import t2t_vit as t2t
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+    from edgevisiontransformer_tpu_torch.models.swin import (fused_swin_apply,
+                                                              prepare_swin_fused,
+                                                              prepare_swin_int8_static)
+    from edgevisiontransformer_tpu_torch.models.vit import (fully_fused_vit_apply,
+                                                             fused_vit_apply,
+                                                             fused_vit_apply_int8,
+                                                             prepare_vit_full,
+                                                             prepare_vit_fused,
+                                                             prepare_vit_int8_static)
+    from edgevisiontransformer_tpu_torch.ops.quant import representative_batches
+
+    fa, fm, ws = mods["fa"], mods["fm"], mods["ws"]
+    dev = DEVICE
+
+    def seeded(name, **kw):
+        return build_model(name, dtype=dt, device=dev, generator=torch.Generator().manual_seed(0),
+                           **kw)
+
+    paths = {}
+    with torch.no_grad():
+        deit, dshape = seeded("deit_tiny", style="standard")
+        stacked = prepare_vit_fused(deit)
+        sq = prepare_vit_int8_static(deit, calib_batches=representative_batches(n=8,
+                                                                                shape=dshape))
+        full = prepare_vit_full(deit)
+        dmod, _ = seeded("deit_tiny", style="standard", kernel_mode="pallas")
+        tt, tshape = seeded("t2t_vit_14", style="reference")
+        tprep, tstack = t2t.prepare_t2t_fused(tt), prepare_vit_fused(tt)
+        tsq = (t2t.prepare_t2t_int8_static(tt, calib_batches=representative_batches(
+            n=8, shape=tshape)) if with_twins else None)
+        sw, sshape = seeded("swin_tiny")
+        sprep = prepare_swin_fused(sw)
+        ssq = (prepare_swin_int8_static(sw, batches=representative_batches(n=8, shape=sshape))
+               if with_twins else None)
+        smod, _ = seeded("swin_tiny", kernel_mode="pallas")
+    torch.cuda.synchronize()
+    dcls, dd = deit.config.num_classes, deit.config.depth
+
+    def module_apply(model, img, plain):
+        if not plain:
+            return model(img)
+        with module_twins(fa, fm):
+            return model(img)
+
+    def swin_module_apply(img, plain):
+        if not plain:
+            return smod(img)
+        kernel, ws.window_sdpa = ws.window_sdpa, ws.window_sdpa_plain
+        try:
+            return smod(img)
+        finally:
+            ws.window_sdpa = kernel
+
+    tdepth = tt.config.depth
+    paths[("deit_tiny", "chain")] = (
+        lambda img, plain: fused_vit_apply(deit, img, stacked=stacked, plain=plain),
+        lambda b: want_launches(BF16_LAUNCHES, dd), dshape, dcls)
+    paths[("deit_tiny", "int8 static")] = (
+        lambda img, plain: fused_vit_apply_int8(deit, img, stacked_q=sq, plain=plain),
+        lambda b: want_launches(INT8_LAUNCHES, dd), dshape, dcls)
+    paths[("deit_tiny", "fully fused")] = (
+        lambda img, plain: fully_fused_vit_apply(deit, img, prepared=full, plain=plain),
+        lambda b: {**{k: 0 for k in KERNELS}, "vit_full": 1}, dshape, dcls)
+    paths[("deit_tiny", "module")] = (
+        lambda img, plain: module_apply(dmod, img, plain),
+        lambda b: want_launches(MODULE_LAUNCHES, dd), dshape, dcls)
+    paths[("t2t_vit_14", "chain")] = (
+        lambda img, plain: t2t.fused_t2t_apply(tt, img, prepared=tprep, stacked=tstack,
+                                               plain=plain),
+        lambda b: want_launches(BF16_LAUNCHES, tdepth, stage1=int(b < 8), performers=2),
+        tshape, tt.config.num_classes)
+    if with_twins:
+        paths[("t2t_vit_14", "int8 static")] = (
+            lambda img, plain: t2t.fused_t2t_apply_int8(tt, img, stacked_q=tsq, prepared=tprep,
+                                                        plain=plain),
+            lambda b: want_launches(INT8_LAUNCHES, tdepth, stage1=int(b < 8), performers=2),
+            tshape, tt.config.num_classes)
+    paths[("swin_tiny", "chain")] = (
+        lambda img, plain: fused_swin_apply(sw, img, prepared=sprep, plain=plain),
+        lambda b: want_swin_launches(sw.config), sshape, sw.config.num_classes)
+    if with_twins:
+        if tuple(ssq) != SWIN_INT8_STAGES:
+            fail(f"swin_tiny fp16 int8: stages {list(ssq)} are int8, expected "
+                 f"{list(SWIN_INT8_STAGES)}")
+        paths[("swin_tiny", "int8 static")] = (
+            lambda img, plain: fused_swin_apply(sw, img, prepared=sprep, int8_prepared=ssq,
+                                                plain=plain),
+            lambda b: want_swin_launches(sw.config, SWIN_INT8_STAGES), sshape,
+            sw.config.num_classes)
+        paths[("swin_tiny", "module")] = (
+            swin_module_apply, lambda b: {**{k: 0 for k in KERNELS},
+                                          "window_sdpa": sum(smod.config.depths)},
+            sshape, smod.config.num_classes)
+    return paths
+
+
+def phase_slice_f16(torch, counter, mods):
+    """The fp16 models on the card: deit_tiny (the chain, static int8,
+    ``fully_fused_vit_apply`` and the ``kernel_mode="pallas"`` module),
+    t2t_vit_14 (the chain and static int8) and swin_tiny (the chain, static
+    int8 stages 1-3 and the module) at b1 and b32, each request's launch
+    counts read from zero and held to the bf16 path's, its logits against
+    the same forward on the twins (``LOGIT_REL``); returns (launches of the
+    fp16 instances on these requests, worst deviation)."""
+    paths = f16_paths(torch, torch.float16, mods)
+    launches = {k: 0 for k in counter.read()}
+    worst = 0.0
+    for (name, path), (apply, want, shape, classes) in paths.items():
+        for batch in F16_BATCHES:
+            tag = f"fp16 {name} {path} b{batch}"
+            img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(
+                2100 + batch)).to(DEVICE)
+            with torch.no_grad():
+                counter.reset()
+                logits = apply(img, False)
+                torch.cuda.synchronize()
+                counts = counter.read()
+                ref = apply(img, True)
+            if counts != want(batch):
+                fail(f"{tag}: launch counts {counts}, expected {want(batch)}")
+            if logits.dtype != torch.float16:
+                fail(f"{tag}: logits in {logits.dtype}")
+            for k, v in counts.items():
+                launches[k] += v
+            rel, err, scale, agree = check_logits(tag, logits, ref, batch, classes)
+            worst = max(worst, rel)
+            print(f"  {tag:36s} max|kern-twin| {err:.4g} (max|logit| {scale:.4g}, "
+                  f"{rel:.4%}), top-1 agreement {agree:.3f}, launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+    del paths
+    return launches, worst
+
+
+def phase_time_f16(torch, harness, mods):
+    """Device p50 (CUDA-graph replay) of the ``F16_TIMES`` cells in bf16 and
+    in fp16, the two dtypes' models built from one seed and timed one after
+    the other; prints fp16 / bf16."""
+    both = {dt: f16_paths(torch, dt, mods, with_twins=False)
+            for dt in (torch.bfloat16, torch.float16)}
+    for name, path, batch in F16_TIMES:
+        shape = both[torch.float16][(name, path)][2]
+        img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(batch)).to(
+            DEVICE)
+        d = {}
+        with torch.no_grad():
+            for dt in (torch.bfloat16, torch.float16):
+                apply = both[dt][(name, path)][0]
+                d[dt] = harness.measure_graph_time(lambda: apply(img, False), iters=10,
+                                                   repeats=5)
+        b16, f16 = d[torch.bfloat16], d[torch.float16]
+        print(f"  {name} {path} b{batch}: device p50 bf16 {b16['p50_ms']:.4f} ms (std "
+              f"{b16['std_ms']:.4f}), fp16 {f16['p50_ms']:.4f} ms (std {f16['std_ms']:.4f}), "
+              f"fp16 / bf16 {f16['p50_ms'] / b16['p50_ms']:.3f}")
+    del both
+
+
 def main() -> int:
     import torch
 
@@ -2854,7 +3272,7 @@ def main() -> int:
     print("== phase 1: environment")
     card = phase_env(torch, build)
     print("== phase 2: build")
-    build_s = phase_build(build, vf)
+    build_s = phase_build(torch, build, vf)
     print(f"== phase 3: kernels against twins (bf16 kernels, stage1_kqv and the int8 GELU "
           f"epilogue: |err| <= {KERNEL_ATOL} + {KERNEL_RTOL:.4g}|twin|; quant_rows and the "
           f"other linear_i8 epilogues bit for bit); times on {card}")
@@ -2967,14 +3385,36 @@ def main() -> int:
     print(f"== phase 8: head and movement pruning on the card, the pruned models served on the "
           f"kernels, on {card}")
     worst_prune = phase_prune(torch, harness, counter, fa, fm, card)
+    torch.cuda.empty_cache()
+    print(f"== phase 9: float16: every kernel's fp16 instance against its fp16 twin (phase 3's "
+          f"bounds), the fp16 models on the card (logits within {LOGIT_REL} x max|logit|, "
+          f"launch counts as bf16's), fp16 beside bf16 device p50, on {card}")
+    mods = dict(fe=fe, sb=sb, sm=sm, ws=ws, fa=fa, fm=fm, ts=ts, vf=vf, pf=pf)
+    errs16, ms16 = phase_kernels_f16(torch, mods, harness)
+    yard16, _ = phase_yardsticks(torch, harness, torch.float16)
+    launches16, worst16 = phase_slice_f16(torch, counter, mods)
+    for k, v in launches16.items():
+        if v == 0:
+            fail(f"the fp16 instance of kernel {k} was never launched on the fp16 requests")
+    torch.cuda.empty_cache()
+    phase_time_f16(torch, harness, mods)
+    for k, lib_name in (("linear", "torch.addmm x4"), ("attention_rows", "SDPA with a key mask"),
+                        ("vit_full", "none"),
+                        ("window_attention", "SDPA on gathered windows, bias + mask")):
+        (kb, pb), (k16, p16) = layer_ms[k], ms16[k]
+        (bb, byb, lb), (b16, by16, l16) = yard[k], yard16[k]
+        print(f"  {k} row: bf16 kernel {kb:.4f} ms (twin {pb:.4f}, bound {bb:.4g} {byb}, "
+              f"library {'none' if lb is None else f'{lb:.4f}'}); fp16 kernel {k16:.4f} ms "
+              f"(twin {p16:.4f}, bound {b16:.4g} {by16}, library ({lib_name}) "
+              f"{'none' if l16 is None else f'{l16:.4f}'}); fp16 / bf16 {k16 / kb:.3f}")
     worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr,
-              worst_full, worst_train, worst_prune)
+              worst_full, worst_train, worst_prune, worst16)
     print(f"build {build_s:.2f} s; worst logit deviation {max(worsts):.4g} of max|logit| (deit "
           f"bf16 {worst:.4g}, deit int8 {worst8:.4g}, t2t_vit_14 {worst_t2t:.4g}, swin_tiny bf16 "
           f"{worst_swin:.4g}, int8 {worst_swin8:.4g}, swin module pallas {worst_mod:.4g}, ViT / T2T "
           f"module pallas {worst_vm:.4g}, pruned {worst_pr:.4g}, fully fused {worst_full:.4g}, "
           f"trained and smoothed {worst_train:.4g}, pruned on the card "
-          f"{worst_prune:.4g})")
+          f"{worst_prune:.4g}, fp16 {worst16:.4g})")
 
     src = "edgevisiontransformer_tpu_torch/csrc/"
     print("kernel ms / plain_ms / bound_ms / library_ms: device time (CUDA-graph replay) of "
@@ -2984,13 +3424,22 @@ def main() -> int:
           "call; window_attention and swin_merge: one swin_tiny b1 forward; window_sdpa: one "
           "swin_tiny b1 kernel_mode='pallas' module forward; vit_full: one deit_tiny b128 "
           "forward; performer_reduce and performer_rows: one t2t_vit_14 b1 tokenizer's two "
-          "performers); launches: the requests of phase 4")
-    print(json.dumps({"kernels": [
+          "performers); launches: the requests of phase 4; '<kernel> fp16': the kernel's fp16 "
+          "instance (build.py's -DEVT_F16 object) on the same row's launches at fp16, its "
+          "launches those of phase 9's fp16 requests")
+    rows = [
         {"name": k, "route": "cuda", "source": f"{src}{source}", "replaces": replaces,
          "launches": launches[k], "max_abs_err": errs[k],
          "ms": layer_ms[k][0], "plain_ms": layer_ms[k][1], "bound_ms": yard[k][0],
          "bound_by": yard[k][1], "library_ms": yard[k][2]}
-        for k, (source, replaces) in KERNELS.items()]}))
+        for k, (source, replaces) in KERNELS.items()]
+    rows += [
+        {"name": f"{k} fp16", "route": "cuda", "source": f"{src}{source}", "replaces": replaces,
+         "launches": launches16[k], "max_abs_err": errs16[k],
+         "ms": ms16[k][0], "plain_ms": ms16[k][1], "bound_ms": yard16[k][0],
+         "bound_by": yard16[k][1], "library_ms": yard16[k][2]}
+        for k, (source, replaces) in KERNELS.items()]
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -43,19 +43,19 @@ SHAPES = {"deit_tiny b128 qkv": (128 * 197, 192, 576, 0),
           "deit_tiny b1 fc1": (197, 192, 768, 2), "deit_tiny b1 fc2": (197, 768, 192, 3),
           "swin_tiny b1 s0 qkv": (3136, 96, 288, 0), "deit_base b8 fc1": (8 * 197, 768, 3072, 2)}
 # the sources of the kernel, and the anchors of the variants in the tile's:
-# the body of the helper epilogue<EPI>(v, b, r), the ring depth, and the
+# the body of the helper epilogue<EPI, T>(v, b, r), the ring depth, and the
 # kernel's tail (the register epilogue's dispatch)
 SOURCES = ("linear.cu", "linear_rows64.cu", "linear_rows32.cu", "linear_rows16.cu")
 TILE = "linear_tile.cuh"
 _EPILOGUE = ("  if constexpr (EPI == 3) return (v + b) + r;\n"
              "  if constexpr (EPI == ROW_BIAS) return v + r;\n"
-             "  v = round_bf16(round_bf16(v) + b);\n"
+             "  v = round_to<T>(round_to<T>(v) + b);\n"
              "  if constexpr (EPI == 1) return gelu_tanh_f(v);\n"
              "  if constexpr (EPI == 2) return gelu_erf_f(v);\n"
              "  return v;\n")
 _STAGES = "constexpr int BK = 64, STAGES = 3;"
 _PATCH_STORE = ("          *reinterpret_cast<uint32_t*>(patch + r * PLD + c) = "
-                "pack_bf16x2(y0, y1);\n")
+                "pack2<T>(y0, y1);\n")
 _COPY_OUT = "  if (!vb) return;\n  __syncwarp();\n"
 
 
@@ -65,7 +65,7 @@ def variants(src: str) -> dict:
         if src.count(anchor) != 1:
             raise ValueError(f"csrc/{TILE} no longer holds {anchor!r} once")
     direct = src.replace(_PATCH_STORE, "          if (gm < M && in) *reinterpret_cast<uint32_t*>("
-                                       "Y + off) = pack_bf16x2(y0, y1);\n")
+                                       "Y + off) = pack2<T>(y0, y1);\n")
     direct = direct.replace(_COPY_OUT, "  return;  // the pairs went straight to Y\n")
     return {"committed": src, "no epilogue": src.replace(_EPILOGUE, "  return v;\n"),
             "2 stages": src.replace(_STAGES, _STAGES.replace("STAGES = 3", "STAGES = 2")),

@@ -79,8 +79,8 @@ _EPILOGUE = ("  const float accf = __int2float_rn(acc);\n"
              "__fmul_rn(accf, ws);\n"
              "  const float v = __fadd_rn(deq, b);\n"
              "  if constexpr (EPI == 3) return __fadd_rn(v, r);\n"
-             "  if constexpr (EPI == 1) return gelu_tanh_f(round_bf16(v));\n"
-             "  if constexpr (EPI == 2) return gelu_erf_f(round_bf16(v));\n"
+             "  if constexpr (EPI == 1) return gelu_tanh_f(round_to<T>(v));\n"
+             "  if constexpr (EPI == 2) return gelu_erf_f(round_to<T>(v));\n"
              "  return v;\n")
 _PERMUTES = ("  b[0] = __byte_perm(r[0], r[1], sel);\n"
              "  b[1] = __byte_perm(r[2], r[3], sel);\n"
@@ -89,7 +89,7 @@ _PERMUTES = ("  b[0] = __byte_perm(r[0], r[1], sel);\n"
 _STAGES = "constexpr int BK = 128, STAGES = 3;"
 _STORE = ("          if (gm < M && gn < N)\n"
           "            *reinterpret_cast<uint2*>(Y + off) =\n"
-          "                make_uint2(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]));\n")
+          "                make_uint2(pack2<T>(y[0], y[1]), pack2<T>(y[2], y[3]));\n")
 _STORE_HEAD = "  const int g = lane >> 2, t = lane & 3;\n  const bool dynamic"
 _STORE_END = "        }\n      }\n  }\n}\n\n// A block of WM"
 _WAIT = "  cp_async_wait<0>();  // no copy outlives the block (the last groups are empty)\n"
@@ -324,11 +324,11 @@ def variants(src: str) -> dict:
     patch = src.replace(_STORE_HEAD, (
         "  constexpr int TM = FM * 16, TN = FN * 8, PLD = TN + 8;\n"
         "  extern __shared__ __align__(128) unsigned char smem[];\n"
-        "  bf16* patch = reinterpret_cast<bf16*>(smem) + (threadIdx.x >> 5) * TM * PLD;\n"
+        "  T* patch = reinterpret_cast<T*>(smem) + (threadIdx.x >> 5) * TM * PLD;\n"
         + _STORE_HEAD))
     patch = patch.replace(_STORE, (
         "          *reinterpret_cast<uint2*>(patch + (gm - r0) * PLD + c) =\n"
-        "              make_uint2(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]));\n"))
+        "              make_uint2(pack2<T>(y[0], y[1]), pack2<T>(y[2], y[3]));\n"))
     patch = patch.replace(_STORE_END, (
         "        }\n      }\n  }\n  if (!vb) return;\n  __syncwarp();\n"
         "  for (int i = lane; i < TM * (TN / 8); i += 32) {\n"

@@ -11,7 +11,11 @@
 //     r   = sum p                       (fp32, over the unrounded p)
 //     out = bf16(f32(bf16(p) v) * (1 / max(r, 1e-30)))
 //   Normalisation is deferred past PV and needs no row max, so one sweep
-//   over the keys serves any n.
+//   over the keys serves any n.  The fp16 instance (build.py's -DEVT_F16
+//   compile) takes softmax_unnorm's float16 branch instead:
+//     p   = exp2(s - max_row s)         (over the keys below seq_len; no clamp)
+//     out = fp16(f32(fp16(p) v) * (1 / r))
+//   with a first sweep over the keys for the row max (attention_strip.cuh).
 //
 // Input qkv is [b * tokens, 3 * heads * HD] bf16, columns ordered
 // (qkv, head, hd); output is the merged [b * tokens, heads * HD] bf16.  The
@@ -67,9 +71,9 @@ namespace {
 using arows::STAGES;
 
 // One strip a block: block i is strip i % strips of (image, head) i / strips.
-template <int HD, int W>
+template <int HD, int W, class T>
 __global__ __launch_bounds__(W * 32) void attention_rows_kernel(
-    const bf16* __restrict__ qkv, bf16* __restrict__ out, int tokens, int seq_len, int heads,
+    const T* __restrict__ qkv, T* __restrict__ out, int tokens, int seq_len, int heads,
     int strips, float scale2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bh = blockIdx.x / strips;
@@ -82,7 +86,7 @@ int launch(const void* qkv, void* out, int batch, int tokens, int seq_len, int h
            float scale2, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(attention_rows_kernel<HD, W>,
+    const cudaError_t e = cudaFuncSetAttribute(attention_rows_kernel<HD, W, elem>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                arows::smem_bytes<HD>(W, STAGES));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -92,10 +96,10 @@ int launch(const void* qkv, void* out, int batch, int tokens, int seq_len, int h
   const int strips = (tokens + W * 16 - 1) / (W * 16);
   const long long blocks = static_cast<long long>(strips) * batch * heads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  attention_rows_kernel<HD, W>
+  attention_rows_kernel<HD, W, elem>
       <<<static_cast<unsigned>(blocks), W * 32,
          arows::smem_bytes<HD>(W, tiles < STAGES ? tiles : STAGES), stream>>>(
-          static_cast<const bf16*>(qkv), static_cast<bf16*>(out), tokens, seq_len, heads, strips,
+          static_cast<const elem*>(qkv), static_cast<elem*>(out), tokens, seq_len, heads, strips,
           scale2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -113,12 +117,13 @@ int launch_plan(const void* qkv, void* out, int batch, int tokens, int seq_len, 
 }  // namespace
 
 // qkv [batch * tokens, 3 * heads * head_dim], out [batch * tokens, heads *
-// head_dim], bf16, 16-byte aligned; keys at index >= seq_len are masked.
+// head_dim], bf16 (fp16 in the fp16 instance), 16-byte aligned; keys at
+// index >= seq_len are masked.
 // The plan (ops/cuda/fused_encoder.py:attention_plan): `warps` (4 or 8)
 // 16-row query strips a block.
-extern "C" int evt_attention_rows(const void* qkv, void* out, int batch, int tokens,
-                                  int seq_len, int heads, int head_dim, float scale2, int warps,
-                                  void* stream) {
+extern "C" int EVT_EXPORT(evt_attention_rows)(const void* qkv, void* out, int batch, int tokens,
+                                              int seq_len, int heads, int head_dim, float scale2,
+                                              int warps, void* stream) {
   if (batch == 0 || tokens == 0 || heads == 0) return 0;
   if (batch < 0 || tokens < 0 || heads < 0 || seq_len < 0 || seq_len > tokens)
     return static_cast<int>(cudaErrorInvalidValue);

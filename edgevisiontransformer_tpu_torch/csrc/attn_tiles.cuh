@@ -6,7 +6,10 @@
 // through a table of source rows: load_rows_gather, store_rows_scatter;
 // both window kernels stage a bias tile with load_tile).
 //
-// Shared-memory tiles hold rows of HD bf16 values at a row stride of
+// Every routine takes the element type T (bf16 or fp16) of its operands as
+// a template parameter, deduced from its pointers.
+//
+// Shared-memory tiles hold rows of HD 16-bit values at a row stride of
 // row_ld(HD) = HD + 8 elements: the 16-byte skew spreads the eight rows of an
 // ldmatrix over all 32 banks.  Q's A fragments come from its rows, S = Q K^T's
 // B fragments from K's rows (ldmatrix), O = P V's from V's rows
@@ -16,7 +19,7 @@
 // Thread (g = lane / 4, t = lane % 4) holds rows g (s[.][.][0..1]) and g + 8
 // ([2..3]), keys 2t and 2t + 1 of each n8 tile, so a score row lives in the 4
 // lanes of a quad (quad_sum and quad_max reduce it), and the accumulators of two
-// neighbouring n8 tiles, packed to bf16x2, are the A fragment of one k16 step
+// neighbouring n8 tiles, packed to x2 pairs of T, are the A fragment of one k16 step
 // of PV (FlashAttention-2's register reuse): P never goes to shared memory.
 #pragma once
 
@@ -38,8 +41,8 @@ __device__ __forceinline__ float quad_max(float v) {
 // Rows [r0, r0 + rows) of one (image, head) of a [.., n, HD] operand into
 // shared memory by cp.async from the NT threads of a block, zeros past token
 // n (not waited for).
-template <int HD, int NT>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src,
+template <int HD, int NT, class T>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
                                           long long stride_n, int r0, int rows, int n, int tid) {
   constexpr int CH = HD / 8;
   for (int i = tid; i < rows * CH; i += NT) {
@@ -53,8 +56,8 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ sr
 // Rows [0, rows) of a gathered operand into shared memory by cp.async from
 // the NT threads of a block: row r from src + off[r] * stride_n, zeros from
 // row n on, where off is not read (not waited for).
-template <int HD, int NT>
-__device__ __forceinline__ void load_rows_gather(bf16* dst, const bf16* __restrict__ src,
+template <int HD, int NT, class T>
+__device__ __forceinline__ void load_rows_gather(T* dst, const T* __restrict__ src,
                                                  const int* off, long long stride_n, int rows,
                                                  int n, int tid) {
   constexpr int CH = HD / 8;
@@ -100,9 +103,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, lon
 
 // Scores of the warp's 16 query rows (sQw) against NC 16-key chunks of sK,
 // in the layout above.
-template <int HD, int NC>
-__device__ __forceinline__ void qk(float (&s)[NC][2][4], const bf16* sQw, const bf16* sK,
-                                   int lane) {
+template <int HD, int NC, class T>
+__device__ __forceinline__ void qk(float (&s)[NC][2][4], const T* sQw, const T* sK, int lane) {
   constexpr int LD = row_ld(HD);
 #pragma unroll
   for (int c = 0; c < NC; ++c)
@@ -117,48 +119,46 @@ __device__ __forceinline__ void qk(float (&s)[NC][2][4], const bf16* sQw, const 
       uint32_t b[4];
       ldsm_x4(b, sK + (c * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD + kk * 16 +
                      ((lane >> 3) & 1) * 8);
-      mma_bf16(s[c][0], a, b[0], b[1]);
-      mma_bf16(s[c][1], a, b[2], b[3]);
+      mma16<T>(s[c][0], a, b[0], b[1]);
+      mma16<T>(s[c][1], a, b[2], b[3]);
     }
   }
 }
 
-// O += bf16(P) V over NC 16-key chunks of sV, P in the score registers (two
+// O += T(P) V over NC 16-key chunks of sV, P in the score registers (two
 // n8 accumulators = one k16 A fragment).
-template <int HD, int NC>
+template <int HD, int NC, class T>
 __device__ __forceinline__ void pv(float (&o)[HD / 8][4], const float (&p)[NC][2][4],
-                                   const bf16* sV, int lane) {
+                                   const T* sV, int lane) {
   constexpr int LD = row_ld(HD);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const uint32_t a[4] = {pack_bf16x2(p[c][0][0], p[c][0][1]),
-                           pack_bf16x2(p[c][0][2], p[c][0][3]),
-                           pack_bf16x2(p[c][1][0], p[c][1][1]),
-                           pack_bf16x2(p[c][1][2], p[c][1][3])};
+    const uint32_t a[4] = {pack2<T>(p[c][0][0], p[c][0][1]), pack2<T>(p[c][0][2], p[c][0][3]),
+                           pack2<T>(p[c][1][0], p[c][1][1]), pack2<T>(p[c][1][2], p[c][1][3])};
 #pragma unroll
     for (int dp = 0; dp < HD / 16; ++dp) {
       uint32_t b[4];
       ldsm_x4_trans(b, sV + (c * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
-      mma_bf16(o[2 * dp], a, b[0], b[1]);
-      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+      mma16<T>(o[2 * dp], a, b[0], b[1]);
+      mma16<T>(o[2 * dp + 1], a, b[2], b[3]);
     }
   }
 }
 
-// bf16(O) through the warp's own 16 rows of the Q tile to out, 16-byte
+// T(O) through the warp's own 16 rows of the Q tile to out, 16-byte
 // stores, rows past n dropped.
-template <int HD>
-__device__ __forceinline__ void store_rows(const float (&o)[HD / 8][4], bf16* sQw,
-                                           bf16* __restrict__ op, long long stride_n, int row0,
+template <int HD, class T>
+__device__ __forceinline__ void store_rows(const float (&o)[HD / 8][4], T* sQw,
+                                           T* __restrict__ op, long long stride_n, int row0,
                                            int n, int lane) {
   constexpr int LD = row_ld(HD), CH = HD / 8;
   const int g = lane >> 2, t = lane & 3;
   __syncwarp();
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(sQw + g * LD + j * 8 + 2 * t) = pack_bf16x2(o[j][0], o[j][1]);
+    *reinterpret_cast<uint32_t*>(sQw + g * LD + j * 8 + 2 * t) = pack2<T>(o[j][0], o[j][1]);
     *reinterpret_cast<uint32_t*>(sQw + (g + 8) * LD + j * 8 + 2 * t) =
-        pack_bf16x2(o[j][2], o[j][3]);
+        pack2<T>(o[j][2], o[j][3]);
   }
   __syncwarp();
   for (int i = lane; i < 16 * CH; i += 32) {
@@ -169,14 +169,14 @@ __device__ __forceinline__ void store_rows(const float (&o)[HD / 8][4], bf16* sQ
   }
 }
 
-// bf16(O * inv) through the warp's own 16 rows of the Q tile to out: inv[0]
+// T(O * inv) through the warp's own 16 rows of the Q tile to out: inv[0]
 // scales row g and inv[1] row g + 8 (one fp32 product an element), and the
 // strip's row r goes to op + off[row0 + r] * stride_n, as 16-byte stores,
 // rows past n dropped.
-template <int HD>
+template <int HD, class T>
 __device__ __forceinline__ void store_rows_scatter(const float (&o)[HD / 8][4],
-                                                   const float (&inv)[2], bf16* sQw,
-                                                   bf16* __restrict__ op, long long stride_n,
+                                                   const float (&inv)[2], T* sQw,
+                                                   T* __restrict__ op, long long stride_n,
                                                    const int* off, int row0, int n, int lane) {
   constexpr int LD = row_ld(HD), CH = HD / 8;
   const int g = lane >> 2, t = lane & 3;
@@ -184,9 +184,9 @@ __device__ __forceinline__ void store_rows_scatter(const float (&o)[HD / 8][4],
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     *reinterpret_cast<uint32_t*>(sQw + g * LD + j * 8 + 2 * t) =
-        pack_bf16x2(__fmul_rn(o[j][0], inv[0]), __fmul_rn(o[j][1], inv[0]));
+        pack2<T>(__fmul_rn(o[j][0], inv[0]), __fmul_rn(o[j][1], inv[0]));
     *reinterpret_cast<uint32_t*>(sQw + (g + 8) * LD + j * 8 + 2 * t) =
-        pack_bf16x2(__fmul_rn(o[j][2], inv[1]), __fmul_rn(o[j][3], inv[1]));
+        pack2<T>(__fmul_rn(o[j][2], inv[1]), __fmul_rn(o[j][3], inv[1]));
   }
   __syncwarp();
   for (int i = lane; i < 16 * CH; i += 32) {

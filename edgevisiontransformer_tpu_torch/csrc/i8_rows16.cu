@@ -3,7 +3,11 @@
 // the design, csrc/linear_i8_tile.cuh the tile).
 #include "linear_i8_tile.cuh"
 
+namespace EVT_INSTANCE {
+
 int linear_i8_rows16(EVT_LINEAR_I8_ARGS) {
   return launch_cols<1, 16>(q, s_row, w, w_s, bias, res, y, M, N, K, epi, bias_f32, cols,
                             split, va, vb, s);
 }
+
+}  // namespace EVT_INSTANCE

@@ -1,4 +1,5 @@
-// linear: Y[M, N] = epilogue(X[M, K] @ W[K, N]) in bf16 with fp32 accumulation.
+// linear: Y[M, N] = epilogue(X[M, K] @ W[K, N]) in bf16 or fp16 with fp32
+// accumulation.
 //
 // Replaces: the four matmuls of every layer inside the TPU whole-encoder
 //   kernels, edgevisiontransformer_tpu/ops/pallas/fused_encoder.py
@@ -10,6 +11,9 @@
 //     3 BIAS_RESIDUAL           bf16(acc + f32(b) + f32(res))        (:218-225, :236-243)
 //     4 ROW_BIAS                bf16(acc + f32(res)), no b
 //   The roundings are the reference's, because bf16 parity depends on them.
+//   The fp16 instance (build.py's -DEVT_F16 compile) rounds to fp16 at the
+//   same points and runs mma.sync's f16 form: the reference's math at
+//   dtype = float16.
 //   The Swin stage (K9, bf16) and the merge reduction (K10) run the same GEMM.
 //
 // Bound on the card: at b1 (M = 197) a layer's GEMMs do 2*M*K*N flops on
@@ -65,17 +69,22 @@
 #include "linear_tile.cuh"
 
 
+namespace EVT_INSTANCE {
+
 int linear_rows128(EVT_LINEAR_ARGS) {
   return launch_cols<4, 32>(x, w, bias, res, y, M, N, K, epi, cols, va, vb, s);
 }
 
+}  // namespace EVT_INSTANCE
+
 // x [M, K], w [K, N], bias [N] (unread by ROW_BIAS), res [M, N] (read by
-// epilogues 3 and 4; may be y), y [M, N], all bf16 at any alignment.  The
+// epilogues 3 and 4; may be y), y [M, N], all bf16 (fp16 in the fp16
+// instance) at any alignment.  The
 // plan (ops/cuda/fused_encoder.py:linear_plan): `rows` per block (128, 64,
 // 32 or 16) by `cols` (32, 64, 96 or 128).
-extern "C" int evt_linear(const void* x, const void* w, const void* bias, const void* res,
-                          void* y, int M, int N, int K, int epi, int rows, int cols,
-                          void* stream) {
+extern "C" int EVT_EXPORT(evt_linear)(const void* x, const void* w, const void* bias,
+                                      const void* res, void* y, int M, int N, int K, int epi,
+                                      int rows, int cols, void* stream) {
   if (M == 0 || N == 0) return 0;
   if (K < 0 || epi < 0 || epi > ROW_BIAS) return static_cast<int>(cudaErrorInvalidValue);
   const bool va = K % 8 == 0 && aligned16(x);

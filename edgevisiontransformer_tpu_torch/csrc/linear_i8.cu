@@ -16,6 +16,8 @@
 //     2   (exact GELU, erff)
 //     3 BIAS_RESIDUAL  bf16(deq + b + res)                  (out, fc2, :935-951)
 //   These round once where the bf16 linear's CAST_THEN_BIAS rounds twice.
+//   The fp16 instance (build.py's -DEVT_F16 compile) writes fp16 at the same
+//   points; the int32 product is the same.
 //   __fmul_rn / __fadd_rn keep nvcc from contracting the chain into FMAs,
 //   so the non-GELU epilogues equal the plain twin bit for bit.
 //
@@ -67,21 +69,26 @@
 //   later work.
 #include "linear_i8_tile.cuh"
 
+namespace EVT_INSTANCE {
+
 int linear_i8_rows128(EVT_LINEAR_I8_ARGS) {
   return launch_cols<4, 32>(q, s_row, w, w_s, bias, res, y, M, N, K, epi, bias_f32, cols,
                             split, va, vb, s);
 }
 
+}  // namespace EVT_INSTANCE
+
 // q [M, K] int8, s_row [M] fp32 (dynamic) or null (static: w_s holds the
 // combined scale), w [K, N] int8, w_s [N] fp32, bias [N] fp32 (bias_f32) or
-// bf16, res [M, N] bf16 (read by epilogue 3; may be y), y [M, N] bf16, all at
-// any alignment.  The plan (ops/cuda/fused_encoder.py:linear_i8_plan):
-// `rows` per block (128, 64, 32 or 16) by `cols` (32, 64, 96 or 128), and
-// `split`, the blocks of a cluster that share the K steps (1..8).
-extern "C" int evt_linear_i8(const void* q, const void* s_row, const void* w, const void* w_s,
-                             const void* bias, const void* res, void* y, int M, int N, int K,
-                             int epi, int bias_f32, int rows, int cols, int split,
-                             void* stream) {
+// bf16, res [M, N] bf16 (read by epilogue 3; may be y), y [M, N] bf16 (fp16
+// for bias, res and y in the fp16 instance), all at any alignment.  The plan
+// (ops/cuda/fused_encoder.py:linear_i8_plan): `rows` per block (128, 64, 32
+// or 16) by `cols` (32, 64, 96 or 128), and `split`, the blocks of a cluster
+// that share the K steps (1..8).
+extern "C" int EVT_EXPORT(evt_linear_i8)(const void* q, const void* s_row, const void* w,
+                                         const void* w_s, const void* bias, const void* res,
+                                         void* y, int M, int N, int K, int epi, int bias_f32,
+                                         int rows, int cols, int split, void* stream) {
   if (M == 0 || N == 0) return 0;
   if (K < 0 || epi < 0 || epi > 3 || split < 1 || split > MAX_SPLIT)
     return static_cast<int>(cudaErrorInvalidValue);

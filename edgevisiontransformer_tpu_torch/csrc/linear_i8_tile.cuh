@@ -43,15 +43,15 @@ constexpr int min_blocks(int threads, int acc) {
 // deq = (f32(acc) * sr) * ws (dynamic) or f32(acc) * ws (static), then the
 // bias, then GELU or the residual (bench/linear_i8_ab.py builds a variant
 // without it).  __fmul_rn / __fadd_rn keep nvcc from contracting into FMAs.
-template <int EPI>
+template <int EPI, class T>
 __device__ __forceinline__ float epilogue(int acc, bool dynamic, float sr, float ws, float b,
                                           float r) {
   const float accf = __int2float_rn(acc);
   const float deq = dynamic ? __fmul_rn(__fmul_rn(accf, sr), ws) : __fmul_rn(accf, ws);
   const float v = __fadd_rn(deq, b);
   if constexpr (EPI == 3) return __fadd_rn(v, r);
-  if constexpr (EPI == 1) return gelu_tanh_f(round_bf16(v));
-  if constexpr (EPI == 2) return gelu_erf_f(round_bf16(v));
+  if constexpr (EPI == 1) return gelu_tanh_f(round_to<T>(v));
+  if constexpr (EPI == 2) return gelu_erf_f(round_to<T>(v));
   return v;
 }
 
@@ -141,7 +141,7 @@ __device__ __forceinline__ void frag_b(uint32_t (&b)[4], const int8_t* p, uint32
   b[3] = __byte_perm(r[2], r[3], sel + 0x1111);
 }
 
-// w_s, the bias (fp32 or bf16) and the residual at 4 columns, read as one
+// w_s, the bias (fp32 or T) and the residual (T) at 4 columns, read as one
 // vector (v4: 16-byte path) or element by element, masked at N.
 __device__ __forceinline__ void load4_f32(const float* p, int n, int N, bool v4, float (&f)[4]) {
   if (v4) {
@@ -154,17 +154,18 @@ __device__ __forceinline__ void load4_f32(const float* p, int n, int N, bool v4,
   for (int e = 0; e < 4; ++e) f[e] = n + e < N ? p[n + e] : 0.0f;
 }
 
-__device__ __forceinline__ void load4_bf16(const bf16* p, int n, int N, bool v4, float (&f)[4]) {
+template <class T>
+__device__ __forceinline__ void load4(const T* p, int n, int N, bool v4, float (&f)[4]) {
   if (v4) {
     if (n >= N) { f[0] = f[1] = f[2] = f[3] = 0.0f; return; }
     const uint2 v = *reinterpret_cast<const uint2*>(p + n);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    const float2 lo = load_x2(reinterpret_cast<const T*>(&v.x));
+    const float2 hi = load_x2(reinterpret_cast<const T*>(&v.y));
     f[0] = lo.x; f[1] = lo.y; f[2] = hi.x; f[3] = hi.y;
     return;
   }
 #pragma unroll
-  for (int e = 0; e < 4; ++e) f[e] = n + e < N ? __bfloat162float(p[n + e]) : 0.0f;
+  for (int e = 0; e < 4; ++e) f[e] = n + e < N ? Elem<T>::to_float(p[n + e]) : 0.0f;
 }
 
 // A warp's FM x FN accumulator fragments through the dequant and epilogue
@@ -174,15 +175,15 @@ __device__ __forceinline__ void load4_bf16(const bf16* p, int n, int N, bool v4,
 // acc[i][2p][2h + 1], acc[i][2p + 1][2h + 1] for row g + 8h.  It reads w_s and
 // the bias once per 4 columns and s_row once per row.  On the vector path
 // (vb: N % 16 == 0 and every pointer 16-byte aligned, so 4 columns are all
-// in or all out) it stores its four bf16 results as one 8-byte vector: the
+// in or all out) it stores its four results (T) as one 8-byte vector: the
 // four threads of a row fill a whole 32-byte sector of Y.  Otherwise it
 // reads and writes element by element, masked.  r0, c0: the warp's first
 // row and column.  s_row == nullptr: the static dequant.
-template <int EPI, int FM, int FN>
+template <int EPI, int FM, int FN, class T>
 __device__ __forceinline__ void store_tile(const int (&acc)[FM][FN][4],
                                            const float* __restrict__ s_row,
                                            const float* __restrict__ w_s, const void* bias,
-                                           bool bias_f32, const bf16* res, bf16* Y, int M, int N,
+                                           bool bias_f32, const T* res, T* Y, int M, int N,
                                            int r0, int c0, bool vb, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const bool dynamic = s_row != nullptr;
@@ -192,7 +193,7 @@ __device__ __forceinline__ void store_tile(const int (&acc)[FM][FN][4],
     float ws[4], bv[4];
     load4_f32(w_s, gn, N, vb, ws);
     if (bias_f32) load4_f32(static_cast<const float*>(bias), gn, N, vb, bv);
-    else load4_bf16(static_cast<const bf16*>(bias), gn, N, vb, bv);
+    else load4(static_cast<const T*>(bias), gn, N, vb, bv);
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -202,21 +203,22 @@ __device__ __forceinline__ void store_tile(const int (&acc)[FM][FN][4],
         const float sr = dynamic && gm < M ? s_row[gm] : 0.0f;
         float rv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         if constexpr (EPI == 3) {
-          if (gm < M) load4_bf16(res + static_cast<size_t>(gm) * N, gn, N, vb, rv);
+          if (gm < M) load4(res + static_cast<size_t>(gm) * N, gn, N, vb, rv);
         }
         const int a[4] = {acc[i][2 * p][2 * h], acc[i][2 * p + 1][2 * h],
                           acc[i][2 * p][2 * h + 1], acc[i][2 * p + 1][2 * h + 1]};
         float y[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) y[e] = epilogue<EPI>(a[e], dynamic, sr, ws[e], bv[e], rv[e]);
+        for (int e = 0; e < 4; ++e)
+          y[e] = epilogue<EPI, T>(a[e], dynamic, sr, ws[e], bv[e], rv[e]);
         if (vb) {
           if (gm < M && gn < N)
             *reinterpret_cast<uint2*>(Y + off) =
-                make_uint2(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]));
+                make_uint2(pack2<T>(y[0], y[1]), pack2<T>(y[2], y[3]));
         } else if (gm < M) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (gn + e < N) Y[off + e] = __float2bfloat16_rn(y[e]);
+            if (gn + e < N) Y[off + e] = Elem<T>::from_float(y[e]);
         }
       }
   }
@@ -228,11 +230,11 @@ __device__ __forceinline__ void store_tile(const int (&acc)[FM][FN][4],
 // contiguous share of the K steps, and rank 0 adds the others' int32
 // partials from their shared memory (exact in any order) before its
 // epilogue.  bias, res and Y carry no __restrict__: Y may be res.
-template <int WM, int TM, int TN>
+template <int WM, int TM, int TN, class T>
 __global__ __launch_bounds__(WM * WN * 32, min_blocks(WM * WN * 32, TM / 16 * TN / 8 * 4))
 void linear_i8_kernel(
     const int8_t* __restrict__ Q, const float* __restrict__ s_row, const int8_t* __restrict__ W,
-    const float* __restrict__ w_s, const void* bias, const bf16* res, bf16* Y, int M, int N,
+    const float* __restrict__ w_s, const void* bias, const T* res, T* Y, int M, int N,
     int K, int epi, int split, bool bias_f32, bool va, bool vb) {
   constexpr int THREADS = WM * WN * 32, BM = WM * TM, BN = WN * TN, BS = BN + 16;
   constexpr int FM = TM / 16, FN = TN / 8;  // a warp's m16 and n8 fragments
@@ -332,7 +334,7 @@ void linear_i8_kernel(
 
   const int r0 = m0 + wm, c0 = n0 + wn;
 #define EVT_I8_STORE(E) \
-  store_tile<E, FM, FN>(acc, s_row, w_s, bias, bias_f32, res, Y, M, N, r0, c0, vb, lane)
+  store_tile<E, FM, FN, T>(acc, s_row, w_s, bias, bias_f32, res, Y, M, N, r0, c0, vb, lane)
   switch (epi) {
     case 0: EVT_I8_STORE(0); break;
     case 1: EVT_I8_STORE(1); break;
@@ -342,6 +344,7 @@ void linear_i8_kernel(
 #undef EVT_I8_STORE
 }
 
+// The block shape's launch at the translation unit's element type.
 template <int WM, int TM, int TN>
 int launch(const void* q, const void* s_row, const void* w, const void* w_s, const void* bias,
            const void* res, void* y, int M, int N, int K, int epi, int split, bool bias_f32,
@@ -352,7 +355,7 @@ int launch(const void* q, const void* s_row, const void* w, const void* w_s, con
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        linear_i8_kernel<WM, TM, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+        linear_i8_kernel<WM, TM, TN, elem>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
@@ -369,9 +372,9 @@ int launch(const void* q, const void* s_row, const void* w, const void* w_s, con
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, linear_i8_kernel<WM, TM, TN>, static_cast<const int8_t*>(q),
+      &cfg, linear_i8_kernel<WM, TM, TN, elem>, static_cast<const int8_t*>(q),
       static_cast<const float*>(s_row), static_cast<const int8_t*>(w),
-      static_cast<const float*>(w_s), bias, static_cast<const bf16*>(res), static_cast<bf16*>(y),
+      static_cast<const float*>(w_s), bias, static_cast<const elem*>(res), static_cast<elem*>(y),
       M, N, K, epi, split, bias_f32, va, vb);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
@@ -399,12 +402,16 @@ int launch_cols(const void* q, const void* s_row, const void* w, const void* w_s
 }  // namespace
 
 // The launches of 128-, 64-, 32- and 16-row blocks (4 x 32, 2 x 32, 2 x 16
-// and 1 x 16 warps' rows), each defined in the source that compiles it.
+// and 1 x 16 warps' rows), each defined in the source that compiles it, in
+// the namespace of its instance (the element type of its translation unit).
 #define EVT_LINEAR_I8_ARGS                                                                  \
   const void *q, const void *s_row, const void *w, const void *w_s, const void *bias,      \
       const void *res, void *y, int M, int N, int K, int epi, bool bias_f32, int cols,     \
       int split, bool va, bool vb, cudaStream_t s
+namespace EVT_INSTANCE {
 int linear_i8_rows128(EVT_LINEAR_I8_ARGS);
 int linear_i8_rows64(EVT_LINEAR_I8_ARGS);
 int linear_i8_rows32(EVT_LINEAR_I8_ARGS);
 int linear_i8_rows16(EVT_LINEAR_I8_ARGS);
+}  // namespace EVT_INSTANCE
+using namespace EVT_INSTANCE;

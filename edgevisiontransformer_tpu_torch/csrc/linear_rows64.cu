@@ -3,6 +3,10 @@
 // design, csrc/linear_tile.cuh the tile).
 #include "linear_tile.cuh"
 
+namespace EVT_INSTANCE {
+
 int linear_rows64(EVT_LINEAR_ARGS) {
   return launch_cols<2, 32>(x, w, bias, res, y, M, N, K, epi, cols, va, vb, s);
 }
+
+}  // namespace EVT_INSTANCE

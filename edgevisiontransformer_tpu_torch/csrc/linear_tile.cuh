@@ -24,8 +24,9 @@ constexpr int MAX_SMEM = 232448;    // the most dynamic shared memory a block ma
 constexpr int ROW_BIAS = 4;
 
 // Shared memory of one block: the ring of STAGES x (A [rows, AS], B [BK,
-// cols + 8]) bf16; after the products it holds each warp's output patch
-// (rows x (cols + 16) bf16 in all, always smaller).
+// cols + 8]) 16-bit values (bf16 or fp16: the element type T of every
+// routine below); after the products it holds each warp's output patch
+// (rows x (cols + 16) values in all, always smaller).
 // fused_encoder.py:_linear_smem_bytes mirrors this.
 __host__ __device__ constexpr int smem_bytes(int rows, int cols) {
   return STAGES * (rows * AS + BK * (cols + 8)) * 2;
@@ -47,35 +48,32 @@ constexpr int min_blocks(int threads, int acc) {
 // reference's cast points (bench/linear_ab.py builds a variant without it).
 // EPI is a template argument: the epilogue of a whole warp tile is unrolled
 // straight-line code, one copy per epilogue, with no branch per element.
-template <int EPI>
+// The roundings are to T.
+template <int EPI, class T>
 __device__ __forceinline__ float epilogue(float v, float b, float r) {
   if constexpr (EPI == 3) return (v + b) + r;
   if constexpr (EPI == ROW_BIAS) return v + r;
-  v = round_bf16(round_bf16(v) + b);
+  v = round_to<T>(round_to<T>(v) + b);
   if constexpr (EPI == 1) return gelu_tanh_f(v);
   if constexpr (EPI == 2) return gelu_erf_f(v);
   return v;
-}
-
-__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // A ROWS x COLS tile of a row-major matrix (row stride sld) into shared
 // memory (row stride dld), element by element: zeros at and past row `rows`
 // and column `cols` of src.  Each thread keeps 8 loads in flight before it
 // stores them, so a stage waits for one round trip, not one a load.
-template <int THREADS, int ROWS, int COLS>
-__device__ __forceinline__ void load_masked(bf16* dst, int dld, const bf16* __restrict__ src,
+template <int THREADS, int ROWS, int COLS, class T>
+__device__ __forceinline__ void load_masked(T* dst, int dld, const T* __restrict__ src,
                                             size_t sld, int rows, int cols, int tid) {
   constexpr int PER = ROWS * COLS / THREADS;
   static_assert(PER % 8 == 0, "whole batches of 8 elements a thread");
   for (int j0 = 0; j0 < PER; j0 += 8) {
-    bf16 v[8];
+    T v[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int i = tid + (j0 + u) * THREADS, r = i / COLS, c = i % COLS;
-      v[u] = r < rows && c < cols ? src[r * sld + c] : __float2bfloat16_rn(0.0f);
+      v[u] = r < rows && c < cols ? src[r * sld + c] : Elem<T>::from_float(0.0f);
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
@@ -99,12 +97,13 @@ __device__ __forceinline__ void group_sync(int id) {
 // loaded and masked.  vit_full.cu passes va = true only: its activations are
 // written earlier in the same launch, which the read-only path the
 // element-wise loads may take must not serve.
+template <class T>
 struct RowsA {
-  const bf16* __restrict__ X;
+  const T* __restrict__ X;
   bool va;
 
   template <int THREADS, int BM>
-  __device__ __forceinline__ void load(bf16* a, int M, int K, int m0, int k0, int tid) const {
+  __device__ __forceinline__ void load(T* a, int M, int K, int m0, int k0, int tid) const {
     if (va) {
 #pragma unroll
       for (int i = tid; i < BM * (BK / 8); i += THREADS) {
@@ -121,8 +120,8 @@ struct RowsA {
 
 // W[k0:k0+BK, n0:n0+BN] into stage buffer b (row stride BN + 8) by
 // cp.async, zeros past K and N; W's rows are 16-byte aligned.
-template <int THREADS, int BN>
-__device__ __forceinline__ void load_w_async(bf16* b, const bf16* __restrict__ W, int N, int K,
+template <int THREADS, int BN, class T>
+__device__ __forceinline__ void load_w_async(T* b, const T* __restrict__ W, int N, int K,
                                              int n0, int k0, int tid) {
   constexpr int BS = BN + 8;
 #pragma unroll
@@ -137,9 +136,9 @@ __device__ __forceinline__ void load_w_async(bf16* b, const bf16* __restrict__ W
 // vit_full.cu's patch gather) and W[k0:k0+BK, n0:n0+BN] into stage buffers a
 // and b, zeros past M, K and N.  vb: W's rows are 16-byte aligned (cp.async);
 // otherwise each element is loaded and masked.
-template <int THREADS, int BM, int BN, class ASrc>
-__device__ __forceinline__ void load_stage(bf16* a, bf16* b, const ASrc& src,
-                                           const bf16* __restrict__ W, int M, int N, int K,
+template <int THREADS, int BM, int BN, class ASrc, class T>
+__device__ __forceinline__ void load_stage(T* a, T* b, const ASrc& src,
+                                           const T* __restrict__ W, int M, int N, int K,
                                            int m0, int n0, int k0, bool vb, int tid) {
   src.template load<THREADS, BM>(a, M, K, m0, k0, tid);
   if (vb) load_w_async<THREADS, BN>(b, W, N, K, n0, k0, tid);
@@ -152,8 +151,8 @@ __device__ __forceinline__ void load_stage(bf16* a, bf16* b, const ASrc& src,
 // warp's first A row of the step (row stride lda), tb its first W column
 // (row stride WN * TN + 8); four k16 steps, in order, each accumulated into
 // acc by mma.sync.
-template <int FM, int FN>
-__device__ __forceinline__ void mma_step(float (&acc)[FM][FN][4], const bf16* ta, const bf16* tb,
+template <int FM, int FN, class T>
+__device__ __forceinline__ void mma_step(float (&acc)[FM][FN][4], const T* ta, const T* tb,
                                          int lane, int lda = AS) {
   constexpr int TN = FN * 8, BS = WN * TN + 8;
 #pragma unroll
@@ -168,8 +167,8 @@ __device__ __forceinline__ void mma_step(float (&acc)[FM][FN][4], const bf16* ta
       ldsm_x4_trans(b, tb + (kk + (lane & 15)) * BS + np * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int i = 0; i < FM; ++i) {
-        mma_bf16(acc[i][2 * np], a[i], b[0], b[1]);
-        mma_bf16(acc[i][2 * np + 1], a[i], b[2], b[3]);
+        mma16<T>(acc[i][2 * np], a[i], b[0], b[1]);
+        mma16<T>(acc[i][2 * np + 1], a[i], b[2], b[3]);
       }
     }
   }
@@ -180,16 +179,18 @@ __device__ __forceinline__ void mma_step(float (&acc)[FM][FN][4], const bf16* ta
 // g + 8 of m16 tile i and columns 2t, 2t + 1 of n8 tile j, and reads the
 // bias and residual at those positions.  On the 16-byte path (vb: N % 8 ==
 // 0 and every pointer 16-byte aligned, so a pair is all in or all out) it
-// reads them as bf16x2 and packs its two results into the warp's patch
+// reads them as x2 pairs of T and packs its two results into the warp's patch
 // [TM, TN + 8] of the idle ring (the row stride an odd multiple of 16
 // bytes); the warp then writes its rows to Y as 16-byte vectors.  Otherwise
 // it reads and writes element by element, masked.  r0, c0: the warp's first
 // row and column.  ROW_BIAS reads the residual's row gm % res_rows (the ViT
 // embedding's per-token bias, one row a token); the others row gm.
-template <int EPI, int FM, int FN>
-__device__ __forceinline__ void store_tile(const float (&acc)[FM][FN][4], const bf16* bias,
-                                           const bf16* res, bf16* Y, int M, int N, int res_rows,
-                                           int r0, int c0, bool vb, int lane, bf16* patch) {
+template <int EPI, int FM, int FN, class T>
+__device__ __forceinline__ void store_tile(const float (&acc)[FM][FN][4],
+                                           const typename Same<T>::type* bias,
+                                           const typename Same<T>::type* res, T* Y, int M,
+                                           int N, int res_rows, int r0, int c0, bool vb,
+                                           int lane, typename Same<T>::type* patch) {
   constexpr int TM = FM * 16, TN = FN * 8, PLD = TN + 8;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -198,9 +199,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[FM][FN][4], const 
     const bool in = gn < N, pair = vb || gn + 1 < N;
     float2 bv = make_float2(0.0f, 0.0f);
     if constexpr (EPI != ROW_BIAS) {
-      if (vb) bv = in ? load_bf16x2(bias + gn) : bv;
+      if (vb) bv = in ? load_x2(bias + gn) : bv;
       else if (in)
-        bv = make_float2(__bfloat162float(bias[gn]), pair ? __bfloat162float(bias[gn + 1]) : 0.0f);
+        bv = make_float2(Elem<T>::to_float(bias[gn]),
+                         pair ? Elem<T>::to_float(bias[gn + 1]) : 0.0f);
     }
 #pragma unroll
     for (int i = 0; i < FM; ++i)
@@ -213,19 +215,19 @@ __device__ __forceinline__ void store_tile(const float (&acc)[FM][FN][4], const 
           const size_t roff =
               EPI == ROW_BIAS ? static_cast<size_t>(gm % res_rows) * N + gn : off;
           if (gm < M && in) {
-            if (vb) rv = load_bf16x2(res + roff);
+            if (vb) rv = load_x2(res + roff);
             else
-              rv = make_float2(__bfloat162float(res[roff]),
-                               pair ? __bfloat162float(res[roff + 1]) : 0.0f);
+              rv = make_float2(Elem<T>::to_float(res[roff]),
+                               pair ? Elem<T>::to_float(res[roff + 1]) : 0.0f);
           }
         }
-        const float y0 = epilogue<EPI>(acc[i][j][2 * h], bv.x, rv.x);
-        const float y1 = epilogue<EPI>(acc[i][j][2 * h + 1], bv.y, rv.y);
+        const float y0 = epilogue<EPI, T>(acc[i][j][2 * h], bv.x, rv.x);
+        const float y1 = epilogue<EPI, T>(acc[i][j][2 * h + 1], bv.y, rv.y);
         if (vb) {
-          *reinterpret_cast<uint32_t*>(patch + r * PLD + c) = pack_bf16x2(y0, y1);
+          *reinterpret_cast<uint32_t*>(patch + r * PLD + c) = pack2<T>(y0, y1);
         } else if (gm < M && in) {
-          Y[off] = __float2bfloat16_rn(y0);
-          if (pair) Y[off + 1] = __float2bfloat16_rn(y1);
+          Y[off] = Elem<T>::from_float(y0);
+          if (pair) Y[off + 1] = Elem<T>::from_float(y1);
         }
       }
   }
@@ -246,17 +248,18 @@ __device__ __forceinline__ void store_tile(const float (&acc)[FM][FN][4], const 
 // the group's warps may still read their patches of the ring: a caller that
 // runs another tile on the same ring passes the group's barrier first.
 // bias, res and Y carry no __restrict__: Y may be res.
-template <int WM, int TM, int TN, class ASrc>
+template <int WM, int TM, int TN, class ASrc, class T>
 __device__ __forceinline__ void gemm_tile(unsigned char* smem, const ASrc& src,
-                                          const bf16* __restrict__ W, const bf16* bias,
-                                          const bf16* res, bf16* Y, int M, int N, int K, int epi,
-                                          int res_rows, int m0, int n0, bool vb, int tid,
-                                          int bar) {
+                                          const T* __restrict__ W,
+                                          const typename Same<T>::type* bias,
+                                          const typename Same<T>::type* res, T* Y, int M, int N,
+                                          int K, int epi, int res_rows, int m0, int n0, bool vb,
+                                          int tid, int bar) {
   constexpr int THREADS = WM * WN * 32, BM = WM * TM, BN = WN * TN, BS = BN + 8;
   constexpr int FM = TM / 16, FN = TN / 8;  // a warp's m16 and n8 fragments
   constexpr int A_STAGE = BM * AS, B_STAGE = BK * BS;
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + STAGES * A_STAGE;
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = sA + STAGES * A_STAGE;
 
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = (warp / WN) * TM, wn = (warp % WN) * TN;
@@ -295,10 +298,10 @@ __device__ __forceinline__ void gemm_tile(unsigned char* smem, const ASrc& src,
   group_sync<THREADS>(bar);  // every warp is done with the ring: it holds the warps' patches
   if (!active) return;
 
-  bf16* patch = sA + warp * TM * (TN + 8);
+  T* patch = sA + warp * TM * (TN + 8);
   const int r0 = m0 + wm, c0 = n0 + wn;
 #define EVT_STORE(E) \
-  store_tile<E, FM, FN>(acc, bias, res, Y, M, N, res_rows, r0, c0, vb, lane, patch)
+  store_tile<E, FM, FN, T>(acc, bias, res, Y, M, N, res_rows, r0, c0, vb, lane, patch)
   switch (epi) {
     case 0: EVT_STORE(0); break;
     case 1: EVT_STORE(1); break;
@@ -310,16 +313,17 @@ __device__ __forceinline__ void gemm_tile(unsigned char* smem, const ASrc& src,
 }
 
 // A block of WM x WN warps, one gemm_tile; grid (column tiles, row tiles).
-template <int WM, int TM, int TN>
+template <int WM, int TM, int TN, class T>
 __global__ __launch_bounds__(WM * WN * 32, min_blocks(WM * WN * 32, TM / 16 * TN / 8 * 4))
 void linear_kernel(
-    const bf16* __restrict__ X, const bf16* __restrict__ W, const bf16* bias, const bf16* res,
-    bf16* Y, int M, int N, int K, int epi, bool va, bool vb) {
+    const T* __restrict__ X, const T* __restrict__ W, const T* bias, const T* res, T* Y, int M,
+    int N, int K, int epi, bool va, bool vb) {
   extern __shared__ __align__(128) unsigned char smem[];
-  gemm_tile<WM, TM, TN>(smem, RowsA{X, va}, W, bias, res, Y, M, N, K, epi, M,
+  gemm_tile<WM, TM, TN>(smem, RowsA<T>{X, va}, W, bias, res, Y, M, N, K, epi, M,
                         blockIdx.y * WM * TM, blockIdx.x * WN * TN, vb, threadIdx.x, 0);
 }
 
+// The block shape's launch at the translation unit's element type.
 template <int WM, int TM, int TN>
 int launch(const void* x, const void* w, const void* bias, const void* res, void* y, int M,
            int N, int K, int epi, bool va, bool vb, cudaStream_t stream) {
@@ -328,14 +332,14 @@ int launch(const void* x, const void* w, const void* bias, const void* res, void
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        linear_kernel<WM, TM, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+        linear_kernel<WM, TM, TN, elem>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  linear_kernel<WM, TM, TN><<<grid, WM * WN * 32, BYTES, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-      static_cast<const bf16*>(res), static_cast<bf16*>(y), M, N, K, epi, va, vb);
+  linear_kernel<WM, TM, TN, elem><<<grid, WM * WN * 32, BYTES, stream>>>(
+      static_cast<const elem*>(x), static_cast<const elem*>(w), static_cast<const elem*>(bias),
+      static_cast<const elem*>(res), static_cast<elem*>(y), M, N, K, epi, va, vb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -359,11 +363,15 @@ int launch_cols(const void* x, const void* w, const void* bias, const void* res,
 }  // namespace
 
 // The launches of 128-, 64-, 32- and 16-row blocks (4 x 32, 2 x 32, 2 x 16
-// and 1 x 16 warps' rows), each defined in the source that compiles it.
+// and 1 x 16 warps' rows), each defined in the source that compiles it, in
+// the namespace of its instance (the element type of its translation unit).
 #define EVT_LINEAR_ARGS                                                                     \
   const void *x, const void *w, const void *bias, const void *res, void *y, int M, int N, \
       int K, int epi, int cols, bool va, bool vb, cudaStream_t s
+namespace EVT_INSTANCE {
 int linear_rows128(EVT_LINEAR_ARGS);
 int linear_rows64(EVT_LINEAR_ARGS);
 int linear_rows32(EVT_LINEAR_ARGS);
 int linear_rows16(EVT_LINEAR_ARGS);
+}  // namespace EVT_INSTANCE
+using namespace EVT_INSTANCE;

@@ -49,33 +49,34 @@ __device__ __forceinline__ void ln_affine(float f[8], float mean, float rs, cons
 // ---------------------------------------------------------------------------
 // LayerNorm of one row (one warp): fp32 mean, fp32 mean of squared
 // deviations, rsqrt(var + eps) * g + b in fp32; `store(chunk, f)` receives
-// each 8-value chunk.  g and b are fp32 (affine_f32) or bf16.  dim % 8 == 0.
+// each 8-value chunk.  xr holds T (bf16 or fp16), g and b are fp32
+// (affine_f32) or T.  dim % 8 == 0.
 // ---------------------------------------------------------------------------
-template <class Store>
-__device__ __forceinline__ void ln_row(const bf16* xr, const void* g, const void* b, int dim,
+template <class T, class Store>
+__device__ __forceinline__ void ln_row(const T* xr, const void* g, const void* b, int dim,
                                        float eps, int affine_f32, int lane, Store store) {
   const int chunks = dim / 8;
   float f[8];
 
   float sum = 0.f;
   for (int c = lane; c < chunks; c += 32) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+    unpack8<T>(*reinterpret_cast<const uint4*>(xr + c * 8), f);
     ln_add_sum(sum, f);
   }
   const float mean = ln_mean(sum, dim);
 
   float sq = 0.f;
   for (int c = lane; c < chunks; c += 32) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+    unpack8<T>(*reinterpret_cast<const uint4*>(xr + c * 8), f);
     ln_add_sq(sq, f, mean);
   }
   const float rs = ln_rstd(sq, dim, eps);
 
   float gf[8], bf[8];
   for (int c = lane; c < chunks; c += 32) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-    load8_either(g, c, affine_f32, gf);
-    load8_either(b, c, affine_f32, bf);
+    unpack8<T>(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+    load8_either<T>(g, c, affine_f32, gf);
+    load8_either<T>(b, c, affine_f32, bf);
     ln_affine(f, mean, rs, gf, bf);
     store(c, f);
   }

@@ -116,8 +116,8 @@ struct Layout {
 };
 
 // W1[k0:k0+KS, j0:j0+HC] into a slab, zeros past dim and hidden.
-template <int THREADS, int HC>
-__device__ __forceinline__ void load_w1(bf16* dst, const bf16* __restrict__ W1, int dim,
+template <int THREADS, int HC, class T>
+__device__ __forceinline__ void load_w1(T* dst, const T* __restrict__ W1, int dim,
                                         int hidden, int KS, int k0, int j0, bool vec, int tid) {
   constexpr int W1LD = HC + 8;
   if (vec) {
@@ -132,14 +132,14 @@ __device__ __forceinline__ void load_w1(bf16* dst, const bf16* __restrict__ W1, 
       const int r = i / HC, c = i % HC;
       dst[r * W1LD + c] = k0 + r < dim && j0 + c < hidden
                               ? W1[static_cast<size_t>(k0 + r) * hidden + j0 + c]
-                              : __float2bfloat16_rn(0.0f);
+                              : Elem<T>::from_float(0.0f);
     }
   }
 }
 
 // W2[j0:j0+HC, n0:n0+NT] into a tile, zeros past hidden and dim.
-template <int THREADS, int NT, int HC>
-__device__ __forceinline__ void load_w2(bf16* dst, const bf16* __restrict__ W2, int dim,
+template <int THREADS, int NT, int HC, class T>
+__device__ __forceinline__ void load_w2(T* dst, const T* __restrict__ W2, int dim,
                                         int hidden, int j0, int n0, bool vec, int tid) {
   constexpr int LD = NT + 8;
   if (vec) {
@@ -153,29 +153,30 @@ __device__ __forceinline__ void load_w2(bf16* dst, const bf16* __restrict__ W2, 
       const int r = i / NT, c = i % NT;
       dst[r * LD + c] = j0 + r < hidden && n0 + c < dim
                             ? W2[static_cast<size_t>(j0 + r) * dim + n0 + c]
-                            : __float2bfloat16_rn(0.0f);
+                            : Elem<T>::from_float(0.0f);
     }
   }
 }
 
-__device__ __forceinline__ float bias_at(const bf16* __restrict__ b, int i, int n) {
-  return i < n ? __bfloat162float(b[i]) : 0.0f;
+template <class T>
+__device__ __forceinline__ float bias_at(const T* __restrict__ b, int i, int n) {
+  return i < n ? Elem<T>::to_float(b[i]) : 0.0f;
 }
 
 // Grid (split * row tiles, column tiles); a cluster is the split's blocks of
 // one (row tile, column tile).
-template <int WARPS, int NT, int HC>
+template <int WARPS, int NT, int HC, class T>
 __global__ __launch_bounds__(WARPS * 32) void mlp_kernel(
-    const bf16* __restrict__ X, const bf16* __restrict__ W1, const bf16* __restrict__ b1,
-    const bf16* __restrict__ W2, const bf16* __restrict__ b2, bf16* __restrict__ Y, int M,
+    const T* __restrict__ X, const T* __restrict__ W1, const T* __restrict__ b1,
+    const T* __restrict__ W2, const T* __restrict__ b2, T* __restrict__ Y, int M,
     int dim, int hidden, int approx, int split, bool v1, bool v2) {
   constexpr int THREADS = WARPS * 32, BM = WARPS * 16, NJ = NT / 8;
   constexpr int W1LD = HC + 8, W2LD = NT + 8;
   const Layout L(dim, BM, NT, HC);
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sX = reinterpret_cast<bf16*>(smem);
-  bf16* sW1 = reinterpret_cast<bf16*>(smem + L.w1_off);
-  bf16* sW2 = reinterpret_cast<bf16*>(smem + L.w2_off);
+  T* sX = reinterpret_cast<T*>(smem);
+  T* sW1 = reinterpret_cast<T*>(smem + L.w1_off);
+  T* sW2 = reinterpret_cast<T*>(smem + L.w2_off);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int s = blockIdx.x % split;
@@ -217,7 +218,7 @@ __global__ __launch_bounds__(WARPS * 32) void mlp_kernel(
   float h[HC / 8][4];
   float bias[HC / 8][2];
 
-  const bf16* sXw = sX + wr * xld;
+  const T* sXw = sX + wr * xld;
   for (int i = 0; i < steps; ++i) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // step i landed; every warp is done with step i - 1
@@ -234,8 +235,8 @@ __global__ __launch_bounds__(WARPS * 32) void mlp_kernel(
       }
     }
     // fc1: h += X[:, slab] @ W1[slab, chunk]
-    const bf16* w1s = sW1 + (i % STAGES) * KS * W1LD;
-    const bf16* xs = sXw + kt * KS;
+    const T* w1s = sW1 + (i % STAGES) * KS * W1LD;
+    const T* xs = sXw + kt * KS;
 #pragma unroll 4
     for (int kk = 0; kk < KS; kk += 16) {
       uint32_t a[4];
@@ -244,14 +245,14 @@ __global__ __launch_bounds__(WARPS * 32) void mlp_kernel(
       for (int np = 0; np < HC / 16; ++np) {
         uint32_t b[4];
         ldsm_x4_trans(b, w1s + (kk + (lane & 15)) * W1LD + np * 16 + (lane >> 4) * 8);
-        mma_bf16(h[2 * np], a, b[0], b[1]);
-        mma_bf16(h[2 * np + 1], a, b[2], b[3]);
+        mma16<T>(h[2 * np], a, b[0], b[1]);
+        mma16<T>(h[2 * np + 1], a, b[2], b[3]);
       }
     }
     if (kt != ks - 1) continue;
-    // the chunk is summed: + f32(b1), GELU in fp32, one round to bf16, packed
+    // the chunk is summed: + f32(b1), GELU in fp32, one round to T, packed
     // as fc2's A fragments; then acc += h @ W2[chunk, tile]
-    const bf16* w2c = sW2 + (cl % L.nw2) * HC * W2LD;
+    const T* w2c = sW2 + (cl % L.nw2) * HC * W2LD;
 #pragma unroll
     for (int q = 0; q < HC / 16; ++q) {
       float v[2][4];
@@ -260,14 +261,14 @@ __global__ __launch_bounds__(WARPS * 32) void mlp_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           v[u][e] = gelu_act(h[2 * q + u][e] + bias[2 * q + u][e & 1], approx);
-      const uint32_t a[4] = {pack_bf16x2(v[0][0], v[0][1]), pack_bf16x2(v[0][2], v[0][3]),
-                             pack_bf16x2(v[1][0], v[1][1]), pack_bf16x2(v[1][2], v[1][3])};
+      const uint32_t a[4] = {pack2<T>(v[0][0], v[0][1]), pack2<T>(v[0][2], v[0][3]),
+                             pack2<T>(v[1][0], v[1][1]), pack2<T>(v[1][2], v[1][3])};
 #pragma unroll
       for (int np = 0; np < NT / 16; ++np) {
         uint32_t b[4];
         ldsm_x4_trans(b, w2c + (q * 16 + (lane & 15)) * W2LD + np * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        mma16<T>(acc[2 * np], a, b[0], b[1]);
+        mma16<T>(acc[2 * np + 1], a, b[2], b[3]);
       }
     }
   }
@@ -275,21 +276,21 @@ __global__ __launch_bounds__(WARPS * 32) void mlp_kernel(
   // thread (g, t) holds rows g and g + 8 of the warp, columns 8j + 2t, + 1
   const int cols = min(NT, dim - n0);  // a multiple of 8
   if (split == 1) {
-    // Y = bf16(acc + f32(b2)) through the warp's own X rows (no other warp
+    // Y = T(acc + f32(b2)) through the warp's own X rows (no other warp
     // reads them; cp.async wrote them in group 0, long waited for), then to
     // Y as 16-byte vectors
     if (!active) return;
-    bf16* sYw = sX + wr * xld;
+    T* sYw = sX + wr * xld;
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = 8 * j + 2 * t;
       if (c >= cols) continue;
-      const float c0b = __bfloat162float(b2[n0 + c]), c1b = __bfloat162float(b2[n0 + c + 1]);
-      *reinterpret_cast<uint32_t*>(sYw + g * xld + c) = pack_bf16x2(acc[j][0] + c0b,
-                                                                    acc[j][1] + c1b);
+      const float c0b = Elem<T>::to_float(b2[n0 + c]), c1b = Elem<T>::to_float(b2[n0 + c + 1]);
+      *reinterpret_cast<uint32_t*>(sYw + g * xld + c) = pack2<T>(acc[j][0] + c0b,
+                                                                 acc[j][1] + c1b);
       *reinterpret_cast<uint32_t*>(sYw + (g + 8) * xld + c) =
-          pack_bf16x2(acc[j][2] + c0b, acc[j][3] + c1b);
+          pack2<T>(acc[j][2] + c0b, acc[j][3] + c1b);
     }
     __syncwarp();
     for (int i = lane; i < 16 * (cols / 8); i += 32) {
@@ -330,8 +331,8 @@ __global__ __launch_bounds__(WARPS * 32) void mlp_kernel(
       v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
     }
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(b2[n0 + c + e]);
-    *reinterpret_cast<uint4*>(Y + static_cast<size_t>(m0 + r) * dim + n0 + c) = pack8(v);
+    for (int e = 0; e < 8; ++e) v[e] += Elem<T>::to_float(b2[n0 + c + e]);
+    *reinterpret_cast<uint4*>(Y + static_cast<size_t>(m0 + r) * dim + n0 + c) = pack8<T>(v);
   }
   cluster.sync();  // no block leaves while a peer may still read its partial
 }
@@ -346,7 +347,7 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2, const 
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mlp_kernel<WARPS, NT, HC>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+        mlp_kernel<WARPS, NT, HC, elem>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
@@ -363,9 +364,9 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2, const 
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, mlp_kernel<WARPS, NT, HC>, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
-      static_cast<bf16*>(y), M, dim, hidden, approx, split, v1, v2);
+      &cfg, mlp_kernel<WARPS, NT, HC, elem>, static_cast<const elem*>(x),
+      static_cast<const elem*>(w1), static_cast<const elem*>(b1), static_cast<const elem*>(w2),
+      static_cast<const elem*>(b2), static_cast<elem*>(y), M, dim, hidden, approx, split, v1, v2);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -389,14 +390,16 @@ int launch_nt(const void* x, const void* w1, const void* b1, const void* w2, con
 }  // namespace
 
 // x [M, dim] and y 16-byte aligned, dim % 8 == 0; w1 [dim, hidden], b1
-// [hidden], w2 [hidden, dim], b2 [dim] bf16 at any alignment.  The plan
+// [hidden], w2 [hidden, dim], b2 [dim] bf16 (fp16 in the fp16 instance) at
+// any alignment.  The plan
 // (ops/cuda/fused_mlp.py:plan): rows per block (64 or 128), split (the
 // blocks of a cluster sharing the hidden width, 1..8), nt (output columns
 // per block: 64, 128, 192 or 256) and hc (hidden units per chunk: 32, or
 // 64 at 128 rows).
-extern "C" int evt_mlp(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, void* y, int M, int dim, int hidden, int approx, int rows,
-                       int split, int nt, int hc, void* stream) {
+extern "C" int EVT_EXPORT(evt_mlp)(const void* x, const void* w1, const void* b1, const void* w2,
+                                   const void* b2, void* y, int M, int dim, int hidden,
+                                   int approx, int rows, int split, int nt, int hc,
+                                   void* stream) {
   if (M == 0) return 0;
   if (dim <= 0 || dim % 8 || hidden <= 0 || !aligned16(x) || !aligned16(y) || split < 1 ||
       split > MAX_SPLIT)

@@ -1,11 +1,13 @@
 // Warp-level tensor-core tiles shared by sdpa.cu, mlp.cu, linear.cu,
 // attention_rows.cu (through attn_tiles.cuh) and linear_i8.cu:
 // ldmatrix loads of 16-bit fragments from shared memory (int8 pairs, for
-// linear_i8), the mma.sync.m16n8k16 product with fp32 accumulators, its
-// int8 form m16n8k32 with int32 accumulators, and the packing of two fp32
-// accumulators into one bf16x2 register (in the m16n8 layout, two
-// neighbouring n8 accumulator tiles packed this way are the A fragment of
-// one k16 step of the next product).
+// linear_i8), the mma.sync.m16n8k16 product of bf16 or fp16 operands with
+// fp32 accumulators (mma16<T>), its int8 form m16n8k32 with int32
+// accumulators, and the packing of two fp32 accumulators into one x2
+// register of T (pack2<T>; in the m16n8 layout, two neighbouring n8
+// accumulator tiles packed this way are the A fragment of one k16 step of
+// the next product).  ldmatrix and cp.async move 16-bit values whatever
+// they are.
 #pragma once
 
 #include "common.cuh"
@@ -49,7 +51,40 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+// c += a (16 x 16, row) * b (16 x 8, col), fp16 in, fp32 accumulators.
+__device__ __forceinline__ void mma_f16(float c[4], const uint32_t a[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The product of T's operands: mma_bf16 or mma_f16.
+template <class T>
+__device__ __forceinline__ void mma16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1);
+
+template <>
+__device__ __forceinline__ void mma16<bf16>(float c[4], const uint32_t a[4], uint32_t b0,
+                                            uint32_t b1) {
+  mma_bf16(c, a, b0, b1);
+}
+
+template <>
+__device__ __forceinline__ void mma16<f16>(float c[4], const uint32_t a[4], uint32_t b0,
+                                           uint32_t b1) {
+  mma_f16(c, a, b0, b1);
+}
+
+// Two fp32 values rounded to T, in one register (lo in the low half).
+template <class T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  typename Elem<T>::x2 h = Elem<T>::from_floats(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The bf16 forms by their old names, for the bf16-only sources under bench/.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return pack2<bf16>(lo, hi);
 }

@@ -67,7 +67,7 @@
 namespace {
 
 constexpr int TS = 64, MF = 32;              // token size, random features
-constexpr int LD = row_ld(TS);               // bf16 row stride of staged rows and weights
+constexpr int LD = row_ld(TS);               // row stride of staged rows and weights
 constexpr int FLD = MF + 4;                  // fp32 row stride of kp, qp and kptv in shared memory
 constexpr int XLD = 3 * TS;                  // x_kqv row stride
 constexpr int SUMS = MF + TS * MF;           // one image's sums: kp_sum [m], then kptv [ts, m]
@@ -143,7 +143,8 @@ __device__ __forceinline__ void add_partials(float* dst, const float* src, int c
 // [m, ts] (stride LD).  |t|^2: each lane adds the squares of its 16 columns
 // of a row (per k16 step: 2t, 2t + 1, 2t + 8, 2t + 9), then the quad adds
 // its four lanes.  Rows at or past `valid` become 0 where `mask`.
-__device__ __forceinline__ void prm_exp(float (&s)[2][2][4], const bf16* sT, const bf16* sW,
+template <class T>
+__device__ __forceinline__ void prm_exp(float (&s)[2][2][4], const T* sT, const T* sW,
                                         int lane, int valid, bool mask) {
   float sq[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -156,7 +157,7 @@ __device__ __forceinline__ void prm_exp(float (&s)[2][2][4], const bf16* sT, con
     ldsm_x4(a, sT + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {  // a[0], a[2]: row g; a[1], a[3]: row g + 8
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[r]));
+      const float2 f = Elem<T>::to_float2(*reinterpret_cast<const typename Elem<T>::x2*>(&a[r]));
       sq[r & 1] = fmaf(f.x, f.x, sq[r & 1]);
       sq[r & 1] = fmaf(f.y, f.y, sq[r & 1]);
     }
@@ -165,8 +166,8 @@ __device__ __forceinline__ void prm_exp(float (&s)[2][2][4], const bf16* sT, con
       uint32_t b[4];
       ldsm_x4(b, sW + (c * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD + kk * 16 +
                      ((lane >> 3) & 1) * 8);
-      mma_bf16(s[c][0], a, b[0], b[1]);
-      mma_bf16(s[c][1], a, b[2], b[3]);
+      mma16<T>(s[c][0], a, b[0], b[1]);
+      mma16<T>(s[c][1], a, b[2], b[3]);
     }
   }
   const float td[2] = {quad_sum(sq[0]) * 0.5f, quad_sum(sq[1]) * 0.5f};
@@ -197,9 +198,10 @@ __device__ __forceinline__ void store_prm(float* sP, const float (&s)[2][2][4], 
 // Adds the warp's 16 tokens (k rows sK, v rows sV, bf16 at stride LD; rows
 // at or past `valid` left out) to kp_sum[lane] in ksum and to kptv rows
 // lane and lane + 32 in acc, token by token.  kp takes sK's place.
-__device__ __forceinline__ void add_tokens(float (&acc)[2][MF], float& ksum, bf16* sK,
-                                         const bf16* sV, const bf16* sW, int lane, int valid) {
-  float* sKp = reinterpret_cast<float*>(sK);  // 16 x FLD fp32: the size of 16 x LD bf16
+template <class T>
+__device__ __forceinline__ void add_tokens(float (&acc)[2][MF], float& ksum, T* sK,
+                                         const T* sV, const T* sW, int lane, int valid) {
+  float* sKp = reinterpret_cast<float*>(sK);  // 16 x FLD fp32: the size of 16 x LD T
   float s[2][2][4];
   prm_exp(s, sK, sW, lane, valid, true);
   __syncwarp();  // every lane's ldmatrix of k is done before kp takes its place
@@ -207,8 +209,8 @@ __device__ __forceinline__ void add_tokens(float (&acc)[2][MF], float& ksum, bf1
   __syncwarp();
   for (int r = 0; r < 16; ++r) {
     ksum += sKp[r * FLD + lane];
-    const float v0 = __bfloat162float(sV[r * LD + lane]);
-    const float v1 = __bfloat162float(sV[r * LD + lane + 32]);
+    const float v0 = Elem<T>::to_float(sV[r * LD + lane]);
+    const float v1 = Elem<T>::to_float(sV[r * LD + lane + 32]);
 #pragma unroll
     for (int j4 = 0; j4 < MF / 4; ++j4) {
       const float4 p = *reinterpret_cast<const float4*>(sKp + r * FLD + 4 * j4);
@@ -226,20 +228,21 @@ __device__ __forceinline__ void add_tokens(float (&acc)[2][MF], float& ksum, bf1
 
 // Dynamic shared memory: w [m, LD]; per warp its k rows (then its kp, fp32
 // at stride FLD) and its v rows; per warp its partial (SUMS_SMEM).
+template <class T>
 __global__ __launch_bounds__(RED_THREADS) void performer_reduce_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restrict__ partial,
+    const T* __restrict__ x, const T* __restrict__ w, float* __restrict__ partial,
     float* __restrict__ sums, int* __restrict__ counters, int n) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sW + MF * LD;
-  bf16* sV = sK + RED_WARPS * 16 * LD;
+  T* sW = reinterpret_cast<T*>(smem);
+  T* sK = sW + MF * LD;
+  T* sV = sK + RED_WARPS * 16 * LD;
   float* sPart = reinterpret_cast<float*>(sV + RED_WARPS * 16 * LD);
   __shared__ bool last;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int blk = blockIdx.x, img = blockIdx.y, blocks = gridDim.x;
-  const bf16* xi = x + static_cast<long long>(img) * n * XLD;
-  bf16* sKw = sK + warp * 16 * LD;
-  bf16* sVw = sV + warp * 16 * LD;
+  const T* xi = x + static_cast<long long>(img) * n * XLD;
+  T* sKw = sK + warp * 16 * LD;
+  T* sVw = sV + warp * 16 * LD;
 
   for (int i = tid; i < MF * TS / 8; i += RED_THREADS)
     cp_async16(sW + (i / 8) * LD + (i % 8) * 8, w + 8 * i, true);
@@ -291,8 +294,9 @@ __global__ __launch_bounds__(RED_THREADS) void performer_reduce_kernel(
 // layout over 64 columns (o[j][e]: column 8 j + 2 t + (e & 1) of row
 // g + 8 (e >> 1)); B [ts, ts] row-major at stride LD.  Two neighbouring n8
 // tiles of a are one k16 A fragment: attention's PV step (pv).
+template <class T>
 __device__ __forceinline__ void mm(float (&o)[TS / 8][4], const float (&a)[TS / 8][4],
-                                   const bf16* sB, int lane) {
+                                   const T* sB, int lane) {
 #pragma unroll
   for (int j = 0; j < TS / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
   pv<TS, TS / 16>(o, reinterpret_cast<const float(&)[TS / 16][2][4]>(a), sB, lane);
@@ -302,18 +306,19 @@ __device__ __forceinline__ void mm(float (&o)[TS / 8][4], const float (&a)[TS / 
 // (VECS fp32), the weights (MATS rows at stride LD), then per warp its q
 // rows (then its qp, fp32 at stride FLD, then its output patch) and its v
 // rows.  ROWS_WARPS warps, each 16 tokens.
+template <class T>
 __global__ __launch_bounds__(ROWS_THREADS) void performer_rows_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ sums, const bf16* __restrict__ mats,
-    const float* __restrict__ vecs, bf16* __restrict__ out, int n, float eps, int approx) {
+    const T* __restrict__ x, const float* __restrict__ sums, const T* __restrict__ mats,
+    const float* __restrict__ vecs, T* __restrict__ out, int n, float eps, int approx) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* sSum = reinterpret_cast<float*>(smem);
   float* sVec = sSum + SUMS_SMEM;
-  bf16* sMat = reinterpret_cast<bf16*>(sVec + VECS);
+  T* sMat = reinterpret_cast<T*>(sVec + VECS);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int img = blockIdx.y, row0 = (blockIdx.x * ROWS_WARPS + warp) * 16;
-  const bf16* xi = x + static_cast<long long>(img) * n * XLD;
-  bf16* sQw = sMat + MATS * LD + warp * 32 * LD;
-  bf16* sVw = sQw + 16 * LD;
+  const T* xi = x + static_cast<long long>(img) * n * XLD;
+  T* sQw = sMat + MATS * LD + warp * 32 * LD;
+  T* sVw = sQw + 16 * LD;
 
   const float* si = sums + static_cast<long long>(img) * SUMS;
   for (int c = tid; c < SUMS / 4; c += ROWS_THREADS)
@@ -328,9 +333,9 @@ __global__ __launch_bounds__(ROWS_THREADS) void performer_rows_kernel(
   __syncthreads();  // the only block barrier
   if (row0 >= n) return;
 
-  const bf16* sWo = sMat + MF * LD;
-  const bf16* sW1 = sWo + TS * LD;
-  const bf16* sW2 = sW1 + TS * LD;
+  const T* sWo = sMat + MF * LD;
+  const T* sW1 = sWo + TS * LD;
+  const T* sW2 = sW1 + TS * LD;
   const float* kptv = sSum + MF;
   const int g = lane >> 2, t = lane & 3;
 
@@ -347,7 +352,7 @@ __global__ __launch_bounds__(ROWS_THREADS) void performer_rows_kernel(
     }
   d[0] = fmaxf(quad_sum(d[0]), 1e-8f);
   d[1] = fmaxf(quad_sum(d[1]), 1e-8f);
-  float* sQp = reinterpret_cast<float*>(sQw);  // 16 x FLD fp32: the size of 16 x LD bf16
+  float* sQp = reinterpret_cast<float*>(sQw);  // 16 x FLD fp32: the size of 16 x LD T
   __syncwarp();  // every lane's ldmatrix of q is done before qp takes its place
   store_prm(sQp, s, lane);
   __syncwarp();
@@ -391,13 +396,13 @@ __global__ __launch_bounds__(ROWS_THREADS) void performer_rows_kernel(
   for (int j = 0; j < TS / 8; ++j) {
     const int col = 8 * j + 2 * t;
     const float2 v0 =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sVw + g * LD + col));
+        load_x2((sVw + g * LD + col));
     const float2 v1 =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sVw + (g + 8) * LD + col));
-    y[j][0] = round_bf16(v0.x + (o[j][0] + sVec[col]));
-    y[j][1] = round_bf16(v0.y + (o[j][1] + sVec[col + 1]));
-    y[j][2] = round_bf16(v1.x + (o[j][2] + sVec[col]));
-    y[j][3] = round_bf16(v1.y + (o[j][3] + sVec[col + 1]));
+        load_x2((sVw + (g + 8) * LD + col));
+    y[j][0] = round_to<T>(v0.x + (o[j][0] + sVec[col]));
+    y[j][1] = round_to<T>(v0.y + (o[j][1] + sVec[col + 1]));
+    y[j][2] = round_to<T>(v1.x + (o[j][2] + sVec[col]));
+    y[j][3] = round_to<T>(v1.y + (o[j][3] + sVec[col + 1]));
   }
 
   // h = LN(y2) into o: the fp32 mean and variance of each row, each lane
@@ -437,7 +442,7 @@ __global__ __launch_bounds__(ROWS_THREADS) void performer_rows_kernel(
   for (int j = 0; j < TS / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float v = round_bf16(hid[j][e] + b1[8 * j + 2 * t + (e & 1)]);
+      const float v = round_to<T>(hid[j][e] + b1[8 * j + 2 * t + (e & 1)]);
       hid[j][e] = approx ? gelu_tanh_f(v) : gelu_erf_f(v);
     }
 
@@ -466,40 +471,45 @@ int configure(const void* kernel, int bytes, bool* done) {
 
 }  // namespace
 
-// x [b, n, 3 ts] bf16, w [m, ts] bf16; partial [b, t + ceil(t / GROUP),
-// m + ts m] fp32 scratch for t = ceil(n / 64) blocks an image; sums [b,
-// m + ts m] fp32, the image's sums; counters [b (1 + ceil(t / GROUP))]
-// int32, zeros.  All 16-byte aligned.
-extern "C" int evt_performer_reduce(const void* x, const void* w, void* partial, void* sums,
-                                    void* counters, int batch, int n, void* stream) {
+// x [b, n, 3 ts] bf16, w [m, ts] bf16 (both fp16 in the fp16 instance);
+// partial [b, t + ceil(t / GROUP), m + ts m] fp32 scratch for t = ceil(n /
+// 64) blocks an image; sums [b, m + ts m] fp32, the image's sums; counters [b
+// (1 + ceil(t / GROUP))] int32, zeros.  All 16-byte aligned.
+extern "C" int EVT_EXPORT(evt_performer_reduce)(const void* x, const void* w, void* partial,
+                                                void* sums, void* counters, int batch, int n,
+                                                void* stream) {
   if (batch == 0 || n == 0) return 0;
   if (batch < 0 || batch > 65535 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   static bool done = false;
-  const int rc = configure(reinterpret_cast<const void*>(performer_reduce_kernel), REDUCE_SMEM,
-                           &done);
+  const int rc = configure(reinterpret_cast<const void*>(performer_reduce_kernel<elem>),
+                           REDUCE_SMEM, &done);
   if (rc != 0) return rc;
   const dim3 grid((n + TILE - 1) / TILE, batch);
-  performer_reduce_kernel<<<grid, RED_THREADS, REDUCE_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<float*>(partial),
+  performer_reduce_kernel<elem>
+      <<<grid, RED_THREADS, REDUCE_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const elem*>(x), static_cast<const elem*>(w), static_cast<float*>(partial),
       static_cast<float*>(sums), static_cast<int*>(counters), n);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x [b, n, 3 ts] bf16; sums: performer_reduce's output; mats [m + 3 ts, ts]
 // bf16 (w, wo, w1, w2) and vecs [5, ts] fp32 (bo, g2, be2, b1, b2); out
-// [b, n, ts] bf16.  All 16-byte aligned.
-extern "C" int evt_performer_rows(const void* x, const void* sums, const void* mats,
-                                  const void* vecs, void* out, int batch, int n, float eps,
-                                  int approx, void* stream) {
+// [b, n, ts] bf16 (x, mats and out fp16 in the fp16 instance).  All 16-byte
+// aligned.
+extern "C" int EVT_EXPORT(evt_performer_rows)(const void* x, const void* sums, const void* mats,
+                                              const void* vecs, void* out, int batch, int n,
+                                              float eps, int approx, void* stream) {
   if (batch == 0 || n == 0) return 0;
   if (batch < 0 || batch > 65535 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   static bool done = false;
-  const int rc = configure(reinterpret_cast<const void*>(performer_rows_kernel), ROWS_SMEM, &done);
+  const int rc =
+      configure(reinterpret_cast<const void*>(performer_rows_kernel<elem>), ROWS_SMEM, &done);
   if (rc != 0) return rc;
   const dim3 grid((n + 16 * ROWS_WARPS - 1) / (16 * ROWS_WARPS), batch);
-  performer_rows_kernel<<<grid, ROWS_THREADS, ROWS_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(sums),
-      static_cast<const bf16*>(mats), static_cast<const float*>(vecs), static_cast<bf16*>(out), n,
+  performer_rows_kernel<elem>
+      <<<grid, ROWS_THREADS, ROWS_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const elem*>(x), static_cast<const float*>(sums),
+      static_cast<const elem*>(mats), static_cast<const float*>(vecs), static_cast<elem*>(out), n,
       eps, approx);
   return static_cast<int>(cudaGetLastError());
 }

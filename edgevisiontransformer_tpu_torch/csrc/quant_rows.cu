@@ -1,5 +1,5 @@
 // quant_rows: symmetric int8 quantization of each row of a [rows, K] bf16
-// matrix, the activation half of the encoder's int8 matmuls.
+// (or, in the fp16 instance, fp16) matrix, the activation half of the encoder's int8 matmuls.
 //
 // Replaces: the in-kernel activation quantization of the TPU int8
 //   whole-encoder kernels, edgevisiontransformer_tpu/ops/pallas/
@@ -48,14 +48,14 @@ __device__ __forceinline__ uint2 quant8(const float f[8], float inv) {
 }
 
 // VEC: K % 8 == 0 and x, q on 16- and 8-byte boundaries (8 values a lane).
-template <bool VEC>
+template <bool VEC, class T>
 __global__ __launch_bounds__(kWarps * 32) void quant_rows_kernel(
-    const bf16* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
+    const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
     const float* __restrict__ act_inv, int index, int rows, int K) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const bf16* xr = x + static_cast<size_t>(row) * K;
+  const T* xr = x + static_cast<size_t>(row) * K;
   int8_t* qr = q + static_cast<size_t>(row) * K;
   const int chunks = K / 8;
   float f[8];
@@ -67,12 +67,12 @@ __global__ __launch_bounds__(kWarps * 32) void quant_rows_kernel(
     float a = 0.f;
     if constexpr (VEC) {
       for (int c = lane; c < chunks; c += 32) {
-        unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+        unpack8<T>(*reinterpret_cast<const uint4*>(xr + c * 8), f);
 #pragma unroll
         for (int i = 0; i < 8; ++i) a = fmaxf(a, fabsf(f[i]));
       }
     } else {
-      for (int c = lane; c < K; c += 32) a = fmaxf(a, fabsf(__bfloat162float(xr[c])));
+      for (int c = lane; c < K; c += 32) a = fmaxf(a, fabsf(Elem<T>::to_float(xr[c])));
     }
     a = warp_max(a);
     const float sc = a > 0.f ? __fmul_rn(a, kInv127) : 1.0f;
@@ -82,11 +82,11 @@ __global__ __launch_bounds__(kWarps * 32) void quant_rows_kernel(
 
   if constexpr (VEC) {
     for (int c = lane; c < chunks; c += 32) {
-      unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+      unpack8<T>(*reinterpret_cast<const uint4*>(xr + c * 8), f);
       *reinterpret_cast<uint2*>(qr + c * 8) = quant8(f, inv);
     }
   } else {
-    for (int c = lane; c < K; c += 32) qr[c] = quant1(__bfloat162float(xr[c]), inv);
+    for (int c = lane; c < K; c += 32) qr[c] = quant1(Elem<T>::to_float(xr[c]), inv);
   }
 }
 
@@ -94,18 +94,18 @@ __global__ __launch_bounds__(kWarps * 32) void quant_rows_kernel(
 
 // act_inv == nullptr: dynamic mode, writes s[rows].  Otherwise static mode
 // with inv_a = act_inv[index]; s is not touched.
-extern "C" int evt_quant_rows(const void* x, void* q, void* s, const void* act_inv, int index,
-                              int rows, int K, void* stream) {
+extern "C" int EVT_EXPORT(evt_quant_rows)(const void* x, void* q, void* s, const void* act_inv,
+                                          int index, int rows, int K, void* stream) {
   if (rows == 0) return 0;
   const dim3 grid((rows + kWarps - 1) / kWarps);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xp = static_cast<const bf16*>(x);
+  const elem* xp = static_cast<const elem*>(x);
   int8_t* qp = static_cast<int8_t*>(q);
   if (K % 8 == 0 && aligned16(x) && (reinterpret_cast<uintptr_t>(q) & 7u) == 0)
-    quant_rows_kernel<true><<<grid, kWarps * 32, 0, st>>>(
+    quant_rows_kernel<true, elem><<<grid, kWarps * 32, 0, st>>>(
         xp, qp, static_cast<float*>(s), static_cast<const float*>(act_inv), index, rows, K);
   else
-    quant_rows_kernel<false><<<grid, kWarps * 32, 0, st>>>(
+    quant_rows_kernel<false, elem><<<grid, kWarps * 32, 0, st>>>(
         xp, qp, static_cast<float*>(s), static_cast<const float*>(act_inv), index, rows, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -87,7 +87,7 @@ struct Strides {
 
 template <int HD>
 struct Tile {
-  static constexpr int LD = row_ld(HD);  // shared-memory row stride (bf16)
+  static constexpr int LD = row_ld(HD);  // shared-memory row stride (elements)
   // The longest n of the resident form: its scores take RES_KEYS / 2
   // registers a thread, beside HD / 2 of O accumulators.
   static constexpr int RES_KEYS = HD == 128 ? 128 : 256;
@@ -214,33 +214,33 @@ __device__ __forceinline__ void exp_rows(float (&s)[NC][2][4], const float m[2],
 
 // RC > 0: the resident form over RC 16-key chunks (n <= 16 RC); RC == 0:
 // the streamed form.
-template <int HD, int RC>
+template <int HD, int RC, class T>
 __global__ __launch_bounds__(THREADS) void sdpa_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, Strides st, int heads, int n, float scale) {
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, Strides st, int heads, int n, float scale) {
   constexpr int LD = Tile<HD>::LD;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sKV = sQ + QT * LD;
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sKV = sQ + QT * LD;
 
   const int img = blockIdx.x / heads, head = blockIdx.x % heads;
   const int q0 = blockIdx.y * QT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wr = warp * 16;  // this warp's first query row in the tile
   const bool active = q0 + wr < n;
-  bf16* sQw = sQ + wr * LD;
-  const bf16* qp = q + img * st.qb + head * st.qh;
-  const bf16* kp = k + img * st.kb + head * st.kh;
-  const bf16* vp = v + img * st.vb + head * st.vh;
-  bf16* op = out + img * st.ob + head * st.oh;
+  T* sQw = sQ + wr * LD;
+  const T* qp = q + img * st.qb + head * st.qh;
+  const T* kp = k + img * st.kb + head * st.kh;
+  const T* vp = v + img * st.vb + head * st.vh;
+  T* op = out + img * st.ob + head * st.oh;
   float o[HD / 8][4];
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
 
   load_rows<HD, THREADS>(sQ, qp, st.qn, q0, QT, n, tid);
   if constexpr (RC > 0) {
-    bf16* sK = sKV;
-    bf16* sV = sKV + RC * 16 * LD;
+    T* sK = sKV;
+    T* sV = sKV + RC * 16 * LD;
     load_rows<HD, THREADS>(sK, kp, st.kn, 0, RC * 16, n, tid);
     cp_async_commit();  // group 0: q and k
     load_rows<HD, THREADS>(sV, vp, st.vn, 0, RC * 16, n, tid);
@@ -267,7 +267,7 @@ __global__ __launch_bounds__(THREADS) void sdpa_kernel(
     // Step i < tiles: k tile i (sweep 1); step i >= tiles: k and v tile
     // i - tiles (sweep 2); stage i % 2 of the ring holds a k and a v tile.
     auto prefetch = [&](int i) {
-      bf16* sK = sKV + (i & 1) * 2 * KT * LD;
+      T* sK = sKV + (i & 1) * 2 * KT * LD;
       const int t = i < tiles ? i : i - tiles;
       load_rows<HD, THREADS>(sK, kp, st.kn, t * KT, KT, n, tid);
       if (i >= tiles) load_rows<HD, THREADS>(sK + KT * LD, vp, st.vn, t * KT, KT, n, tid);
@@ -282,7 +282,7 @@ __global__ __launch_bounds__(THREADS) void sdpa_kernel(
       cp_async_wait<1>();
       __syncthreads();  // step i landed
       if (active) {
-        const bf16* sK = sKV + (i & 1) * 2 * KT * LD;
+        const T* sK = sKV + (i & 1) * 2 * KT * LD;
         const int t = i < tiles ? i : i - tiles;
         float s[NC][2][4];
         qk<HD, NC>(s, sQw, sK, lane);
@@ -329,14 +329,14 @@ int launch_form(const void* q, const void* k, const void* v, void* out, const St
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sdpa_kernel<HD, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        sdpa_kernel<HD, RC, elem>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const dim3 grid(bh, (n + QT - 1) / QT);
-  sdpa_kernel<HD, RC><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), st, heads, n, scale);
+  sdpa_kernel<HD, RC, elem><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const elem*>(q), static_cast<const elem*>(k), static_cast<const elem*>(v),
+      static_cast<elem*>(out), st, heads, n, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -358,10 +358,11 @@ int launch(const void* q, const void* k, const void* v, void* out, const Strides
 
 }  // namespace
 
-// strides: 12 element strides, (image, head, token) of q, k, v and out.
-extern "C" int evt_sdpa(const void* q, const void* k, const void* v, void* out,
-                        const long long* strides, int batch, int heads, int n, int head_dim,
-                        float scale, void* stream) {
+// strides: 12 element strides, (image, head, token) of q, k, v and out
+// (bf16, or fp16 in the fp16 instance).
+extern "C" int EVT_EXPORT(evt_sdpa)(const void* q, const void* k, const void* v, void* out,
+                                    const long long* strides, int batch, int heads, int n,
+                                    int head_dim, float scale, void* stream) {
   if (batch == 0 || heads == 0 || n == 0) return 0;
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],  strides[5],
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};

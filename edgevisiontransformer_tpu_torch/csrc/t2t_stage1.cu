@@ -84,20 +84,20 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
 }
 
-template <int NT>
+template <int NT, class T>
 __global__ __launch_bounds__(THREADS, 2) void t2t_stage1_kernel(
-    const bf16* __restrict__ img, const bf16* __restrict__ W9, const float* __restrict__ M9,
-    const float* __restrict__ c1, const float* __restrict__ c2, bf16* __restrict__ out, int d,
+    const T* __restrict__ img, const T* __restrict__ W9, const float* __restrict__ M9,
+    const float* __restrict__ c1, const float* __restrict__ c2, T* __restrict__ out, int d,
     float eps) {
   constexpr int WS = w_stride(NT), WC = NT / WN, PLD = p_stride(NT);
   constexpr int W_BYTES = KTOT * WS * 2;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);                    // [432][WS]
-  bf16* sA = reinterpret_cast<bf16*>(smem + W_BYTES);          // [3][66][CS]
+  T* sW = reinterpret_cast<T*>(smem);                          // [432][WS]
+  T* sA = reinterpret_cast<T*>(smem + W_BYTES);                // [3][66][CS]
   float* sM = reinterpret_cast<float*>(smem + W_BYTES + A_BYTES);  // [432]
   float* sMu = sM + KTOT;                                      // [64]
   float* sRs = sMu + MROWS;                                    // [64]
-  bf16* sP = reinterpret_cast<bf16*>(sRs + MROWS);             // [WARPS][16][PLD]
+  T* sP = reinterpret_cast<T*>(sRs + MROWS);                   // [WARPS][16][PLD]
 
   const int y = blockIdx.x, n0 = blockIdx.y * NT, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -106,15 +106,15 @@ __global__ __launch_bounds__(THREADS, 2) void t2t_stage1_kernel(
   // phx) is pixel (c, 4*iy + phy, 4*ix + phx), stored at column ix + 1.  One
   // 16-byte vector of an image row is 8 pixels: two cells' 4 phases, copied as
   // two 8-byte halves.  Group 0: the rows.
-  const bf16* im = img + static_cast<size_t>(b) * 3 * IMG * IMG;
+  const T* im = img + static_cast<size_t>(b) * 3 * IMG * IMG;
   for (int i = tid; i < PROWS * 12 * VEC_PER_ROW; i += THREADS) {
     const int prow = i / (12 * VEC_PER_ROW), rem = i % (12 * VEC_PER_ROW);
     const int cp = rem / VEC_PER_ROW, j = rem % VEC_PER_ROW;
     const int iy = y + prow - 1;
     if (iy < 0 || iy >= GRID) continue;  // the zero padding rows
     const int c = cp >> 2, phy = cp & 3;
-    const bf16* src = im + (static_cast<size_t>(c) * IMG + iy * 4 + phy) * IMG + j * 8;
-    bf16* dst = sA + (prow * PCOLS + 2 * j + 1) * CS + c * 16 + phy * 4;
+    const T* src = im + (static_cast<size_t>(c) * IMG + iy * 4 + phy) * IMG + j * 8;
+    T* dst = sA + (prow * PCOLS + 2 * j + 1) * CS + c * 16 + phy * 4;
     cp_async8(dst, src);
     cp_async8(dst + CS, src + 4);
   }
@@ -149,11 +149,11 @@ __global__ __launch_bounds__(THREADS, 2) void t2t_stage1_kernel(
     float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
     for (int s = 0; s < SHIFTS; ++s) {  // k = s * 48 + part + c: part, part + 4, ... in order
-      const bf16* row = sA + ((s / 3) * PCOLS + x + s % 3) * CS + part;
+      const T* row = sA + ((s / 3) * PCOLS + x + s % 3) * CS + part;
       const float* mask = sM + s * CH + part;
 #pragma unroll
       for (int c = 0; c < CH; c += 4) {
-        const float v = __bfloat162float(row[c]), m = mask[c];
+        const float v = Elem<T>::to_float(row[c]), m = mask[c];
         s1 = __fadd_rn(s1, __fmul_rn(v, m));
         s2 = __fadd_rn(s2, __fmul_rn(__fmul_rn(v, v), m));
       }
@@ -179,8 +179,8 @@ __global__ __launch_bounds__(THREADS, 2) void t2t_stage1_kernel(
   for (int j = 0; j < WC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 #pragma unroll 1
   for (int s = 0; s < SHIFTS; ++s) {
-    const bf16* a = sA + ((s / 3) * PCOLS + s % 3 + wm + (lane & 15)) * CS + (lane >> 4) * 8;
-    const bf16* w = sW + (s * CH + (lane & 15)) * WS + wn + (lane >> 4) * 8;
+    const T* a = sA + ((s / 3) * PCOLS + s % 3 + wm + (lane & 15)) * CS + (lane >> 4) * 8;
+    const T* w = sW + (s * CH + (lane & 15)) * WS + wn + (lane >> 4) * 8;
 #pragma unroll
     for (int kk = 0; kk < CH; kk += 16) {
       uint32_t fa[4];
@@ -189,15 +189,15 @@ __global__ __launch_bounds__(THREADS, 2) void t2t_stage1_kernel(
       for (int np = 0; np < WC / 16; ++np) {
         uint32_t fb[4];
         ldsm_x4_trans(fb, w + kk * WS + np * 16);
-        mma_bf16(acc[2 * np], fa, fb[0], fb[1]);
-        mma_bf16(acc[2 * np + 1], fa, fb[2], fb[3]);
+        mma16<T>(acc[2 * np], fa, fb[0], fb[1]);
+        mma16<T>(acc[2 * np + 1], fa, fb[2], fb[3]);
       }
     }
   }
 
   // Thread (g, t) holds rows g, g + 8 and columns 2t, 2t + 1 of each n8 tile.
   const int g = lane >> 2, t = lane & 3;
-  bf16* patch = sP + warp * 16 * PLD;
+  T* patch = sP + warp * 16 * PLD;
 #pragma unroll
   for (int j = 0; j < WC / 8; ++j) {
     const int c = j * 8 + 2 * t, gn = n0 + wn + c;  // d % 16 == 0: a pair is all in or out
@@ -211,11 +211,11 @@ __global__ __launch_bounds__(THREADS, 2) void t2t_stage1_kernel(
           __fadd_rn(__fmul_rn(__fsub_rn(acc[j][2 * h], __fmul_rn(mu, k1.x)), rs), k2.x);
       const float y1 =
           __fadd_rn(__fmul_rn(__fsub_rn(acc[j][2 * h + 1], __fmul_rn(mu, k1.y)), rs), k2.y);
-      *reinterpret_cast<uint32_t*>(patch + r * PLD + c) = pack_bf16x2(y0, y1);
+      *reinterpret_cast<uint32_t*>(patch + r * PLD + c) = pack2<T>(y0, y1);
     }
   }
   __syncwarp();
-  bf16* o = out + (static_cast<size_t>(b) * GRID * GRID + static_cast<size_t>(y) * GRID) * d;
+  T* o = out + (static_cast<size_t>(b) * GRID * GRID + static_cast<size_t>(y) * GRID) * d;
   for (int i = lane; i < 16 * (WC / 8); i += 32) {
     const int r = i / (WC / 8), c = (i % (WC / 8)) * 8;
     if (wm + r < GRID && n0 + wn + c < d)
@@ -232,26 +232,26 @@ int launch(const void* img, const void* w9, const void* m9, const void* c1, cons
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        t2t_stage1_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+        t2t_stage1_kernel<NT, elem>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const dim3 grid(GRID, (d + NT - 1) / NT, batch);
-  t2t_stage1_kernel<NT><<<grid, THREADS, BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(img), static_cast<const bf16*>(w9), static_cast<const float*>(m9),
-      static_cast<const float*>(c1), static_cast<const float*>(c2), static_cast<bf16*>(out), d,
+  t2t_stage1_kernel<NT, elem><<<grid, THREADS, BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const elem*>(img), static_cast<const elem*>(w9), static_cast<const float*>(m9),
+      static_cast<const float*>(c1), static_cast<const float*>(c2), static_cast<elem*>(out), d,
       eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// img [batch, 3, 224, 224], w9 [432, d] bf16; m9 [432], c1, c2 [d] fp32; out
-// [batch, 3136, d] bf16.  cols: the columns a block takes (64 or 96; the
-// plan of ops/cuda/t2t_stage1.py:stage1_plan).
-extern "C" int evt_t2t_stage1(const void* img, const void* w9, const void* m9, const void* c1,
-                              const void* c2, void* out, int batch, int d, float eps, int cols,
-                              void* stream) {
+// img [batch, 3, 224, 224], w9 [432, d] bf16 (fp16 in the fp16 instance); m9
+// [432], c1, c2 [d] fp32; out [batch, 3136, d] bf16 (fp16). cols: the columns
+// a block takes (64 or 96; the plan of ops/cuda/t2t_stage1.py:stage1_plan).
+extern "C" int EVT_EXPORT(evt_t2t_stage1)(const void* img, const void* w9, const void* m9,
+                                          const void* c1, const void* c2, void* out, int batch,
+                                          int d, float eps, int cols, void* stream) {
   if (d < 16 || d > 256 || d % 16) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   switch (cols) {

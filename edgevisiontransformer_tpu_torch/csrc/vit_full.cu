@@ -13,7 +13,9 @@
 //     logits = bf16(f32(LN(x)[cls] @ head_w) + f32(head_b))           (:107-118)
 //   embed_bias folds cls, pos and the patch bias in bf16 beforehand
 //   (models/vit.py prepare_vit_full).  The final LN applies only with
-//   final_norm.
+//   final_norm.  The fp16 instance (build.py's -DEVT_F16 compile) rounds to
+//   fp16 at every one of these points, and its attention takes the strip's
+//   row-max softmax (attention_strip.cuh), as JAX's K7 at dtype = float16.
 //
 // Bound on the card: at b1 a deit_tiny forward does ~2.5 GFLOP on ~11 MB of
 // weights: ~3.4 us of weight bytes at 3.35 TB/s.  What bounds it in practice
@@ -66,13 +68,13 @@
 //   6); the one-block instances do not spill.
 // Activations live in device scratch [b * tokens, width] rows that the
 // wrapper allocates (x, h, qkv, att, hid); at b1 they stay in L2.  The
-// embedding's A operand is gathered straight from the NCHW image (fp32 or
-// bf16, rounded to bf16 on load, as JAX's img.astype(dt)) through registers;
-// token 0 is a zero row; its epilogue adds embed_bias[row % tokens].  The
-// out-projection and fc2 epilogues read the residual (x, or h in the
-// reference form) and write x: each element is read and written by the same
-// thread, so in place is safe.  The activations are read by cp.async (L2)
-// or plain loads, never through the read-only cache path, which must not
+// embedding's A operand is gathered straight from the NCHW image (fp32 or the
+// weights' type, rounded to it on load, as JAX's img.astype(dt)) through
+// registers; token 0 is a zero row; its epilogue adds embed_bias[row %
+// tokens].  The out-projection and fc2 epilogues read the residual (x, or h
+// in the reference form) and write x: each element is read and written by the
+// same thread, so in place is safe.  The activations are read by cp.async
+// (L2) or plain loads, never through the read-only cache path, which must not
 // serve what other blocks wrote earlier in the same launch.  The head phase
 // takes up to 8 images and 256 classes per tile: one warp per image
 // normalises its cls row into shared memory, then each thread sums one class
@@ -115,13 +117,16 @@ constexpr int STRIP_CHUNKS = 2;
 constexpr int TILE_CODES = 2;
 constexpr int GEMM_PHASES = 5;  // embed, qkv, out, fc1, fc2
 
+// The forward's pointers (weights, scratch and logits of the element type
+// T) and sizes.
+template <class T>
 struct Params {
   const void* img;
-  const bf16 *patch_w, *embed_bias;
-  const bf16 *ln1_g, *ln1_b, *qkv_w, *qkv_b, *out_w, *out_b;
-  const bf16 *ln2_g, *ln2_b, *fc1_w, *fc1_b, *fc2_w, *fc2_b;
-  const bf16 *fnorm_g, *fnorm_b, *head_w, *head_b;
-  bf16 *x, *h, *qkv, *att, *hid, *logits;
+  const T *patch_w, *embed_bias;
+  const T *ln1_g, *ln1_b, *qkv_w, *qkv_b, *out_w, *out_b;
+  const T *ln2_g, *ln2_b, *fc1_w, *fc1_b, *fc2_w, *fc2_b;
+  const T *fnorm_g, *fnorm_b, *head_w, *head_b;
+  T *x, *h, *qkv, *att, *hid, *logits;
   int batch, depth, dim, heads, head_dim, mlp, classes, image, patch, channels, tokens;
   int img_f32, reference_residual, approx_gelu, final_norm;
   int tile[GEMM_PHASES], attn_warps;
@@ -145,8 +150,9 @@ __device__ __forceinline__ int thread_index() { return opaque(threadIdx.x); }
 
 // The embedding's A operand: row gm = (image, token) of the patch matrix,
 // column gk = (p1, p2, c) of the patch, read from the NCHW image into
-// registers and rounded to bf16; token 0 (cls) is a zero row.  Each thread
+// registers and rounded to T; token 0 (cls) is a zero row.  Each thread
 // keeps 8 loads in flight before it stores them (16 spilled registers).
+template <class T>
 struct PatchA {
   const void* img;
   int f32, tokens, grid, patch, image, channels;
@@ -160,11 +166,11 @@ struct PatchA {
     const size_t off = ((static_cast<size_t>(b) * channels + ch) * image + py * patch + ii) *
                            image + px * patch + j;
     return f32 ? static_cast<const float*>(img)[off]
-               : __bfloat162float(static_cast<const bf16*>(img)[off]);
+               : Elem<T>::to_float(static_cast<const T*>(img)[off]);
   }
 
   template <int NT, int BM>
-  __device__ __forceinline__ void load(bf16* a, int M, int K, int m0, int k0, int tid) const {
+  __device__ __forceinline__ void load(T* a, int M, int K, int m0, int k0, int tid) const {
     constexpr int PER = BM * BK / NT, BATCH = PER < 8 ? PER : 8;
     static_assert(PER % BATCH == 0, "whole batches a thread");
     for (int j0 = 0; j0 < PER; j0 += BATCH) {
@@ -177,17 +183,17 @@ struct PatchA {
 #pragma unroll
       for (int u = 0; u < BATCH; ++u) {
         const int i = tid + (j0 + u) * NT;
-        a[(i / BK) * AS + i % BK] = __float2bfloat16_rn(v[u]);
+        a[(i / BK) * AS + i % BK] = Elem<T>::from_float(v[u]);
       }
     }
   }
 };
 
 // Every tile of one GEMM phase on the block's warp groups of WM x WN warps.
-template <int WM, int TM, int TN, class ASrc>
-__device__ __forceinline__ void gemm_groups(unsigned char* smem, const ASrc& a, const bf16* W,
-                                            const bf16* bias, const bf16* res, bf16* Y, int M,
-                                            int N, int K, int epi, int res_rows) {
+template <int WM, int TM, int TN, class ASrc, class T>
+__device__ __forceinline__ void gemm_groups(unsigned char* smem, const ASrc& a, const T* W,
+                                            const T* bias, const T* res, T* Y, int M, int N,
+                                            int K, int epi, int res_rows) {
   constexpr int NT = WM * WN * 32, GROUPS = THREADS / NT, BM = WM * TM, BN = WN * TN;
   const int group = thread_index() / NT;
   const int tn = (N + BN - 1) / BN, tiles = ((M + BM - 1) / BM) * tn;
@@ -199,28 +205,30 @@ __device__ __forceinline__ void gemm_groups(unsigned char* smem, const ASrc& a, 
   }
 }
 
-template <class ASrc>
+template <class ASrc, class T>
 __device__ __forceinline__ void gemm_phase(int tile, unsigned char* smem, const ASrc& a,
-                                           const bf16* W, const bf16* bias, const bf16* res,
-                                           bf16* Y, int M, int N, int K, int epi, int res_rows) {
+                                           const T* W, const typename Same<T>::type* bias,
+                                           const T* res, T* Y, int M, int N, int K, int epi,
+                                           int res_rows) {
   if (tile == 0) gemm_groups<4, 32, 48>(smem, a, W, bias, res, Y, M, N, K, epi, res_rows);
   else gemm_groups<1, 16, 16>(smem, a, W, bias, res, Y, M, N, K, epi, res_rows);
 }
 
-__device__ __forceinline__ void ln_phase(const bf16* x, const bf16* g, const bf16* b, bf16* y,
-                                         int rows, int dim, float eps) {
+template <class T>
+__device__ __forceinline__ void ln_phase(const T* x, const T* g, const T* b, T* y, int rows,
+                                         int dim, float eps) {
   const int thread = thread_index(), warp = thread >> 5, lane = thread & 31;
   for (int row = blockIdx.x * (THREADS / 32) + warp; row < rows;
        row += gridDim.x * (THREADS / 32)) {
-    bf16* yr = y + static_cast<size_t>(row) * dim;
+    T* yr = y + static_cast<size_t>(row) * dim;
     ln_row(x + static_cast<size_t>(row) * dim, g, b, dim, eps, 0, lane,
-           [yr](int c, const float f[8]) { *reinterpret_cast<uint4*>(yr + c * 8) = pack8(f); });
+           [yr](int c, const float f[8]) { *reinterpret_cast<uint4*>(yr + c * 8) = pack8<T>(f); });
   }
 }
 
 // Every query strip of the attention phase on the block's groups of W warps.
-template <int HD, int W>
-__device__ __forceinline__ void attention_groups(unsigned char* smem, const Params& p) {
+template <int HD, int W, class T>
+__device__ __forceinline__ void attention_groups(unsigned char* smem, const Params<T>& p) {
   constexpr int NT = W * 32, GROUPS = THREADS / NT;
   const int group = thread_index() / NT;
   const int strips = (p.tokens + W * 16 - 1) / (W * 16), units = strips * p.heads * p.batch;
@@ -234,15 +242,15 @@ __device__ __forceinline__ void attention_groups(unsigned char* smem, const Para
   }
 }
 
-template <int HD>
-__device__ __forceinline__ void attention_warps(unsigned char* smem, const Params& p) {
+template <int HD, class T>
+__device__ __forceinline__ void attention_warps(unsigned char* smem, const Params<T>& p) {
   if (p.attn_warps == 8) attention_groups<HD, 8>(smem, p);
   else attention_groups<HD, 4>(smem, p);
 }
 
 // The head dims of an instance: 16, 32 and 64 (HD_MAX 64), or 128.
-template <int HD_MAX>
-__device__ __forceinline__ void attention_phase(unsigned char* smem, const Params& p) {
+template <int HD_MAX, class T>
+__device__ __forceinline__ void attention_phase(unsigned char* smem, const Params<T>& p) {
   if constexpr (HD_MAX == 128) {
     attention_warps<128>(smem, p);
   } else {
@@ -254,7 +262,8 @@ __device__ __forceinline__ void attention_phase(unsigned char* smem, const Param
   }
 }
 
-__device__ __forceinline__ void head_phase(unsigned char* smem, const Params& p) {
+template <class T>
+__device__ __forceinline__ void head_phase(unsigned char* smem, const Params<T>& p) {
   float* scls = reinterpret_cast<float*>(smem);  // [HEAD_IMAGES, dim]
   const int thread = thread_index(), warp = thread >> 5, lane = thread & 31;
   const int dim = p.dim, C = p.classes;
@@ -266,14 +275,14 @@ __device__ __forceinline__ void head_phase(unsigned char* smem, const Params& p)
     __syncthreads();  // the block's previous tile is done with scls
     float* dst = scls + warp * dim;
     if (warp < nimg) {
-      const bf16* xr = p.x + static_cast<size_t>(i0 + warp) * p.tokens * dim;  // the cls row
+      const T* xr = p.x + static_cast<size_t>(i0 + warp) * p.tokens * dim;  // the cls row
       if (p.final_norm) {
         ln_row(xr, p.fnorm_g, p.fnorm_b, dim, p.eps, 0, lane, [dst](int ch, const float f[8]) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) dst[ch * 8 + e] = round_bf16(f[e]);
+          for (int e = 0; e < 8; ++e) dst[ch * 8 + e] = round_to<T>(f[e]);
         });
       } else {
-        for (int k = lane; k < dim; k += 32) dst[k] = __bfloat162float(xr[k]);
+        for (int k = lane; k < dim; k += 32) dst[k] = Elem<T>::to_float(xr[k]);
       }
     } else {
       for (int k = lane; k < dim; k += 32) dst[k] = 0.0f;
@@ -284,13 +293,13 @@ __device__ __forceinline__ void head_phase(unsigned char* smem, const Params& p)
 #pragma unroll
       for (int j = 0; j < HEAD_IMAGES; ++j) acc[j] = 0.0f;
       for (int k = 0; k < dim; ++k) {
-        const float w = __bfloat162float(p.head_w[static_cast<size_t>(k) * C + c]);
+        const float w = Elem<T>::to_float(p.head_w[static_cast<size_t>(k) * C + c]);
 #pragma unroll
         for (int j = 0; j < HEAD_IMAGES; ++j) acc[j] += scls[j * dim + k] * w;
       }
-      const float hb = __bfloat162float(p.head_b[c]);
+      const float hb = Elem<T>::to_float(p.head_b[c]);
       for (int j = 0; j < nimg; ++j)
-        p.logits[static_cast<size_t>(i0 + j) * C + c] = __float2bfloat16_rn(acc[j] + hb);
+        p.logits[static_cast<size_t>(i0 + j) * C + c] = Elem<T>::from_float(acc[j] + hb);
     }
   }
 }
@@ -299,13 +308,13 @@ __device__ __forceinline__ void head_phase(unsigned char* smem, const Params& p)
 // GEMMs share one call site, so each tile shape is compiled once for them.
 // BLOCKS: the blocks an SM the instance is built for (launch bounds of at
 // most 128 registers a thread at 2, 255 at 1).
-template <int HD_MAX, int BLOCKS>
-__global__ __launch_bounds__(THREADS, BLOCKS) void vit_full_kernel(const Params p) {
+template <int HD_MAX, int BLOCKS, class T>
+__global__ __launch_bounds__(THREADS, BLOCKS) void vit_full_kernel(const Params<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
 
-  const PatchA patches{p.img,   p.img_f32, p.tokens,  p.image / p.patch,
-                       p.patch, p.image,   p.channels};
+  const PatchA<T> patches{p.img,   p.img_f32, p.tokens,  p.image / p.patch,
+                          p.patch, p.image,   p.channels};
   gemm_phase(p.tile[0], smem, patches, p.patch_w, nullptr, p.embed_bias, p.x,
              p.batch * p.tokens, p.dim, p.patch * p.patch * p.channels, ROW_BIAS, p.tokens);
 #pragma unroll 1
@@ -316,10 +325,10 @@ __global__ __launch_bounds__(THREADS, BLOCKS) void vit_full_kernel(const Params 
       // the layer's sizes, computed here (see opaque)
       const int M = opaque(p.batch) * p.tokens, dim = opaque(p.dim), mlp = opaque(p.mlp);
       const int inner = opaque(p.heads) * p.head_dim, qkvn = 3 * inner;
-      const bf16* res = opaque(p.reference_residual) ? p.h : p.x;
+      const T* res = opaque(p.reference_residual) ? p.h : p.x;
       if (step == 0 || step == 4) {  // LN1, LN2
-        const bf16* g = (step == 0 ? p.ln1_g : p.ln2_g) + l * dim;
-        const bf16* b = (step == 0 ? p.ln1_b : p.ln2_b) + l * dim;
+        const T* g = (step == 0 ? p.ln1_g : p.ln2_g) + l * dim;
+        const T* b = (step == 0 ? p.ln1_b : p.ln2_b) + l * dim;
         ln_phase(p.x, g, b, p.h, M, dim, p.eps);
         continue;
       }
@@ -327,8 +336,8 @@ __global__ __launch_bounds__(THREADS, BLOCKS) void vit_full_kernel(const Params 
         attention_phase<HD_MAX>(smem, p);
         continue;
       }
-      const bf16 *a, *w, *bias, *r = nullptr;
-      bf16* y;
+      const T *a, *w, *bias, *r = nullptr;
+      T* y;
       int n, k, epi, tile;
       if (step == 1) {  // qkv
         a = p.h, w = p.qkv_w + static_cast<size_t>(l) * dim * qkvn, bias = p.qkv_b + l * qkvn;
@@ -343,21 +352,23 @@ __global__ __launch_bounds__(THREADS, BLOCKS) void vit_full_kernel(const Params 
         a = p.hid, w = p.fc2_w + static_cast<size_t>(l) * mlp * dim, bias = p.fc2_b + l * dim;
         r = res, y = p.x, n = dim, k = mlp, epi = 3, tile = p.tile[4];
       }
-      gemm_phase(tile, smem, RowsA{a, true}, w, bias, r, y, M, n, k, epi, M);
+      gemm_phase(tile, smem, RowsA<T>{a, true}, w, bias, r, y, M, n, k, epi, M);
     }
   }
   grid.sync();
   head_phase(smem, p);
 }
 
+#ifndef EVT_F16
 __global__ __launch_bounds__(THREADS) void barrier_probe_kernel(int count) {
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < count; ++i) grid.sync();
 }
+#endif
 
 // The shared memory of one block under the plan: the largest of its GEMM
 // phases' rings (one per warp group), its attention strips' and the head's.
-int smem_of(const Params& p) {
+int smem_of(const Params<elem>& p) {
   constexpr int rows[TILE_CODES] = {128, 16}, cols[TILE_CODES] = {96, 32};
   constexpr int groups[TILE_CODES] = {1, 4};
   int most = HEAD_IMAGES * p.dim * static_cast<int>(sizeof(float));
@@ -369,9 +380,10 @@ int smem_of(const Params& p) {
   return std::max(most, THREADS / (p.attn_warps * 32) * strip);
 }
 
+// The instance at the translation unit's element type.
 template <int HD_MAX, int BLOCKS>
 const void* kernel_of() {
-  return reinterpret_cast<const void*>(vit_full_kernel<HD_MAX, BLOCKS>);
+  return reinterpret_cast<const void*>(vit_full_kernel<HD_MAX, BLOCKS, elem>);
 }
 
 // Let `kernel` take `smem` bytes of dynamic shared memory, with the SM's
@@ -398,7 +410,7 @@ int blocks_per_sm(int smem, int* out) {
 }
 
 template <int HD_MAX, int BLOCKS>
-int launch_full(const Params& p, int grid_cap, int* grid_out, cudaStream_t stream) {
+int launch_full(const Params<elem>& p, int grid_cap, int* grid_out, cudaStream_t stream) {
   const int smem = smem_of(p);
   static int cached_smem = -1, cached_blocks = 0;
   if (smem != cached_smem) {
@@ -414,7 +426,7 @@ int launch_full(const Params& p, int grid_cap, int* grid_out, cudaStream_t strea
   const int grid = std::min(cached_blocks, grid_cap);
   *grid_out = grid;
   if (grid < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  void* args[] = {const_cast<Params*>(&p)};
+  void* args[] = {const_cast<Params<elem>*>(&p)};
   return static_cast<int>(
       cudaLaunchCooperativeKernel(kernel_of<HD_MAX, BLOCKS>(), grid, THREADS, args, smem, stream));
 }
@@ -423,7 +435,8 @@ int launch_full(const Params& p, int grid_cap, int* grid_out, cudaStream_t strea
 
 // ptrs: img, patch_w, embed_bias, ln1_g, ln1_b, qkv_w, qkv_b, out_w, out_b,
 //   ln2_g, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, fnorm_g, fnorm_b, head_w,
-//   head_b, x, h, qkv, att, hid, logits (25; the stacks [L, ...]).
+//   head_b, x, h, qkv, att, hid, logits (25; the stacks [L, ...]; bf16, or
+//   fp16 in the fp16 instance, but the image, which may be fp32).
 // ints: batch, depth, dim, heads, head_dim, mlp, classes, image, patch,
 //   channels, img_f32, reference_residual, approx_gelu, final_norm; the plan
 //   (ops/cuda/fused_vit_full.py:vit_full_plan): the tile code of the embed,
@@ -431,16 +444,17 @@ int launch_full(const Params& p, int grid_cap, int* grid_out, cudaStream_t strea
 //   grid cap and the instance's blocks an SM (2, or 1; 1 at head_dim 128);
 //   ints[22] receives the grid size.  floats: eps, scale2 (head_dim^-1/2 *
 //   log2 e).  Every width a multiple of 8.
-extern "C" int evt_vit_full(void* const* ptrs, int* ints, const float* floats, void* stream) {
-  Params p;
+extern "C" int EVT_EXPORT(evt_vit_full)(void* const* ptrs, int* ints, const float* floats,
+                                        void* stream) {
+  Params<elem> p;
   const void* const* q = ptrs;
   p.img = q[0];
-  const bf16** w[] = {&p.patch_w, &p.embed_bias, &p.ln1_g, &p.ln1_b, &p.qkv_w, &p.qkv_b,
+  const elem** w[] = {&p.patch_w, &p.embed_bias, &p.ln1_g, &p.ln1_b, &p.qkv_w, &p.qkv_b,
                       &p.out_w, &p.out_b, &p.ln2_g, &p.ln2_b, &p.fc1_w, &p.fc1_b,
                       &p.fc2_w, &p.fc2_b, &p.fnorm_g, &p.fnorm_b, &p.head_w, &p.head_b};
-  for (int i = 0; i < 18; ++i) *w[i] = static_cast<const bf16*>(q[1 + i]);
-  bf16** a[] = {&p.x, &p.h, &p.qkv, &p.att, &p.hid, &p.logits};
-  for (int i = 0; i < 6; ++i) *a[i] = static_cast<bf16*>(ptrs[19 + i]);
+  for (int i = 0; i < 18; ++i) *w[i] = static_cast<const elem*>(q[1 + i]);
+  elem** a[] = {&p.x, &p.h, &p.qkv, &p.att, &p.hid, &p.logits};
+  for (int i = 0; i < 6; ++i) *a[i] = static_cast<elem*>(ptrs[19 + i]);
   p.batch = ints[0];
   p.depth = ints[1];
   p.dim = ints[2];
@@ -482,7 +496,8 @@ extern "C" int evt_vit_full(void* const* ptrs, int* ints, const float* floats, v
 // The blocks of the instance for `head_dim` built for `blocks` an SM that
 // one SM holds at once with `smem` bytes of dynamic shared memory each, into
 // *out.
-extern "C" int evt_vit_full_blocks_per_sm(int head_dim, int blocks, int smem, int* out) {
+extern "C" int EVT_EXPORT(evt_vit_full_blocks_per_sm)(int head_dim, int blocks, int smem,
+                                                      int* out) {
   switch (head_dim * 4 + blocks) {
     case 16 * 4 + 1:
     case 32 * 4 + 1:
@@ -496,10 +511,13 @@ extern "C" int evt_vit_full_blocks_per_sm(int head_dim, int blocks, int smem, in
 }
 
 // `count` grid barriers and nothing else, on `blocks` blocks of 256 threads:
-// what one barrier costs at the block count of a forward.
+// what one barrier costs at the block count of a forward (no element type:
+// the bf16 translation unit exports it).
+#ifndef EVT_F16
 extern "C" int evt_vit_full_barrier_probe(int blocks, int count, void* stream) {
   void* args[] = {&count};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(barrier_probe_kernel), blocks, THREADS, args, 0,
       static_cast<cudaStream_t>(stream)));
 }
+#endif

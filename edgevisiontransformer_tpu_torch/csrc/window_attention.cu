@@ -19,6 +19,9 @@
 //   s = (q . k) * hd^-1/2 * log2(e) + bias[h] (+ mask[window], shifted blocks)
 //   p = exp2(min(s, 60)) over the n = w*w keys, r = max(sum p, 1e-30)
 //   o = bf16(f32(bf16(p) @ v) * (1 / r)), 1 / r exact, one a row
+// The fp16 instance (build.py's -DEVT_F16 compile) takes softmax_unnorm's
+// float16 branch: p = exp2(s - max s) over the n keys, no clamp, r = sum p,
+// from the scores in registers (the row max is one more pass over them).
 // bias [heads, n, n] and mask [nW, n, n] come pre-scaled by log2(e), as
 // K9's kernel-ready bias does.  The score is rounded after the product and
 // again after each add (__fmul_rn / __fadd_rn), in the reference's order,
@@ -82,16 +85,46 @@ template <bool MASK>
 __host__ __device__ constexpr bool stage_bias() { return MASK; }
 
 // In place over the scores of the strip at row0: p = exp2(min(s * scale2 +
-// bias (+ mask), 60)) for a key below n, 0 for a key at or past n (whose
+// bias (+ mask), 60)) for a key below n, or with ROW_MAX p = exp2(s - m)
+// with m the row's max over its n keys, 0 for a key at or past n (whose
 // bias and mask are never read); l[0] / l[1] become the fp32 sums of rows g
 // / g + 8 over the unrounded p.  eb and em point at their tile's element
 // (0, 0); rows past n read row n - 1 (never stored).
-template <int NC, bool MASK>
+template <int NC, bool MASK, bool ROW_MAX>
 __device__ __forceinline__ void probs(float (&s)[NC][2][4], const float* eb, const float* em,
                                       int row0, int n, float scale2, int lane, float (&l)[2]) {
   const int g = lane >> 2, t = lane & 3;
   const int at[2] = {min(row0 + g, n - 1) * n, min(row0 + g + 8, n - 1) * n};
   l[0] = l[1] = 0.0f;
+  if constexpr (ROW_MAX) {
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int r = (e % 4) / 2, key = c * 16 + (e / 4) * 8 + 2 * t + (e & 1);
+        float& x = s[c][e / 4][e % 4];
+        if (key < n) {
+          x = __fadd_rn(__fmul_rn(x, scale2), eb[at[r] + key]);
+          if (MASK) x = __fadd_rn(x, em[at[r] + key]);
+          m[r] = fmaxf(m[r], x);
+        }
+      }
+    m[0] = quad_max(m[0]);
+    m[1] = quad_max(m[1]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int r = (e % 4) / 2, key = c * 16 + (e / 4) * 8 + 2 * t + (e & 1);
+        float& x = s[c][e / 4][e % 4];
+        x = key < n ? exp2f(__fsub_rn(x, m[r])) : 0.0f;
+        l[r] = __fadd_rn(l[r], x);
+      }
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+    return;
+  }
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -113,16 +146,16 @@ __device__ __forceinline__ void probs(float (&s)[NC][2][4], const float* eb, con
 
 // Dynamic shared memory: q, k, v (16 NC rows each), then the staged bias
 // tile (stage_bias).
-template <int HD, int NC, bool MASK>
+template <int HD, int NC, bool MASK, class T>
 __global__ __launch_bounds__(THREADS) void window_attention_kernel(
-    const bf16* __restrict__ qkv, const float* __restrict__ bias, const float* __restrict__ mask,
-    bf16* __restrict__ out, int res, int w, int shift, int heads, float scale2) {
+    const T* __restrict__ qkv, const float* __restrict__ bias, const float* __restrict__ mask,
+    T* __restrict__ out, int res, int w, int shift, int heads, float scale2) {
   constexpr int LD = row_ld(HD), ROWS = 16 * NC;
   constexpr bool STAGE = stage_bias<MASK>();
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + ROWS * LD;
-  bf16* sV = sK + ROWS * LD;
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + ROWS * LD;
+  T* sV = sK + ROWS * LD;
   float* sB = reinterpret_cast<float*>(sV + ROWS * LD);
   __shared__ int sRow[ROWS];  // the pixel row of each window token
 
@@ -137,7 +170,7 @@ __global__ __launch_bounds__(THREADS) void window_attention_kernel(
   for (int t = tid; t < n; t += THREADS)
     sRow[t] = ((wy * w + t / w + shift) % res) * res + (wx * w + t % w + shift) % res;
   __syncthreads();
-  const bf16* ip = qkv + row0 * ld + head * HD;
+  const T* ip = qkv + row0 * ld + head * HD;
   load_rows_gather<HD, THREADS>(sQ, ip, sRow, ld, ROWS, n, tid);
   load_rows_gather<HD, THREADS>(sK, ip + heads * HD, sRow, ld, ROWS, n, tid);
   if (STAGE) load_tile<float, THREADS>(sB, bias, head * nn, n, tid);
@@ -148,7 +181,7 @@ __global__ __launch_bounds__(THREADS) void window_attention_kernel(
   __syncthreads();
   const float* eb = STAGE ? sB + head * nn % 4 : bias + head * nn;
   const float* em = MASK ? mask + win * nn : nullptr;
-  bf16* op = out + row0 * ldo + head * HD;
+  T* op = out + row0 * ldo + head * HD;
   const int strips = (n + 15) / 16;
   // in rounds of one strip a warp, so that every warp meets the barrier
   for (int first = 0; first < strips; first += WARPS) {
@@ -156,7 +189,7 @@ __global__ __launch_bounds__(THREADS) void window_attention_kernel(
     float s[NC][2][4], l[2];
     if (strip < strips) {
       qk<HD, NC>(s, sQ + strip * 16 * LD, sK, lane);
-      probs<NC, MASK>(s, eb, em, strip * 16, n, scale2, lane, l);
+      probs<NC, MASK, Elem<T>::row_max>(s, eb, em, strip * 16, n, scale2, lane, l);
     }
     if (first == 0) {
       cp_async_wait<0>();
@@ -183,7 +216,7 @@ int launch(const void* qkv, const void* bias, const void* mask, void* out, int b
            int w, int shift, int heads, float scale2, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {  // the most an instance asks for: n = 16 NC
-    const cudaError_t e = cudaFuncSetAttribute(window_attention_kernel<HD, NC, MASK>,
+    const cudaError_t e = cudaFuncSetAttribute(window_attention_kernel<HD, NC, MASK, elem>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                smem_bytes<HD, NC, MASK>(16 * NC));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -191,10 +224,10 @@ int launch(const void* qkv, const void* bias, const void* mask, void* out, int b
   }
   const int nwx = res / w;
   const dim3 grid(nwx * nwx, heads, batch);
-  window_attention_kernel<HD, NC, MASK>
+  window_attention_kernel<HD, NC, MASK, elem>
       <<<grid, THREADS, smem_bytes<HD, NC, MASK>(w * w), stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<bf16*>(out), res, w, shift, heads, scale2);
+      static_cast<const elem*>(qkv), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<elem*>(out), res, w, shift, heads, scale2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -218,11 +251,13 @@ int launch_chunks(const void* qkv, const void* bias, const void* mask, void* out
 }  // namespace
 
 // qkv [batch * res * res, 3 * heads * head_dim], out [batch * res * res,
-// heads * head_dim] bf16, bias [heads, n, n] and mask [(res / w)^2, n, n]
-// fp32 (mask null for an unshifted block), all 16-byte aligned.
-extern "C" int evt_window_attention(const void* qkv, const void* bias, const void* mask, void* out,
-                                    int batch, int res, int w, int shift, int heads, int head_dim,
-                                    float scale2, void* stream) {
+// heads * head_dim] bf16 (fp16 in the fp16 instance), bias [heads, n, n]
+// and mask [(res / w)^2, n, n] fp32 (mask null for an unshifted block), all
+// 16-byte aligned.
+extern "C" int EVT_EXPORT(evt_window_attention)(const void* qkv, const void* bias,
+                                                const void* mask, void* out, int batch, int res,
+                                                int w, int shift, int heads, int head_dim,
+                                                float scale2, void* stream) {
   if (batch == 0) return 0;
   if (batch < 0 || batch > 65535 || heads <= 0 || heads > 65535 || w <= 0 || w * w > 144 ||
       res <= 0 || res % w != 0 || shift < 0 || shift >= w)

@@ -101,8 +101,8 @@ __device__ __forceinline__ float divide_exact(float e, float l, float y) {
 // and mask are never read); m[0] / m[1] become the row max of rows g / g +
 // 8, quad-reduced.  eb (shared memory) and em (L2) point at their tile's
 // element (0, 0); rows past n read row n - 1 (never stored).
-template <int NC, bool MASK>
-__device__ __forceinline__ void scores(float (&s)[NC][2][4], const bf16* eb, const float* em,
+template <int NC, bool MASK, class T>
+__device__ __forceinline__ void scores(float (&s)[NC][2][4], const T* eb, const float* em,
                                        int row0, int n, float scale, int lane, float m[2]) {
   const int g = lane >> 2, t = lane & 3;
   const int at[2] = {min(row0 + g, n - 1) * n, min(row0 + g + 8, n - 1) * n};
@@ -114,8 +114,8 @@ __device__ __forceinline__ void scores(float (&s)[NC][2][4], const bf16* eb, con
       const int r = (e % 4) / 2, key = c * 16 + (e / 4) * 8 + 2 * t + (e & 1);
       float& x = s[c][e / 4][e % 4];
       if (key < n) {
-        x = __fadd_rn(__fmul_rn(x, scale), __bfloat162float(eb[at[r] + key]));
-        if (MASK) x = __fadd_rn(x, round_bf16(em[at[r] + key]));
+        x = __fadd_rn(__fmul_rn(x, scale), Elem<T>::to_float(eb[at[r] + key]));
+        if (MASK) x = __fadd_rn(x, round_to<T>(em[at[r] + key]));
       } else {
         x = -INFINITY;
       }
@@ -151,34 +151,34 @@ __device__ __forceinline__ void softmax_rows(float (&s)[NC][2][4], const float m
 }
 
 // Dynamic shared memory: q, k, v (16 NC rows each), then the bias tile.
-template <int HD, int NC, bool MASK>
+template <int HD, int NC, bool MASK, class T>
 __global__ __launch_bounds__(THREADS) void window_sdpa_kernel(
-    const bf16* __restrict__ qkv, const bf16* __restrict__ bias, const float* __restrict__ mask,
-    bf16* __restrict__ out, int n, int heads, int mask_windows, float scale) {
+    const T* __restrict__ qkv, const T* __restrict__ bias, const float* __restrict__ mask,
+    T* __restrict__ out, int n, int heads, int mask_windows, float scale) {
   constexpr int LD = row_ld(HD), ROWS = 16 * NC;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + ROWS * LD;
-  bf16* sV = sK + ROWS * LD;
-  bf16* sB = sV + ROWS * LD;
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + ROWS * LD;
+  T* sV = sK + ROWS * LD;
+  T* sB = sV + ROWS * LD;
 
   const int win = blockIdx.x, head = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long ld = 3LL * heads * HD, ldo = static_cast<long long>(heads) * HD;
   const long long nn = static_cast<long long>(n) * n, b0 = head * nn;
   const long long m0 = MASK ? (win % mask_windows) * nn : 0;
-  const bf16* wq = qkv + static_cast<long long>(win) * n * ld + head * HD;
-  bf16* op = out + static_cast<long long>(win) * n * ldo + head * HD;
+  const T* wq = qkv + static_cast<long long>(win) * n * ld + head * HD;
+  T* op = out + static_cast<long long>(win) * n * ldo + head * HD;
 
   load_rows<HD, THREADS>(sQ, wq, ld, 0, ROWS, n, tid);
   load_rows<HD, THREADS>(sK, wq + heads * HD, ld, 0, ROWS, n, tid);
-  load_tile<bf16, THREADS>(sB, bias, b0, n, tid);
+  load_tile<T, THREADS>(sB, bias, b0, n, tid);
   cp_async_commit();  // group 0: q, k and the bias tile
   load_rows<HD, THREADS>(sV, wq + 2 * heads * HD, ld, 0, ROWS, n, tid);
   cp_async_commit();  // group 1: v, landing while q k^T and the softmax run
   cp_async_wait<1>();
   __syncthreads();
-  const bf16* eb = sB + b0 % 8;
+  const T* eb = sB + b0 % 8;
   const float* em = mask + m0;
   const int strips = (n + 15) / 16;
   // in rounds of one strip a warp, so that every warp meets the barrier
@@ -207,7 +207,7 @@ __global__ __launch_bounds__(THREADS) void window_sdpa_kernel(
 
 template <int HD, int NC>
 constexpr int smem_bytes(int n) {
-  return 3 * 16 * NC * row_ld(HD) * 2 + tile_elems<bf16>(n) * 2;
+  return 3 * 16 * NC * row_ld(HD) * 2 + tile_elems<elem>(n) * 2;
 }
 
 template <int HD, int NC, bool MASK>
@@ -215,16 +215,16 @@ int launch(const void* qkv, const void* bias, const void* mask, void* out, int w
            int heads, int mask_windows, float scale, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {  // the most an instance asks for: n = 16 NC
-    const cudaError_t e = cudaFuncSetAttribute(window_sdpa_kernel<HD, NC, MASK>,
+    const cudaError_t e = cudaFuncSetAttribute(window_sdpa_kernel<HD, NC, MASK, elem>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                smem_bytes<HD, NC>(16 * NC));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const dim3 grid(windows, heads);
-  window_sdpa_kernel<HD, NC, MASK><<<grid, THREADS, smem_bytes<HD, NC>(n), stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
-      static_cast<const float*>(mask), static_cast<bf16*>(out), n, heads, mask_windows, scale);
+  window_sdpa_kernel<HD, NC, MASK, elem><<<grid, THREADS, smem_bytes<HD, NC>(n), stream>>>(
+      static_cast<const elem*>(qkv), static_cast<const elem*>(bias),
+      static_cast<const float*>(mask), static_cast<elem*>(out), n, heads, mask_windows, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -248,11 +248,12 @@ int launch_chunks(const void* qkv, const void* bias, const void* mask, void* out
 }  // namespace
 
 // qkv [windows, n, 3 * heads * head_dim], bias [heads, n, n], out [windows,
-// n, heads * head_dim] bf16, mask [mask_windows, n, n] fp32 or null, all
-// 16-byte aligned.
-extern "C" int evt_window_sdpa(const void* qkv, const void* bias, const void* mask, void* out,
-                               int windows, int n, int heads, int head_dim, int mask_windows,
-                               float scale, void* stream) {
+// n, heads * head_dim] bf16 (fp16 in the fp16 instance), mask
+// [mask_windows, n, n] fp32 or null, all 16-byte aligned.
+extern "C" int EVT_EXPORT(evt_window_sdpa)(const void* qkv, const void* bias, const void* mask,
+                                           void* out, int windows, int n, int heads,
+                                           int head_dim, int mask_windows, float scale,
+                                           void* stream) {
   if (windows == 0) return 0;
   if (windows < 0 || n <= 0 || n > 144 || heads <= 0 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -276,9 +276,9 @@ def prepare_t2t_fused(model: T2TViT) -> dict:
     device, built once: ``W9`` in the compute dtype (as every form uses it),
     ``M9``, ``c1`` and ``c2`` in fp32; and each performer's K16 operands
     (``"performer1"``, ``"performer2"``: ``ops/cuda/performer.performer_operands``,
-    its weights in bf16 and its vectors in fp32).  Pass as ``prepared=`` to
-    keep the host work (and a host round trip) and the casts out of every
-    forward."""
+    its weights in the compute dtype and its vectors in fp32).  Pass as
+    ``prepared=`` to keep the host work (and a host round trip) and the casts
+    out of every forward."""
     tok = model.params()["tokens_to_token"]
     t2t = model.tokens_to_token
     p = tok["performer1"]
@@ -287,8 +287,10 @@ def prepare_t2t_fused(model: T2TViT) -> dict:
     dev = model.cls_token.device
     return {"W9": W9.to(dev, model.config.dtype), "M9": M9.to(dev), "c1": c1.to(dev),
             "c2": c2.to(dev),
-            "performer1": performer_operands(tok["performer1"], t2t.performer1.w),
-            "performer2": performer_operands(tok["performer2"], t2t.performer2.w)}
+            "performer1": performer_operands(tok["performer1"], t2t.performer1.w,
+                                             model.config.dtype),
+            "performer2": performer_operands(tok["performer2"], t2t.performer2.w,
+                                             model.config.dtype)}
 
 
 def fast_stage1_kqv(img: torch.Tensor, W9: torch.Tensor, M9: torch.Tensor, c1: torch.Tensor,

@@ -25,7 +25,7 @@ import torch
 from ..attention import qkv_split
 from . import build
 from .common import no_backward
-from .fused_encoder import _ptr, _stream
+from .fused_encoder import COMPUTE_DTYPES, _entry, _ptr, _stream
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"sdpa": 0}
@@ -55,18 +55,21 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor is on the CPU; False when all are bf16 on one
-    CUDA device with rows of 16-byte vectors (the last stride 1, the others
-    multiples of 8, 16-byte aligned); raise otherwise."""
+    """True when every tensor is on the CPU; False when all are bf16, or all
+    fp16, on one CUDA device with rows of 16-byte vectors (the last stride
+    1, the others multiples of 8, 16-byte aligned); raise otherwise."""
     devs = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devs):
         return True
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"sdpa: tensors must all be on the CPU or all on one CUDA device, "
                          f"got {sorted(map(str, devs))}")
+    dt = tensors[0].dtype
+    if dt not in COMPUTE_DTYPES:
+        raise TypeError(f"sdpa: the CUDA kernel takes bfloat16 or float16, got {dt}")
     for t in tensors:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"sdpa: the CUDA kernel takes bfloat16, got {t.dtype}")
+        if t.dtype != dt:
+            raise TypeError(f"sdpa: the CUDA kernel takes one dtype, got {dt} and {t.dtype}")
         if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1])
                 or t.data_ptr() % 16):
             raise ValueError("sdpa: the CUDA kernel needs d contiguous, the other strides "
@@ -84,7 +87,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     twice, so any ``n`` runs.  The operands are read through their strides,
     so views of a fused qkv activation need no copy; ``out``, when given, is
     the ``[b, h, n, d]`` view the result is written into (and returned).  On
-    the GPU all are bf16 and ``d`` is 16, 32, 64 or 128."""
+    the GPU all are bf16 or all fp16 and ``d`` is 16, 32, 64 or 128."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or (
@@ -102,9 +105,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    lib = build.load()
-    rc = lib.evt_sdpa(_ptr(q), _ptr(k), _ptr(v), _ptr(out), strides, b, h, n, d,
-                      ctypes.c_float(scale), _stream(q))
+    rc = _entry("evt_sdpa", q)(_ptr(q), _ptr(k), _ptr(v), _ptr(out), strides, b, h, n, d,
+                               ctypes.c_float(scale), _stream(q))
     build.check(rc, "sdpa")
     LAUNCHES["sdpa"] += 1
     return out

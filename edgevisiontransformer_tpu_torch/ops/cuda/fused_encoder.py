@@ -1,5 +1,6 @@
 """The pre-norm ViT encoder on hand-written Hopper kernels (port of
-``edgevisiontransformer_tpu/ops/pallas/fused_encoder.py``, bf16 and int8).
+``edgevisiontransformer_tpu/ops/pallas/fused_encoder.py``, bf16, fp16 and
+int8).
 
 The TPU kernels ``encoder_forward`` (grid over batch blocks and layers) and
 ``encoder_forward_pipelined`` (one program, double-buffered weight DMA) keep
@@ -84,6 +85,12 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _entry(name: str, t: torch.Tensor):
+    """The entry point ``name`` of the kernel instance for ``t``'s dtype
+    (``t`` holds the call's compute dtype: bf16, or fp16 for ``name_f16``)."""
+    return build.entry(name, t.dtype == torch.float16)
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -92,26 +99,38 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-_BF16 = (torch.bfloat16,)
+# The element types the kernels have an instance for (csrc/common.cuh: bf16,
+# and fp16 under build.py's F16_DEFINE).  A call's compute dtype is one of
+# them; in a wrapper's ``dtypes``, COMPUTE stands for it.
+COMPUTE_DTYPES = (torch.bfloat16, torch.float16)
+COMPUTE = "compute"
+_COMPUTE = (COMPUTE,)
 # what an LN affine or a bias may be: the int8 stacks keep them in fp32
-_BF16_F32 = (torch.bfloat16, torch.float32)
+_COMPUTE_F32 = (COMPUTE, torch.float32)
 
 
 def _on_cpu(what: str, *tensors: torch.Tensor, dtypes: dict | None = None,
-            aligned: bool = True) -> bool:
+            aligned: bool = True, compute: torch.dtype | None = None) -> bool:
     """True when every tensor is on the CPU (take the twin), False when all
     are on one CUDA device, contiguous and (unless ``aligned`` is False, for
-    a kernel that masks unaligned rows itself) 16-byte aligned, in bf16 or
-    the dtypes that ``dtypes`` (tensor position -> allowed dtypes) names for
-    a tensor (launch); raise otherwise."""
+    a kernel that masks unaligned rows itself) 16-byte aligned, in the
+    call's compute dtype (``compute``, by default the first tensor's: bf16
+    or fp16) or the dtypes that ``dtypes`` (tensor position -> allowed
+    dtypes, :data:`COMPUTE` for the compute dtype) names for a tensor
+    (launch); raise otherwise (``TypeError`` for a dtype: no tensor is
+    cast, so fp16 activations with bf16 weights raise)."""
     devs = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devs):
         return True
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"{what}: tensors must all be on the CPU or all on one "
                          f"CUDA device, got {sorted(map(str, devs))}")
+    compute = tensors[0].dtype if compute is None else compute
+    if compute not in COMPUTE_DTYPES:
+        raise TypeError(f"{what}: the CUDA kernel computes in bfloat16 or float16, "
+                        f"got {compute}")
     for i, t in enumerate(tensors):
-        allowed = (dtypes or {}).get(i, _BF16)
+        allowed = tuple(compute if d == COMPUTE else d for d in (dtypes or {}).get(i, _COMPUTE))
         if t.dtype not in allowed:
             names = " or ".join(str(d).removeprefix("torch.") for d in allowed)
             raise TypeError(f"{what}: the CUDA kernel takes {names} here, "
@@ -143,8 +162,9 @@ def ln_rows_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
             eps: float) -> torch.Tensor:
     """LayerNorm of each row of ``x [rows, dim]`` (csrc/ln_rows.cu).  On the
-    GPU ``x`` is bf16 and the affine ``g``, ``b`` bf16 or fp32 (both alike)."""
-    if _on_cpu("ln_rows", x, g, b, dtypes={1: _BF16_F32, 2: _BF16_F32}):
+    GPU ``x`` is bf16 or fp16 and the affine ``g``, ``b`` of its dtype or
+    fp32 (both alike)."""
+    if _on_cpu("ln_rows", x, g, b, dtypes={1: _COMPUTE_F32, 2: _COMPUTE_F32}):
         return ln_rows_plain(x, g, b, eps)
     if x.dim() != 2 or g.shape != (x.shape[1],) or b.shape != (x.shape[1],):
         raise ValueError(f"ln_rows: bad shapes x{tuple(x.shape)} "
@@ -155,9 +175,8 @@ def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     if dim % 8:
         raise ValueError(f"ln_rows: dim must be a multiple of 8, got {dim}")
     y = torch.empty_like(x)
-    lib = build.load()
-    rc = lib.evt_ln_rows(_ptr(x), _ptr(g), _ptr(b), _ptr(y), rows, dim,
-                         ctypes.c_float(eps), int(g.dtype == torch.float32), _stream(x))
+    rc = _entry("evt_ln_rows", x)(_ptr(x), _ptr(g), _ptr(b), _ptr(y), rows, dim,
+                                  ctypes.c_float(eps), int(g.dtype == torch.float32), _stream(x))
     build.check(rc, "ln_rows")
     LAUNCHES["ln_rows"] += 1
     return y
@@ -231,7 +250,7 @@ def linear_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
            epilogue: str, res: torch.Tensor | None = None,
            approx_gelu: bool = False) -> torch.Tensor:
-    """Tiled bf16 GEMM with fp32 accumulation and a fused epilogue
+    """Tiled bf16 or fp16 GEMM with fp32 accumulation and a fused epilogue
     (csrc/linear.cu, one launch on the grid :func:`linear_plan` picks), at
     any K and N.  ``res`` is required by ``BIAS_RESIDUAL`` only."""
     if (epilogue, approx_gelu) not in _EPI_CODES:
@@ -250,12 +269,11 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"linear: bad bias/residual shape for N={n}")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m and n:
-        lib = build.load()
         rows, cols = linear_plan(m, n, k, _sm_count(x.device.index or 0))
-        rc = lib.evt_linear(_ptr(x), _ptr(w), _ptr(b),
-                            _ptr(res) if res is not None else None, _ptr(y),
-                            m, n, k, _EPI_CODES[(epilogue, approx_gelu)], rows, cols,
-                            _stream(x))
+        rc = _entry("evt_linear", x)(_ptr(x), _ptr(w), _ptr(b),
+                                     _ptr(res) if res is not None else None, _ptr(y),
+                                     m, n, k, _EPI_CODES[(epilogue, approx_gelu)], rows, cols,
+                                     _stream(x))
         build.check(rc, "linear")
         LAUNCHES["linear"] += 1
     return y
@@ -318,7 +336,8 @@ def attention_rows(qkv: torch.Tensor, *, heads: int, head_dim: int,
                    tokens: int, seq_len: int | None = None) -> torch.Tensor:
     """Attention of :func:`attention_rows_plain` (csrc/attention_rows.cu):
     blocks of 16-row query strips of one (image, head), as many a block as
-    :func:`attention_plan` picks.  ``head_dim`` 16, 32, 64 or 128."""
+    :func:`attention_plan` picks.  ``head_dim`` 16, 32, 64 or 128.  An fp16
+    ``qkv`` takes the float16 softmax (the row max), as the twin does."""
     seq_len = tokens if seq_len is None else seq_len
     if _on_cpu("attention_rows", qkv):
         return attention_rows_plain(qkv, heads=heads, head_dim=head_dim,
@@ -331,12 +350,11 @@ def attention_rows(qkv: torch.Tensor, *, heads: int, head_dim: int,
     if head_dim not in ATTENTION_HEAD_DIMS:
         raise ValueError(f"attention_rows: head_dim must be 16, 32, 64 or 128, got {head_dim}")
     out = torch.empty((rows, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
-    lib = build.load()
     batch = rows // tokens
     warps = attention_plan(batch, heads, tokens, _sm_count(qkv.device.index or 0))
-    rc = lib.evt_attention_rows(_ptr(qkv), _ptr(out), batch, tokens, seq_len, heads, head_dim,
-                                ctypes.c_float(head_dim ** -0.5 * _LOG2E), warps,
-                                _stream(qkv))
+    rc = _entry("evt_attention_rows", qkv)(_ptr(qkv), _ptr(out), batch, tokens, seq_len, heads,
+                                           head_dim, ctypes.c_float(head_dim ** -0.5 * _LOG2E),
+                                           warps, _stream(qkv))
     build.check(rc, "attention_rows")
     LAUNCHES["attention_rows"] += 1
     return out
@@ -386,10 +404,9 @@ def quant_rows(h: torch.Tensor, act_inv: torch.Tensor | None = None, index: int 
     m, k = h.shape
     q = torch.empty((m, k), dtype=torch.int8, device=h.device)
     s = None if act_inv is not None else torch.empty(m, dtype=torch.float32, device=h.device)
-    lib = build.load()
-    rc = lib.evt_quant_rows(_ptr(h), _ptr(q), _ptr(s) if s is not None else None,
-                            _ptr(act_inv) if act_inv is not None else None, index,
-                            m, k, _stream(h))
+    rc = _entry("evt_quant_rows", h)(_ptr(h), _ptr(q), _ptr(s) if s is not None else None,
+                                     _ptr(act_inv) if act_inv is not None else None, index,
+                                     m, k, _stream(h))
     build.check(rc, "quant_rows")
     LAUNCHES["quant_rows"] += 1
     return q, s
@@ -494,24 +511,22 @@ def linear_i8(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
               approx_gelu: bool = False) -> torch.Tensor:
     """:func:`linear_i8_plain` as one kernel (csrc/linear_i8.cu): int8
     ``mma.sync`` with int32 accumulation on the grid :func:`linear_i8_plan`
-    picks, at any K and N.  On the GPU the output and ``res`` are bf16 and
-    ``b`` bf16 or fp32."""
+    picks, at any K and N.  On the GPU the output and ``res`` are
+    ``out_dtype`` (bf16 or fp16) and ``b`` of that dtype or fp32."""
     if (epilogue, approx_gelu) not in _I8_EPI_CODES:
         raise ValueError(f"linear_i8: unknown epilogue {epilogue!r}")
     if (res is not None) != (epilogue == BIAS_RESIDUAL):
         raise ValueError("linear_i8: res is given exactly for BIAS_RESIDUAL")
     tensors = [q, w_q, w_s, b]
-    dtypes = {0: (torch.int8,), 1: (torch.int8,), 2: (torch.float32,), 3: _BF16_F32}
+    dtypes = {0: (torch.int8,), 1: (torch.int8,), 2: (torch.float32,), 3: _COMPUTE_F32}
     if s_row is not None:
         dtypes[len(tensors)] = (torch.float32,)
         tensors.append(s_row)
     if res is not None:
         tensors.append(res)
-    if _on_cpu("linear_i8", *tensors, dtypes=dtypes, aligned=False):
+    if _on_cpu("linear_i8", *tensors, dtypes=dtypes, aligned=False, compute=out_dtype):
         return linear_i8_plain(q, s_row, w_q, w_s, b, epilogue=epilogue,
                                out_dtype=out_dtype, res=res, approx_gelu=approx_gelu)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"linear_i8: the CUDA kernel writes bfloat16 only, got {out_dtype}")
     if q.dim() != 2 or w_q.dim() != 2 or q.shape[1] != w_q.shape[0]:
         raise ValueError(f"linear_i8: bad shapes q{tuple(q.shape)} w{tuple(w_q.shape)}")
     m, k = q.shape
@@ -520,14 +535,13 @@ def linear_i8(q: torch.Tensor, s_row: torch.Tensor | None, w_q: torch.Tensor,
             or (s_row is not None and s_row.shape != (m,))
             or (res is not None and res.shape != (m, n))):
         raise ValueError(f"linear_i8: bad scale/bias/residual shape for M={m} N={n}")
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=q.device)
-    lib = build.load()
+    y = torch.empty((m, n), dtype=out_dtype, device=q.device)
     rows, cols, split = linear_i8_plan(m, n, k, _sm_count(q.device.index or 0))
-    rc = lib.evt_linear_i8(_ptr(q), _ptr(s_row) if s_row is not None else None,
-                           _ptr(w_q), _ptr(w_s), _ptr(b),
-                           _ptr(res) if res is not None else None, _ptr(y), m, n, k,
-                           _I8_EPI_CODES[(epilogue, approx_gelu)],
-                           int(b.dtype == torch.float32), rows, cols, split, _stream(q))
+    rc = _entry("evt_linear_i8", y)(_ptr(q), _ptr(s_row) if s_row is not None else None,
+                                    _ptr(w_q), _ptr(w_s), _ptr(b),
+                                    _ptr(res) if res is not None else None, _ptr(y), m, n, k,
+                                    _I8_EPI_CODES[(epilogue, approx_gelu)],
+                                    int(b.dtype == torch.float32), rows, cols, split, _stream(q))
     build.check(rc, "linear_i8")
     LAUNCHES["linear_i8"] += 1
     return y

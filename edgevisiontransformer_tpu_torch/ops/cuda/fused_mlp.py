@@ -22,7 +22,7 @@ import torch
 
 from . import build
 from .common import no_backward
-from .fused_encoder import _on_cpu, _ptr, _sm_count, _stream
+from .fused_encoder import _entry, _on_cpu, _ptr, _sm_count, _stream
 from .mathlib import gelu_kernel
 
 # Kernel launches since the last reset_launches().
@@ -116,7 +116,8 @@ def mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     [hidden, dim]``: :func:`mlp_plain` as one kernel launch (csrc/mlp.cu) on
     the grid :func:`plan` picks: blocks of 128 or 64 rows by up to 256 output
     columns, and at small row counts clusters of blocks that split the
-    hidden width.  On the GPU every tensor is bf16 and contiguous, ``x``
+    hidden width.  On the GPU every tensor is bf16 (or every one fp16) and
+    contiguous, ``x``
     16-byte aligned, ``dim`` a multiple of 8 up to :data:`MAX_DIM`;
     ``hidden`` is any width."""
     dim = x.shape[-1]
@@ -134,11 +135,10 @@ def mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
         raise ValueError("mlp: the CUDA kernel needs x 16-byte aligned")
     y = torch.empty_like(x2)
     if x2.shape[0]:
-        lib = build.load()
         p = plan(x2.shape[0], dim, hidden, _sm_count(x2.device.index or 0))
-        rc = lib.evt_mlp(_ptr(x2), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(y),
-                         x2.shape[0], dim, hidden, int(approx_gelu), p.rows, p.split, p.nt,
-                         p.hc, _stream(x2))
+        rc = _entry("evt_mlp", x2)(_ptr(x2), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(y),
+                                   x2.shape[0], dim, hidden, int(approx_gelu), p.rows, p.split,
+                                   p.nt, p.hc, _stream(x2))
         build.check(rc, "mlp")
         LAUNCHES["mlp"] += 1
     return y.reshape(x.shape)

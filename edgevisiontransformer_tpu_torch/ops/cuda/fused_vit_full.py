@@ -35,7 +35,8 @@ import torch
 
 from . import build
 from .common import no_backward
-from .fused_encoder import (_LOG2E, _linear_smem_bytes, _on_cpu, _sm_count, _stream,
+from .fused_encoder import (COMPUTE, _LOG2E, _entry, _linear_smem_bytes, _on_cpu, _sm_count,
+                            _stream,
                             attention_plan, encoder_forward_plain, ln_rows_plain)
 
 # Kernel launches since the last reset_launches().
@@ -218,22 +219,24 @@ def vit_full_forward_plain(img: torch.Tensor, prepared: dict, *, heads: int, hea
 def vit_full_forward(img: torch.Tensor, prepared: dict, *, heads: int, head_dim: int,
                      eps: float, reference_residual: bool, approx_gelu: bool,
                      final_norm: bool) -> torch.Tensor:
-    """The whole forward of ``img [b, c, H, H]`` (fp32 or bf16, NCHW) with
-    the weights of ``models/vit.prepare_vit_full``: one launch of
+    """The whole forward of ``img [b, c, H, H]`` (fp32 or the weights' dtype,
+    NCHW) with the weights of ``models/vit.prepare_vit_full``: one launch of
     csrc/vit_full.cu on the plan of :func:`vit_full_plan` on a CUDA tensor,
     :func:`vit_full_forward_plain` on a CPU tensor.  Returns ``[b,
     num_classes]`` logits in the weights' dtype.
 
-    On the GPU the weights are bf16, every width (dim, heads * head_dim, the
+    On the GPU the weights are bf16 (or all fp16: the kernel's fp16
+    instance), every width (dim, heads * head_dim, the
     MLP's) a multiple of 8 and ``head_dim`` 16, 32, 64 or 128.  The launch
     allocates its activation scratch with ``torch.empty`` and launches
     nothing else."""
     weights = [prepared[k] for k in WEIGHT_KEYS]
-    if _on_cpu("vit_full", img, *weights, dtypes={0: (torch.float32, torch.bfloat16)}):
+    if _on_cpu("vit_full", img, *weights, dtypes={0: (torch.float32, COMPUTE)},
+               compute=weights[0].dtype):
         return vit_full_forward_plain(img, prepared, heads=heads, head_dim=head_dim, eps=eps,
                                       reference_residual=reference_residual,
                                       approx_gelu=approx_gelu, final_norm=final_norm)
-    logits, grid = launch(build.load().evt_vit_full, img, prepared, heads=heads,
+    logits, grid = launch(_entry("evt_vit_full", weights[0]), img, prepared, heads=heads,
                           head_dim=head_dim, eps=eps, reference_residual=reference_residual,
                           approx_gelu=approx_gelu, final_norm=final_norm)
     LAUNCHES["vit_full"] += 1
@@ -245,7 +248,8 @@ def launch(fn, img: torch.Tensor, prepared: dict, *, heads: int, head_dim: int, 
            reference_residual: bool, approx_gelu: bool, final_norm: bool,
            plan: VitFullPlan | None = None) -> tuple:
     """Check the shapes, allocate the scratch and the logits, and call ``fn``
-    (``evt_vit_full`` of a built library) once on ``plan`` (default
+    (``evt_vit_full`` of a built library, or its ``_f16`` instance for fp16
+    weights) once on ``plan`` (default
     :func:`vit_full_plan`'s): ``(logits, grid)``.  Counts nothing:
     :func:`vit_full_forward` counts its launches, ``bench/vit_full_ab.py``
     calls other builds through this too."""
@@ -280,12 +284,13 @@ def launch(fn, img: torch.Tensor, prepared: dict, *, heads: int, head_dim: int, 
     # one scratch allocation, cut into x, h, qkv, att, hid (every width a
     # multiple of 8, so each part starts on a 16-byte boundary)
     widths = (dim, dim, 3 * inner, inner, mlp)
-    scratch = torch.empty(rows * sum(widths), dtype=torch.bfloat16, device=img.device)
+    dt = prepared["patch_w"].dtype
+    scratch = torch.empty(rows * sum(widths), dtype=dt, device=img.device)
     parts, start = [], 0
     for w in widths:
         parts.append(scratch[start:start + rows * w])
         start += rows * w
-    logits = torch.empty((bsz, classes), dtype=torch.bfloat16, device=img.device)
+    logits = torch.empty((bsz, classes), dtype=dt, device=img.device)
     weights = [prepared[k] for k in WEIGHT_KEYS]
     ptrs = (ctypes.c_void_p * 25)(*(t.data_ptr() for t in (img, *weights, *parts, logits)))
     ints = (ctypes.c_int * 23)(bsz, depth, dim, heads, head_dim, mlp, classes, image, p, chans,
@@ -297,14 +302,16 @@ def launch(fn, img: torch.Tensor, prepared: dict, *, heads: int, head_dim: int, 
     return logits, ints[22]
 
 
-def resident_blocks_per_sm(head_dim: int, blocks: int, smem: int) -> int:
+def resident_blocks_per_sm(head_dim: int, blocks: int, smem: int,
+                           dtype: torch.dtype = torch.bfloat16) -> int:
     """The blocks of csrc/vit_full.cu's instance for ``head_dim`` built for
-    ``blocks`` an SM that one SM of the current card holds at once with
-    ``smem`` bytes of shared memory each
+    ``blocks`` an SM (at the element type ``dtype``) that one SM of the
+    current card holds at once with ``smem`` bytes of shared memory each
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; ``chip_smoke.py``
     phase 2 prints it)."""
     out = ctypes.c_int(0)
-    rc = build.load().evt_vit_full_blocks_per_sm(head_dim, blocks, smem, ctypes.byref(out))
+    rc = build.entry("evt_vit_full_blocks_per_sm", dtype == torch.float16)(
+        head_dim, blocks, smem, ctypes.byref(out))
     build.check(rc, "vit_full occupancy")
     return out.value
 

@@ -25,7 +25,8 @@ def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float) -> torch.Tensor:
     """LayerNorm of ``x [..., dim]`` with the affine ``gamma``, ``beta``
-    ``[dim]``: one ``ln_rows`` launch on a CUDA tensor (bf16 ``x``, a bf16
-    or fp32 affine, ``dim`` a multiple of 8), its twin on a CPU tensor."""
+    ``[dim]``: one ``ln_rows`` launch on a CUDA tensor (bf16 or fp16 ``x``,
+    an affine of its dtype or fp32, ``dim`` a multiple of 8), its twin on a
+    CPU tensor."""
     dim = x.shape[-1]
     return ln_rows(x.reshape(-1, dim), gamma, beta, eps).reshape(x.shape)

@@ -19,9 +19,10 @@ zeroing is captured with the launch), need no care.
 ``performer_rows`` runs blocks of four warps.
 
 The weights enter the kernels as :func:`performer_operands`: ``w``, ``wo``,
-``w1`` and ``w2`` in one bf16 matrix and the five vectors in one fp32
-matrix, which ``models/t2t_vit.prepare_t2t_fused`` builds once per model;
-a caller that passes none has them cast on every call.
+``w1`` and ``w2`` in one matrix of the compute dtype (bf16 or fp16) and the
+five vectors in one fp32 matrix, which ``models/t2t_vit.prepare_t2t_fused``
+builds once per model; a caller that passes none has them cast on every
+call.
 
 Each wrapper has its plain twin (``*_plain``) with K16's cast points, which
 are not ``models/t2t_vit._performer_rest``'s: the kernel divides by
@@ -39,7 +40,7 @@ import torch
 
 from . import build
 from .common import no_backward
-from .fused_encoder import _on_cpu, _ptr, _stream, ln_rows_plain
+from .fused_encoder import _entry, _on_cpu, _ptr, _stream, ln_rows_plain
 from .mathlib import gelu_kernel
 
 # Kernel launches since the last reset_launches(), by kernel.
@@ -65,9 +66,10 @@ def _groups(n: int) -> int:
     return -(-(-(-n // TILE)) // GROUP)
 
 
-def performer_operands(p: dict, w: torch.Tensor) -> dict:
+def performer_operands(p: dict, w: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The weights in the layout the kernels read: ``{"mats": [m + 3 ts, ts]
-    bf16 (w, attn_output, mlp_fc1, mlp_fc2 kernels), "vecs": [5, ts] fp32
+    in ``dtype``, the model's compute dtype (bf16 or fp16: w, attn_output,
+    mlp_fc1, mlp_fc2 kernels), "vecs": [5, ts] fp32
     (attn_output bias, norm2 scale and bias, mlp_fc1 and mlp_fc2
     biases)}``.  Raises unless the widths are the kernels' (ts = 64, m = 32,
     a 64-unit MLP)."""
@@ -79,7 +81,7 @@ def performer_operands(p: dict, w: torch.Tensor) -> dict:
         if tuple(t.shape) != shape:
             raise ValueError(f"the performer kernels are built for ts = {ts}, m = {m} and a "
                              f"{ts}-unit MLP; got a weight of shape {tuple(t.shape)}")
-    return {"mats": torch.cat([t.to(torch.bfloat16) for t in mats]).contiguous(),
+    return {"mats": torch.cat([t.to(dtype) for t in mats]).contiguous(),
             "vecs": torch.stack([t.float() for t in vecs]).contiguous()}
 
 
@@ -172,9 +174,9 @@ def performer_reduce(x_kqv: torch.Tensor, w: torch.Tensor, *,
     """:func:`performer_reduce_plain` as one kernel (csrc/performer.cu): one
     block per (image, 64-token tile), the image's sums added by its last
     blocks.  On the GPU ``x_kqv [b, n, 192]`` is
-    bf16 and ``w [32, 64]`` is taken in bf16: the first rows of
-    ``operands["mats"]`` where given, else cast here."""
-    wb = operands["mats"][:FEATURES] if operands is not None else w.to(torch.bfloat16)
+    bf16 or fp16 and ``w [32, 64]`` is taken in that dtype: the first rows of
+    ``operands["mats"]`` where given (which must be in it), else cast here."""
+    wb = operands["mats"][:FEATURES] if operands is not None else w.to(x_kqv.dtype)
     if _on_cpu("performer_reduce", x_kqv, wb):
         return performer_reduce_plain(x_kqv, w)
     _check_x(x_kqv, "performer_reduce")
@@ -189,8 +191,8 @@ def performer_reduce(x_kqv: torch.Tensor, w: torch.Tensor, *,
     partial = torch.empty((bsz, -(-n // TILE) + groups, SUMS), dtype=torch.float32,
                           device=x_kqv.device)
     counters = torch.zeros(bsz * (1 + groups), dtype=torch.int32, device=x_kqv.device)
-    rc = build.load().evt_performer_reduce(_ptr(x_kqv), _ptr(wb), _ptr(partial), _ptr(sums),
-                                           _ptr(counters), bsz, n, _stream(x_kqv))
+    rc = _entry("evt_performer_reduce", x_kqv)(_ptr(x_kqv), _ptr(wb), _ptr(partial), _ptr(sums),
+                                               _ptr(counters), bsz, n, _stream(x_kqv))
     build.check(rc, "performer_reduce")
     LAUNCHES["performer_reduce"] += 1
     return sums
@@ -202,9 +204,9 @@ def performer_rows(x_kqv: torch.Tensor, sums: torch.Tensor, p: dict, w: torch.Te
                    operands: dict | None = None) -> torch.Tensor:
     """:func:`performer_rows_plain` as one kernel (csrc/performer.cu): 16
     tokens a warp, four warps a block.  On the GPU the
-    weights are :func:`performer_operands`' (``operands``, or built here
-    from ``p`` and ``w``)."""
-    ops = performer_operands(p, w) if operands is None else operands
+    weights are :func:`performer_operands`' in ``x_kqv``'s dtype (``operands``,
+    or built here from ``p`` and ``w``)."""
+    ops = performer_operands(p, w, x_kqv.dtype) if operands is None else operands
     mats, vecs = ops["mats"], ops["vecs"]
     if _on_cpu("performer_rows", x_kqv, sums, mats, vecs, dtypes={1: _F32, 3: _F32}):
         return performer_rows_plain(x_kqv, sums, p, w, eps_ln=eps_ln, approx_gelu=approx_gelu)
@@ -217,12 +219,12 @@ def performer_rows(x_kqv: torch.Tensor, sums: torch.Tensor, p: dict, w: torch.Te
     if tuple(sums.shape) != (bsz, SUMS):
         raise ValueError(f"performer_rows: sums{tuple(sums.shape)} is not "
                          f"performer_reduce's for x_kqv{tuple(x_kqv.shape)}")
-    out = torch.empty((bsz, n, ts), dtype=torch.bfloat16, device=x_kqv.device)
+    out = torch.empty((bsz, n, ts), dtype=x_kqv.dtype, device=x_kqv.device)
     if bsz == 0 or n == 0:
         return out
-    rc = build.load().evt_performer_rows(_ptr(x_kqv), _ptr(sums), _ptr(mats), _ptr(vecs),
-                                         _ptr(out), bsz, n, eps_ln, int(approx_gelu),
-                                         _stream(x_kqv))
+    rc = _entry("evt_performer_rows", x_kqv)(_ptr(x_kqv), _ptr(sums), _ptr(mats), _ptr(vecs),
+                                             _ptr(out), bsz, n, eps_ln, int(approx_gelu),
+                                             _stream(x_kqv))
     build.check(rc, "performer_rows")
     LAUNCHES["performer_rows"] += 1
     return out
@@ -231,7 +233,7 @@ def performer_rows(x_kqv: torch.Tensor, sums: torch.Tensor, p: dict, w: torch.Te
 def performer_rest(x_kqv: torch.Tensor, p: dict, w: torch.Tensor, *, eps_ln: float,
                    approx_gelu: bool, operands: dict | None = None) -> torch.Tensor:
     """K16: :func:`performer_rows` on :func:`performer_reduce`, two kernels
-    on a CUDA tensor (``x_kqv [b, n, 192]`` bf16, ts = 64, m = 32 and a
+    on a CUDA tensor (``x_kqv [b, n, 192]`` bf16 or fp16, ts = 64, m = 32 and a
     64-unit MLP), the twins on a CPU tensor.  ``operands``
     (:func:`performer_operands`, built once) spares the casts."""
     sums = performer_reduce(x_kqv, w, operands=operands)

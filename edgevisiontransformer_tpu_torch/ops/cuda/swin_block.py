@@ -51,7 +51,7 @@ import torch
 from . import build
 from .common import no_backward, round_up, softmax_unnorm
 from .fused_encoder import (BIAS, BIAS_GELU, BIAS_RESIDUAL, CAST_THEN_BIAS, CAST_THEN_BIAS_GELU,
-                            _on_cpu, _ptr, _stream, linear, linear_i8, linear_i8_plain,
+                            _entry, _on_cpu, _ptr, _stream, linear, linear_i8, linear_i8_plain,
                             linear_plain, ln_rows, ln_rows_plain, quant_rows, quant_rows_plain)
 
 # Kernel launches since the last reset_launches().
@@ -97,7 +97,8 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Te
     ``mask [nW, n, n]`` are fp32, pre-scaled by log2(e).  Per (image,
     window, head): ``s = (q.k) * hd^-1/2 log2(e) + bias[h] (+ mask[win])``,
     ``p = exp2(min(s, 60))``, ``r = max(sum p, 1e-30)``, ``o = (bf16(p) @ v)
-    * (1 / r)``.  Each output row goes back to the pixel its query came
+    * (1 / r)`` (for fp16 ``qkv`` the row max: ``p = exp2(s - max s)``, ``r
+    = sum p``, as ``common.softmax_unnorm``).  Each output row goes back to the pixel its query came
     from.  Returns ``[b*res*res, heads*head_dim]`` in ``qkv.dtype``."""
     _check_geometry("window_attention", qkv.shape[0], res, window, shift)
     dt = qkv.dtype
@@ -123,8 +124,8 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor |
                      res: int, window: int, shift: int, heads: int,
                      head_dim: int) -> torch.Tensor:
     """:func:`window_attention_plain` as one kernel (csrc/window_attention.cu):
-    one thread block per (window, head, image).  On the GPU ``qkv`` is bf16,
-    ``bias`` and ``mask`` fp32, ``head_dim`` 32 or 64 and ``window**2 <=
+    one thread block per (window, head, image).  On the GPU ``qkv`` is bf16
+    or fp16, ``bias`` and ``mask`` fp32, ``head_dim`` 32 or 64 and ``window**2 <=
     144`` (windows up to 12)."""
     tensors = (qkv, bias) + ((mask,) if mask is not None else ())
     f32 = (torch.float32,)
@@ -149,10 +150,9 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor |
     out = torch.empty((qkv.shape[0], heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     if bsz == 0:
         return out
-    lib = build.load()
-    rc = lib.evt_window_attention(_ptr(qkv), _ptr(bias), _ptr(mask) if mask is not None else None,
-                                  _ptr(out), bsz, res, window, shift, heads, head_dim,
-                                  ctypes.c_float(head_dim ** -0.5 * _LOG2E), _stream(qkv))
+    rc = _entry("evt_window_attention", qkv)(
+        _ptr(qkv), _ptr(bias), _ptr(mask) if mask is not None else None, _ptr(out), bsz, res,
+        window, shift, heads, head_dim, ctypes.c_float(head_dim ** -0.5 * _LOG2E), _stream(qkv))
     build.check(rc, "window_attention")
     LAUNCHES["window_attention"] += 1
     return out

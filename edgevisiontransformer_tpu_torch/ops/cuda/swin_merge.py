@@ -24,7 +24,7 @@ import torch
 
 from . import build
 from .common import no_backward
-from .fused_encoder import _BF16_F32, _on_cpu, _ptr, _stream, ln_rows_plain
+from .fused_encoder import _COMPUTE_F32, _entry, _on_cpu, _ptr, _stream, ln_rows_plain
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"swin_merge": 0}
@@ -63,9 +63,9 @@ def swin_merge_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *, res: 
 def swin_merge(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *, res: int,
                eps: float) -> torch.Tensor:
     """:func:`swin_merge_plain` as one kernel (csrc/swin_merge.cu): one warp
-    per output token.  On the GPU ``x`` is bf16 with ``C % 8 == 0`` and the
-    affine ``g``, ``b [4C]`` bf16 or fp32 (both alike)."""
-    if _on_cpu("swin_merge", x, g, b, dtypes={1: _BF16_F32, 2: _BF16_F32}):
+    per output token.  On the GPU ``x`` is bf16 or fp16 with ``C % 8 == 0``
+    and the affine ``g``, ``b [4C]`` of its dtype or fp32 (both alike)."""
+    if _on_cpu("swin_merge", x, g, b, dtypes={1: _COMPUTE_F32, 2: _COMPUTE_F32}):
         return swin_merge_plain(x, g, b, res=res, eps=eps)
     bsz = _check(x, res)
     c = x.shape[1]
@@ -77,9 +77,9 @@ def swin_merge(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *, res: int,
     out = torch.empty((bsz * (res // 2) ** 2, 4 * c), dtype=x.dtype, device=x.device)
     if bsz == 0:
         return out
-    lib = build.load()
-    rc = lib.evt_swin_merge(_ptr(x), _ptr(g), _ptr(b), _ptr(out), bsz, res, c,
-                            ctypes.c_float(eps), int(g.dtype == torch.float32), _stream(x))
+    rc = _entry("evt_swin_merge", x)(_ptr(x), _ptr(g), _ptr(b), _ptr(out), bsz, res, c,
+                                     ctypes.c_float(eps), int(g.dtype == torch.float32),
+                                     _stream(x))
     build.check(rc, "swin_merge")
     LAUNCHES["swin_merge"] += 1
     return out

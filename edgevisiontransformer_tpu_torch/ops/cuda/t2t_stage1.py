@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from . import build
 from .common import no_backward
-from .fused_encoder import _on_cpu, _ptr, _sm_count, _stream
+from .fused_encoder import _entry, _on_cpu, _ptr, _sm_count, _stream
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"stage1_kqv": 0}
@@ -107,8 +107,9 @@ def stage1_kqv(img: torch.Tensor, W9: torch.Tensor, M9: torch.Tensor, c1: torch.
     """:func:`stage1_kqv_plain` as one kernel (csrc/t2t_stage1.cu): one thread
     block per (image, token row, the columns :func:`stage1_plan` picks),
     products on ``mma.sync``.  On the GPU ``img [b, 3, 224, 224]`` and
-    ``W9 [432, d]`` are bf16, ``M9 [432, 1]``, ``c1`` and ``c2 [d]`` fp32,
-    and ``d`` a multiple of 16 up to 256; the result is ``[b, 3136, d]``."""
+    ``W9 [432, d]`` are bf16 (or both fp16), ``M9 [432, 1]``, ``c1`` and
+    ``c2 [d]`` fp32, and ``d`` a multiple of 16 up to 256; the result is
+    ``[b, 3136, d]``."""
     f32 = (torch.float32,)
     if _on_cpu("stage1_kqv", img, W9, M9, c1, c2, dtypes={2: f32, 3: f32, 4: f32}):
         return stage1_kqv_plain(img, W9, M9, c1, c2, eps)
@@ -126,10 +127,9 @@ def stage1_kqv(img: torch.Tensor, W9: torch.Tensor, M9: torch.Tensor, c1: torch.
     out = torch.empty((bsz, TOKENS, d), dtype=img.dtype, device=img.device)
     if bsz == 0:
         return out
-    lib = build.load()
     cols = stage1_plan(bsz, d, _sm_count(img.device.index or 0))
-    rc = lib.evt_t2t_stage1(_ptr(img), _ptr(W9), _ptr(M9), _ptr(c1), _ptr(c2), _ptr(out),
-                            bsz, d, ctypes.c_float(eps), cols, _stream(img))
+    rc = _entry("evt_t2t_stage1", img)(_ptr(img), _ptr(W9), _ptr(M9), _ptr(c1), _ptr(c2),
+                                       _ptr(out), bsz, d, ctypes.c_float(eps), cols, _stream(img))
     build.check(rc, "stage1_kqv")
     LAUNCHES["stage1_kqv"] += 1
     return out

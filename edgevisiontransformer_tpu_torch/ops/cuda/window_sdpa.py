@@ -24,7 +24,7 @@ import torch
 
 from . import build
 from .common import no_backward
-from .fused_encoder import _on_cpu, _ptr, _stream
+from .fused_encoder import _entry, _on_cpu, _ptr, _stream
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"window_sdpa": 0}
@@ -82,7 +82,7 @@ def window_sdpa(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None
                 heads: int, head_dim: int) -> torch.Tensor:
     """:func:`window_sdpa_plain` as one kernel (csrc/window_sdpa.cu): one
     thread block per (window, head).  On the GPU ``qkv`` and ``bias`` are
-    bf16, ``mask`` fp32 (the module's constant), ``head_dim`` 32 or 64 and
+    bf16 (or both fp16), ``mask`` fp32 (the module's constant), ``head_dim`` 32 or 64 and
     ``n <= 144``."""
     tensors = (qkv, bias) + ((mask,) if mask is not None else ())
     if _on_cpu("window_sdpa", *tensors, dtypes={2: (torch.float32,)}):
@@ -97,11 +97,10 @@ def window_sdpa(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None
     out = torch.empty((bw, n, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     if bw == 0:
         return out
-    lib = build.load()
-    rc = lib.evt_window_sdpa(_ptr(qkv), _ptr(bias), _ptr(mask) if mask is not None else None,
-                             _ptr(out), bw, n, heads, head_dim,
-                             mask.shape[0] if mask is not None else 0,
-                             ctypes.c_float(head_dim ** -0.5), _stream(qkv))
+    rc = _entry("evt_window_sdpa", qkv)(
+        _ptr(qkv), _ptr(bias), _ptr(mask) if mask is not None else None, _ptr(out), bw, n,
+        heads, head_dim, mask.shape[0] if mask is not None else 0,
+        ctypes.c_float(head_dim ** -0.5), _stream(qkv))
     build.check(rc, "window_sdpa")
     LAUNCHES["window_sdpa"] += 1
     return out

@@ -66,6 +66,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.bench.window_sdpa_ab",
     "edgevisiontransformer_tpu_torch.bench.window_attention_ab",
     "edgevisiontransformer_tpu_torch.bench.vit_full_ab",
+    "edgevisiontransformer_tpu_torch.bench.parent_bits",
     "edgevisiontransformer_tpu_torch.bench.performer_ab",
     "edgevisiontransformer_tpu_torch.bench.swin_merge_ab",
     "edgevisiontransformer_tpu_torch.bench.stage1_ab",

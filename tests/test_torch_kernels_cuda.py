@@ -41,6 +41,9 @@ torch.set_num_threads(1)
 # summation order and erff / exp2f / tanhf against torch's can move a value
 # across a bf16 rounding boundary: at most ~2 bf16 spacings.
 RTOL, ATOL = 2.0 ** -6, 1e-2
+# The element types every kernel has an instance for: each kernel's twin
+# test runs at both (fp16 keeps the same bounds: its spacing is finer)
+DTYPES = [torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -52,9 +55,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _rnd(dev, *shape, scale=1.0, seed=0):
+def _rnd(dev, *shape, scale=1.0, seed=0, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return (torch.randn(*shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+    return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
 
 def _close(got, ref):
@@ -64,10 +67,11 @@ def _close(got, ref):
     torch.testing.assert_close(got.float(), ref.float(), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,dim", [(1, 64), (197, 192), (1576, 768), (25216, 192)])
-def test_ln_rows_kernel_matches_twin(dev, rows, dim):
-    x = _rnd(dev, rows, dim, scale=3.0)
-    g, b = _rnd(dev, dim, seed=1) + 1, _rnd(dev, dim, seed=2)
+def test_ln_rows_kernel_matches_twin(dev, rows, dim, dtype):
+    x = _rnd(dev, rows, dim, scale=3.0, dtype=dtype)
+    g, b = _rnd(dev, dim, seed=1, dtype=dtype) + 1, _rnd(dev, dim, seed=2, dtype=dtype)
     _close(fe.ln_rows(x, g, b, 1e-6), fe.ln_rows_plain(x, g, b, 1e-6))
 
 
@@ -76,10 +80,11 @@ LINEAR_EPILOGUES = [(fe.CAST_THEN_BIAS, False), (fe.CAST_THEN_BIAS_GELU, False),
                     (fe.CAST_THEN_BIAS_GELU, True), (fe.BIAS_RESIDUAL, False)]
 
 
-def _linear_args(dev, m, k, n, epilogue, approx=False, seed=0):
-    x, w = _rnd(dev, m, k, seed=seed), _rnd(dev, k, n, scale=k ** -0.5, seed=seed + 1)
-    b = _rnd(dev, n, scale=0.5, seed=seed + 2)
-    res = _rnd(dev, m, n, seed=seed + 3) if epilogue == fe.BIAS_RESIDUAL else None
+def _linear_args(dev, m, k, n, epilogue, approx=False, seed=0, dtype=torch.bfloat16):
+    x = _rnd(dev, m, k, seed=seed, dtype=dtype)
+    w = _rnd(dev, k, n, scale=k ** -0.5, seed=seed + 1, dtype=dtype)
+    b = _rnd(dev, n, scale=0.5, seed=seed + 2, dtype=dtype)
+    res = _rnd(dev, m, n, seed=seed + 3, dtype=dtype) if epilogue == fe.BIAS_RESIDUAL else None
     return (x, w, b), dict(epilogue=epilogue, res=res, approx_gelu=approx)
 
 
@@ -89,8 +94,9 @@ def _linear_args(dev, m, k, n, epilogue, approx=False, seed=0):
                                    (1576, 3072, 768), (300, 200, 136), (197, 192, 96),
                                    (197, 230, 230), (394, 230, 288), (100352, 96, 288)])
 @pytest.mark.parametrize("epilogue,approx", LINEAR_EPILOGUES)
-def test_linear_kernel_matches_twin(dev, m, k, n, epilogue, approx):
-    args, kw = _linear_args(dev, m, k, n, epilogue, approx)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_linear_kernel_matches_twin(dev, m, k, n, epilogue, approx, dtype):
+    args, kw = _linear_args(dev, m, k, n, epilogue, approx, dtype=dtype)
     fe.reset_launches()
     got = fe.linear(*args, **kw)
     assert fe.LAUNCHES["linear"] == 1
@@ -157,13 +163,21 @@ def test_linear_kernel_writes_over_its_own_residual(dev, m, k, n):
 # deit_tiny, t2t_vit_14 (6 heads), the pruned model's one head, deit_base's
 # 12, head_dim 16 (the layerwise pruned config: 5 tokens, 2 or 3 heads) to
 # 128, padded and fully masked keys, and deit_base at 384 (ten 64-key tiles)
-@pytest.mark.parametrize("batch,tokens,seq_len,heads,hd", [
+ATTENTION_CASES = [
     (2, 197, 197, 3, 64), (1, 5, 5, 2, 32), (3, 64, 64, 2, 128),
     (2, 200, 197, 2, 64), (1, 70, 0, 1, 64), (1, 197, 197, 6, 64), (1, 197, 197, 1, 64),
     (128, 197, 197, 1, 64), (8, 197, 197, 12, 64), (1, 5, 5, 2, 16), (1, 5, 5, 3, 16),
-    (4, 197, 197, 3, 16), (2, 200, 197, 4, 16), (1, 33, 0, 2, 16), (2, 577, 577, 12, 64)])
-def test_attention_rows_kernel_matches_twin(dev, batch, tokens, seq_len, heads, hd):
-    qkv = _rnd(dev, batch * tokens, 3 * heads * hd)
+    (4, 197, 197, 3, 16), (2, 200, 197, 4, 16), (1, 33, 0, 2, 16), (2, 577, 577, 12, 64)]
+
+
+# fp16 at every case but the fully masked rows (seq_len 0): there the twin's
+# float16 branch, as the reference's, averages every key (each at -1e30)
+# where the kernel, which walks no key, writes zeros; no model masks every key
+@pytest.mark.parametrize("dtype,batch,tokens,seq_len,heads,hd", [
+    (dt, *case) for dt in DTYPES for case in ATTENTION_CASES
+    if not (dt == torch.float16 and case[2] == 0)])
+def test_attention_rows_kernel_matches_twin(dev, batch, tokens, seq_len, heads, hd, dtype):
+    qkv = _rnd(dev, batch * tokens, 3 * heads * hd, dtype=dtype)
     kw = dict(heads=heads, head_dim=hd, tokens=tokens, seq_len=seq_len)
     got = fe.attention_rows(qkv, **kw)
     _close(got, fe.attention_rows_plain(qkv, **kw))
@@ -277,6 +291,75 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                           heads=1, head_dim=48, tokens=5)
 
 
+def _float16_calls(dev, w16=torch.float16):
+    """One call of every kernel wrapper on fp16 activations, their weights
+    in ``w16``: ``{kernel: call}``."""
+    h = torch.float16
+    x = _rnd(dev, 197, 192, dtype=h)
+    g, b = _rnd(dev, 192, dtype=w16) + 1, _rnd(dev, 192, dtype=w16)
+    w, bias = _rnd(dev, 192, 64, scale=0.1, dtype=w16), _rnd(dev, 64, dtype=w16)
+    g4, b4 = _rnd(dev, 384, dtype=w16) + 1, _rnd(dev, 384, dtype=w16)
+    q, w_q = _int8(dev, 197, 192), _int8(dev, 192, 64, seed=1)
+    w_s = _uniform(dev, 64, seed=2) * 1e-4
+    qkv_w, bias16, mask = _sdpa_inputs(dev, 1, 14, 7, 2, 32, True, dtype=h)
+    qkv_s, bias_f, mask_s = _window_inputs(dev, 1, 14, 7, 2, 32, True, dtype=h)
+    w1, b1 = _rnd(dev, 192, 384, scale=0.1, dtype=w16), _rnd(dev, 384, dtype=w16)
+    w2, b2 = _rnd(dev, 384, 192, scale=0.1, dtype=w16), _rnd(dev, 192, dtype=w16)
+    sq, sk, sv = _qkv_views(dev, 1, 3, 197, 64, dtype=h)
+    img, w9 = _images(dev, "normal", 1, h), _stage1_weights(dev, dtype=w16)
+    xk, pp, pw = _performer_inputs(dev, 1, 784, dtype=h)
+    ops = pf.performer_operands(pp, pw, w16)
+    model, prep = _full_model(dev, dtype=w16)
+    fimg = torch.randn(1, 3, 224, 224, device=dev).to(h)
+    return {
+        "ln_rows": lambda: fe.ln_rows(x, g, b, 1e-6),
+        "linear": lambda: fe.linear(x, w, bias, epilogue=fe.CAST_THEN_BIAS),
+        "attention_rows": lambda: fe.attention_rows(_rnd(dev, 197, 576, dtype=h), heads=3,
+                                                    head_dim=64, tokens=197),
+        "quant_rows": lambda: fe.quant_rows(x),
+        "linear_i8": lambda: fe.linear_i8(q, None, w_q, w_s, bias, epilogue=fe.BIAS,
+                                          out_dtype=h),
+        "stage1_kqv": lambda: ts.stage1_kqv(img, *w9),
+        "window_attention": lambda: sb.window_attention(qkv_s, bias_f, mask_s, res=14, window=7,
+                                                        shift=3, heads=2, head_dim=32),
+        "swin_merge": lambda: sm.swin_merge(x[:196, :96].contiguous(), g4, b4, res=14,
+                                            eps=1e-5),
+        "window_sdpa": lambda: ws.window_sdpa(qkv_w, bias16.to(w16), mask, heads=2, head_dim=32),
+        "sdpa": lambda: fa.sdpa(sq, sk.to(w16), sv.to(w16)),
+        "mlp": lambda: fm.mlp(x, w1, b1, w2, b2),
+        "vit_full": lambda: tvit.fully_fused_vit_apply(model, fimg, prepared=prep),
+        "performer_reduce": lambda: pf.performer_reduce(xk, pw, operands=ops),
+        "performer_rows": lambda: pf.performer_rows(xk, pf.performer_reduce_plain(xk, pw), pp,
+                                                    pw, eps_ln=1e-5, approx_gelu=True,
+                                                    operands=ops),
+    }
+
+
+def test_float16_outputs_come_back_as_float16(dev):
+    """Every kernel's fp16 instance writes fp16 (quant_rows int8 and fp32
+    scales, performer_reduce its fp32 sums), one launch each."""
+    want = {"quant_rows": torch.int8, "performer_reduce": torch.float32}
+    for name, call in _float16_calls(dev).items():
+        _reset_all()
+        out = call()
+        torch.cuda.synchronize()
+        out = out[0] if isinstance(out, tuple) else out
+        assert out.dtype == want.get(name, torch.float16), name
+        assert torch.isfinite(out.float()).all(), name
+        assert _all_counts()[name] == 1, name
+
+
+def test_float16_activations_with_bfloat16_weights_raise(dev):
+    """No wrapper casts: fp16 activations with bf16 weights (or a bf16
+    operand among fp16 ones) raise TypeError, for every kernel that takes
+    more than one 16-bit tensor."""
+    for name, call in _float16_calls(dev, w16=torch.bfloat16).items():
+        if name in ("quant_rows", "attention_rows", "window_attention"):
+            continue  # one 16-bit tensor (window_attention's bias and mask are fp32)
+        with pytest.raises(TypeError):
+            call()
+
+
 # ---------------------------------------------------------------------------
 # int8: quant_rows and linear_i8
 # ---------------------------------------------------------------------------
@@ -292,11 +375,12 @@ def _uniform(dev, *shape, seed=0):
     return torch.rand(*shape, generator=g, device=dev) + 0.5
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("static", [False, True])
 @pytest.mark.parametrize("rows,k", [(1, 16), (197, 192), (197, 768), (1576, 3072),
                                     (25216, 192), (9, 48)])
-def test_quant_rows_kernel_equals_twin(dev, rows, k, static):
-    h = _rnd(dev, rows, k, scale=3.0)
+def test_quant_rows_kernel_equals_twin(dev, rows, k, static, dtype):
+    h = _rnd(dev, rows, k, scale=3.0, dtype=dtype)
     h[0] = 0  # absmax 0: s = 1
     act_inv = (30.0 * _uniform(dev, 3, 4, seed=1)).contiguous() if static else None
     q, s = fe.quant_rows(h, act_inv, 7)
@@ -311,15 +395,20 @@ def test_quant_rows_kernel_equals_twin(dev, rows, k, static):
                                    (1576, 3072, 768), (300, 208, 144)])
 @pytest.mark.parametrize("epilogue,approx", [
     (fe.BIAS, False), (fe.BIAS_GELU, False), (fe.BIAS_GELU, True), (fe.BIAS_RESIDUAL, False)])
-def test_linear_i8_kernel_matches_twin(dev, m, k, n, epilogue, approx, static):
-    """Bit for bit, except the GELU epilogue (erff / tanhf against torch's)."""
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_linear_i8_kernel_matches_twin(dev, m, k, n, epilogue, approx, static, dtype):
+    """Bit for bit, except the GELU epilogue (erff / tanhf against torch's);
+    the output and the residual in each dtype (fp16 at odd m with an fp16
+    bias)."""
     unit = 1.0 / (73.0 * 73.0 * k ** 0.5)
     q, w_q = _int8(dev, m, k), _int8(dev, k, n, seed=1)
     s_row = None if static else _uniform(dev, m, seed=2) * 0.05
     w_s = _uniform(dev, n, seed=3) * (unit if static else unit / 0.05)
     b = torch.randn(n, device=dev)
-    res = _rnd(dev, m, n, seed=4) if epilogue == fe.BIAS_RESIDUAL else None
-    kw = dict(epilogue=epilogue, out_dtype=torch.bfloat16, res=res, approx_gelu=approx)
+    if dtype == torch.float16 and m % 2:  # a bias in the compute dtype, as Swin's int8 stages
+        b = b.to(dtype)
+    res = _rnd(dev, m, n, seed=4, dtype=dtype) if epilogue == fe.BIAS_RESIDUAL else None
+    kw = dict(epilogue=epilogue, out_dtype=dtype, res=res, approx_gelu=approx)
     got = fe.linear_i8(q, s_row, w_q, w_s, b, **kw)
     ref = fe.linear_i8_plain(q, s_row, w_q, w_s, b, **kw)
     if epilogue == fe.BIAS_GELU:
@@ -516,25 +605,26 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
 # ---------------------------------------------------------------------------
 
 
-def _stage1_weights(dev, d=192, seed=0):
+def _stage1_weights(dev, d=192, seed=0, dtype=torch.bfloat16):
     """W9, M9, c1, c2 of a random performer1 (kqv kernel, bias, norm1 affine)."""
     rng = np.random.RandomState(seed)
     w = t2t.build_stage1_weights(rng.randn(147, d) * 147 ** -0.5, rng.randn(d) * 0.1,
                                  1.0 + 0.1 * rng.randn(147), 0.1 * rng.randn(147))
-    return w[0].to(dev, torch.bfloat16), w[1].to(dev), w[2].to(dev), w[3].to(dev)
+    return w[0].to(dev, dtype), w[1].to(dev), w[2].to(dev), w[3].to(dev)
 
 
-def _images(dev, kind, batch):
+def _images(dev, kind, batch, dtype=torch.bfloat16):
     if kind == "normal":
-        return _rnd(dev, batch, 3, 224, 224)
+        return _rnd(dev, batch, 3, 224, 224, dtype=dtype)
     value = {"ones": 1.0, "zeros": 0.0}[kind]  # a constant image: var ~ 0 in the interior
-    return torch.full((batch, 3, 224, 224), value, device=dev, dtype=torch.bfloat16)
+    return torch.full((batch, 3, 224, 224), value, device=dev, dtype=dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kind", ["normal", "ones", "zeros"])
 @pytest.mark.parametrize("batch,d", [(1, 192), (4, 192), (2, 64), (2, 256)])
-def test_stage1_kqv_kernel_matches_twin_and_counts(dev, batch, d, kind):
-    img, w = _images(dev, kind, batch), _stage1_weights(dev, d)
+def test_stage1_kqv_kernel_matches_twin_and_counts(dev, batch, d, kind, dtype):
+    img, w = _images(dev, kind, batch, dtype), _stage1_weights(dev, d, dtype=dtype)
     ts.reset_launches()
     got = ts.stage1_kqv(img, *w)
     assert ts.LAUNCHES["stage1_kqv"] == 1
@@ -657,11 +747,11 @@ def test_stage1_kqv_refuses_what_the_kernel_does_not_take(dev):
 LOG2E = 1.4426950408889634
 
 
-def _window_inputs(dev, batch, res, w, heads, hd, shifted, seed=0):
+def _window_inputs(dev, batch, res, w, heads, hd, shifted, seed=0, dtype=torch.bfloat16):
     """qkv, a log2(e)-scaled bias [heads, n, n] and, when shifted, the
     stage's log2(e)-scaled mask, as prepare_swin_fused builds them."""
     n = w * w
-    qkv = _rnd(dev, batch * res * res, 3 * heads * hd, seed=seed)
+    qkv = _rnd(dev, batch * res * res, 3 * heads * hd, seed=seed, dtype=dtype)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     bias = torch.randn(heads, n, n, generator=g, device=dev) * (0.5 * LOG2E)
     mask = (torch.from_numpy(swin.shifted_window_mask(res, res, w, w // 2)).to(dev) * LOG2E
@@ -675,11 +765,14 @@ def _window_inputs(dev, batch, res, w, heads, hd, shifted, seed=0):
     (1, 16, 8, 2, 64, True), (2, 18, 9, 2, 32, False), (2, 18, 9, 2, 32, True),
     (1, 96, 12, 4, 32, False), (1, 96, 12, 4, 32, True), (2, 24, 12, 2, 64, False),
     (2, 24, 12, 2, 64, True)])
-def test_window_attention_kernel_matches_twin_and_counts(dev, batch, res, w, heads, hd, shifted):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_attention_kernel_matches_twin_and_counts(dev, batch, res, w, heads, hd, shifted,
+                                                         dtype):
     """swin_tiny's four stage shapes, head_dim 64, a full 64-token window,
     windows of 9 (n = 81: 9 chunks, 63 keys zero-filled) and of 12 (Swin-B
-    at 384's first stage, and head_dim 64), shifted and not."""
-    qkv, bias, mask = _window_inputs(dev, batch, res, w, heads, hd, shifted)
+    at 384's first stage, and head_dim 64), shifted and not; fp16 on the
+    float16 softmax (the row max)."""
+    qkv, bias, mask = _window_inputs(dev, batch, res, w, heads, hd, shifted, dtype=dtype)
     kw = dict(res=res, window=w, shift=w // 2 if shifted else 0, heads=heads, head_dim=hd)
     sb.reset_launches()
     got = sb.window_attention(qkv, bias, mask, **kw)
@@ -756,9 +849,9 @@ def test_window_attention_agrees_with_the_wmma_kernel(dev, batch, res, heads, sh
           f"elements differ, max {float(diff.max()):.3g}")
 
 
-def _merge_args(dev, batch, res, c, affine="float32", seed=0):
-    """x and the affine g, b (``affine``) of one merge."""
-    x = _rnd(dev, batch * res * res, c, scale=3.0, seed=seed)
+def _merge_args(dev, batch, res, c, affine="float32", seed=0, dtype=torch.bfloat16):
+    """x (``dtype``) and the affine g, b (``affine``) of one merge."""
+    x = _rnd(dev, batch * res * res, c, scale=3.0, seed=seed, dtype=dtype)
     dt = getattr(torch, affine)
     g = (_rnd(dev, 4 * c, seed=seed + 1, scale=0.5) + 1).to(dt)
     b = _rnd(dev, 4 * c, seed=seed + 2, scale=0.5).to(dt)
@@ -769,10 +862,12 @@ def _merge_args(dev, batch, res, c, affine="float32", seed=0):
 SWIN_TINY_MERGES = [(96, 56), (192, 28), (384, 14)]
 
 
-@pytest.mark.parametrize("affine", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,affine", [(torch.bfloat16, "float32"),
+                                          (torch.bfloat16, "bfloat16"),
+                                          (torch.float16, "float32"), (torch.float16, "float16")])
 @pytest.mark.parametrize("batch,res,c", [(1, 56, 96), (2, 28, 192), (2, 14, 384), (3, 8, 16)])
-def test_swin_merge_kernel_matches_twin_and_counts(dev, batch, res, c, affine):
-    x, g, b = _merge_args(dev, batch, res, c, affine)
+def test_swin_merge_kernel_matches_twin_and_counts(dev, batch, res, c, affine, dtype):
+    x, g, b = _merge_args(dev, batch, res, c, affine, dtype=dtype)
     sm.reset_launches()
     got = sm.swin_merge(x, g, b, res=res, eps=1e-5)
     assert sm.LAUNCHES["swin_merge"] == 1 and got.shape == (batch * (res // 2) ** 2, 4 * c)
@@ -863,12 +958,13 @@ def test_fused_swin_apply_fp32_on_the_card_raises(dev):
 # ---------------------------------------------------------------------------
 
 
-def _sdpa_inputs(dev, batch, res, w, heads, hd, shifted, seed=0):
-    """Window-major qkv of ``batch`` images, a bf16 bias [heads, n, n] and,
-    when shifted, the stage's fp32 mask, as the module passes them."""
+def _sdpa_inputs(dev, batch, res, w, heads, hd, shifted, seed=0, dtype=torch.bfloat16):
+    """Window-major qkv of ``batch`` images, a bias [heads, n, n] in its
+    dtype and, when shifted, the stage's fp32 mask, as the module passes
+    them."""
     n, nw = w * w, (res // w) ** 2
-    qkv = _rnd(dev, batch * nw, n, 3 * heads * hd, seed=seed)
-    bias = _rnd(dev, heads, n, n, scale=0.5, seed=seed + 1)
+    qkv = _rnd(dev, batch * nw, n, 3 * heads * hd, seed=seed, dtype=dtype)
+    bias = _rnd(dev, heads, n, n, scale=0.5, seed=seed + 1, dtype=dtype)
     mask = (torch.from_numpy(swin.shifted_window_mask(res, res, w, w // 2)).to(dev)
             if shifted else None)
     return qkv, bias, mask
@@ -882,12 +978,14 @@ def _sdpa_inputs(dev, batch, res, w, heads, hd, shifted, seed=0):
     (32, 28, 7, 6, 32, True), (32, 14, 7, 12, 32, False), (32, 14, 7, 12, 32, True),
     (32, 7, 7, 24, 32, False), (1, 96, 12, 4, 32, False), (1, 96, 12, 4, 32, True),
     (2, 24, 12, 2, 64, True), (1, 18, 9, 2, 32, True)])
-def test_window_sdpa_kernel_matches_twin_and_counts(dev, batch, res, w, heads, hd, shifted):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_sdpa_kernel_matches_twin_and_counts(dev, batch, res, w, heads, hd, shifted,
+                                                    dtype):
     """swin_tiny's four stage shapes at b1 and b32 (where the plan walks
     several heads a block), the mask tiled over 2 and 3 images, head_dim 64,
     a full 64-token window, windows of 12 (Swin-B at 384's first stage, and
     head_dim 64) and 9 (n = 81)."""
-    qkv, bias, mask = _sdpa_inputs(dev, batch, res, w, heads, hd, shifted)
+    qkv, bias, mask = _sdpa_inputs(dev, batch, res, w, heads, hd, shifted, dtype=dtype)
     ws.reset_launches()
     got = ws.window_sdpa(qkv, bias, mask, heads=heads, head_dim=hd)
     assert ws.LAUNCHES["window_sdpa"] == 1
@@ -1111,9 +1209,9 @@ def test_linear_i8_kernel_any_width_matches_twin(dev, m, k, n, epilogue, approx,
 # ---------------------------------------------------------------------------
 
 
-def _qkv_views(dev, b, h, n, d, seed=0):
+def _qkv_views(dev, b, h, n, d, seed=0, dtype=torch.bfloat16):
     """q, k, v of [b, h, n, d] as views of a fused [b, n, 3 h d] activation."""
-    qkv = _rnd(dev, b, n, 3 * h * d, seed=seed)
+    qkv = _rnd(dev, b, n, 3 * h * d, seed=seed, dtype=dtype)
     parts = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
     return parts[0], parts[1], parts[2]
 
@@ -1126,8 +1224,9 @@ def _qkv_views(dev, b, h, n, d, seed=0):
                                      (2, 4, 65, 16), (1, 2, 100, 128), (1, 1, 1, 64),
                                      (1, 2, 256, 64), (2, 1, 257, 64), (1, 1, 1000, 64),
                                      (1, 2, 197, 128)])
-def test_sdpa_kernel_matches_twin_and_counts(dev, b, h, n, d):
-    q, k, v = _qkv_views(dev, b, h, n, d)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sdpa_kernel_matches_twin_and_counts(dev, b, h, n, d, dtype):
+    q, k, v = _qkv_views(dev, b, h, n, d, dtype=dtype)
     fa.reset_launches()
     got = fa.sdpa(q, k, v)
     assert fa.LAUNCHES["sdpa"] == 1 and got.is_contiguous()
@@ -1158,10 +1257,13 @@ def test_attention_writes_the_merged_heads_in_place(dev):
                                              (197, 192, 537), (394, 384, 460), (3, 64, 13),
                                              (1, 192, 768), (6304, 384, 1152), (197, 200, 768)])
 @pytest.mark.parametrize("approx", [False, True])
-def test_mlp_kernel_matches_twin_and_counts(dev, rows, dim, hidden, approx):
-    x = _rnd(dev, rows, dim, scale=2.0)
-    w1, b1 = _rnd(dev, dim, hidden, scale=dim ** -0.5, seed=1), _rnd(dev, hidden, seed=2)
-    w2, b2 = _rnd(dev, hidden, dim, scale=hidden ** -0.5, seed=3), _rnd(dev, dim, seed=4)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mlp_kernel_matches_twin_and_counts(dev, rows, dim, hidden, approx, dtype):
+    x = _rnd(dev, rows, dim, scale=2.0, dtype=dtype)
+    w1 = _rnd(dev, dim, hidden, scale=dim ** -0.5, seed=1, dtype=dtype)
+    b1 = _rnd(dev, hidden, seed=2, dtype=dtype)
+    w2 = _rnd(dev, hidden, dim, scale=hidden ** -0.5, seed=3, dtype=dtype)
+    b2 = _rnd(dev, dim, seed=4, dtype=dtype)
     fm.reset_launches()
     got = fm.mlp(x, w1, b1, w2, b2, approx_gelu=approx)
     assert fm.LAUNCHES["mlp"] == 1
@@ -1328,8 +1430,8 @@ def test_pruned_fused_vit_apply_int8_on_kernels_matches_plain_and_counts(dev, en
 # ---------------------------------------------------------------------------
 
 
-def _full_model(dev, style="standard", size="tiny", **kw):
-    cfg = deit_config(size, style, depth=2, dtype=torch.bfloat16, **kw)
+def _full_model(dev, style="standard", size="tiny", dtype=torch.bfloat16, **kw):
+    cfg = deit_config(size, style, depth=2, dtype=dtype, **kw)
     model = ViT(cfg, device=dev, generator=torch.Generator().manual_seed(3))
     return model, tvit.prepare_vit_full(model)
 
@@ -1354,8 +1456,9 @@ def _full_args(model):
     ("tiny", 3, dict(dim=128, heads=4, mlp_dim=512)),
     ("tiny", 1, dict(dim=256, heads=2, mlp_dim=1024)),
     ("tiny", 16, dict(dim=256, heads=2, mlp_dim=1024))])
-def test_vit_full_kernel_matches_twin_under_every_plan_form(dev, size, batch, kw):
-    model, prep = _full_model(dev, size=size, **kw)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vit_full_kernel_matches_twin_under_every_plan_form(dev, size, batch, kw, dtype):
+    model, prep = _full_model(dev, size=size, dtype=dtype, **kw)
     img = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(8)).to(dev)
     with torch.no_grad():
         vf.reset_launches()
@@ -1364,6 +1467,7 @@ def test_vit_full_kernel_matches_twin_under_every_plan_form(dev, size, batch, kw
         ref = vf.vit_full_forward_plain(img, prep, **_full_args(model))
     torch.cuda.synchronize()
     assert launches == 1 and got.shape == ref.shape and torch.isfinite(got.float()).all()
+    assert got.dtype == dtype
     err = (got.float() - ref.float()).abs().max()
     assert err <= ATOL + RTOL * ref.float().abs().max(), err
 
@@ -1484,7 +1588,7 @@ def test_vit_full_refuses_what_the_kernel_does_not_take(dev):
         tvit.fully_fused_vit_apply(model, img.cpu(), prepared=prep)
 
 
-def _performer_inputs(dev, batch, n, seed=0):
+def _performer_inputs(dev, batch, n, seed=0, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
     p = {"attn_output": {"kernel": torch.randn(64, 64, generator=g) * 0.1,
                          "bias": torch.randn(64, generator=g) * 0.1},
@@ -1497,7 +1601,7 @@ def _performer_inputs(dev, batch, n, seed=0):
     p = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev))
          for k, v in p.items()}
     w = (torch.randn(32, 64, generator=g) * 0.3).to(dev)
-    x = (torch.randn(batch, n, 192, generator=g) * 0.5).to(dev, torch.bfloat16)
+    x = (torch.randn(batch, n, 192, generator=g) * 0.5).to(dev, dtype)
     return x, p, w
 
 
@@ -1508,8 +1612,9 @@ def _performer_inputs(dev, batch, n, seed=0):
                                      (4, 3136), (1, 784), (4, 784), (32, 3136), (32, 784),
                                      (2, 3200)])
 @pytest.mark.parametrize("approx", [True, False])
-def test_performer_kernels_match_twin_and_count(dev, batch, n, approx):
-    x, p, w = _performer_inputs(dev, batch, n)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_performer_kernels_match_twin_and_count(dev, batch, n, approx, dtype):
+    x, p, w = _performer_inputs(dev, batch, n, dtype=dtype)
     pf.reset_launches()
     got = pf.performer_rest(x, p, w, eps_ln=1e-5, approx_gelu=approx)
     assert pf.LAUNCHES == {"performer_reduce": 1, "performer_rows": 1}
