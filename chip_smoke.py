@@ -126,7 +126,26 @@ Phases, in order; any failure exits non-zero before the last line:
    ``F16_TIMES`` cells in bf16 and in fp16, one after the other, and the
    ``linear``, ``attention_rows``, ``vit_full`` and ``window_attention`` rows
    at fp16 beside bf16.  The kernels line carries a ``<kernel> fp16`` row for
-   each kernel's fp16 instance.
+   each kernel's fp16 instance;
+10. published checkpoints, evaluation and the CNN zoo: state dicts built from
+   a seed under the published key names (the machine has no transformers):
+   ViT-B/16 (transformers' ``ViTForImageClassification``, eps 1e-12) through
+   ``utils/hf_import.vit_config_from_hf`` / ``import_hf_vit`` and
+   ``load_jax_params``, served by ``fused_vit_apply`` at b1 and b32 and static
+   int8 at b1, its b1 device p50 beside phase 5's deit_base b1; Swin-T
+   (``SwinForImageClassification``) through ``import_hf_swin`` at b1 and b32;
+   T2T-ViT-14 saved as an official ``.pth.tar`` (``state_dict_ema``) and read
+   by ``load_t2t_checkpoint`` (exact GELU, no qkv bias, eps 1e-5) through
+   ``fused_t2t_apply`` at b1 and b32 -- logits against the twins, exact launch
+   counts; ``utils/imagenet.evaluate`` (native preprocessing built from
+   ``native/preprocess.cpp``, ``native=True``, b32 with a padded tail) over 70
+   BMPs in 4 classes with ViT-B/16 on the kernels and on the twins (each
+   image's logits within ``LOGIT_REL``, top-1 equal up to near-ties) and
+   with a one-hot head (top-1 exactly class 2's
+   share), images/s of evaluate and of the forward; the 15 CNNs of
+   ``models/cnn`` from the registry at 224, fp32 on the card (TF32 off)
+   against their CPU forward at b1 and b8 (and b1 with TF32 on, printed), a
+   bf16 cast, eager p50 at b1 and b32; the phase's seconds and peak memory.
 
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
@@ -2034,7 +2053,7 @@ def phase_time_full(torch, harness, vf, models, preps):
 
 def phase_time_base(torch, harness, models, stacks):
     """deit_base b1 device p50, bf16 against int8 static: the weight-bytes
-    case the TPU int8 kernel was written for."""
+    case the TPU int8 kernel was written for; returns the bf16 p50."""
     from edgevisiontransformer_tpu_torch.models.vit import fused_vit_apply, fused_vit_apply_int8
 
     model, shape, stacked = models[("deit_base", "standard")]
@@ -2048,6 +2067,7 @@ def phase_time_base(torch, harness, models, stacks):
     print(f"  deit_base b1 device p50: bf16 {d16['p50_ms']:.4f} ms (std {d16['std_ms']:.4f}), "
           f"int8 static {d8['p50_ms']:.4f} ms (std {d8['std_ms']:.4f}), "
           f"int8 / bf16 {d8['p50_ms'] / d16['p50_ms']:.3f}")
+    return d16["p50_ms"]
 
 
 # Phase 7: training on the card.  deit_tiny standard, fp32 parameters and
@@ -3246,6 +3266,471 @@ def phase_time_f16(torch, harness, mods):
     del both
 
 
+# Phase 10: published checkpoints imported under their key names, evaluation
+# on an image folder, the CNN zoo.  The GPU machine has no transformers and
+# no network, so each state dict is built from a seed under the published
+# names and shapes (tests/test_torch_hf_import.py holds these builders'
+# names and shapes to transformers' own models and to the JAX importers).
+# google/vit-base-patch16-224's shapes: transformers' ViTConfig defaults
+# (layer_norm_eps 1e-12) with ImageNet's 1000 labels
+HF_VIT_B16 = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                  intermediate_size=3072, image_size=224, patch_size=16, num_channels=3,
+                  qkv_bias=True, layer_norm_eps=1e-12, num_labels=1000)
+# microsoft/swin-tiny-patch4-window7-224's shapes: SwinConfig's defaults
+HF_SWIN_T = dict(image_size=224, patch_size=4, num_channels=3, embed_dim=96,
+                 depths=[2, 2, 6, 2], num_heads=[3, 6, 12, 24], window_size=7, mlp_ratio=4.0,
+                 qkv_bias=True, layer_norm_eps=1e-5, num_labels=1000)
+# The official T2T-ViT-14 checkpoint (81.5_T2T_ViT_14.pth.tar)
+T2T_VARIANT = 14
+IMPORT_BATCHES = (1, 32)
+# The image folder: 70 uncompressed 24-bit BMPs in 4 classes, sizes not
+# square, (width, height) alternating; evaluate at b32 pads its last batch
+# (6 images) to 32
+EVAL_CLASS_SIZES = (21, 16, 19, 14)
+EVAL_IMAGE_SIZES = ((300, 260), (256, 384))
+EVAL_BATCH = 32
+ONE_HOT_CLASS = 2
+# The CNN zoo on the card against the same module's CPU forward: both fp32,
+# TF32 off; cuDNN's and the CPU's convolutions sum in other orders.  The
+# bound the CPU tests hold the port to JAX with; each model's b1 is also read
+# with TF32 on and printed, the fault this bound is there to catch
+CNN_REL = 1e-5
+CNN_BATCHES = (1, 8)
+CNN_TIME_BATCHES = (1, 32)
+
+
+def hf_vit_state_dict(torch, c, gen) -> dict:
+    """A ``ViTForImageClassification`` state dict for the transformers-style
+    config ``c`` (any object with ViTConfig's fields), values from ``gen``:
+    N(0, 0.02) weights and biases (transformers' ``initializer_range``),
+    LayerNorm affines near (1, 0)."""
+    d, mlp, p = c.hidden_size, c.intermediate_size, c.patch_size
+    w = lambda *s: torch.randn(*s, generator=gen) * 0.02  # noqa: E731
+    sd = {"vit.embeddings.cls_token": w(1, 1, d),
+          "vit.embeddings.position_embeddings": w(1, (c.image_size // p) ** 2 + 1, d),
+          "vit.embeddings.patch_embeddings.projection.weight": w(d, c.num_channels, p, p),
+          "vit.embeddings.patch_embeddings.projection.bias": w(d)}
+
+    def ln(name, n):
+        sd[f"{name}.weight"] = 1 + 0.1 * torch.randn(n, generator=gen)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(n, generator=gen)
+
+    for i in range(c.num_hidden_layers):
+        lp = f"vit.encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            sd[f"{lp}attention.attention.{name}.weight"] = w(d, d)
+            if c.qkv_bias:
+                sd[f"{lp}attention.attention.{name}.bias"] = w(d)
+        for name, shape in (("attention.output.dense", (d, d)), ("intermediate.dense", (mlp, d)),
+                            ("output.dense", (d, mlp))):
+            sd[f"{lp}{name}.weight"], sd[f"{lp}{name}.bias"] = w(*shape), w(shape[0])
+        ln(f"{lp}layernorm_before", d)
+        ln(f"{lp}layernorm_after", d)
+    ln("vit.layernorm", d)
+    sd["classifier.weight"], sd["classifier.bias"] = w(c.num_labels, d), w(c.num_labels)
+    return sd
+
+
+def hf_swin_state_dict(torch, c, gen) -> dict:
+    """A ``SwinForImageClassification`` state dict for the transformers-style
+    config ``c``, values as :func:`hf_vit_state_dict`'s; each block's
+    ``relative_position_index`` buffer is transformers' (the importer
+    reads the table only), both sized by ``c.window_size``."""
+    w = lambda *s: torch.randn(*s, generator=gen) * 0.02  # noqa: E731
+    p, dim, res = c.patch_size, c.embed_dim, c.image_size // c.patch_size
+    sd = {"swin.embeddings.patch_embeddings.projection.weight": w(dim, c.num_channels, p, p),
+          "swin.embeddings.patch_embeddings.projection.bias": w(dim)}
+
+    def ln(name, n):
+        sd[f"{name}.weight"] = 1 + 0.1 * torch.randn(n, generator=gen)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(n, generator=gen)
+
+    ln("swin.embeddings.norm", dim)
+    for si, (depth, heads) in enumerate(zip(c.depths, c.num_heads)):
+        win = c.window_size  # the table's size, whatever window the stage runs
+        coords = torch.stack(torch.meshgrid(torch.arange(win), torch.arange(win),
+                                            indexing="ij")).flatten(1)
+        rel = (coords[:, :, None] - coords[:, None, :]).permute(1, 2, 0) + (win - 1)
+        index = rel[:, :, 0] * (2 * win - 1) + rel[:, :, 1]
+        hidden = int(c.mlp_ratio * dim)
+        for bi in range(depth):
+            lp = f"swin.encoder.layers.{si}.blocks.{bi}."
+            ln(f"{lp}layernorm_before", dim)
+            sd[f"{lp}attention.self.relative_position_bias_table"] = w((2 * win - 1) ** 2, heads)
+            sd[f"{lp}attention.self.relative_position_index"] = index.clone()
+            for name in ("query", "key", "value"):
+                sd[f"{lp}attention.self.{name}.weight"] = w(dim, dim)
+                sd[f"{lp}attention.self.{name}.bias"] = w(dim)
+            for name, shape in (("attention.output.dense", (dim, dim)),
+                                ("intermediate.dense", (hidden, dim)),
+                                ("output.dense", (dim, hidden))):
+                sd[f"{lp}{name}.weight"], sd[f"{lp}{name}.bias"] = w(*shape), w(shape[0])
+            ln(f"{lp}layernorm_after", dim)
+        if si < len(c.depths) - 1:
+            dp = f"swin.encoder.layers.{si}.downsample."
+            sd[f"{dp}reduction.weight"] = w(2 * dim, 4 * dim)
+            ln(f"{dp}norm", 4 * dim)
+            dim, res = 2 * dim, res // 2
+    ln("swin.layernorm", dim)
+    sd["classifier.weight"], sd["classifier.bias"] = w(c.num_labels, dim), w(c.num_labels)
+    return sd
+
+
+def t2t_state_dict(torch, cfg, gen, token_size: int = 64) -> dict:
+    """An official T2T-ViT state dict (yitu-opensource ``models/t2t_vit.py``
+    and ``token_performer.py`` names) for the port's config ``cfg``: Linear
+    weights and biases N(0, 0.02), each performer's frozen ``w`` orthogonal
+    x sqrt(m), the sinusoid ``pos_embed``, no qkv bias (``qkv_bias=False``)."""
+    from edgevisiontransformer_tpu_torch.models.t2t_vit import sinusoid_encoding
+
+    w = lambda *s: torch.randn(*s, generator=gen) * 0.02  # noqa: E731
+    sd = {}
+
+    def lin(name, n_out, n_in, bias=True):
+        sd[f"{name}.weight"] = w(n_out, n_in)
+        if bias:
+            sd[f"{name}.bias"] = w(n_out)
+
+    def ln(name, n):
+        sd[f"{name}.weight"] = 1 + 0.1 * torch.randn(n, generator=gen)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(n, generator=gen)
+
+    m = token_size // 2  # kernel_ratio 0.5
+    for tag, in_dim in (("attention1", 3 * 7 * 7), ("attention2", token_size * 3 * 3)):
+        pre = f"tokens_to_token.{tag}"
+        lin(f"{pre}.kqv", 3 * token_size, in_dim)
+        lin(f"{pre}.proj", token_size, token_size)
+        ln(f"{pre}.norm1", in_dim)
+        ln(f"{pre}.norm2", token_size)
+        lin(f"{pre}.mlp.0", token_size, token_size)
+        lin(f"{pre}.mlp.2", token_size, token_size)
+        rf = torch.empty(m, token_size)
+        torch.nn.init.orthogonal_(rf, generator=gen)
+        sd[f"{pre}.w"] = rf * math.sqrt(m)
+    lin("tokens_to_token.project", cfg.dim, token_size * 3 * 3)
+    n = (cfg.image_size // 16) ** 2 + 1
+    sd["cls_token"] = w(1, 1, cfg.dim)
+    sd["pos_embed"] = torch.from_numpy(sinusoid_encoding(n, cfg.dim))[None]
+    for i in range(cfg.depth):
+        pre = f"blocks.{i}"
+        ln(f"{pre}.norm1", cfg.dim)
+        lin(f"{pre}.attn.qkv", 3 * cfg.dim, cfg.dim, bias=cfg.qkv_bias)
+        lin(f"{pre}.attn.proj", cfg.dim, cfg.dim)
+        ln(f"{pre}.norm2", cfg.dim)
+        lin(f"{pre}.mlp.fc1", cfg.mlp_dim, cfg.dim)
+        lin(f"{pre}.mlp.fc2", cfg.dim, cfg.mlp_dim)
+    ln("norm", cfg.dim)
+    lin("head", cfg.num_classes, cfg.dim)
+    return sd
+
+
+def write_bmp(path: Path, rgb) -> None:
+    """An HWC uint8 RGB image as an uncompressed 24-bit BMP (bottom-up rows,
+    BGR, each row padded to 4 bytes), with numpy alone."""
+    import struct
+
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    head = b"BM" + struct.pack("<IHHI", 14 + len(info) + rows.size, 0, 0, 14 + len(info))
+    path.write_bytes(head + info + rows.tobytes())
+
+
+def write_image_folder(root: Path, seed: int) -> list:
+    """``EVAL_CLASS_SIZES`` images per class under ``root/class_<k>/``, smooth
+    random colour fields plus noise from ``seed``; returns the labels in
+    ``list_image_folder``'s order."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    labels, i = [], 0
+    for k, count in enumerate(EVAL_CLASS_SIZES):
+        (root / f"class_{k}").mkdir(parents=True)
+        for j in range(count):
+            w, h = EVAL_IMAGE_SIZES[i % len(EVAL_IMAGE_SIZES)]
+            yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+            base = np.stack([np.sin(rng.uniform(1, 9) * xx + rng.uniform(0, 6) * yy
+                                    + rng.uniform(0, 6)) for _ in range(3)], axis=-1)
+            img = np.clip(127.5 + 100 * base + rng.randn(h, w, 3) * 20, 0, 255).astype(np.uint8)
+            write_bmp(root / f"class_{k}" / f"img_{j:03d}.bmp", img)
+            labels.append(k)
+            i += 1
+    return labels
+
+
+def phase_imports(torch, counter, harness, base_b1_ms):
+    """ViT-B/16 (transformers' layout) through ``vit_config_from_hf`` /
+    ``import_hf_vit`` / ``load_jax_params``, served bf16 at b1 and b32 and
+    static int8 (8 representative batches) at b1; Swin-T through
+    ``import_hf_swin`` at b1 and b32; T2T-ViT-14 from an official-layout
+    ``.pth.tar`` (``{"state_dict_ema": ...}``) through ``load_t2t_checkpoint``
+    at b1 and b32 (the official config: exact GELU, no qkv bias, eps 1e-5).
+    Returns (launches, worst deviation, the ViT-B/16 state for evaluation)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from edgevisiontransformer_tpu_torch.models.swin import (SwinTransformer, fused_swin_apply,
+                                                              prepare_swin_fused)
+    from edgevisiontransformer_tpu_torch.models.t2t_vit import (T2TViT, fused_t2t_apply,
+                                                                 prepare_t2t_fused)
+    from edgevisiontransformer_tpu_torch.models.vit import (ViT, fused_vit_apply,
+                                                             fused_vit_apply_int8,
+                                                             prepare_vit_fused,
+                                                             prepare_vit_int8_static)
+    from edgevisiontransformer_tpu_torch.ops.quant import representative_batches
+    from edgevisiontransformer_tpu_torch.utils import hf_import as hi
+    from edgevisiontransformer_tpu_torch.utils.jax_bridge import (load_jax_params,
+                                                                  load_jax_variables)
+
+    bf16 = torch.bfloat16
+    launches = {k: 0 for k in counter.read()}
+    worst = 0.0
+
+    def request(tag, apply, batch, seed, want, classes):
+        nonlocal worst
+        img = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(seed))
+        img = img.to(DEVICE)
+        with torch.no_grad():
+            counter.reset()
+            logits = apply(img, False)
+            torch.cuda.synchronize()
+            counts = counter.read()
+            ref = apply(img, True)
+        if counts != want:
+            fail(f"{tag}: launch counts {counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        rel, err, scale, agree = check_logits(tag, logits, ref, batch, classes)
+        worst = max(worst, rel)
+        print(f"  {tag:34s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} (max|logit| "
+              f"{scale:.4g}), top-1 agreement {agree:.3f}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        return img
+
+    t0 = time.perf_counter()
+    hf = SimpleNamespace(**HF_VIT_B16)
+    cfg = hi.vit_config_from_hf(hf)
+    if (cfg.layernorm_eps, cfg.num_classes, cfg.dim, cfg.qkv_bias) != (1e-12, 1000, 768, True):
+        fail(f"vit_config_from_hf: {cfg}")
+    tree = hi.import_hf_vit(hf_vit_state_dict(torch, hf, torch.Generator().manual_seed(10)), cfg)
+    vit = load_jax_params(ViT(cfg.replace(dtype=bf16), device=DEVICE), tree["params"])
+    with torch.no_grad():
+        stacked = prepare_vit_fused(vit)
+        sq = prepare_vit_int8_static(vit, calib_batches=representative_batches(
+            n=8, shape=(3, 224, 224)))
+    torch.cuda.synchronize()
+    print(f"  ViT-B/16 (transformers' names, eps {cfg.layernorm_eps:g}): imported, bf16 stack "
+          f"and static int8 stack prepared in {time.perf_counter() - t0:.2f} s")
+    vit_apply = lambda img, plain: fused_vit_apply(vit, img, stacked=stacked, plain=plain)  # noqa
+    for batch, seed in zip(IMPORT_BATCHES, (3000, 3010)):
+        img = request(f"ViT-B/16 bf16 b{batch}", vit_apply, batch, seed,
+                      want_launches(BF16_LAUNCHES, cfg.depth), cfg.num_classes)
+        if batch == 1:
+            img1 = img
+    request("ViT-B/16 int8 static b1", lambda img, plain: fused_vit_apply_int8(
+        vit, img, stacked_q=sq, plain=plain), 1, 3020, want_launches(INT8_LAUNCHES, cfg.depth),
+        cfg.num_classes)
+    with torch.no_grad():
+        d = harness.measure_graph_time(lambda: vit_apply(img1, False), iters=10, repeats=5)
+    print(f"  ViT-B/16 bf16 b1 device p50 {d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}); phase 5's "
+          f"deit_base b1, the same shapes: {base_b1_ms:.4f} ms; ratio "
+          f"{d['p50_ms'] / base_b1_ms:.3f}")
+
+    t0 = time.perf_counter()
+    hf = SimpleNamespace(**HF_SWIN_T)
+    scfg = hi.swin_config_from_hf(hf).replace(dtype=bf16)
+    tree = hi.import_hf_swin(hf_swin_state_dict(torch, hf, torch.Generator().manual_seed(11)),
+                             scfg)
+    swin = load_jax_params(SwinTransformer(scfg, device=DEVICE), tree["params"])
+    prepared = prepare_swin_fused(swin)
+    torch.cuda.synchronize()
+    print(f"  Swin-T (transformers' names): imported and prepared in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for batch, seed in zip(IMPORT_BATCHES, (3100, 3110)):
+        request(f"Swin-T bf16 b{batch}", lambda img, plain: fused_swin_apply(
+            swin, img, prepared=prepared, plain=plain), batch, seed, want_swin_launches(scfg),
+            scfg.num_classes)
+    del swin, prepared
+
+    t0 = time.perf_counter()
+    tcfg = hi.t2t_config_from_variant(T2T_VARIANT)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "81.5_T2T_ViT_14.pth.tar"
+        torch.save({"state_dict_ema": t2t_state_dict(torch, tcfg, torch.Generator().manual_seed(
+            12))}, path)
+        tcfg, variables = hi.load_t2t_checkpoint(str(path), T2T_VARIANT)
+    if (tcfg.gelu_approx, tcfg.qkv_bias, tcfg.layernorm_eps, tcfg.reference_residual) != (
+            False, False, 1e-5, False):
+        fail(f"t2t_config_from_variant: {tcfg}")
+    t2t = load_jax_variables(T2TViT(tcfg.replace(dtype=bf16), device=DEVICE), variables)
+    with torch.no_grad():
+        t_prepared, t_stacked = prepare_t2t_fused(t2t), prepare_vit_fused(t2t)
+    torch.cuda.synchronize()
+    print(f"  T2T-ViT-14 (the official .pth.tar layout; exact GELU, no qkv bias, eps "
+          f"{tcfg.layernorm_eps:g}): loaded and prepared in {time.perf_counter() - t0:.2f} s")
+    for batch, seed in zip(IMPORT_BATCHES, (3200, 3210)):
+        request(f"T2T-ViT-14 official bf16 b{batch}", lambda img, plain: fused_t2t_apply(
+            t2t, img, prepared=t_prepared, stacked=t_stacked, plain=plain), batch, seed,
+            want_launches(BF16_LAUNCHES, tcfg.depth, stage1=int(batch < 8), performers=2),
+            tcfg.num_classes)
+    return launches, worst, (vit, stacked)
+
+
+def phase_eval(torch, harness, state):
+    """``utils/imagenet.evaluate`` over an image folder of BMPs (the native
+    preprocessing built from ``native/preprocess.cpp``, ``native=True``, b32
+    with a padded tail) with the imported ViT-B/16 on the kernels and on the
+    twins (each image's logits within ``LOGIT_REL``, top-1 equal up to
+    near-ties), and with a zero head whose bias is one-hot on
+    ``ONE_HOT_CLASS``; images/s of ``evaluate`` and of the forward alone."""
+    import tempfile
+
+    import numpy as np
+
+    from edgevisiontransformer_tpu_torch.models.vit import fused_vit_apply
+    from edgevisiontransformer_tpu_torch.utils import native_preprocess as npre
+    from edgevisiontransformer_tpu_torch.utils.imagenet import (evaluate, iterate_batches,
+                                                                 list_image_folder)
+
+    vit, stacked = state
+    kernels = lambda x: fused_vit_apply(vit, x, stacked=stacked)  # noqa: E731
+    twins = lambda x: fused_vit_apply(vit, x, stacked=stacked, plain=True)  # noqa: E731
+    t0 = time.perf_counter()
+    if not npre.available():
+        fail(f"native preprocessing did not build from {npre.SOURCE}")
+    print(f"  native preprocessing built from the repo's source in "
+          f"{time.perf_counter() - t0:.2f} s: {npre.library_path()}")
+    n = sum(EVAL_CLASS_SIZES)
+    with tempfile.TemporaryDirectory() as tmp:
+        labels = write_image_folder(Path(tmp), seed=4000)
+        samples, classes = list_image_folder(tmp)
+        if [lab for _, lab in samples] != labels or len(classes) != len(EVAL_CLASS_SIZES):
+            fail(f"list_image_folder: {len(samples)} images in {classes}")
+        kw = dict(batch_size=EVAL_BATCH, native=True, device=DEVICE)
+        t0 = time.perf_counter()
+        acc_k = evaluate(kernels, tmp, **kw)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        acc_t = evaluate(twins, tmp, **kw)
+        # per image: the same batches, padded as evaluate pads them
+        got, ref = [], []
+        with torch.no_grad():
+            for x, _ in iterate_batches(samples, EVAL_BATCH, native=True):
+                m = x.shape[0]
+                x = np.concatenate([x, np.zeros((EVAL_BATCH - m,) + x.shape[1:], x.dtype)])
+                xd = torch.from_numpy(x).to(DEVICE)
+                got.append(kernels(xd)[:m].float().cpu())
+                ref.append(twins(xd)[:m].float().cpu())
+        got, ref = torch.cat(got), torch.cat(ref)
+        y = torch.tensor(labels)
+        for tag, acc, logits in (("kernels", acc_k, got), ("twins", acc_t, ref)):
+            if acc != float((logits.argmax(-1) == y).sum()) / n:
+                fail(f"evaluate ({tag}) top-1 {acc} is not that of its per-image predictions")
+        # each image's logits within the logit bound of its twins'
+        rel = (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+        if not bool(torch.isfinite(got).all()) or bool((rel > LOGIT_REL).any()):
+            fail(f"evaluate: kernels' logits part from the twins' by more than {LOGIT_REL} x "
+                 f"max|logit| on images {(rel > LOGIT_REL).nonzero().flatten().tolist()} "
+                 f"(worst {float(rel.max()):.4g}), or are not finite")
+        top2 = ref.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        near = gap <= LOGIT_REL * float(ref.abs().max())
+        parted = got.argmax(-1) != ref.argmax(-1)
+        if bool((parted & ~near).any()):
+            fail(f"evaluate: kernels' and twins' top-1 part on images whose twin top-2 gap is "
+                 f"above the logit bound: {parted.nonzero().flatten().tolist()}")
+        head = {k: v.detach().clone() for k, v in vit.head.named_parameters()}
+        with torch.no_grad():
+            vit.head.kernel.zero_()
+            vit.head.bias.zero_()
+            vit.head.bias[ONE_HOT_CLASS] = 1.0
+        try:
+            acc_1 = evaluate(kernels, tmp, **kw)
+        finally:
+            with torch.no_grad():
+                for k, v in vit.head.named_parameters():
+                    v.copy_(head[k])
+        want = EVAL_CLASS_SIZES[ONE_HOT_CLASS] / n
+        if acc_1 != want:
+            fail(f"evaluate with a one-hot head: top-1 {acc_1}, expected {want}")
+        x32 = torch.randn(EVAL_BATCH, 3, 224, 224,
+                          generator=torch.Generator().manual_seed(4100)).to(DEVICE)
+        with torch.no_grad():
+            e = harness.measure_op_time(kernels, (x32,), iters=5, repeats=5)
+    print(f"  evaluate over {n} BMPs ({len(classes)} classes, b{EVAL_BATCH}, native, padded "
+          f"tail): top-1 kernels {acc_k:.4f}, twins {acc_t:.4f} (random weights); "
+          f"{int(parted.sum())} image(s) part, {int(near.sum())} near-tie image(s) (twin top-2 "
+          f"within {LOGIT_REL} x max|logit|); per image max|kernels - twins| <= "
+          f"{float(rel.max()):.4g} x its max|logit|; one-hot head on class {ONE_HOT_CLASS}: "
+          f"{acc_1:.4f} = {EVAL_CLASS_SIZES[ONE_HOT_CLASS]}/{n}")
+    print(f"  evaluate (kernels): {eval_s:.3f} s, {n / eval_s:.1f} img/s with host decode and "
+          f"preprocessing; the forward alone at b{EVAL_BATCH}: eager p50 {e['p50_ms']:.4f} ms, "
+          f"{EVAL_BATCH * 1e3 / e['p50_ms']:.1f} img/s")
+
+
+def phase_cnn(torch, harness):
+    """Every CNN of the zoo from the registry at 224: fp32 on the card (TF32
+    off) against the same module's CPU forward at ``CNN_BATCHES``, b1 with
+    TF32 on (printed), a bf16 cast (finite), and eager p50 at
+    ``CNN_TIME_BATCHES``."""
+    import copy
+
+    from edgevisiontransformer_tpu_torch.models.cnn.zoo import CNN_ZOO
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+
+    worst = 0.0
+    for name in sorted(CNN_ZOO):
+        cpu, shape = build_model(name, device="cpu", generator=torch.Generator().manual_seed(0))
+        card = copy.deepcopy(cpu).to(DEVICE)
+        errs = []
+        for batch in CNN_BATCHES:
+            img = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(batch))
+            with torch.no_grad():
+                ref = cpu(img)
+                got = card(img.to(DEVICE)).cpu()
+            if (tuple(got.shape) != (batch, 1000) or not torch.isfinite(got).all()
+                    or not float(ref.abs().max()) > 0):
+                fail(f"{name} b{batch}: logits {tuple(got.shape)}, finite "
+                     f"{bool(torch.isfinite(got).all())}, CPU max|logit| "
+                     f"{float(ref.abs().max()):.3g}")
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            if rel > CNN_REL:
+                fail(f"{name} b{batch}: card vs CPU {rel:.3g} of max|logit| > {CNN_REL}")
+            errs.append(rel)
+        worst = max(worst, *errs)
+        img = torch.randn(CNN_BATCHES[0], *shape,
+                          generator=torch.Generator().manual_seed(CNN_BATCHES[0]))
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                ref = cpu(img)
+                rel_tf32 = float((card(img.to(DEVICE)).cpu() - ref).abs().max() / ref.abs().max())
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        half = copy.deepcopy(card).to(torch.bfloat16)
+        with torch.no_grad():
+            y16 = half(img.to(DEVICE))
+        if not torch.isfinite(y16.float()).all():
+            fail(f"{name} bf16: non-finite logits")
+        times = []
+        with torch.no_grad():
+            for batch in CNN_TIME_BATCHES:
+                x = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(7))
+                x = x.to(DEVICE)
+                times.append(harness.measure_op_time(card, (x,), iters=10, repeats=5)["p50_ms"])
+        print(f"  {name:20s} params {sum(p.numel() for p in cpu.parameters()) / 1e6:6.2f} M, card "
+              f"vs CPU (fp32) b{CNN_BATCHES[0]} {errs[0]:.3g}, b{CNN_BATCHES[1]} {errs[1]:.3g} of "
+              f"max|logit| ({float(ref.abs().max()):.3g}), b{CNN_BATCHES[0]} with TF32 on "
+              f"{rel_tf32:.3g}; bf16 finite; eager p50 " + ", ".join(
+                  f"b{b} {t:.4f} ms" for b, t in zip(CNN_TIME_BATCHES, times)))
+        del cpu, card, half
+    return worst
+
+
 def main() -> int:
     import torch
 
@@ -3333,7 +3818,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     layer_ms.update(phase_time_full(torch, harness, vf, models, full_preps))
     del full_preps
-    phase_time_base(torch, harness, models, stacks)
+    base_b1_ms = phase_time_base(torch, harness, models, stacks)
     # deit_tiny's peak memory is read with deit_base's weights freed
     models.pop(("deit_base", "standard"))
     stacks.pop(("deit_base", "standard", "static"))
@@ -3407,6 +3892,27 @@ def main() -> int:
               f"library {'none' if lb is None else f'{lb:.4f}'}); fp16 kernel {k16:.4f} ms "
               f"(twin {p16:.4f}, bound {b16:.4g} {by16}, library ({lib_name}) "
               f"{'none' if l16 is None else f'{l16:.4f}'}); fp16 / bf16 {k16 / kb:.3f}")
+    print(f"== phase 10: ViT-B/16, Swin-T and T2T-ViT-14 imported under their published key "
+          f"names and served on the kernels (logits within {LOGIT_REL} x max|logit| of the "
+          f"twins), evaluate on an image folder, the CNN zoo (card vs CPU within {CNN_REL} x "
+          f"max|logit|), on {card}")
+    t10 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches10, worst10, vit_state = phase_imports(torch, counter, harness, base_b1_ms)
+    for k in ("ln_rows", "linear", "attention_rows", "quant_rows", "linear_i8", "stage1_kqv",
+              "window_attention", "swin_merge", "performer_reduce", "performer_rows"):
+        if launches10[k] == 0:
+            fail(f"kernel {k} was never launched on phase 10's requests")
+    phase_eval(torch, harness, vit_state)
+    del vit_state
+    torch.cuda.empty_cache()
+    worst_cnn = phase_cnn(torch, harness)
+    torch.cuda.synchronize()
+    print(f"  phase 10: {time.perf_counter() - t10:.1f} s, peak device memory "
+          f"{harness.device_mem_mb():.1f} MiB, worst logit deviation {worst10:.4g} of max|logit| "
+          f"(imports), CNN card vs CPU {worst_cnn:.3g}; launches "
+          f"{ {k: v for k, v in launches10.items() if v} }; on {card}")
     worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr,
               worst_full, worst_train, worst_prune, worst16)
     print(f"build {build_s:.2f} s; worst logit deviation {max(worsts):.4g} of max|logit| (deit "

@@ -99,6 +99,35 @@ def load_jax_variables(model: torch.nn.Module, variables_np: dict) -> torch.nn.M
     return model
 
 
+def load_flax_cnn(model: torch.nn.Module, variables_np: dict) -> torch.nn.Module:
+    """Copy a Flax CNN zoo model's variables (numpy leaves: ``params`` and
+    ``batch_stats``) into the port's module of the same name
+    (``models/cnn/zoo.get_cnn``) in place: a conv kernel ``[kh, kw, in /
+    groups, out]`` becomes ``[out, in / groups, kh, kw]`` and a Dense kernel
+    ``[in, out]`` is transposed; the statistics go to the BatchNorms'
+    ``mean`` / ``var`` buffers.  Raises as :func:`load_jax_params` on a
+    missing or extra leaf; both collections are checked before either is
+    copied."""
+    extra = sorted(set(variables_np) - {"params", "batch_stats"})
+    if extra:
+        raise KeyError(f"unexpected variable collections {extra}")
+
+    def torch_layout(name, leaf):
+        a = np.asarray(leaf)
+        if name.endswith("kernel") and a.ndim == 4:
+            return a.transpose(3, 2, 0, 1)
+        if name.endswith("kernel") and a.ndim == 2:
+            return a.T
+        return a
+
+    params = {k: torch_layout(k, v) for k, v in flatten_tree(variables_np["params"]).items()}
+    pairs = _matched(params, dict(model.named_parameters()), "param")
+    pairs += _matched(variables_np.get("batch_stats", {}), dict(model.named_buffers()),
+                      "batch_stats")
+    _copy(pairs)
+    return model
+
+
 def stacked_from_params(params_np: dict, depth: int, qkv_bias: bool,
                         start: int = 0) -> dict:
     """The ``[L, ...]`` stack of JAX ``stack_vit_layer_params``, as torch

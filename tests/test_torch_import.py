@@ -40,11 +40,21 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.models.t2t_vit",
     "edgevisiontransformer_tpu_torch.models.swin",
     "edgevisiontransformer_tpu_torch.models.registry",
+    "edgevisiontransformer_tpu_torch.models.cnn",
+    "edgevisiontransformer_tpu_torch.models.cnn.common",
+    "edgevisiontransformer_tpu_torch.models.cnn.inception",
+    "edgevisiontransformer_tpu_torch.models.cnn.zoo",
     "edgevisiontransformer_tpu_torch.utils.jax_bridge",
     "edgevisiontransformer_tpu_torch.utils.checkpoint",
     "edgevisiontransformer_tpu_torch.utils.metrics",
     "edgevisiontransformer_tpu_torch.utils.finetune",
     "edgevisiontransformer_tpu_torch.utils.imagenet",
+    "edgevisiontransformer_tpu_torch.utils.native_preprocess",
+    "edgevisiontransformer_tpu_torch.utils.hf_import",
+    "edgevisiontransformer_tpu_torch.utils.flops",
+    "edgevisiontransformer_tpu_torch.utils.latency_model",
+    "edgevisiontransformer_tpu_torch.utils.logscrape",
+    "edgevisiontransformer_tpu_torch.utils.plots",
     "edgevisiontransformer_tpu_torch.parallel",
     "edgevisiontransformer_tpu_torch.parallel.train",
     "edgevisiontransformer_tpu_torch.pruning",
@@ -58,6 +68,7 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.pruning.transitions",
     "edgevisiontransformer_tpu_torch.pruning.sparse_driver",
     "edgevisiontransformer_tpu_torch.bench.harness",
+    "edgevisiontransformer_tpu_torch.bench.analyse",
     "edgevisiontransformer_tpu_torch.bench.sdpa_ab",
     "edgevisiontransformer_tpu_torch.bench.mlp_ab",
     "edgevisiontransformer_tpu_torch.bench.linear_ab",

@@ -1887,3 +1887,85 @@ def test_twelve_layers_each_its_own_shape_on_the_kernels(dev, batch):
             assert counts == want, name
             assert got.shape == (batch, 1000) and torch.isfinite(got.float()).all(), name
             assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max(), name
+
+
+def _chip_smoke():
+    """``chip_smoke.py``'s builders of published state dicts (the GPU
+    machine has no transformers)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+# Checkpoint shapes the importer takes, as the JAX one does, and the card
+# path refuses: a Swin window of 14 (196 tokens, above the window kernels'
+# 144) and a ViT width of 1536 on the module path (above mlp's 1152).  The
+# card path raises its own error; no twin answers in its place.
+def test_imported_swin_window_14_is_refused_on_the_card(dev):
+    from types import SimpleNamespace
+
+    from edgevisiontransformer_tpu_torch.utils import hf_import as hi
+    from edgevisiontransformer_tpu_torch.utils.jax_bridge import load_jax_params
+
+    cs = _chip_smoke()
+    hf = SimpleNamespace(**{**cs.HF_SWIN_T, "image_size": 112, "window_size": 14,
+                            "depths": [2], "num_heads": [3]})
+    cfg = hi.swin_config_from_hf(hf).replace(dtype=torch.bfloat16)
+    tree = hi.import_hf_swin(cs.hf_swin_state_dict(torch, hf, torch.Generator().manual_seed(0)),
+                             cfg)["params"]
+    img = torch.randn(1, 3, 112, 112, generator=torch.Generator().manual_seed(1)).to(dev)
+    model = load_jax_params(swin.SwinTransformer(cfg, device=dev), tree)
+    sb.reset_launches()
+    with torch.no_grad(), pytest.raises(ValueError, match="window 14 has 196 tokens"):
+        swin.fused_swin_apply(model, img)
+    module = load_jax_params(swin.SwinTransformer(cfg.replace(kernel_mode="pallas"), device=dev),
+                             tree)
+    ws.reset_launches()
+    with torch.no_grad(), pytest.raises(ValueError, match="196 tokens per window"):
+        module(img)
+    assert sb.LAUNCHES["window_attention"] == 0 and ws.LAUNCHES["window_sdpa"] == 0
+
+
+def test_imported_vit_dim_1536_is_refused_on_the_module_path(dev):
+    from types import SimpleNamespace
+
+    from edgevisiontransformer_tpu_torch.utils import hf_import as hi
+    from edgevisiontransformer_tpu_torch.utils.jax_bridge import load_jax_params
+
+    cs = _chip_smoke()
+    hf = SimpleNamespace(**{**cs.HF_VIT_B16, "hidden_size": 1536, "num_attention_heads": 24,
+                            "num_hidden_layers": 1, "image_size": 32})
+    cfg = hi.vit_config_from_hf(hf).replace(dtype=torch.bfloat16, kernel_mode="pallas")
+    tree = hi.import_hf_vit(cs.hf_vit_state_dict(torch, hf, torch.Generator().manual_seed(2)),
+                            cfg)["params"]
+    model = load_jax_params(ViT(cfg, device=dev), tree)
+    img = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(3)).to(dev)
+    fm.reset_launches()
+    with torch.no_grad(), pytest.raises(ValueError, match="up to 1152, got 1536"):
+        model(img)
+    assert fm.LAUNCHES["mlp"] == 0
+
+
+def test_cnn_on_the_card_matches_its_cpu_forward(dev):
+    """mobilenet_v3_large (depthwise and grouped convs, SE, hard-swish) in
+    fp32 on cuDNN, TF32 off, against the same module on the CPU, within
+    chip_smoke.py's bound; and a bf16 cast stays finite."""
+    import copy
+
+    from edgevisiontransformer_tpu_torch.models.cnn.zoo import get_cnn
+
+    cs = _chip_smoke()
+    cpu = get_cnn("mobilenet_v3_large", device="cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = cpu(x)
+        got = card(x.to(dev)).cpu()
+        half = copy.deepcopy(card).to(torch.bfloat16)(x.to(dev))
+    assert got.shape == (2, 1000) and torch.isfinite(got).all() and ref.abs().max() > 0
+    assert (got - ref).abs().max() <= cs.CNN_REL * ref.abs().max()
+    assert half.dtype == torch.bfloat16 and torch.isfinite(half.float()).all()
