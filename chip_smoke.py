@@ -145,7 +145,25 @@ Phases, in order; any failure exits non-zero before the last line:
    share), images/s of evaluate and of the forward; the 15 CNNs of
    ``models/cnn`` from the registry at 224, fp32 on the card (TF32 off)
    against their CPU forward at b1 and b8 (and b1 with TF32 on, printed), a
-   bf16 cast, eager p50 at b1 and b32; the phase's seconds and peak memory.
+   bf16 cast, eager p50 at b1 and b32; the phase's seconds and peak memory;
+11. distributed training and evaluation: 4 gloo ranks sharing the card
+   (``parallel/launch.spawn``; NCCL takes one device per rank), each opening
+   the library phase 2 built, fp32 with TF32 off: the ``jit_sharded_train_step``
+   at deit_small b32 (SGD) on (dp, tp) meshes (2, 1), (1, 2) and (2, 2) with
+   ``grad_accum=2``, the GPipe forward and train step on deit_tiny's 12-layer
+   stack at pp 2 and 4 (4 microbatches, b32) and the sp forward over 2 and 4
+   ranks (197 tokens, 3 heads), each held to the same computation in one
+   process (rank 0 alone: losses within 1e-4 relative, params within one
+   fp32 spacing + 1e-3 of the largest update, activations within 1e-4 of
+   max|.|); ``evaluate_sharded`` at dp 2 and 4 over phase 10's BMP folder on
+   ``fused_vit_apply`` and static ``fused_vit_apply_int8`` (top-1 equal to one
+   process's ``evaluate``, each rank's logits per image within ``LOGIT_REL``
+   of the twins, exact launch counts per rank, a one-hot head's top-1
+   exactly its class's share); the head importance (2 x b32) over dp 2 and 4
+   against one process's (1e-4, the same heads pruned at 9 and 18); the
+   dryrun on 4 ranks; each mesh's step eager p50 beside one process's,
+   ``evaluate_sharded``'s img/s beside ``evaluate``'s, each rank's seconds and
+   peak memory.
 
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
@@ -3424,27 +3442,13 @@ def t2t_state_dict(torch, cfg, gen, token_size: int = 64) -> dict:
     return sd
 
 
-def write_bmp(path: Path, rgb) -> None:
-    """An HWC uint8 RGB image as an uncompressed 24-bit BMP (bottom-up rows,
-    BGR, each row padded to 4 bytes), with numpy alone."""
-    import struct
-
-    import numpy as np
-
-    h, w, _ = rgb.shape
-    stride = (3 * w + 3) // 4 * 4
-    rows = np.zeros((h, stride), np.uint8)
-    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
-    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
-    head = b"BM" + struct.pack("<IHHI", 14 + len(info) + rows.size, 0, 0, 14 + len(info))
-    path.write_bytes(head + info + rows.tobytes())
-
-
 def write_image_folder(root: Path, seed: int) -> list:
     """``EVAL_CLASS_SIZES`` images per class under ``root/class_<k>/``, smooth
     random colour fields plus noise from ``seed``; returns the labels in
     ``list_image_folder``'s order."""
     import numpy as np
+
+    from edgevisiontransformer_tpu_torch.utils.imagenet import write_bmp
 
     rng = np.random.RandomState(seed)
     labels, i = [], 0
@@ -3731,6 +3735,440 @@ def phase_cnn(torch, harness):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: distributed training and evaluation, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# The ranks of phase 11: gloo processes on the one card (NCCL takes one
+# device per rank), started by parallel/launch.spawn with a deadline
+PAR_WORLD = 4
+PAR_DEADLINE_S = 300.0
+PAR_BATCH = 32
+# (dp, tp, grad_accum) of the deit_small train step meshes
+PAR_MESHES = ((2, 1, 1), (1, 2, 1), (2, 2, 2))
+PAR_CHECKED, PAR_TIMED = 2, 3
+# (pp, microbatches) of the GPipe cases, and the sp group sizes, on
+# deit_tiny's 12-layer stack at 197 tokens
+PAR_PP = ((2, 4), (4, 4))
+PAR_SP = (2, 4)
+PAR_EVAL_DP = (2, 4)
+PAR_IMPORTANCE_BATCHES = 2
+# a forward's activations (pp, sp) against one process's: within 1e-4 of
+# their max|.|, phase 7's loss bound; the losses and updated params as
+# phase 7 holds the card against the CPU (CPU_LOSS_RTOL, CPU_STEP_REL)
+PAR_REL = 1e-4
+
+
+def _rank_fail(msg: str) -> None:
+    raise RuntimeError(f"chip_smoke phase 11: {msg}")
+
+
+def _par_eval(torch, fe, mesh, folder, model, stacks):
+    """``evaluate_sharded`` on this rank's dp share, bf16 (K1/K2) and static
+    int8 (K4/K5): a checked run (each forward's logits against the twins,
+    per image within ``LOGIT_REL`` of its max|logit|), then a timed one
+    (kernels only); the launches of both counted against the forwards."""
+    from edgevisiontransformer_tpu_torch.models.vit import fused_vit_apply, fused_vit_apply_int8
+    from edgevisiontransformer_tpu_torch.utils.imagenet import evaluate_sharded
+
+    paths = {"bf16": (lambda x, plain: fused_vit_apply(model, x, stacked=stacks["bf16"],
+                                                        plain=plain), BF16_LAUNCHES),
+             "int8": (lambda x, plain: fused_vit_apply_int8(model, x, stacked_q=stacks["int8"],
+                                                             plain=plain), INT8_LAUNCHES)}
+    out = {}
+    depth = model.config.depth
+    for mode, (fn, per_layer) in paths.items():
+        calls, worst, tally = [0], [0.0], {k: 0 for k in fe.LAUNCHES}
+
+        def kernels(x, check):
+            before = dict(fe.LAUNCHES)
+            logits = fn(x, False)
+            torch.cuda.synchronize()
+            for k, v in fe.LAUNCHES.items():
+                tally[k] += v - before[k]
+            calls[0] += 1
+            if check:
+                ref = fn(x, True).float()
+                rel = (logits.float() - ref).abs().amax(-1) / ref.abs().amax(-1)
+                if not bool(torch.isfinite(logits.float()).all()):
+                    _rank_fail(f"evaluate_sharded {mode}: non-finite logits")
+                worst[0] = max(worst[0], float(rel.max()))
+            return logits
+
+        kw = dict(batch_size=PAR_BATCH, native=True, device=DEVICE)
+        acc = evaluate_sharded(lambda x: kernels(x, True), folder, mesh, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc_t = evaluate_sharded(lambda x: kernels(x, False), folder, mesh, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        want = {k: per_layer.get(k, 0) * depth * calls[0] for k in tally}
+        if tally != want:
+            _rank_fail(f"evaluate_sharded {mode} at dp={mesh.shape['dp']}: launches {tally} over "
+                       f"{calls[0]} forwards, expected {want}")
+        if worst[0] > LOGIT_REL or acc_t != acc:
+            _rank_fail(f"evaluate_sharded {mode}: logits part from the twins by {worst[0]:.4g} "
+                       f"of max|logit| (> {LOGIT_REL}), or the timed run's accuracy {acc_t} is "
+                       f"not the checked run's {acc}")
+        out[mode] = dict(acc=acc, worst=worst[0], launches=tally, forwards=calls[0], secs=secs)
+    # a head whose bias is one-hot on ONE_HOT_CLASS: top-1 exactly that class's share, so
+    # the sum over dp counts every image once, the padded rows none
+    head = {k: v.detach().clone() for k, v in model.head.named_parameters()}
+    with torch.no_grad():
+        model.head.kernel.zero_()
+        model.head.bias.zero_()
+        model.head.bias[ONE_HOT_CLASS] = 1.0
+        out["one_hot"] = {mode: evaluate_sharded(lambda x: fn(x, False), folder, mesh,
+                                                 batch_size=PAR_BATCH, native=True,
+                                                 device=DEVICE)
+                          for mode, (fn, _) in paths.items()}
+        for k, v in model.head.named_parameters():
+            v.copy_(head[k])
+    return out
+
+
+def par_rank(rank, world, folder, act_scales, imp_batches):
+    """Phase 11 on one of ``PAR_WORLD`` ranks sharing the card (gloo): the
+    deit_small dp x tp steps, the deit_tiny GPipe forward and train step and
+    the sp forward, ``evaluate_sharded`` on the kernels and the head
+    importance on dp meshes; rank 0 then runs each computation in one
+    process and holds the meshes' results to it.  Returns the rank's
+    timings, checks and peak memory."""
+    import numpy as np
+    import torch
+
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+    from edgevisiontransformer_tpu_torch.models.vit import (apply_params, prepare_vit_fused,
+                                                             prepare_vit_int8_static)
+    from edgevisiontransformer_tpu_torch.ops.cuda import fused_encoder as fe
+    from edgevisiontransformer_tpu_torch.ops.cuda.fused_encoder import stack_vit_layer_params
+    from edgevisiontransformer_tpu_torch.parallel.mesh import (Mesh, gather_params, make_mesh,
+                                                               shard_params)
+    from edgevisiontransformer_tpu_torch.parallel.pipeline import (make_pipeline_train_step,
+                                                                   pipeline_encoder_apply,
+                                                                   sequence_sharded_encoder_apply,
+                                                                   vit_block_apply)
+    from edgevisiontransformer_tpu_torch.parallel.train import (jit_sharded_train_step,
+                                                                make_train_step)
+    from edgevisiontransformer_tpu_torch.pruning.head_importance import calculate_head_importance
+    from edgevisiontransformer_tpu_torch.utils.finetune import FinetuneConfig, build_optimizer
+    from edgevisiontransformer_tpu_torch.utils.jax_bridge import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    t_rank = time.perf_counter()
+    clone = lambda tree: tree_map(lambda t: t.detach().clone(), tree)  # noqa: E731
+    sync = torch.cuda.synchronize
+    out = {"rank": rank, "steps": {}, "pp": {}, "sp": {}, "eval": {}, "importance": {}}
+    keep = {}  # rank 0: the meshes' results, held to one process's at the end
+
+    # (a) the dp x tp train step at deit_small, fp32, SGD
+    small, shape = build_model("deit_small", style="standard", device=DEVICE,
+                               generator=torch.Generator().manual_seed(1100))
+    cfg = small.config
+    data = torch.Generator().manual_seed(1110)
+    x = torch.randn(PAR_BATCH, *shape, generator=data).to(DEVICE)
+    y = torch.randint(0, cfg.num_classes, (PAR_BATCH,), generator=data).to(DEVICE)
+    init = clone(small.params())
+    opt = build_optimizer(FinetuneConfig(lr=TRAIN_LR, optimizer="sgd"))
+    apply = lambda p, xx: apply_params(small, p, xx)  # noqa: E731
+    for dp, tp, accum in PAR_MESHES:
+        mesh = Mesh(np.arange(dp * tp).reshape(dp, tp), ("dp", "tp"))
+        if rank not in mesh:
+            continue
+        step = jit_sharded_train_step(make_train_step(apply, opt, grad_accum=accum), mesh, init,
+                                      config=cfg)
+        p = shard_params(init, mesh)
+        state = opt.init(p)
+        losses, times = [], []
+        for i in range(PAR_CHECKED + PAR_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            p, state, metrics = step(p, state, x, y)
+            losses.append(float(metrics["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == PAR_CHECKED - 1:
+                whole = gather_params(p, mesh)
+                if rank == 0:
+                    keep[("step", dp, tp, accum)] = (losses[:PAR_CHECKED], whole)
+                del whole
+        out["steps"][(dp, tp, accum)] = (float(np.median(times[1:])), losses)
+        del p, state, step
+    torch.cuda.empty_cache()
+
+    # (b) GPipe and sp on deit_tiny's 12-layer stack, fp32, 197 tokens
+    tiny, _ = build_model("deit_tiny", style="standard", device=DEVICE,
+                          generator=torch.Generator().manual_seed(1200))
+    tcfg = tiny.config
+    kw = dict(heads=tcfg.heads, eps=tcfg.layernorm_eps, approx_gelu=tcfg.gelu_approx,
+              reference_residual=tcfg.reference_residual)
+    stacked = stack_vit_layer_params(clone(tiny.params()), tcfg.depth, tcfg.qkv_bias)
+    data = torch.Generator().manual_seed(1210)
+    h = torch.randn(PAR_BATCH, tcfg.num_patches + 1, tcfg.dim, generator=data).to(DEVICE)
+    head_w = (torch.randn(tcfg.dim, tcfg.num_classes, generator=data) * 0.02).to(DEVICE)
+    labels = torch.randint(0, tcfg.num_classes, (PAR_BATCH,), generator=data).to(DEVICE)
+    for pp, m in PAR_PP:
+        mesh = Mesh(np.arange(pp), ("pp",))
+        if rank not in mesh:
+            continue
+        with torch.no_grad():
+            pipeline_encoder_apply(stacked, h, mesh, microbatches=m, **kw)  # warm-up
+            sync()
+            t0 = time.perf_counter()
+            y_pp = pipeline_encoder_apply(stacked, h, mesh, microbatches=m, **kw)
+            sync()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+        pstep = make_pipeline_train_step(mesh, microbatches=m, learning_rate=TRAIN_LR, **kw)
+        pstep(stacked, head_w, h, labels)  # warm-up: the step returns new tensors
+        sync()
+        t0 = time.perf_counter()
+        new, new_head, loss = pstep(stacked, head_w, h, labels)
+        sync()
+        out["pp"][(pp, m)] = (fwd_ms, (time.perf_counter() - t0) * 1e3, float(loss))
+        if rank == 0:
+            keep[("pp", pp, m)] = (y_pp, new, new_head, float(loss))
+    for g in PAR_SP:
+        mesh = make_mesh(dp=world // g, tp=g)
+        with torch.no_grad():
+            sequence_sharded_encoder_apply(stacked, h, mesh, **kw)  # warm-up
+            sync()
+            t0 = time.perf_counter()
+            y_sp = sequence_sharded_encoder_apply(stacked, h, mesh, **kw)
+            sync()
+        out["sp"][g] = (time.perf_counter() - t0) * 1e3
+        if rank == 0:
+            keep[("sp", g)] = y_sp
+
+    # (c) evaluate_sharded on the kernels, bf16 and static int8, deit_tiny
+    model, _ = build_model("deit_tiny", style="standard", dtype=torch.bfloat16, device=DEVICE,
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        stacks = {"bf16": prepare_vit_fused(model),
+                  "int8": prepare_vit_int8_static(model, act_scales=act_scales)}
+    for dp in PAR_EVAL_DP:
+        mesh = Mesh(np.arange(dp).reshape(dp, 1), ("dp", "tp"))
+        if rank in mesh:
+            out["eval"][dp] = _par_eval(torch, fe, mesh, folder, model, stacks)
+
+    # (d) head importance over dp, fp32 deit_tiny
+    for dp in PAR_EVAL_DP:
+        mesh = Mesh(np.arange(dp).reshape(dp, 1), ("dp", "tp"))
+        if rank in mesh:
+            sync()
+            t0 = time.perf_counter()
+            imp = calculate_head_importance(tcfg, tiny.params(), imp_batches, mesh=mesh)
+            out["importance"][dp] = (imp, time.perf_counter() - t0)
+    out["rank_s"] = time.perf_counter() - t_rank
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    if rank != 0:
+        return out
+
+    # rank 0, alone now: every computation in one process, and the meshes' results held to it
+    for accum in sorted({a for _, _, a in PAR_MESHES}):
+        step = make_train_step(apply, opt, grad_accum=accum)
+        p = clone(init)
+        state = opt.init(p)
+        losses, times = [], []
+        for i in range(PAR_CHECKED + PAR_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            p, state, metrics = step(p, state, x, y)
+            losses.append(float(metrics["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == PAR_CHECKED - 1:
+                ref = clone(p)
+        out["steps"][("one", accum)] = (float(np.median(times[1:])), losses)
+        for (kind, *key), (got_losses, whole) in [(k, v) for k, v in keep.items()
+                                                  if k[0] == "step" and k[3] == accum]:
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got_losses, losses))
+            dev, upd = _step_dev(torch, whole, ref, init)
+            out["steps"][("check",) + tuple(key)] = (loss_rel, dev, upd)
+            if loss_rel > CPU_LOSS_RTOL or dev > CPU_STEP_REL * upd:
+                _rank_fail(f"dp x tp step {key}: losses {got_losses} against one process's "
+                           f"{losses[:PAR_CHECKED]} ({loss_rel:.3g} > {CPU_LOSS_RTOL}), or params "
+                           f"{dev:.3g} beyond one spacing (> {CPU_STEP_REL} x the largest update "
+                           f"{upd:.3g})")
+        del step, p, state, ref
+    with torch.no_grad():
+        ref_h = h
+        for i in range(tcfg.depth):
+            ref_h = vit_block_apply({k: v[i] for k, v in stacked.items()}, ref_h, **kw)
+    scale = float(ref_h.abs().max())
+    local = {k: v.detach().clone().requires_grad_() for k, v in stacked.items()}
+    hw = head_w.detach().clone().requires_grad_()
+    hh = h
+    for i in range(tcfg.depth):
+        hh = vit_block_apply({k: v[i] for k, v in local.items()}, hh, **kw)
+    logp = torch.log_softmax((hh.mean(dim=1) @ hw).float(), dim=-1)
+    ref_loss = -logp.gather(-1, labels[:, None]).mean()
+    *g_local, g_head = torch.autograd.grad(ref_loss, [*local.values(), hw])
+    with torch.no_grad():
+        ref_new = {k: p - TRAIN_LR * g for (k, p), g in zip(local.items(), g_local)}
+        ref_new["head"] = hw - TRAIN_LR * g_head
+    start = {**stacked, "head": head_w}
+    for (kind, *key), val in keep.items():
+        if kind == "pp":
+            y_pp, new, new_head, loss = val
+            fwd = float((y_pp - ref_h).abs().max()) / scale
+            dev, upd = _step_dev(torch, {**new, "head": new_head}, ref_new, start)
+            loss_rel = abs(loss - float(ref_loss.detach())) / abs(float(ref_loss.detach()))
+            out["pp"][("check",) + tuple(key)] = (fwd, loss_rel, dev, upd)
+            if fwd > PAR_REL or loss_rel > CPU_LOSS_RTOL or dev > CPU_STEP_REL * upd:
+                _rank_fail(f"GPipe at (pp, M) = {tuple(key)}: forward {fwd:.3g} of max|.| "
+                           f"(> {PAR_REL}), loss {loss_rel:.3g} (> {CPU_LOSS_RTOL}) or params "
+                           f"{dev:.3g} (> {CPU_STEP_REL} x {upd:.3g}) from one process's")
+        elif kind == "sp":
+            fwd = float((val - ref_h).abs().max()) / scale
+            out["sp"][("check", key[0])] = fwd
+            if fwd > PAR_REL:
+                _rank_fail(f"sp over {key[0]} ranks: {fwd:.3g} of max|.| from one process's "
+                           f"(> {PAR_REL})")
+    return out
+
+
+def phase_parallel(torch, harness, card):
+    """Phase 11: ``PAR_WORLD`` gloo ranks on the card (``parallel/launch.spawn``
+    after the parent built and loaded the library), each mesh against one
+    process on the card; ``evaluate_sharded`` against the parent's
+    ``evaluate``; the head importance against the parent's and the heads
+    it prunes at 9 and 18; then the dryrun on 4 ranks."""
+    import tempfile
+
+    import numpy as np
+
+    from edgevisiontransformer_tpu_torch.models.registry import build_model
+    from edgevisiontransformer_tpu_torch.models.vit import (fused_vit_apply, fused_vit_apply_int8,
+                                                             prepare_vit_fused,
+                                                             prepare_vit_int8_static)
+    from edgevisiontransformer_tpu_torch.ops.quant import calibrate_vit, representative_batches
+    from edgevisiontransformer_tpu_torch.parallel import dryrun
+    from edgevisiontransformer_tpu_torch.parallel.launch import spawn
+    from edgevisiontransformer_tpu_torch.parallel.pipeline import head_split
+    from edgevisiontransformer_tpu_torch.pruning.head_importance import calculate_head_importance
+    from edgevisiontransformer_tpu_torch.pruning.policy import what_to_prune
+    from edgevisiontransformer_tpu_torch.utils import native_preprocess as npre
+    from edgevisiontransformer_tpu_torch.utils.imagenet import evaluate
+
+    t_phase = time.perf_counter()
+    if not npre.available():  # built here once; the ranks load it
+        fail(f"native preprocessing did not build from {npre.SOURCE}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, shape = build_model("deit_tiny", style="standard", dtype=torch.bfloat16, device=DEVICE,
+                               generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        act_scales = calibrate_vit(model, batches=representative_batches(n=8, shape=shape))
+        stacks = {"bf16": prepare_vit_fused(model),
+                  "int8": prepare_vit_int8_static(model, act_scales=act_scales)}
+    forwards = {"bf16": lambda x: fused_vit_apply(model, x, stacked=stacks["bf16"]),
+                "int8": lambda x: fused_vit_apply_int8(model, x, stacked_q=stacks["int8"])}
+    tiny, _ = build_model("deit_tiny", style="standard", device=DEVICE,
+                          generator=torch.Generator().manual_seed(1200))
+    data = torch.Generator().manual_seed(1300)
+    imp_batches = [torch.randn(PAR_BATCH, *shape, generator=data)
+                   for _ in range(PAR_IMPORTANCE_BATCHES)]
+    imp_one = calculate_head_importance(tiny.config, tiny.params(), imp_batches)
+    del tiny
+    with tempfile.TemporaryDirectory() as tmp:
+        write_image_folder(Path(tmp), seed=4000)
+        n_images = sum(EVAL_CLASS_SIZES)
+        one = {}
+        with torch.no_grad():
+            for mode, fwd in forwards.items():
+                evaluate(fwd, tmp, batch_size=PAR_BATCH, native=True, device=DEVICE)  # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                acc = evaluate(fwd, tmp, batch_size=PAR_BATCH, native=True, device=DEVICE)
+                torch.cuda.synchronize()
+                one[mode] = (acc, time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn(par_rank, PAR_WORLD, backend="gloo", device=DEVICE,
+                          deadline_s=PAR_DEADLINE_S, args=(tmp, act_scales, imp_batches))
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"phase 11 ranks: {e}")
+        world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for dp, tp, accum in PAR_MESHES:
+        ms, losses = r0["steps"][(dp, tp, accum)]
+        one_ms = r0["steps"][("one", accum)][0]
+        loss_rel, dev, upd = r0["steps"][("check", dp, tp, accum)]
+        print(f"  deit_small b{PAR_BATCH} SGD step, dp {dp} x tp {tp}, grad_accum {accum}: eager "
+              f"p50 {ms:.2f} ms (one process {one_ms:.2f} ms); {PAR_CHECKED} steps against one "
+              f"process: losses {loss_rel:.3g} relative, params {dev:.3g} beyond one spacing "
+              f"(largest update {upd:.3g})")
+    for pp, m in PAR_PP:
+        fwd_ms, step_ms, loss = r0["pp"][(pp, m)]
+        fwd, loss_rel, dev, upd = r0["pp"][("check", pp, m)]
+        print(f"  GPipe deit_tiny stack b{PAR_BATCH}, pp {pp}, {m} microbatches: forward "
+              f"{fwd_ms:.2f} ms, {fwd:.3g} of max|.| from one process; train step {step_ms:.2f} "
+              f"ms, loss {loss:.6f} ({loss_rel:.3g} relative), params {dev:.3g} beyond one "
+              f"spacing (largest update {upd:.3g})")
+    for g in PAR_SP:
+        print(f"  sp deit_tiny stack b{PAR_BATCH}, 197 tokens over {g} ranks (heads per rank "
+              f"{head_split(3, g)}): {r0['sp'][g]:.2f} ms, {r0['sp'][('check', g)]:.3g} of "
+              f"max|.| from one process")
+    for mode in ("bf16", "int8"):
+        acc_one, secs_one = one[mode]
+        for dp in PAR_EVAL_DP:
+            got = [r["eval"][dp][mode] for r in ranks if dp in r["eval"]]
+            accs = {g["acc"] for g in got}
+            if accs != {acc_one}:
+                fail(f"evaluate_sharded {mode} dp={dp}: accuracies {accs}, one process's "
+                     f"evaluate {acc_one}")
+            launched = {k for g in got for k, v in g["launches"].items() if v}
+            want = {k for k, v in (BF16_LAUNCHES if mode == "bf16" else INT8_LAUNCHES).items()
+                    if v}
+            if launched != want:
+                fail(f"evaluate_sharded {mode} dp={dp}: kernels launched {sorted(launched)}, "
+                     f"expected {sorted(want)}")
+            one_hot = {r["eval"][dp]["one_hot"][mode] for r in ranks if dp in r["eval"]}
+            if one_hot != {EVAL_CLASS_SIZES[ONE_HOT_CLASS] / n_images}:
+                fail(f"evaluate_sharded {mode} dp={dp} with a one-hot head: top-1 {one_hot}, "
+                     f"expected {EVAL_CLASS_SIZES[ONE_HOT_CLASS]}/{n_images}")
+            secs = max(g["secs"] for g in got)
+            print(f"  evaluate_sharded {mode} dp {dp}, {n_images} BMPs b{PAR_BATCH}: top-1 "
+                  f"{got[0]['acc']:.4f} = one process's (random weights), with a one-hot head "
+                  f"on class {ONE_HOT_CLASS} {EVAL_CLASS_SIZES[ONE_HOT_CLASS]}/{n_images}; worst "
+                  f"per-image |kernels - twins| "
+                  f"{max(g['worst'] for g in got):.4g} of max|logit|; {n_images / secs:.1f} img/s "
+                  f"(one process {n_images / secs_one:.1f}); launches per rank "
+                  + "; ".join(f"{g['forwards']} forwards "
+                              f"{ {k: v for k, v in g['launches'].items() if v} }" for g in got))
+    for dp in PAR_EVAL_DP:
+        imp, secs = r0["importance"][dp]
+        err = float(np.abs(imp - imp_one).max())
+        if not np.isfinite(imp).all() or err > IMPORTANCE_ATOL:
+            fail(f"head importance over dp={dp}: {err:.3g} from one process's "
+                 f"(> {IMPORTANCE_ATOL})")
+        flat = lambda d: {(layer, h) for layer, hs in d.items() for h in hs}  # noqa: E731
+        ties = []
+        for n in PRUNE_NUMBERS:
+            got = flat(what_to_prune(imp, n, at_least_x_heads_per_layer=1))
+            ref = flat(what_to_prune(imp_one, n, at_least_x_heads_per_layer=1))
+            pairs = [(a, b, abs(imp_one[a] - imp_one[b]))
+                     for a, b in zip(sorted(got - ref), sorted(ref - got))]
+            if len(got - ref) != len(ref - got) or any(d > IMPORTANCE_ATOL for _, _, d in pairs):
+                fail(f"head importance over dp={dp}: prunes other heads at {n} "
+                     f"(pairs {pairs})")
+            ties += pairs
+        print(f"  head importance, deit_tiny {PAR_IMPORTANCE_BATCHES} x b{PAR_BATCH} over dp {dp}: "
+              f"{secs:.2f} s, {err:.3g} from one process's; the heads pruned at "
+              f"{PRUNE_NUMBERS} the same" + (f" up to near-ties {ties}" if ties else ""))
+    for r in ranks:
+        print(f"  rank {r['rank']}: {r['rank_s']:.1f} s, peak device memory "
+              f"{r['peak_mib']:.1f} MiB")
+    t0 = time.perf_counter()
+    tail = dryrun.run(PAR_WORLD, DEVICE, deadline_s=PAR_DEADLINE_S)
+    print(f"  dryrun {PAR_WORLD} --device {DEVICE} ({time.perf_counter() - t0:.1f} s): {tail}")
+    torch.cuda.synchronize()
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s (the ranks' world {world_s:.1f} s), "
+          f"the parent's peak device memory {harness.device_mem_mb():.1f} MiB; {PAR_WORLD} ranks "
+          f"sharing one card over gloo, on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -3913,6 +4351,13 @@ def main() -> int:
           f"{harness.device_mem_mb():.1f} MiB, worst logit deviation {worst10:.4g} of max|logit| "
           f"(imports), CNN card vs CPU {worst_cnn:.3g}; launches "
           f"{ {k: v for k, v in launches10.items() if v} }; on {card}")
+    torch.cuda.empty_cache()
+    print(f"== phase 11: distributed training and evaluation, {PAR_WORLD} gloo ranks sharing the "
+          f"card: dp x tp, GPipe and sp against one process (losses within {CPU_LOSS_RTOL} "
+          f"relative, params within one fp32 spacing + {CPU_STEP_REL} of the largest update, "
+          f"activations within {PAR_REL} of max|.|), evaluate_sharded on K1/K2 and K4/K5, head "
+          f"importance over dp, the dryrun, on {card}")
+    phase_parallel(torch, harness, card)
     worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr,
               worst_full, worst_train, worst_prune, worst16)
     print(f"build {build_s:.2f} s; worst logit deviation {max(worsts):.4g} of max|logit| (deit "

@@ -9,7 +9,10 @@ headers, so a build takes seconds).  The library lands in
 ``build/torch_kernels/`` at the repository root, named by a hash of the
 sources and the compile command, so a changed source rebuilds and an
 unchanged one loads the cached file.  Nothing here runs on import: the first
-kernel launch calls :func:`load`.
+kernel launch calls :func:`load`.  The library is linked under a temporary
+name and moved into place with ``os.replace``, so no process opens a
+half-written file; a rank of a world (``parallel/launch``) never builds, it
+opens what its parent built (:func:`forbid_build`).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ _SIGNATURES = (
 _TYPELESS = ("evt_vit_full_barrier_probe", "evt_error_string")
 
 _lib = None
+_build_allowed = True
 
 
 class KernelBuildError(RuntimeError):
@@ -147,14 +151,28 @@ def open_library(path: Path) -> ctypes.CDLL:
     return lib
 
 
+def forbid_build() -> None:
+    """From now on :func:`load` raises where the library is missing instead
+    of building it: the ranks of a world open their parent's library and
+    never start a build of their own while the others wait on them."""
+    global _build_allowed
+    _build_allowed = False
+
+
 def load() -> ctypes.CDLL:
     """Return the kernel library, building it first if its cached file is
-    missing.  Raises :class:`KernelBuildError` on a failed build or load."""
+    missing (unless :func:`forbid_build`).  Raises :class:`KernelBuildError`
+    on a failed build or load, or a missing library that may not be built."""
     global _lib
     if _lib is not None:
         return _lib
     path = library_path()
     if not path.exists():
+        if not _build_allowed:
+            raise KernelBuildError(
+                f"no kernel library at {path}, and this process may not build one (a rank of "
+                "a world opens its parent's library): build it in the parent first "
+                "(ops/cuda/build.load()) before starting the ranks")
         compile_library(path)
     _lib = open_library(path)
     return _lib

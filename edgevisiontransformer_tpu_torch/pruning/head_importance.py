@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..config import ViTConfig
 from ..ops.activations import get_gelu
@@ -104,23 +105,30 @@ def calculate_head_importance(
     tensors, moved to the params' device) (reference classifier_eval.py:
     111-225); returns [depth, cfg.heads] float64.
 
-    ``mesh`` (the JAX package's data-parallel all-reduce of the per-rank
-    importance, the reference's NCCL all_reduce at :210-215) waits for the
-    port's multi-device training (ROADMAP queue 1 item 11) and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "calculate_head_importance(mesh=...): the data-parallel all-reduce waits for "
-            "the port's multi-device training (ROADMAP queue 1 item 11); pass mesh=None")
+    With a ``parallel/mesh.Mesh`` (every rank of it calls this with the
+    same batches), each batch is split over ``dp``, each rank sums its rows'
+    importance, and the sums are all-reduced over ``dp`` before the
+    normalization, which counts the examples of the whole batches: the
+    reference's NCCL all_reduce of per-rank importance (:210-215)."""
     seq_len = cfg.num_patches + 1
     dev = _device(params)
+    dp, r = (mesh.shape["dp"], mesh.index("dp")) if mesh is not None else (1, 0)
     importance = np.zeros((cfg.depth, cfg.heads), np.float64)
     tot_tokens = 0
     n_examples = 0
     for images in batches:
-        x = torch.as_tensor(images, device=dev)
-        importance += head_importance_batch(cfg, params, x).double().cpu().numpy()
+        x = torch.as_tensor(images)
+        b = x.shape[0]
+        if b % dp:
+            raise ValueError(f"batch {b} does not split over dp={dp}")
+        mine = x[r * b // dp:(r + 1) * b // dp].to(dev)
+        importance += head_importance_batch(cfg, params, mine).double().cpu().numpy()
         tot_tokens += seq_len
-        n_examples += x.shape[0]
+        n_examples += b
+    if dp > 1:
+        total = torch.from_numpy(importance)
+        torch.distributed.all_reduce(total, group=mesh.group("dp"))
+        importance = total.numpy()
 
     # Reference normalization quirk: rows [:-1] by token count, row [-1] by
     # example count (classifier_eval.py:217-218).

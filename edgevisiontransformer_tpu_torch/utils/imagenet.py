@@ -26,6 +26,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -105,6 +106,21 @@ def read_bmp(path: str) -> np.ndarray:
     px = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(rows, stride)
     px = px[:, :3 * width].reshape(rows, width, 3)[:, :, ::-1]  # BGR -> RGB
     return np.ascontiguousarray(px[::-1] if height > 0 else px)
+
+
+def write_bmp(path, rgb: np.ndarray) -> None:
+    """An HWC uint8 RGB image as an uncompressed 24-bit BMP (bottom-up rows,
+    BGR, each row padded to 4 bytes), with numpy alone: what
+    :func:`read_bmp` reads."""
+    import struct
+
+    h, w, _ = rgb.shape
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    head = b"BM" + struct.pack("<IHHI", 14 + len(info) + rows.size, 0, 0, 14 + len(info))
+    Path(path).write_bytes(head + info + rows.tobytes())
 
 
 def _decode_without_pil(path: str) -> np.ndarray:
@@ -218,6 +234,50 @@ def evaluate(
             if progress and total % (batch_size * 50) == 0:
                 print(f"eval {total}/{len(samples)}: top1={correct / total:.4f}")
     return correct / max(total, 1)
+
+
+def evaluate_sharded(
+    forward: Callable[[torch.Tensor], torch.Tensor],
+    data_dir: str,
+    mesh,
+    batch_size: int = 64,
+    limit: Optional[int] = None,
+    crop: int = 224,
+    resize: int = 256,
+    device="cuda",
+    native: Optional[bool] = None,
+) -> float:
+    """:func:`evaluate` over a ``parallel/mesh.Mesh``, run by every rank of
+    it: every rank lists the same folder and cuts it into the same batches
+    of ``batch_size``; each rank decodes and runs ``forward`` on its dp share
+    of every batch (``batch_size / dp`` rows, the tail padded with zeros as
+    :func:`evaluate` pads it), and the correct counts are summed over dp:
+    the protocol that replaces the reference's DistributedSampler +
+    ``dist.reduce`` (its ``classifier_eval.py:37-106``).  Returns the
+    accuracy :func:`evaluate` returns on the same folder, on every rank."""
+    from ..models.vit import model_device
+
+    dev = model_device(device)
+    dp, r = mesh.shape["dp"], mesh.index("dp")
+    if batch_size % dp:
+        raise ValueError(f"batch_size {batch_size} does not split over dp={dp}")
+    share = batch_size // dp
+    samples, _ = list_image_folder(data_dir)
+    if limit:
+        samples = samples[:limit]
+    mine = [s for i in range(0, len(samples), batch_size)
+            for s in samples[i:i + batch_size][r * share:(r + 1) * share]]
+    correct = 0
+    with torch.no_grad():
+        for x, y in iterate_batches(mine, share, resize, crop, native=native):
+            n = x.shape[0]
+            if n != share:
+                x = np.concatenate([x, np.zeros((share - n,) + x.shape[1:], x.dtype)])
+            pred = forward(torch.from_numpy(x).to(dev)).argmax(-1)[:n].cpu().numpy()
+            correct += int((pred == y).sum())
+    counts = torch.tensor([correct], dtype=torch.int64)
+    torch.distributed.all_reduce(counts, group=mesh.group("dp"))
+    return int(counts[0]) / max(len(samples), 1)
 
 
 def write_accuracy_marker(model_dir: str, acc: float) -> str:

@@ -163,3 +163,12 @@ def swin_int8_from_jax(int8_prepared_np: dict) -> dict:
 
     return {int(si): {k: convert(k, v) for k, v in stack.items()}
             for si, stack in int8_prepared_np.items()}
+
+
+def sharded_from_jax(params_np: dict, mesh) -> dict:
+    """This rank's ``parallel/mesh.shard_params`` tree of a Flax params tree
+    (numpy leaves, bare or under ``"params"``), exact CPU copies: the same
+    numbers as the JAX side, placed by the port's rules."""
+    from ..parallel.mesh import shard_params
+
+    return shard_params(tree_to_torch(params_np), mesh)

@@ -73,27 +73,32 @@ def load_library() -> Optional[ctypes.CDLL]:
 
 def _load_library_locked() -> Optional[ctypes.CDLL]:
     global _lib, _lib_checked
-    _lib_checked = True
-    if not SOURCE.exists():
-        return None
-    path = library_path()
-    if not path.exists() and not _build(path):
-        return None
-    lib = ctypes.CDLL(str(path))
-    u8p = ctypes.POINTER(ctypes.c_uint8)
-    f32p = ctypes.POINTER(ctypes.c_float)
-    lib.evt_preprocess.argtypes = [
-        u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        f32p, f32p, f32p,
-    ]
-    lib.evt_preprocess.restype = None
-    lib.evt_resize_bicubic.argtypes = [
-        u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        f32p, ctypes.c_int, ctypes.c_int,
-    ]
-    lib.evt_resize_bicubic.restype = None
-    _lib = lib
-    return lib
+    try:
+        if not SOURCE.exists():
+            return None
+        path = library_path()
+        if not path.exists() and not _build(path):
+            return None
+        lib = ctypes.CDLL(str(path))
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.evt_preprocess.argtypes = [
+            u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            f32p, f32p, f32p,
+        ]
+        lib.evt_preprocess.restype = None
+        lib.evt_resize_bicubic.argtypes = [
+            u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            f32p, ctypes.c_int, ctypes.c_int,
+        ]
+        lib.evt_resize_bicubic.restype = None
+        _lib = lib
+        return lib
+    finally:
+        # set only once the attempt is over: load_library's unlocked check
+        # would otherwise tell a thread that arrives during another's load
+        # that there is no library
+        _lib_checked = True
 
 
 def available() -> bool:

@@ -5,7 +5,7 @@ preprocessing (built under ``build/``, never touching
 
 import builtins
 import hashlib
-import sys
+import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -22,8 +22,6 @@ from edgevisiontransformer_tpu_torch.utils import imagenet as timg  # noqa: E402
 from edgevisiontransformer_tpu_torch.utils import native_preprocess as npre  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(REPO))
-import chip_smoke  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -60,6 +58,31 @@ def test_native_library_builds_under_build_and_leaves_the_jax_library_alone():
         assert hashlib.sha256(committed.read_bytes()).hexdigest() == before
         assert committed.stat().st_mtime_ns == mtime
     assert "build/" in (REPO / ".gitignore").read_text().split()
+
+
+def test_threads_that_load_the_library_together_all_get_it(monkeypatch, lib):
+    """The first loads of a process come from the loader's worker threads
+    at once (a rank of ``evaluate_sharded``): while one thread opens the
+    library, the others must wait for it, not report it missing."""
+    import ctypes
+    import threading
+
+    monkeypatch.setattr(npre, "_lib", None)
+    monkeypatch.setattr(npre, "_lib_checked", False)
+    real = ctypes.CDLL
+
+    def slow_open(*a, **k):
+        time.sleep(0.3)
+        return real(*a, **k)
+
+    monkeypatch.setattr(ctypes, "CDLL", slow_open)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(npre.available())) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert got == [True] * 8
 
 
 def test_a_failed_build_is_cached_and_native_true_raises(monkeypatch, tmp_path):
@@ -120,7 +143,7 @@ def test_preprocess_native_refuses_bad_input(lib):
 def test_bmp_decode_equals_pil(tmp_path, h, w):
     img = _rgb(h, w, seed=h * w)
     Image.fromarray(img).save(tmp_path / "pil.bmp")
-    chip_smoke.write_bmp(tmp_path / "ours.bmp", img)
+    timg.write_bmp(tmp_path / "ours.bmp", img)
     for name in ("pil.bmp", "ours.bmp"):
         with Image.open(tmp_path / name) as im:
             want = np.asarray(im.convert("RGB"))
@@ -132,7 +155,7 @@ def test_bmp_decode_equals_pil(tmp_path, h, w):
 
 def test_bmp_decode_top_down_and_refusals(tmp_path):
     img = _rgb(6, 5, seed=2)
-    chip_smoke.write_bmp(tmp_path / "a.bmp", img)
+    timg.write_bmp(tmp_path / "a.bmp", img)
     data = bytearray((tmp_path / "a.bmp").read_bytes())
     # flip to a top-down file: negative height, rows in reading order
     stride = (3 * 5 + 3) // 4 * 4
@@ -151,7 +174,7 @@ def test_bmp_decode_top_down_and_refusals(tmp_path):
 
 def test_load_one_without_pil(monkeypatch, tmp_path, lib):
     img = _rgb(50, 60, seed=3)
-    chip_smoke.write_bmp(tmp_path / "a.bmp", img)
+    timg.write_bmp(tmp_path / "a.bmp", img)
     Image.fromarray(img).save(tmp_path / "a.png")
     with_pil = timg._load_one(str(tmp_path / "a.bmp"), 40, 32, True)
     real_import = builtins.__import__
@@ -176,7 +199,7 @@ def _folder(root: Path, counts=(3, 2, 4), exts=(".bmp", ".png", ".jpg")):
             img = _rgb(40 + 7 * j, 50 + 5 * k, seed=10 * k + j)
             ext = exts[(k + j) % len(exts)]
             if ext == ".bmp":
-                chip_smoke.write_bmp(root / f"c{k}" / f"i{j}{ext}", img)
+                timg.write_bmp(root / f"c{k}" / f"i{j}{ext}", img)
             else:
                 Image.fromarray(img).save(root / f"c{k}" / f"i{j}{ext}")
     (root / "c0" / "notes.txt").write_text("not an image")

@@ -57,6 +57,10 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.utils.plots",
     "edgevisiontransformer_tpu_torch.parallel",
     "edgevisiontransformer_tpu_torch.parallel.train",
+    "edgevisiontransformer_tpu_torch.parallel.mesh",
+    "edgevisiontransformer_tpu_torch.parallel.pipeline",
+    "edgevisiontransformer_tpu_torch.parallel.launch",
+    "edgevisiontransformer_tpu_torch.parallel.dryrun",
     "edgevisiontransformer_tpu_torch.pruning",
     "edgevisiontransformer_tpu_torch.pruning.policy",
     "edgevisiontransformer_tpu_torch.pruning.magnitude_pruners",

@@ -1969,3 +1969,38 @@ def test_cnn_on_the_card_matches_its_cpu_forward(dev):
     assert got.shape == (2, 1000) and torch.isfinite(got).all() and ref.abs().max() > 0
     assert (got - ref).abs().max() <= cs.CNN_REL * ref.abs().max()
     assert half.dtype == torch.bfloat16 and torch.isfinite(half.float()).all()
+
+
+def _ln_rank(rank, world, x, g, b):
+    """A rank's ``ln_rows`` launch on the card, from the parent's library."""
+    from edgevisiontransformer_tpu_torch.ops.cuda import build
+
+    assert not build._build_allowed  # a rank opens the parent's library, never builds
+    fe.reset_launches()
+    y = fe.ln_rows(x.cuda(), g.cuda(), b.cuda(), 1e-6)
+    t = y.float().sum().reshape(1)
+    torch.distributed.all_reduce(t)
+    torch.cuda.synchronize()
+    return y, fe.LAUNCHES["ln_rows"], float(t)
+
+
+def test_ranks_sharing_the_card_open_the_parents_library(dev):
+    """Two gloo ranks on the card (parallel/launch.spawn) launch a kernel from
+    the library the parent built, with the parent's bits, and reduce a CUDA
+    tensor over gloo; the library is linked under a temporary name and moved
+    into place, so no rank sees a half-written file."""
+    from edgevisiontransformer_tpu_torch.ops.cuda import build
+    from edgevisiontransformer_tpu_torch.parallel.launch import spawn
+
+    build.load()
+    assert build.library_path().exists()
+    x = _rnd(dev, 197, 192, scale=3.0)
+    g, b = _rnd(dev, 192, seed=1) + 1, _rnd(dev, 192, seed=2)
+    want = fe.ln_rows(x, g, b, 1e-6).cpu()
+    got = spawn(_ln_rank, 2, backend="gloo", device="cuda", deadline_s=240,
+                args=(x.cpu(), g.cpu(), b.cpu()))
+    for y, launches, total in got:
+        assert torch.equal(y, want) and launches == 1
+        assert total == pytest.approx(2 * float(want.float().sum()), rel=1e-6)
+    stray = [p for p in build.library_path().parent.iterdir() if p.suffix != ".so"]
+    assert not stray, stray

@@ -8,6 +8,7 @@ iterative loop's descriptors per level, its checkpoints and accuracy
 markers."""
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -229,9 +230,14 @@ def test_calculate_head_importance_matches_jax(normalize):
 
 
 def test_calculate_head_importance_mesh_raises():
+    """On a mesh each batch is split over dp (tests/test_torch_parallel.py
+    holds the sum against JAX's): a batch that does not split is refused
+    before any rank computes."""
     _, tcfg, params, images = _setup()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        thi.calculate_head_importance(tcfg, tree_to_torch(params), iter(images), mesh=object())
+    mesh = SimpleNamespace(shape={"dp": 2, "tp": 1}, index=lambda axis: 0)
+    assert all(x.shape[0] % 2 for x in images)
+    with pytest.raises(ValueError, match="does not split over dp=2"):
+        thi.calculate_head_importance(tcfg, tree_to_torch(params), iter(images), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
