@@ -163,7 +163,30 @@ Phases, in order; any failure exits non-zero before the last line:
    against one process's (1e-4, the same heads pruned at 9 and 18); the
    dryrun on 4 ranks; each mesh's step eager p50 beside one process's,
    ``evaluate_sharded``'s img/s beside ``evaluate``'s, each rank's seconds and
-   peak memory.
+   peak memory;
+12. the CLI (``edgevisiontransformer_tpu_torch/cli.py``) run in this process
+   through ``cli.main`` at full width, each command's launches read from zero
+   and held to exactly its kernels: ``benchmark`` on deit_tiny b1 and b128
+   for every ``--kernel-mode`` (xla, pallas, fused, int8, int8_static), on
+   t2t_vit_14 b1 fused and static int8 with ``--stem-int8``, swin_tiny b1
+   fused, static int8 and pallas, deit_base b1 fused, each JSON line with
+   ``--device-time`` (the device p50 of a CUDA-graph replay of the same
+   call) and its p50 > 0; ``benchmark_train --mode both`` (deit_tiny b32);
+   ``profile --mode trace --kernel-mode fused`` at deit_tiny b1 and b32 (the
+   trace must show ``ln_rows``, ``linear`` and ``attention_rows`` and its
+   per-op sum over the end-to-end time must lie in (0, 1.05]) with
+   ``analyse_op`` and ``analyse_attn_ffn`` on its CSV, ``profile --mode
+   micro``; ``experiments`` fusion_ab, quant_sweep and micro; ``convert
+   --quantization int8`` then ``benchmark`` and ``eval`` of the artifact over
+   phase 10's kind of BMP folder (each b32 batch's logits within
+   ``LOGIT_REL`` of its max|logit| of the twins, as phase 4 holds a request;
+   the worst image's own ratio printed), ``eval --impl xla`` against
+   ``--impl fused`` (the same
+   top-1 up to near-ties); ``export --format torch_export`` loaded and held
+   to the plain forward; ``latency_model`` collect (3 encodings, b1 fused),
+   fit and predict (where scikit-learn is installed: the GPU machine has
+   none, and the line says so); the loop-delta timer against the CUDA-event timer at
+   deit_tiny b128 (within 15%); the phase's seconds and peak memory.
 
 Phase 3 also holds ``window_attention`` and ``window_sdpa`` (swin_tiny's
 four stage shapes at b1, shifted and unshifted where a stage has several
@@ -531,8 +554,8 @@ def time_pair(harness, shape_name, label, err, call_k, call_p):
     twin; return the two device times."""
     t_k = harness.measure_graph_time(call_k)["p50_ms"]
     t_p = harness.measure_graph_time(call_p)["p50_ms"]
-    e_k = harness.measure_op_time(call_k, ())["p50_ms"]
-    e_p = harness.measure_op_time(call_p, ())["p50_ms"]
+    e_k = harness.measure_call_time(call_k, ())["p50_ms"]
+    e_p = harness.measure_call_time(call_p, ())["p50_ms"]
     print(f"  {shape_name:15s} {label:26s} device: kernel {t_k:.4f} ms plain "
           f"{t_p:.4f} ms | eager: kernel {e_k:.4f} ms plain {e_p:.4f} ms | "
           f"max|err| {err:.3g}")
@@ -1191,7 +1214,7 @@ def phase_time_t2t(torch, harness, state):
                 img = torch.randn(batch, *shape,
                                   generator=torch.Generator().manual_seed(batch)).to(DEVICE)
                 fn = lambda: apply(img)  # noqa: E731
-                e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+                e = harness.measure_call_time(fn, (), iters=10, repeats=5)
                 d = harness.measure_graph_time(fn, iters=10, repeats=5)
                 print(f"  t2t_vit_14 {slice_name} b{batch}: eager p50 {e['p50_ms']:.4f} ms "
                       f"(std {e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device "
@@ -1224,7 +1247,7 @@ def phase_time_t2t(torch, harness, state):
                     t2t.performer_rest = perf
                     try:
                         fn = lambda: tokenize(img)  # noqa: E731
-                        e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+                        e = harness.measure_call_time(fn, (), iters=10, repeats=5)
                         d = harness.measure_graph_time(fn, iters=10, repeats=5)
                     finally:
                         t2t.performer_rest = k16
@@ -1534,8 +1557,8 @@ def phase_time_swin(torch, harness, state, stacks, module_state):
                 fn = lambda: apply(img)  # noqa: E731
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                e = harness.measure_op_time(fn, (), iters=10, repeats=5)
-                peak = harness.device_mem_mb()
+                e = harness.measure_call_time(fn, (), iters=10, repeats=5)
+                peak = harness.device_peak_mb()
                 d = harness.measure_graph_time(fn, iters=10, repeats=5)
                 print(f"  swin_tiny {slice_name} b{batch}: eager p50 {e['p50_ms']:.4f} ms (std "
                       f"{e['std_ms']:.4f}, {batch * 1e3 / e['p50_ms']:.1f} img/s), device p50 "
@@ -1575,7 +1598,7 @@ def phase_time_pallas(torch, harness, module_state, pruned_state):
                 img = torch.randn(batch, *shape,
                                   generator=torch.Generator().manual_seed(batch)).to(DEVICE)
                 fn = lambda: apply(img)  # noqa: E731
-                e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+                e = harness.measure_call_time(fn, (), iters=10, repeats=5)
                 d = harness.measure_graph_time(fn, iters=10, repeats=5)
                 prof = harness.device_time_by_kernel(fn)
                 busy = sum(r[2] for r in prof)
@@ -1952,8 +1975,8 @@ def phase_time_slice(torch, harness, models, stacks):
                     fn = lambda: apply(img, plain)  # noqa: E731
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
-                    e = harness.measure_op_time(fn, (), iters=10, repeats=5)
-                    peak = harness.device_mem_mb()
+                    e = harness.measure_call_time(fn, (), iters=10, repeats=5)
+                    peak = harness.device_peak_mb()
                     d = harness.measure_graph_time(fn, iters=10, repeats=5)
                     prof = harness.device_time_by_kernel(fn)
                     busy = sum(r[2] for r in prof)
@@ -2041,7 +2064,7 @@ def phase_time_full(torch, harness, vf, models, preps):
                      "fused_vit_apply": lambda: fused_vit_apply(model, img, stacked=stacked)}
             device = {}
             for label, fn in paths.items():
-                e = harness.measure_op_time(fn, (), iters=10, repeats=5)
+                e = harness.measure_call_time(fn, (), iters=10, repeats=5)
                 d = harness.measure_graph_time(fn, iters=10, repeats=5)
                 prof = harness.device_time_by_kernel(fn)
                 busy = sum(r[2] for r in prof)
@@ -2054,7 +2077,7 @@ def phase_time_full(torch, harness, vf, models, preps):
             fully_fused_vit_apply(model, img, prepared=prep)
             grid = vf.LAST_GRID["blocks"]
             vf.barrier_probe(img.device, grid, 10)
-            t = harness.measure_op_time(lambda: vf.barrier_probe(img.device, grid, 1000), (),
+            t = harness.measure_call_time(lambda: vf.barrier_probe(img.device, grid, 1000), (),
                                         iters=3, repeats=5)["p50_ms"]
             n_bar = vf.barriers(model.config.depth)
             print(f"  {name} b{batch}: one grid barrier at {grid} blocks {t:.4f} us (1000 in one "
@@ -2284,7 +2307,7 @@ def phase_train(torch, harness, counter, card):
         tp = clone(params)
         ts = opt.init(tp)
         fn = lambda: step_fn(tp, ts, img, labels)  # noqa: E731
-        e = harness.measure_op_time(fn, (), iters=5, repeats=5, warmup=2)
+        e = harness.measure_call_time(fn, (), iters=5, repeats=5, warmup=2)
         prof = harness.device_time_by_kernel(fn)
         busy = sum(r[2] for r in prof)
         # the host time of binding a torch.optim object, as every step does
@@ -2456,7 +2479,7 @@ def phase_train(torch, harness, counter, card):
     del tmodel, tsq, prepared
     torch.cuda.synchronize()
     print(f"  phase 7: {time.perf_counter() - t_phase:.1f} s, peak device memory "
-          f"{harness.device_mem_mb():.1f} MiB, on {card}")
+          f"{harness.device_peak_mb():.1f} MiB, on {card}")
     return worst
 
 
@@ -2639,7 +2662,7 @@ def phase_prune(torch, harness, counter, fa, fm, card):
     cpu_s = time.perf_counter() - t0
     imp_dev = float(np.abs(imp - cpu_imp).max())
     x0 = imp_batches[0].to(DEVICE)
-    e = harness.measure_op_time(lambda: head_importance_batch(cfg, init, x0), (), iters=3,
+    e = harness.measure_call_time(lambda: head_importance_batch(cfg, init, x0), (), iters=3,
                                 repeats=5, warmup=1)
     print(f"  head importance, {IMPORTANCE_BATCHES} batches of b{PRUNE_BATCH}: card {card_s:.2f} "
           f"s, CPU {cpu_s:.2f} s; layer-normalized, max |card - CPU| {imp_dev:.3g} (bound "
@@ -2790,7 +2813,7 @@ def phase_prune(torch, harness, counter, fa, fm, card):
     thr_t = torch.tensor(final, device=DEVICE)
     mul_t = torch.tensor(1.0, device=DEVICE)
     fn = lambda: step(p2, s2, sp2, ss2, xs, ys, thr_t, mul_t, init)  # noqa: E731
-    e = harness.measure_op_time(fn, (), iters=3, repeats=5, warmup=1)
+    e = harness.measure_call_time(fn, (), iters=3, repeats=5, warmup=1)
     prof = harness.device_time_by_kernel(fn)
     busy = sum(r[2] for r in prof)
     print(f"  sparse step with teacher b{PRUNE_BATCH} (fp32): eager p50 {e['p50_ms']:.4f} ms (std "
@@ -2878,7 +2901,7 @@ def phase_prune(torch, harness, counter, fa, fm, card):
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.synchronize()
     print(f"  phase 8: {time.perf_counter() - t_phase:.1f} s, peak device memory "
-          f"{harness.device_mem_mb():.1f} MiB, on {card}")
+          f"{harness.device_peak_mb():.1f} MiB, on {card}")
     return worst
 
 
@@ -3664,7 +3687,7 @@ def phase_eval(torch, harness, state):
         x32 = torch.randn(EVAL_BATCH, 3, 224, 224,
                           generator=torch.Generator().manual_seed(4100)).to(DEVICE)
         with torch.no_grad():
-            e = harness.measure_op_time(kernels, (x32,), iters=5, repeats=5)
+            e = harness.measure_call_time(kernels, (x32,), iters=5, repeats=5)
     print(f"  evaluate over {n} BMPs ({len(classes)} classes, b{EVAL_BATCH}, native, padded "
           f"tail): top-1 kernels {acc_k:.4f}, twins {acc_t:.4f} (random weights); "
           f"{int(parted.sum())} image(s) part, {int(near.sum())} near-tie image(s) (twin top-2 "
@@ -3725,7 +3748,7 @@ def phase_cnn(torch, harness):
             for batch in CNN_TIME_BATCHES:
                 x = torch.randn(batch, *shape, generator=torch.Generator().manual_seed(7))
                 x = x.to(DEVICE)
-                times.append(harness.measure_op_time(card, (x,), iters=10, repeats=5)["p50_ms"])
+                times.append(harness.measure_call_time(card, (x,), iters=10, repeats=5)["p50_ms"])
         print(f"  {name:20s} params {sum(p.numel() for p in cpu.parameters()) / 1e6:6.2f} M, card "
               f"vs CPU (fp32) b{CNN_BATCHES[0]} {errs[0]:.3g}, b{CNN_BATCHES[1]} {errs[1]:.3g} of "
               f"max|logit| ({float(ref.abs().max()):.3g}), b{CNN_BATCHES[0]} with TF32 on "
@@ -4165,8 +4188,331 @@ def phase_parallel(torch, harness, card):
     print(f"  dryrun {PAR_WORLD} --device {DEVICE} ({time.perf_counter() - t0:.1f} s): {tail}")
     torch.cuda.synchronize()
     print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s (the ranks' world {world_s:.1f} s), "
-          f"the parent's peak device memory {harness.device_mem_mb():.1f} MiB; {PAR_WORLD} ranks "
+          f"the parent's peak device memory {harness.device_peak_mb():.1f} MiB; {PAR_WORLD} ranks "
           f"sharing one card over gloo, on {card}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the CLI on the card
+# ---------------------------------------------------------------------------
+
+_DEIT_FUSED = ("ln_rows", "linear", "attention_rows")
+_INT8 = ("ln_rows", "attention_rows", "quant_rows", "linear_i8")
+_T2T_TOKENIZER = ("stage1_kqv", "performer_reduce", "performer_rows")
+_SWIN = ("ln_rows", "linear", "window_attention", "swin_merge")
+# benchmark requests: (model, batch, --kernel-mode, more flags, the kernels
+# the command launches: exactly these, every other kernel none)
+CLI_BENCHMARKS = tuple(
+    ("deit_tiny", b, mode, (), kernels) for b in (1, 128) for mode, kernels in (
+        ("xla", ()), ("pallas", ("sdpa", "mlp")), ("fused", _DEIT_FUSED), ("int8", _INT8),
+        ("int8_static", _INT8))
+) + (
+    ("t2t_vit_14", 1, "fused", (), _T2T_TOKENIZER + _DEIT_FUSED),
+    ("t2t_vit_14", 1, "int8_static", ("--stem-int8",), _T2T_TOKENIZER + _INT8),
+    ("swin_tiny", 1, "fused", (), _SWIN),
+    ("swin_tiny", 1, "int8_static", (), _SWIN + ("quant_rows", "linear_i8")),
+    ("swin_tiny", 1, "pallas", (), ("window_sdpa",)),
+    ("deit_base", 1, "fused", (), _DEIT_FUSED),
+)
+CLI_ITERS, CLI_REPEATS = 20, 3
+CLI_TRAIN_BATCH = 32
+CLI_PROFILE_BATCHES = (1, 32)
+# the traced fused DeiT must show these kernels, and its per-op sum must not
+# exceed the end-to-end loop-delta time by more than the profiler's own cost
+CLI_TRACE_KERNELS = ("ln_rows_kernel", "linear_kernel", "attention_rows_kernel")
+CLI_TRACE_RATIO_MAX = 1.05
+CLI_LATENCY_ENCODINGS = 3
+CLI_TIMER_BATCH = 128
+# the loop-delta timer against the CUDA-event timer: both time a call with
+# the host in it; they run in turn, CLI_TIMER_ROUNDS times each, and their
+# medians are compared, because the host's speed drifts (a deit_tiny b128
+# call took 5.50-7.45 ms in three runs on the H100)
+TIMER_AGREE = 0.15
+CLI_TIMER_ROUNDS = 3
+# the torch.export program against the plain forward it was traced from
+EXPORT_REL = 1e-5
+
+
+def run_cli(cli, argv) -> str:
+    """``cli.main(argv)`` in this process, its standard output captured,
+    echoed indented and returned; fails on a refusal or a non-zero code."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    except SystemExit as e:
+        fail(f"cli {' '.join(argv)}: exited ({e}) after {buf.getvalue()!r}")
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"    | {line}")
+    if rc != 0:
+        fail(f"cli {' '.join(argv)}: exit code {rc}")
+    return out
+
+
+def last_json(out: str):
+    for line in reversed(out.splitlines()):
+        if line.startswith(("{", "[")):
+            return json.loads(line)
+    fail(f"no JSON line in {out!r}")
+
+
+def check_cli_launches(tag, counter, kernels) -> dict:
+    got = counter.read()
+    ran = {k for k, v in got.items() if v}
+    if ran != set(kernels):
+        fail(f"{tag}: launched {sorted(ran)}, expected exactly {sorted(kernels)} "
+             f"({ {k: v for k, v in got.items() if v} })")
+    return {k: v for k, v in got.items() if v}
+
+
+def _top1_line(out: str, tag: str) -> float:
+    m = re.search(r"top1 ([\d.]+)", out)
+    if m is None:
+        fail(f"{tag}: no top1 line in {out!r}")
+    return float(m[1])
+
+
+def phase_cli(torch, harness, counter, card):
+    """Phase 12: the port's commands run in this process through
+    ``cli.main`` at full width: ``benchmark`` per kernel mode (its JSON line
+    beside the device p50 of a CUDA-graph replay of the same call, the
+    launches exactly the mode's kernels), ``benchmark_train``, ``profile``
+    (trace and micro) with ``analyse_op`` / ``analyse_attn_ffn`` on its CSV,
+    ``experiments``, ``convert`` -> ``benchmark`` / ``eval`` of the int8
+    artifact (logits against the twins), ``eval --impl xla`` against
+    ``--impl fused``, ``export --format torch_export`` against the plain
+    forward, ``latency_model`` collect / fit / predict, and the loop-delta
+    timer against the CUDA-event timer."""
+    import importlib.util
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from edgevisiontransformer_tpu_torch import cli
+    from edgevisiontransformer_tpu_torch.bench import looptimer
+    from edgevisiontransformer_tpu_torch.bench.analyse import find_op_wise_range, read_rows
+    from edgevisiontransformer_tpu_torch.models.vit import fused_vit_apply, prepare_vit_fused
+    from edgevisiontransformer_tpu_torch.utils.export import load_exported
+    from edgevisiontransformer_tpu_torch.utils.imagenet import iterate_batches, list_image_folder
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dev = ["--device", DEVICE]
+    no_kernels = ()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, batch, mode, extra, kernels in CLI_BENCHMARKS:
+            tag = f"benchmark {name} b{batch} --kernel-mode {mode}{''.join(' ' + e for e in extra)}"
+            counter.reset()
+            t0 = time.perf_counter()
+            r = last_json(run_cli(cli, ["benchmark", "--model", name, "--batch", str(batch),
+                                        "--kernel-mode", mode, "--iters", str(CLI_ITERS),
+                                        "--repeats", str(CLI_REPEATS), "--device-time",
+                                        *extra, *dev]))
+            got = check_cli_launches(tag, counter, kernels)
+            if not (r["p50_ms"] > 0 and r["device_p50_ms"] > 0):
+                fail(f"{tag}: p50 {r['p50_ms']}, device p50 {r['device_p50_ms']}")
+            print(f"  {tag}: eager p50 {r['p50_ms']:.4f} ms (std {r['std_ms']:.4f}, iters "
+                  f"{r['iters']}), device p50 {r['device_p50_ms']:.4f} ms, device idle "
+                  f"{1 - r['device_p50_ms'] / r['p50_ms']:.1%}, {r['throughput_per_s']:.1f} img/s; "
+                  f"{time.perf_counter() - t0:.1f} s; launches {got}")
+            torch.cuda.empty_cache()
+
+        counter.reset()
+        r = last_json(run_cli(cli, ["benchmark_train", "--mode", "both", "--batch",
+                                    str(CLI_TRAIN_BATCH), "--iters", "3", "--repeats", "2",
+                                    *dev]))
+        check_cli_launches("benchmark_train", counter, no_kernels)
+        if not (r["finetune"]["p50_ms"] > 0 and r["sparse"]["p50_ms"] > 0):
+            fail(f"benchmark_train: step times {r}")
+        torch.cuda.empty_cache()
+
+        for batch in CLI_PROFILE_BATCHES:
+            path = tmp / f"trace_b{batch}.csv"
+            tag = f"profile --mode trace --kernel-mode fused deit_tiny b{batch}"
+            counter.reset()
+            out = run_cli(cli, ["profile", "--mode", "trace", "--kernel-mode", "fused",
+                                "--batch", str(batch), "--output", str(path), *dev])
+            check_cli_launches(tag, counter, _DEIT_FUSED)
+            m = re.search(r"trace per-op sum ([\d.]+) ms vs end-to-end ([\d.]+) ms", out)
+            if m is None:
+                fail(f"{tag}: no per-op sum line")
+            total, e2e = float(m[1]), float(m[2])
+            rows = read_rows(str(path))
+            begin, end, schema = find_op_wise_range(rows)
+            names = [row[schema["name"]] for row in rows[begin:end]]
+            missing = [k for k in CLI_TRACE_KERNELS if not any(k in n for n in names)]
+            if missing:
+                fail(f"{tag}: the trace holds no {missing} ({len(names)} rows)")
+            ratio = total / e2e if e2e > 0 else float("nan")
+            if not 0 < ratio <= CLI_TRACE_RATIO_MAX:
+                fail(f"{tag}: per-op sum {total} ms against end-to-end {e2e} ms (ratio {ratio})")
+            run_cli(cli, ["analyse_op", "--file", str(path)])
+            split = last_json(run_cli(cli, ["analyse_attn_ffn", "--file", str(path)]))
+            if not (split["attention_ms"] > 0 and split["ffn_ms"] > 0):
+                fail(f"{tag}: analyse_attn_ffn did not split the trace: {split}")
+            print(f"  {tag}: {len(names)} kernel rows, per-op sum {total:.4f} ms against "
+                  f"end-to-end {e2e:.4f} ms, ratio {ratio:.4f} (1 - ratio: the device's idle "
+                  f"share of a call); attention {split['attention_ms']:.4f} ms, ffn "
+                  f"{split['ffn_ms']:.4f} ms, other {split['other_ms']:.4f} ms")
+        counter.reset()
+        t0 = time.perf_counter()
+        run_cli(cli, ["profile", "--mode", "micro", "--output", str(tmp / "micro.csv"), *dev])
+        check_cli_launches("profile --mode micro", counter, no_kernels)
+        split = last_json(run_cli(cli, ["analyse_attn_ffn", "--file", str(tmp / "micro.csv")]))
+        print(f"  profile --mode micro deit_tiny b1: {time.perf_counter() - t0:.1f} s; {split}")
+
+        counter.reset()
+        fab = last_json(run_cli(cli, ["experiments", "fusion_ab", *dev]))
+        check_cli_launches("experiments fusion_ab", counter, ("ln_rows", "linear"))
+        counter.reset()
+        sweep = last_json(run_cli(cli, ["experiments", "quant_sweep", "--sizes", "256", "1024",
+                                        *dev]))
+        micro = last_json(run_cli(cli, ["experiments", "micro", *dev]))
+        check_cli_launches("experiments quant_sweep, micro", counter, no_kernels)
+        if not (fab["fused_ms"] > 0 and fab["unfused_ms"] > 0 and min(micro.values()) > 0
+                and all(v > 0 for row in sweep for k, v in row.items() if k != "size")):
+            fail(f"experiments: {fab} {sweep} {micro}")
+
+        art = tmp / "deit_tiny_int8"
+        run_cli(cli, ["convert", "--model", "deit_tiny", "--quantization", "int8",
+                      "--calib-batches", "4", "--output", str(art), *dev])
+        counter.reset()
+        r = last_json(run_cli(cli, ["benchmark", "--quantized-checkpoint", str(art),
+                                    "--iters", str(CLI_ITERS), "--repeats", str(CLI_REPEATS),
+                                    "--device-time", *dev]))
+        got = check_cli_launches("benchmark --quantized-checkpoint", counter, _INT8)
+        if not (r["p50_ms"] > 0 and r["device_p50_ms"] > 0):
+            fail(f"benchmark --quantized-checkpoint: {r}")
+        print(f"  benchmark --quantized-checkpoint (convert --quantization int8, deit_tiny) b1: "
+              f"eager p50 {r['p50_ms']:.4f} ms, device p50 {r['device_p50_ms']:.4f} ms; "
+              f"launches {got}")
+        folder = tmp / "images"
+        labels = torch.tensor(write_image_folder(folder, seed=4000))
+        samples, _ = list_image_folder(str(folder))
+        _, _, qfn = cli._load_quantized_artifact(str(art), "bfloat16", DEVICE)
+        model32, _ = cli._build_model("deit_tiny", device=DEVICE)
+        model16, _ = cli._build_model("deit_tiny", dtype="bfloat16", device=DEVICE)
+        stacked = prepare_vit_fused(model16)
+        fused = lambda x: fused_vit_apply(model16, x, stacked=stacked)  # noqa: E731
+        logits = {"int8": [], "int8 twins": [], "xla": [], "fused": []}
+        worst_art = 0.0
+        with torch.no_grad():
+            for x, _ in iterate_batches(samples, EVAL_BATCH):
+                m = x.shape[0]
+                x = np.concatenate([x, np.zeros((EVAL_BATCH - m,) + x.shape[1:], x.dtype)])
+                xd = torch.from_numpy(x).to(DEVICE)
+                for k, fn in (("int8", qfn), ("int8 twins", lambda t: qfn(t, plain=True)),
+                              ("xla", model32), ("fused", fused)):
+                    logits[k].append(fn(xd)[:m].float().cpu())
+                # each batch as evaluate runs it, held as phase 4 holds a request
+                worst_art = max(worst_art, check_logits(
+                    "the int8 artifact (convert --quantization int8) over the BMPs",
+                    logits["int8"][-1], logits["int8 twins"][-1], m, 1000)[0])
+        logits = {k: torch.cat(v) for k, v in logits.items()}
+        got, ref = logits["int8"], logits["int8 twins"]
+        rel = (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+        counter.reset()
+        top1 = _top1_line(run_cli(cli, ["eval", "--quantized-checkpoint", str(art), "--data-dir",
+                                        str(folder), "--batch", str(EVAL_BATCH), *dev]),
+                          "eval --quantized-checkpoint")
+        check_cli_launches("eval --quantized-checkpoint", counter, _INT8)
+        acc = {k: float((v.argmax(-1) == labels).float().mean()) for k, v in logits.items()}
+        if abs(top1 - acc["int8"]) > 5e-5:
+            fail(f"eval --quantized-checkpoint: top1 {top1}, its per-image predictions "
+                 f"{acc['int8']}")
+        top1s = {}
+        for impl, kernels in (("xla", no_kernels), ("fused", _DEIT_FUSED)):
+            counter.reset()
+            top1s[impl] = _top1_line(run_cli(cli, ["eval", "--model", "deit_tiny", "--impl", impl,
+                                                   "--data-dir", str(folder), "--batch",
+                                                   str(EVAL_BATCH), *dev]), f"eval --impl {impl}")
+            check_cli_launches(f"eval --impl {impl}", counter, kernels)
+            if abs(top1s[impl] - acc[impl]) > 5e-5:
+                fail(f"eval --impl {impl}: top1 {top1s[impl]}, its per-image predictions "
+                     f"{acc[impl]}")
+        xla = logits["xla"]
+        top2 = xla.topk(2, dim=-1).values
+        near = (top2[:, 0] - top2[:, 1]) <= LOGIT_REL * float(xla.abs().max())
+        parted = xla.argmax(-1) != logits["fused"].argmax(-1)
+        if bool((parted & ~near).any()):
+            fail(f"eval --impl xla and --impl fused part on images whose xla top-2 gap is above "
+                 f"the logit bound: {parted.nonzero().flatten().tolist()}")
+        print(f"  eval over {len(samples)} BMPs, b{EVAL_BATCH}: --quantized-checkpoint top1 "
+              f"{top1:.4f} (each batch within {worst_art:.4g} x its max|logit| of the twins, "
+              f"the worst image {float(rel.max()):.4g} x its own), "
+              f"--impl xla {top1s['xla']:.4f}, --impl fused {top1s['fused']:.4f}; "
+              f"{int(parted.sum())} image(s) part, {int(near.sum())} near-tie image(s) (random "
+              f"weights)")
+
+        path = tmp / "deit_tiny.pt2"
+        run_cli(cli, ["export", "--model", "deit_tiny", "--format", "torch_export", "--output",
+                      str(path), *dev])
+        side = json.loads(Path(str(path) + ".json").read_text())
+        if set(side) != {"input_shape", "dtype", "baked_params", "model", "style"}:
+            fail(f"export sidecar keys {sorted(side)}")
+        x = torch.randn(1, 3, 224, 224, generator=torch.Generator().manual_seed(4200)).to(DEVICE)
+        with torch.no_grad():
+            a, b = load_exported(str(path))(x), model32(x)
+        torch.cuda.synchronize()
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        if not err <= EXPORT_REL:
+            fail(f"the exported program parts from the plain forward by {err:.3g} x max|logit|")
+        print(f"  export --format torch_export: the loaded program against the plain forward "
+              f"on the card {err:.3g} x max|logit| ({'the same bits' if torch.equal(a, b) else 'not the same bits'})")
+
+        lat = tmp / "latency.csv"
+        counter.reset()
+        t0 = time.perf_counter()
+        run_cli(cli, ["latency_model", "collect", "--n", str(CLI_LATENCY_ENCODINGS), "--impl",
+                      "fused", "--output", str(lat), *dev])
+        check_cli_launches("latency_model collect --impl fused", counter, _DEIT_FUSED)
+        collect_s = time.perf_counter() - t0
+        lines = lat.read_text().splitlines()[1:]
+        if len(lines) != CLI_LATENCY_ENCODINGS or not all(float(r.split(",")[1]) > 0
+                                                          for r in lines):
+            fail(f"latency_model collect wrote {lines}")
+        print(f"  latency_model collect ({CLI_LATENCY_ENCODINGS} encodings, b1, fused): "
+              f"{collect_s:.1f} s")
+        # fit and predict are scikit-learn on the host (the JAX package's
+        # RandomForest), which this machine may lack: say so rather than fail
+        if importlib.util.find_spec("sklearn") is None:
+            print("  latency_model fit / predict: not run, scikit-learn is not installed here "
+                  "(tests/test_torch_cli.py runs them on the CPU against the JAX CLI's fit)")
+        else:
+            pkl = tmp / "latency.pkl"
+            run_cli(cli, ["latency_model", "fit", "--data", str(lat), "--output", str(pkl)])
+            out = run_cli(cli, ["latency_model", "predict", "--predictor", str(pkl),
+                                "--encoding", lines[0].split(",")[0]])
+            if not float(out.split()[0]) > 0:
+                fail(f"latency_model predict: {out!r}")
+
+        x = torch.ones(CLI_TIMER_BATCH, 3, 224, 224, dtype=torch.bfloat16, device=DEVICE)
+        loops, events = [], []
+        with torch.no_grad():
+            for _ in range(CLI_TIMER_ROUNDS):
+                loops.append(looptimer.measure_op_time(fused, (x,), iters=CLI_ITERS,
+                                                       repeats=CLI_REPEATS)["p50_ms"])
+                events.append(harness.measure_call_time(fused, (x,), iters=CLI_ITERS,
+                                                        repeats=5)["p50_ms"])
+        loop, event = statistics.median(loops), statistics.median(events)
+        part = abs(loop - event) / event
+        print(f"  deit_tiny b{CLI_TIMER_BATCH} fused_vit_apply, {CLI_TIMER_ROUNDS} rounds in turn: "
+              f"looptimer.measure_op_time p50 {', '.join(f'{v:.4f}' for v in loops)} ms, "
+              f"harness.measure_call_time p50 {', '.join(f'{v:.4f}' for v in events)} ms; "
+              f"medians {loop:.4f} and {event:.4f} ms, {part:.1%} apart")
+        if part > TIMER_AGREE:
+            fail(f"the loop-delta and CUDA-event timers part by {part:.1%} (> {TIMER_AGREE:.0%})")
+        del model32, model16, stacked
+    torch.cuda.synchronize()
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s, peak device memory "
+          f"{harness.device_peak_mb():.1f} MiB, on {card}")
 
 
 def main() -> int:
@@ -4348,7 +4694,7 @@ def main() -> int:
     worst_cnn = phase_cnn(torch, harness)
     torch.cuda.synchronize()
     print(f"  phase 10: {time.perf_counter() - t10:.1f} s, peak device memory "
-          f"{harness.device_mem_mb():.1f} MiB, worst logit deviation {worst10:.4g} of max|logit| "
+          f"{harness.device_peak_mb():.1f} MiB, worst logit deviation {worst10:.4g} of max|logit| "
           f"(imports), CNN card vs CPU {worst_cnn:.3g}; launches "
           f"{ {k: v for k, v in launches10.items() if v} }; on {card}")
     torch.cuda.empty_cache()
@@ -4358,6 +4704,12 @@ def main() -> int:
           f"activations within {PAR_REL} of max|.|), evaluate_sharded on K1/K2 and K4/K5, head "
           f"importance over dp, the dryrun, on {card}")
     phase_parallel(torch, harness, card)
+    torch.cuda.empty_cache()
+    print(f"== phase 12: the CLI on the card (python -m edgevisiontransformer_tpu_torch.cli, run "
+          f"in this process): benchmark per kernel mode beside its device p50, benchmark_train, "
+          f"profile, experiments, convert / eval, export, latency_model, the loop-delta timer "
+          f"against the CUDA-event timer (within {TIMER_AGREE:.0%}), on {card}")
+    phase_cli(torch, harness, counter, card)
     worsts = (worst, worst8, worst_t2t, worst_swin, worst_swin8, worst_mod, worst_vm, worst_pr,
               worst_full, worst_train, worst_prune, worst16)
     print(f"build {build_s:.2f} s; worst logit deviation {max(worsts):.4g} of max|logit| (deit "

@@ -7,8 +7,8 @@ The reference's ``deit_pruning/src/latency_model.py:27-92`` and
 features parsed from the "h_4_d_0.4-..." DSL, with RMSE/RMSPE/±5/10/15%
 accuracy metrics and pickled persistence.  The sampler produces random
 layerwise prune encodings; ``collect_latency_dataset`` takes any
-``measure(encoding) -> ms``.  The JAX package's ``measure_pruned_deit``
-(a timer of the shape-specialized model) waits for the port's loop timer.
+``measure(encoding) -> ms``; :func:`measure_pruned_deit` gives one that
+times the shape-specialized pruned DeiT on the card.
 """
 
 from __future__ import annotations
@@ -249,3 +249,72 @@ def collect_latency_dataset(
         log(f"{enc} {ms:.4f} ms")
     return xs, ys
 
+
+
+def pruned_deit_config(encoding: str, size: str = "tiny", dtype="bfloat16"):
+    """The shape-specialized config :func:`measure_pruned_deit` times: the
+    heads and MLP density of each layer from a "h_4_d_0.4-..." encoding,
+    ``mlp_dim_per_layer = int(d * mlp_dim)`` of the size's DeiT, head size
+    64, as the JAX package builds it."""
+    import torch
+
+    from ..models.vit import deit_config
+
+    feats = parse_features(encoding)
+    heads = tuple(int(h) for h in feats[0::2])
+    base = deit_config(size)
+    mlps = tuple(int(d * base.mlp_dim) for d in feats[1::2])
+    return base.replace(heads_per_layer=heads, mlp_dim_per_layer=mlps, head_dim=64,
+                        dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype)
+
+
+def measure_pruned_deit(size: str = "tiny", batch: int = 1, dtype="bfloat16",
+                        impl: str = "fused", detailed: bool = False, device="cuda"):
+    """Returns measure(encoding) timing the shape-specialized pruned model
+    (:func:`pruned_deit_config`, seeded random weights) on ``device``, the
+    card unless the caller names another.  ``impl="fused"`` times
+    ``models/vit.fused_vit_apply`` (the K1/K2 chain); ``"int8_static"`` the
+    deployed static-int8 path, ``fused_vit_apply_int8`` on a
+    ``prepare_vit_int8_static`` stack (absmax calibration; the K4/K5
+    chain), so a predictor fitted on it answers "deployed latency";
+    ``"xla"`` the plain module forward.  ``detailed``: return the full
+    stats dict (p50/std/iters) instead of the p50 float, so collected
+    datasets record their own noise floor.
+
+    The time is ``bench/looptimer.measure_op_time``'s wall time per call,
+    with the host's launch work in it, under the reference's settings:
+    ``repeats=7`` and a loop delta of at least 120 ms, retried at 4x the
+    iterations and 240 ms if the p50 came out 0."""
+    import torch
+
+    from ..bench.looptimer import measure_op_time
+    from ..models.vit import (ViT, fused_vit_apply, fused_vit_apply_int8, model_device,
+                              prepare_vit_fused, prepare_vit_int8_static)
+
+    dev = model_device(device)
+
+    def measure(encoding: str):
+        cfg = pruned_deit_config(encoding, size, dtype)
+        model = ViT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        x = torch.ones((batch, 3, 224, 224), dtype=cfg.dtype, device=dev)
+        with torch.no_grad():
+            if impl == "fused":
+                stacked = prepare_vit_fused(model)
+                fn = lambda xx: fused_vit_apply(model, xx, stacked=stacked)  # noqa: E731
+            elif impl == "int8_static":
+                sq = prepare_vit_int8_static(model)
+                fn = lambda xx: fused_vit_apply_int8(model, xx, stacked_q=sq)  # noqa: E731
+            elif impl == "xla":
+                fn = model
+            else:
+                raise ValueError(f"unknown impl {impl!r}; one of fused, int8_static, xla")
+            r = measure_op_time(fn, (x,), iters=100, repeats=7, chain_arg=-1,
+                                min_delta_ms=120.0)
+            if r["p50_ms"] <= 0:  # a clamped delta survived: retry larger
+                r = measure_op_time(fn, (x,), iters=r["iters"] * 4, repeats=7, chain_arg=-1,
+                                    min_delta_ms=240.0)
+        if detailed:
+            return r
+        return r["p50_ms"]
+
+    return measure

@@ -71,7 +71,12 @@ PORT_MODULES = [
     "edgevisiontransformer_tpu_torch.pruning.sparse_train",
     "edgevisiontransformer_tpu_torch.pruning.transitions",
     "edgevisiontransformer_tpu_torch.pruning.sparse_driver",
+    "edgevisiontransformer_tpu_torch.cli",
+    "edgevisiontransformer_tpu_torch.utils.export",
+    "edgevisiontransformer_tpu_torch.bench.looptimer",
     "edgevisiontransformer_tpu_torch.bench.harness",
+    "edgevisiontransformer_tpu_torch.bench.profile",
+    "edgevisiontransformer_tpu_torch.bench.experiments",
     "edgevisiontransformer_tpu_torch.bench.analyse",
     "edgevisiontransformer_tpu_torch.bench.sdpa_ab",
     "edgevisiontransformer_tpu_torch.bench.mlp_ab",

@@ -2004,3 +2004,87 @@ def test_ranks_sharing_the_card_open_the_parents_library(dev):
         assert total == pytest.approx(2 * float(want.float().sum()), rel=1e-6)
     stray = [p for p in build.library_path().parent.iterdir() if p.suffix != ".so"]
     assert not stray, stray
+
+
+# The CLI's benchmark on the card: each --kernel-mode launches exactly its
+# kernels (deit_tiny b1), as chip_smoke.py phase 12 checks at full size.
+CLI_MODE_KERNELS = {
+    "xla": set(),
+    "pallas": {"sdpa", "mlp"},
+    "fused": {"ln_rows", "linear", "attention_rows"},
+    "int8": {"ln_rows", "attention_rows", "quant_rows", "linear_i8"},
+    "int8_static": {"ln_rows", "attention_rows", "quant_rows", "linear_i8"},
+}
+
+
+@pytest.mark.parametrize("mode", sorted(CLI_MODE_KERNELS))
+def test_cli_benchmark_launches_the_modes_kernels(dev, mode, capsys):
+    import json
+
+    from edgevisiontransformer_tpu_torch import cli
+
+    mods = (fe, fa, fm, vf, pf, sb, sm, ts, ws)
+    for m in mods:
+        m.reset_launches()
+    assert cli.main(["benchmark", "--kernel-mode", mode, "--iters", "3", "--repeats", "2",
+                     "--device-time"]) == 0
+    r = json.loads(capsys.readouterr().out.splitlines()[-1])
+    ran = {k for m in mods for k, v in m.LAUNCHES.items() if v}
+    assert ran == CLI_MODE_KERNELS[mode]
+    assert r["p50_ms"] > 0 and r["device_p50_ms"] > 0 and r["batch"] == 1
+
+
+def test_profile_trace_on_the_card_names_linear(dev):
+    from edgevisiontransformer_tpu_torch.bench.profile import profile_trace
+
+    model = build_model("deit_tiny", dtype=torch.bfloat16, device=dev,
+                        generator=torch.Generator().manual_seed(0))[0]
+    stacked = prepare_vit_fused(model)
+    img = torch.ones(1, 3, 224, 224, dtype=torch.bfloat16, device=dev)
+
+    def run_once():
+        fused_vit_apply(model, img, stacked=stacked)
+        torch.cuda.synchronize()
+
+    with torch.no_grad():
+        rows, total = profile_trace(run_once, iters=3, warmup=1)
+    linear = [r for r in rows if "linear_kernel" in r["name"]]
+    assert linear and all(r["node_type"] == "FULLY_CONNECTED" for r in linear)
+    assert any(r["node_type"] == "LAYER_NORM" for r in rows)
+    assert total > 0 and abs(sum(r["percent"] for r in rows) - 100.0) < 1e-6
+
+
+def test_looptimer_agrees_with_the_event_timer(dev):
+    """Both time a deit_tiny b128 fused_vit_apply call with the host in it;
+    they run in turn, three times each, and their medians are compared, as
+    the host's speed drifts from one measurement to the next."""
+    import statistics
+
+    from edgevisiontransformer_tpu_torch.bench import harness, looptimer
+
+    model = build_model("deit_tiny", dtype=torch.bfloat16, device=dev,
+                        generator=torch.Generator().manual_seed(0))[0]
+    stacked = prepare_vit_fused(model)
+    img = torch.ones(128, 3, 224, 224, dtype=torch.bfloat16, device=dev)
+    fn = functools.partial(fused_vit_apply, model, stacked=stacked)
+    loops, events = [], []
+    with torch.no_grad():
+        for _ in range(3):
+            loops.append(looptimer.measure_op_time(fn, (img,), iters=20, repeats=3)["p50_ms"])
+            events.append(harness.measure_call_time(fn, (img,), iters=20, repeats=5)["p50_ms"])
+    loop, event = statistics.median(loops), statistics.median(events)
+    assert abs(loop - event) <= 0.15 * event, (loops, events)
+
+
+def test_harness_memory_on_the_card(dev):
+    from edgevisiontransformer_tpu_torch.bench import harness
+
+    x = torch.ones(1024, 1024, device=dev)
+    x @ x  # cuBLAS's workspace, allocated at a handle's first product, is not the call's
+    peak, live = harness.device_mem_mb()
+    assert peak >= live >= 4.0
+    # one call's own allocation: the 4 MiB product, above what was live
+    assert harness.compiled_mem_mb(lambda a: a @ a, (x,)) == pytest.approx(4.0, abs=0.5)
+    res = harness.benchmark_fn(lambda a: a @ a, (x,), name="mm", num_runs=3, iters=10,
+                               batch_size=1)
+    assert res.p50_ms > 0 and res.peak_hbm_mb is not None and res.throughput_per_s > 0
