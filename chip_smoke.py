@@ -27,7 +27,12 @@ Phases, in order; any failure exits non-zero before the last line:
    ``performer_rows`` (the T2T TokenPerformer, K16) at the tokenizer's two
    stage shapes (b1, b4, b32) and ragged token counts, within the
    tolerance, with image 0's output the same bits alone and in b32 and a
-   CUDA graph of both replayed twice equal to the eager call;
+   CUDA graph of both replayed twice equal to the eager call; and the
+   widened kernels at the head dims and widths they took no instance for
+   before: ``attention_rows`` and ``sdpa`` at ViT-H/14's head_dim 80 (257
+   tokens, b1 and b8), 88, 48 / 96 and 104 / 112, ``mlp`` at dim 1280 (b1,
+   b8), 1536 and 2048, ``vit_full`` at head_dim 48 and 88 and at ViT-H/14's
+   widths with patch 14 (b1, b8);
 4. run the slices: ``build_model("deit_tiny")`` at full width and depth with
    seeded random weights through ``fused_vit_apply`` on the kernels — three
    b1 requests and one b128 in standard style, one b1 in reference style,
@@ -74,7 +79,9 @@ Phases, in order; any failure exits non-zero before the last line:
    rate for their type) and, where one PyTorch call computes the same
    function, that call's device time at the same shapes; K16's rows at one
    t2t_vit_14 tokenizer at b1 and at b32, beside the eager performer chain;
-   ``stage1_kqv``'s rows at t2t_vit_14 b1 and b4;
+   ``stage1_kqv``'s rows at t2t_vit_14 b1 and b4; ``attention_rows``,
+   ``sdpa`` and ``mlp`` at one ViT-H/14 layer at b1 and b8 (SDPA at head_dim
+   80; ``addmm`` + ``gelu`` + ``addmm`` at dim 1280);
 7. finetuning on the card and its result served on the kernels:
    deit_tiny (standard, full width and depth, fp32, seeded random weights)
    trained by SGD at b32 through ``parallel/train.make_train_step`` (plain
@@ -146,6 +153,14 @@ Phases, in order; any failure exits non-zero before the last line:
    ``models/cnn`` from the registry at 224, fp32 on the card (TF32 off)
    against their CPU forward at b1 and b8 (and b1 with TF32 on, printed), a
    bf16 cast, eager p50 at b1 and b32; the phase's seconds and peak memory;
+   then ViT-H/14 (google/vit-huge-patch14-224-in21k's shapes: dim 1280, 32
+   layers, 16 heads of 80, MLP 5120, patch 14) from a seeded state dict under
+   transformers' names, served at full width and depth through
+   ``fused_vit_apply``, ``fully_fused_vit_apply`` and the
+   ``kernel_mode="pallas"`` module at b1 and b8 and static
+   ``fused_vit_apply_int8`` at b1 (logits against the twins, exact launch
+   counts), each path's b1 device p50 beside deit_base's, its seconds and
+   peak memory;
 11. distributed training and evaluation: 4 gloo ranks sharing the card
    (``parallel/launch.spawn``; NCCL takes one device per rank), each opening
    the library phase 2 built, fp32 with TF32 off: the ``jit_sharded_train_step``
@@ -302,13 +317,19 @@ MODULE_LAUNCHES = {"sdpa": 1, "mlp": 1}
 # reference-residual config keeps the linear head (the whole-model path
 # refuses the two-layer one); b128 takes the serving plan (128-row tiles,
 # 8-warp strips), b1 and b8 the small tiles; head_dim 16, 32 and 128 at
-# uniform narrow widths (128 runs the one-block-an-SM instance)
+# uniform narrow widths (128 runs the one-block-an-SM instance); head_dim
+# 48 and 88 (ViT-g/14's) and ViT-H/14's widths at patch 14 (head_dim 80;
+# the embedding's K = 588), each on that instance's 128-wide strip
 FULL_CHECKS = (("deit_tiny", 1, {}), ("deit_tiny", 8, {}), ("deit_tiny", 128, {}),
                ("deit_tiny res=h tanh", 1, dict(reference_residual=True, gelu_approx=True)),
                ("deit_tiny no final norm", 8, dict(final_norm=False)),
                ("head_dim 16", 1, dict(dim=64, heads=4, mlp_dim=256)),
                ("head_dim 32", 8, dict(dim=128, heads=4, mlp_dim=512)),
-               ("head_dim 128", 2, dict(dim=256, heads=2, mlp_dim=1024)))
+               ("head_dim 128", 2, dict(dim=256, heads=2, mlp_dim=1024)),
+               ("head_dim 48", 2, dict(dim=192, heads=4, mlp_dim=768)),
+               ("head_dim 88", 8, dict(dim=176, heads=2, mlp_dim=704)),
+               ("ViT-H/14 p14", 1, dict(dim=1280, heads=16, mlp_dim=5120, patch_size=14)),
+               ("ViT-H/14 p14", 8, dict(dim=1280, heads=16, mlp_dim=5120, patch_size=14)))
 # fully_fused_vit_apply in phase 4 (on phase_slice's models) and phase 5
 FULL_REQUESTS = (("deit_tiny", 1, 2000), ("deit_tiny", 128, 2010), ("deit_base", 8, 2020))
 FULL_TIMES = (("deit_tiny", 1), ("deit_tiny", 128), ("deit_base", 1))
@@ -318,29 +339,47 @@ PERFORMER_SHAPES = ((1, 3136), (4, 3136), (1, 784), (4, 784), (32, 3136), (32, 7
                     (1, 50))
 # sdpa at the module path's shapes, [b, h, n, d]: deit_tiny b1 and b128,
 # t2t_vit_14 b1, pruned h1 b1 and b128, head_dim 32 (the kernel's resident
-# form), and deit_base at 384 (n = 577, its streamed form)
+# form), deit_base at 384 (n = 577, its streamed form), ViT-H/14 (head_dim
+# 80, 257 keys: streamed) at b1 and b8, head_dim 88 (on the 96 instance),
+# 96 (resident at 197 keys) and 112 (streamed at 197 keys)
 SDPA_SHAPES = {"deit_tiny b1": (1, 3, 197, 64), "deit_tiny b128": (128, 3, 197, 64),
                "t2t_vit_14 b1": (1, 6, 197, 64), "pruned h1 b1": (1, 1, 197, 64),
                "pruned h1 b128": (128, 1, 197, 64), "head_dim 32 b8": (8, 6, 197, 32),
-               "deit_base 384 b8": (8, 12, 577, 64)}
+               "deit_base 384 b8": (8, 12, 577, 64),
+               "ViT-H/14 b1": (1, 16, 257, 80), "ViT-H/14 b8": (8, 16, 257, 80),
+               "head_dim 88 b2": (2, 16, 257, 88), "head_dim 96 b2": (2, 4, 197, 96),
+               "head_dim 112 b2": (2, 4, 197, 112)}
 # mlp at (rows, dim, hidden): deit_tiny b1 and b128, deit_base b8,
-# t2t_vit_14 b1, the pruned widths 230 (ffn0.3) and 537 (ffn0.7); every b1
-# entry takes the kernel's cluster split of the hidden width (fused_mlp.plan)
+# t2t_vit_14 b1, the pruned widths 230 (ffn0.3) and 537 (ffn0.7), ViT-H/14
+# (dim 1280, hidden 5120: 32-row blocks) at b1 and b8, dims 1536 and 2048
+# (the limit); every b1 entry takes the kernel's cluster split of the hidden
+# width (fused_mlp.plan)
 MLP_SHAPES = {"deit_tiny b1": (197, 192, 768), "deit_tiny b128": (128 * 197, 192, 768),
               "deit_base b8": (8 * 197, 768, 3072), "t2t_vit_14 b1": (197, 384, 1152),
               "hidden 230 b1": (197, 192, 230), "hidden 230 b128": (128 * 197, 192, 230),
-              "hidden 537 b1": (197, 192, 537)}
+              "hidden 537 b1": (197, 192, 537),
+              "ViT-H/14 b1": (257, 1280, 5120), "ViT-H/14 b8": (8 * 257, 1280, 5120),
+              "dim 1536 b1": (257, 1536, 6144), "dim 2048 b1": (257, 2048, 8192)}
 # attention_rows at (batch, tokens, seq_len, heads, head_dim) beyond SHAPES:
 # the pruned model's one head at b1 and b128, head_dim 16 (the layerwise
 # pruned config's 5 tokens at 2 and 3 heads, and 197 tokens), head_dim 128,
-# padded and fully masked keys, and deit_base at 384 (ten 64-key tiles)
+# padded and fully masked keys, deit_base at 384 (ten 64-key tiles), and
+# the head dims of the widened instances: ViT-H/14 (80, 257 tokens) at b1
+# and b8, 88 (ViT-g/14, on the 96 instance), 48, and 104 with padded keys
 ATTENTION_SHAPES = {"pruned h1 b1": (1, 197, 197, 1, 64),
                     "pruned h1 b128": (128, 197, 197, 1, 64),
                     "layerwise h2 d16": (1, 5, 5, 2, 16), "layerwise h3 d16": (1, 5, 5, 3, 16),
                     "head_dim 16 b8": (8, 197, 197, 4, 16),
                     "head_dim 128 b8": (8, 197, 197, 2, 128),
                     "padded 200/197 b2": (2, 200, 197, 3, 64), "masked 70/0 b1": (1, 70, 0, 2, 64),
-                    "deit_base 384 b8": (8, 577, 577, 12, 64)}
+                    "deit_base 384 b8": (8, 577, 577, 12, 64),
+                    "ViT-H/14 b1": (1, 257, 257, 16, 80), "ViT-H/14 b8": (8, 257, 257, 16, 80),
+                    "head_dim 88 b2": (2, 257, 257, 16, 88),
+                    "head_dim 48 b2": (2, 197, 197, 4, 48),
+                    "head_dim 104 padded 200/197 b2": (2, 200, 197, 2, 104)}
+# The shapes of phase 6's ViT-H/14 rows: attention_rows, sdpa and mlp at one
+# ViT-H/14 layer (257 tokens, 16 heads of 80, dim 1280, MLP 5120)
+VIT_H_ROWS = {"ViT-H/14 b1": 1, "ViT-H/14 b8": 8}
 SHAPES = {
     "deit_tiny b1": (197, 192, 768, 3, False),
     "deit_tiny b128": (128 * 197, 192, 768, 3, False),
@@ -411,7 +450,8 @@ def phase_build(torch, build, vf) -> float:
             if "spill" in line:
                 print(f"  {src} instance: {line}")
     for dtype in (torch.bfloat16, torch.float16):
-        for hd in vf.VIT_FULL_HEAD_DIMS:  # the instances of deit_tiny b128's and b1's plans
+        # the strips of deit_tiny b128's and b1's plans, and ViT-H/14's 80 (on 128's)
+        for hd in (*vf.VIT_FULL_STRIP_HEAD_DIMS, 80):
             dim, heads = 192, max(1, 192 // hd)
             for b in (128, 1):
                 plan = vf.vit_full_plan(b, 197, dim, heads, hd, 768, 1000, 132)
@@ -843,7 +883,8 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
     ``layer_norm`` (K15, one ``ln_rows`` launch) at ``[b, 197, 192]``;
     ``mlp`` gives the same bits twice at deit_tiny b1 and b128; returns
     ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} of one deit_tiny b128
-    layer's launch, and under ``"mlp b1"`` one deit_tiny b1 layer's)."""
+    layer's launch, and under ``"mlp b1"`` one deit_tiny b1 layer's, under
+    ``"sdpa ViT-H/14 b1"`` etc. one ViT-H/14 layer's at ``VIT_H_ROWS``)."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(11)
 
@@ -870,7 +911,8 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
         q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
         check("sdpa", "sdpa", shape_name, lambda: fa.sdpa(q, k, v),
               lambda: fa.sdpa_plain(q, k, v),
-              row="sdpa" if shape_name == "deit_tiny b128" else None)
+              row="sdpa" if shape_name == "deit_tiny b128" else (
+                  f"sdpa {shape_name}" if shape_name in VIT_H_ROWS else None))
     for shape_name, (m, dim, hid) in MLP_SHAPES.items():
         x = rnd(m, dim, scale=2.0)
         w1, b1 = rnd(dim, hid, scale=dim ** -0.5), rnd(hid)
@@ -879,8 +921,8 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
             check("mlp", f"mlp {'tanh' if approx else 'erf'}", shape_name,
                   lambda: fm.mlp(x, w1, b1, w2, b2, approx_gelu=approx),
                   lambda: fm.mlp_plain(x, w1, b1, w2, b2, approx_gelu=approx),
-                  row=None if approx else {"deit_tiny b128": "mlp",
-                                           "deit_tiny b1": "mlp b1"}.get(shape_name))
+                  row=None if approx else {"deit_tiny b128": "mlp", "deit_tiny b1": "mlp b1",
+                                           **{s: f"mlp {s}" for s in VIT_H_ROWS}}.get(shape_name))
         if shape_name in ("deit_tiny b1", "deit_tiny b128"):
             first, second = fm.mlp(x, w1, b1, w2, b2), fm.mlp(x, w1, b1, w2, b2)
             torch.cuda.synchronize()
@@ -899,10 +941,11 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
 def phase_kernel_attention(torch, fe, harness):
     """``attention_rows`` against its twin at ``ATTENTION_SHAPES``, and a
     query row's bits alone and as image 0 of deit_tiny b128, under every
-    plan; returns max_abs_err."""
+    plan; returns (max_abs_err, {"attention_rows ViT-H/14 b1": (ms,
+    plain_ms), ...} at ``VIT_H_ROWS``)."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(17)
-    worst = 0.0
+    worst, rows = 0.0, {}
     for tag, (b, n, seq, h, d) in ATTENTION_SHAPES.items():
         qkv = torch.randn(b * n, 3 * h * d, generator=gen, device=dev).to(torch.bfloat16)
         kw = dict(heads=h, head_dim=d, tokens=n, seq_len=seq)
@@ -913,8 +956,11 @@ def phase_kernel_attention(torch, fe, harness):
             fail(f"attention_rows at {tag}: max |kernel - twin| {err:.4g} "
                  f"over {KERNEL_ATOL} + {KERNEL_RTOL:.4g}|twin|")
         worst = max(worst, err)
-        time_pair(harness, tag, "attention_rows", err, lambda: fe.attention_rows(qkv, **kw),
-                  lambda: fe.attention_rows_plain(qkv, **kw))
+        times = time_pair(harness, tag, "attention_rows", err,
+                          lambda: fe.attention_rows(qkv, **kw),
+                          lambda: fe.attention_rows_plain(qkv, **kw))
+        if tag in VIT_H_ROWS:
+            rows[f"attention_rows {tag}"] = times
     qkv = torch.randn(128 * 197, 576, generator=gen, device=dev).to(torch.bfloat16)
     kw = dict(heads=3, head_dim=64, tokens=197)
     plan, outs = fe.attention_plan, []
@@ -932,7 +978,7 @@ def phase_kernel_attention(torch, fe, harness):
           f"{len(fe.ATTENTION_WARPS)} plans (deit_tiny b1 / b128 plan "
           f"{fe.attention_plan(1, 3, 197, fe._sm_count(0))} / "
           f"{fe.attention_plan(128, 3, 197, fe._sm_count(0))} warps)")
-    return worst
+    return worst, rows
 
 
 def phase_kernels_ragged(torch, fe, harness):
@@ -1815,6 +1861,44 @@ def phase_yardsticks(torch, harness, dt=None):
         print(f"  {k:16s} bound {bnd:.4f} ms ({by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     return out, chains
+
+
+def vit_huge_yardsticks(torch, harness) -> dict:
+    """The bound and library call of phase 6's ViT-H/14 rows, one layer at
+    ``VIT_H_ROWS``' batches: ``attention_rows`` (16 heads of 80 over the
+    fused qkv rows; library: SDPA with a key mask, as the deit_tiny row's),
+    ``sdpa`` (library: SDPA on the same q, k, v views) and ``mlp`` (dim 1280,
+    hidden 5120, exact GELU; library: ``torch.addmm`` + ``F.gelu`` +
+    ``torch.addmm`` timed as one sum); bytes and operations counted as
+    :func:`phase_yardsticks` counts them.  Returns {"<kernel> ViT-H/14 b<n>":
+    (bound_ms, bound_by, library_ms)}."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+    def lib(fn):
+        return harness.measure_graph_time(fn)["p50_ms"]
+
+    n, heads, hd, dim, hid = 257, 16, 80, 1280, 5120
+    out = {}
+    for tag, b in VIT_H_ROWS.items():
+        qkv = rnd(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        key_mask = torch.zeros(1, 1, 1, n, dtype=torch.bfloat16, device=DEVICE)
+        bound = _bound(2 * 4 * b * n * heads * hd, {"bf16": 4 * b * heads * n * n * hd})
+        out[f"attention_rows {tag}"] = (*bound, lib(
+            lambda: F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=key_mask)))
+        out[f"sdpa {tag}"] = (*bound, lib(
+            lambda: F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])))
+        m = b * n
+        x, w1, b1, w2, b2 = rnd(m, dim), rnd(dim, hid), rnd(hid), rnd(hid, dim), rnd(dim)
+        out[f"mlp {tag}"] = (
+            *_bound(2 * (2 * m * dim + 2 * dim * hid + hid + dim), {"bf16": 4 * m * dim * hid}),
+            lib(lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, x, w1)), w2)))
+        del qkv, x, w1, w2
+    return out
 
 
 def first_parting_layer(torch, fe, model, img, sq):
@@ -3317,6 +3401,12 @@ def phase_time_f16(torch, harness, mods):
 HF_VIT_B16 = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
                   intermediate_size=3072, image_size=224, patch_size=16, num_channels=3,
                   qkv_bias=True, layer_norm_eps=1e-12, num_labels=1000)
+# google/vit-huge-patch14-224-in21k's shapes: hidden 1280, 32 layers, 16
+# heads of 80, MLP 5120, patch 14 (257 tokens at 224^2), qkv bias, eps 1e-12,
+# here with ImageNet's 1000 labels
+HF_VIT_H14 = dict(hidden_size=1280, num_hidden_layers=32, num_attention_heads=16,
+                  intermediate_size=5120, image_size=224, patch_size=14, num_channels=3,
+                  qkv_bias=True, layer_norm_eps=1e-12, num_labels=1000)
 # microsoft/swin-tiny-patch4-window7-224's shapes: SwinConfig's defaults
 HF_SWIN_T = dict(image_size=224, patch_size=4, num_channels=3, embed_dim=96,
                  depths=[2, 2, 6, 2], num_heads=[3, 6, 12, 24], window_size=7, mlp_ratio=4.0,
@@ -3605,6 +3695,107 @@ def phase_imports(torch, counter, harness, base_b1_ms):
             want_launches(BF16_LAUNCHES, tcfg.depth, stage1=int(batch < 8), performers=2),
             tcfg.num_classes)
     return launches, worst, (vit, stacked)
+
+
+def phase_vit_huge(torch, counter, harness, base_b1_ms, fa, fm):
+    """ViT-H/14 (``HF_VIT_H14``: transformers' names, weights N(0, 0.02) from
+    a seed) through ``vit_config_from_hf`` / ``import_hf_vit`` /
+    ``load_jax_params`` at full width and depth 32, 224^2: bf16 b1 and b8
+    through ``fused_vit_apply``, ``fully_fused_vit_apply`` and the
+    ``kernel_mode="pallas"`` module, static int8 (8 representative batches)
+    b1 through ``fused_vit_apply_int8``; logits against the twins, exact
+    launch counts; each path's b1 device p50 beside deit_base's, the peak
+    device memory and the seconds.  Returns (launches, worst deviation)."""
+    from types import SimpleNamespace
+
+    from edgevisiontransformer_tpu_torch.models.vit import (ViT, fully_fused_vit_apply,
+                                                             fused_vit_apply,
+                                                             fused_vit_apply_int8,
+                                                             prepare_vit_full, prepare_vit_fused,
+                                                             prepare_vit_int8_static)
+    from edgevisiontransformer_tpu_torch.ops.quant import representative_batches
+    from edgevisiontransformer_tpu_torch.utils import hf_import as hi
+    from edgevisiontransformer_tpu_torch.utils.jax_bridge import load_jax_params
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf = SimpleNamespace(**HF_VIT_H14)
+    cfg = hi.vit_config_from_hf(hf)
+    if (cfg.dim, cfg.depth, cfg.resolved_head_dim, cfg.mlp_dim, cfg.patch_size) != (
+            hf.hidden_size, hf.num_hidden_layers, hf.hidden_size // hf.num_attention_heads,
+            hf.intermediate_size, hf.patch_size):
+        fail(f"vit_config_from_hf at ViT-H/14: {cfg}")
+    params = hi.import_hf_vit(hf_vit_state_dict(torch, hf, torch.Generator().manual_seed(13)),
+                              cfg)["params"]
+    t_import = time.perf_counter() - t0
+    vit = load_jax_params(ViT(cfg.replace(dtype=bf16), device=DEVICE), params)
+    module = load_jax_params(ViT(cfg.replace(dtype=bf16, kernel_mode="pallas"), device=DEVICE),
+                             params)
+    del params
+    with torch.no_grad():
+        stacked, prep = prepare_vit_fused(vit), prepare_vit_full(vit)
+        sq = prepare_vit_int8_static(vit, calib_batches=representative_batches(
+            n=8, shape=(3, 224, 224)))
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0 - t_import
+    print(f"  ViT-H/14 (transformers' names, {sum(p.numel() for p in vit.parameters()) / 1e6:.1f}"
+          f"M parameters, head_dim {cfg.resolved_head_dim}, {(224 // 14) ** 2 + 1} tokens): state "
+          f"dict built and imported in {t_import:.2f} s; on the card with its bf16, whole-model "
+          f"and static int8 stacks in {t_prep:.2f} s")
+    paths = {
+        "fused_vit_apply": (lambda img, plain: fused_vit_apply(vit, img, stacked=stacked,
+                                                               plain=plain),
+                            want_launches(BF16_LAUNCHES, cfg.depth)),
+        "fully_fused_vit_apply": (lambda img, plain: fully_fused_vit_apply(
+            vit, img, prepared=prep, plain=plain), {**{k: 0 for k in KERNELS}, "vit_full": 1}),
+        "module pallas": (None, want_launches(MODULE_LAUNCHES, cfg.depth)),
+        "int8 static": (lambda img, plain: fused_vit_apply_int8(vit, img, stacked_q=sq,
+                                                                plain=plain),
+                        want_launches(INT8_LAUNCHES, cfg.depth))}
+    launches = {k: 0 for k in counter.read()}
+    worst, images = 0.0, {}
+    for label, (apply, want) in paths.items():
+        for batch in ((1,) if label == "int8 static" else (1, 8)):
+            tag = f"ViT-H/14 {label} b{batch}"
+            img = torch.randn(batch, 3, 224, 224,
+                              generator=torch.Generator().manual_seed(3300 + batch)).to(DEVICE)
+            images[batch] = img
+            with torch.no_grad():
+                counter.reset()
+                logits = module(img) if apply is None else apply(img, False)
+                torch.cuda.synchronize()
+                counts = counter.read()
+                if apply is None:
+                    with module_twins(fa, fm):
+                        ref = module(img)
+                else:
+                    ref = apply(img, True)
+            if counts != want:
+                fail(f"{tag}: launch counts {counts}, expected {want}")
+            for k, v in counts.items():
+                launches[k] += v
+            rel, err, scale, agree = check_logits(tag, logits, ref, batch, cfg.num_classes)
+            worst = max(worst, rel)
+            print(f"  {tag:36s} logits {tuple(logits.shape)} max|kern-twin| {err:.4g} (max|logit| "
+                  f"{scale:.4g}), top-1 agreement {agree:.3f}, launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+    img1 = images[1]
+    with torch.no_grad():
+        for label, (apply, _) in paths.items():
+            fn = (lambda: module(img1)) if apply is None else (lambda a=apply: a(img1, False))
+            d = harness.measure_graph_time(fn, iters=5, repeats=5)
+            print(f"  ViT-H/14 {label} b1 device p50 {d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}); "
+                  f"phase 5's deit_base fused_vit_apply b1 {base_b1_ms:.4f} ms; ratio "
+                  f"{d['p50_ms'] / base_b1_ms:.3f}")
+    torch.cuda.synchronize()
+    print(f"  ViT-H/14: {time.perf_counter() - t0:.1f} s, peak device memory "
+          f"{harness.device_peak_mb():.1f} MiB (two models' fp32 parameters, the bf16, "
+          f"whole-model and int8 stacks)")
+    del vit, module, stacked, prep, sq
+    torch.cuda.empty_cache()
+    return launches, worst
 
 
 def phase_eval(torch, harness, state):
@@ -4560,7 +4751,8 @@ def main() -> int:
     layer_ms.update(swin_ms)
     errs_pallas, pallas_ms = phase_kernels_pallas(torch, fe, fa, fm, ln, harness)
     errs_ragged = phase_kernels_ragged(torch, fe, harness)
-    errs_ragged["attention_rows"] = phase_kernel_attention(torch, fe, harness)
+    errs_ragged["attention_rows"], attention_ms = phase_kernel_attention(torch, fe, harness)
+    layer_ms.update(attention_ms)
     for more in (errs_pallas, errs_ragged):
         for k, v in more.items():
             errs[k] = max(errs.get(k, 0.0), v)
@@ -4642,6 +4834,13 @@ def main() -> int:
                   f"{kk / bk:.1f}")
         print(f"  K16, one t2t_vit_14 b{batch} tokenizer: both kernels {both:.4f} ms, the eager "
               f"performer chain {chains[tag]:.4f} ms")
+    for key, (bnd1, by1, lib1) in vit_huge_yardsticks(torch, harness).items():
+        k1, p1 = layer_ms[key]
+        what = {"attention_rows": "SDPA with a key mask", "sdpa": "SDPA",
+                "mlp": "torch.addmm + F.gelu + torch.addmm"}[key.split()[0]]
+        print(f"  {key}, one layer (16 heads of 80, dim 1280, MLP 5120): kernel {k1:.4f} ms, "
+              f"twin {p1:.4f} ms, bound {bnd1:.4g} ms ({by1}), kernel / bound "
+              f"{k1 / bnd1:.1f}, library ({what}) {lib1:.4f} ms")
     for tag, yt in (("deit_tiny b128", ""), ("deit_tiny b1", " b1")):
         for name in LINEAR_GEMMS:
             (kg, pg), (bg, byg, lg) = layer_ms[f"linear {name} {tag}"], yard[f"linear {name}{yt}"]
@@ -4698,6 +4897,13 @@ def main() -> int:
           f"(imports), CNN card vs CPU {worst_cnn:.3g}; launches "
           f"{ {k: v for k, v in launches10.items() if v} }; on {card}")
     torch.cuda.empty_cache()
+    launches_h, worst_h = phase_vit_huge(torch, counter, harness, base_b1_ms, fa, fm)
+    for k in ("ln_rows", "linear", "attention_rows", "quant_rows", "linear_i8", "sdpa", "mlp",
+              "vit_full"):
+        if launches_h[k] == 0:
+            fail(f"kernel {k} was never launched on ViT-H/14's requests")
+    print(f"  ViT-H/14: worst logit deviation {worst_h:.4g} of max|logit|; launches "
+          f"{ {k: v for k, v in launches_h.items() if v} }; on {card}")
     print(f"== phase 11: distributed training and evaluation, {PAR_WORLD} gloo ranks sharing the "
           f"card: dp x tp, GPipe and sp against one process (losses within {CPU_LOSS_RTOL} "
           f"relative, params within one fp32 spacing + {CPU_STEP_REL} of the largest update, "

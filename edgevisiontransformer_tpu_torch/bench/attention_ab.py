@@ -56,7 +56,8 @@ STRIP = "attention_strip.cuh"
 ENTRY = "attention_rows.cu"
 _STAGES = "constexpr int KT = 64, STAGES = 2;"
 _SOFTMAX = "return exp2f(fminf(s, kClamp));"
-_CASE8 = "    case 8: return launch<HD, 8>(qkv, out, batch, tokens, seq_len, heads, scale2, s);\n"
+_CASE8 = ("    case 8: return launch<HD, 8, PAD>(qkv, out, batch, tokens, seq_len, heads, hd, "
+          "scale2, s);\n")
 # attn::tile (csrc/encoder_tiles.cuh) in one 4-warp block per (64-query
 # tile, head, image)
 TILE_SOURCE = r"""

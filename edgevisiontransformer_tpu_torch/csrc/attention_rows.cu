@@ -61,6 +61,13 @@
 //   warps.  A warp whose 16 rows all lie past `tokens` skips its arithmetic.
 // - Epilogue: O * (1 / max(r, 1e-30)) in registers, rounded to bf16 through
 //   the warp's own Q rows of shared memory and stored as 16-byte vectors.
+// - Head dims: an instance at each multiple of 16 from 16 to 128, and a
+//   padded form of each from 32 on that runs head_dim 8 less (24, ..., 120:
+//   ViT-g/14's 88 on 96's), its q, k and v rows zero-filled to the
+//   instance's width in shared memory and its extra output columns never
+//   stored; PAD is a template argument, so an unpadded form carries no
+//   column check.  The instances at 16, 32, 64 and 128 are attention_rows_kernel;
+//   the others, attention_rows_kernel_wide, allow ptxas one block an SM.
 // - The strip is a __device__ routine (attention_strip.cuh): this kernel runs
 //   one a block, vit_full.cu the strips of its attention phase inside its
 //   persistent kernel, so the whole-model forward takes the same bits.
@@ -77,16 +84,45 @@ __global__ __launch_bounds__(W * 32) void attention_rows_kernel(
     int strips, float scale2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bh = blockIdx.x / strips;
-  arows::strip<HD, W>(smem, qkv, out, tokens, seq_len, heads, scale2, blockIdx.x % strips,
+  arows::strip<HD, W>(smem, qkv, out, tokens, seq_len, heads, HD, scale2, blockIdx.x % strips,
                       bh / heads, bh % heads, threadIdx.x, 0);
 }
 
-template <int HD, int W>
-int launch(const void* qkv, void* out, int batch, int tokens, int seq_len, int heads,
+// The same at the other head dims: HD 48, 80, 96 or 112, and with PAD head_dim
+// hd = HD - 8, its rows zero-filled to HD (attention_strip.cuh).  One block
+// an SM is allowed (launch bounds' second argument): without it ptxas held
+// some of these at 128 or 80 registers, to keep more blocks an SM, and
+// spilled; with it, none spills.
+template <int HD, int W, bool PAD, class T>
+__global__ __launch_bounds__(W * 32, 1) void attention_rows_kernel_wide(
+    const T* __restrict__ qkv, T* __restrict__ out, int tokens, int seq_len, int heads, int hd,
+    int strips, float scale2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int bh = blockIdx.x / strips;
+  arows::strip<HD, W, 4, PAD>(smem, qkv, out, tokens, seq_len, heads, hd, scale2,
+                              blockIdx.x % strips, bh / heads, bh % heads, threadIdx.x, 0);
+}
+
+// The kernel of (HD, W, PAD): attention_rows_kernel at the head dims 16, 32,
+// 64 and 128, attention_rows_kernel_wide at the others (only the one taken
+// is instantiated).
+template <int HD, bool PAD>
+constexpr bool kNarrow = !PAD && (HD == 16 || HD == 32 || HD == 64 || HD == 128);
+
+template <int HD, int W, bool PAD>
+const void* kernel_of() {
+  if constexpr (kNarrow<HD, PAD>)
+    return reinterpret_cast<const void*>(attention_rows_kernel<HD, W, elem>);
+  else
+    return reinterpret_cast<const void*>(attention_rows_kernel_wide<HD, W, PAD, elem>);
+}
+
+template <int HD, int W, bool PAD>
+int launch(const void* qkv, void* out, int batch, int tokens, int seq_len, int heads, int hd,
            float scale2, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(attention_rows_kernel<HD, W, elem>,
+    const cudaError_t e = cudaFuncSetAttribute(kernel_of<HD, W, PAD>(),
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                arows::smem_bytes<HD>(W, STAGES));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -96,20 +132,25 @@ int launch(const void* qkv, void* out, int batch, int tokens, int seq_len, int h
   const int strips = (tokens + W * 16 - 1) / (W * 16);
   const long long blocks = static_cast<long long>(strips) * batch * heads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  attention_rows_kernel<HD, W, elem>
-      <<<static_cast<unsigned>(blocks), W * 32,
-         arows::smem_bytes<HD>(W, tiles < STAGES ? tiles : STAGES), stream>>>(
-          static_cast<const elem*>(qkv), static_cast<elem*>(out), tokens, seq_len, heads, strips,
-          scale2);
+  const int smem = arows::smem_bytes<HD>(W, tiles < STAGES ? tiles : STAGES);
+  const elem* q = static_cast<const elem*>(qkv);
+  elem* o = static_cast<elem*>(out);
+  if constexpr (kNarrow<HD, PAD>)
+    attention_rows_kernel<HD, W, elem><<<static_cast<unsigned>(blocks), W * 32, smem, stream>>>(
+        q, o, tokens, seq_len, heads, strips, scale2);
+  else
+    attention_rows_kernel_wide<HD, W, PAD, elem>
+        <<<static_cast<unsigned>(blocks), W * 32, smem, stream>>>(q, o, tokens, seq_len, heads,
+                                                                    hd, strips, scale2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, bool PAD>
 int launch_plan(const void* qkv, void* out, int batch, int tokens, int seq_len, int heads,
-                float scale2, int warps, cudaStream_t s) {
+                int hd, float scale2, int warps, cudaStream_t s) {
   switch (warps) {
-    case 4: return launch<HD, 4>(qkv, out, batch, tokens, seq_len, heads, scale2, s);
-    case 8: return launch<HD, 8>(qkv, out, batch, tokens, seq_len, heads, scale2, s);
+    case 4: return launch<HD, 4, PAD>(qkv, out, batch, tokens, seq_len, heads, hd, scale2, s);
+    case 8: return launch<HD, 8, PAD>(qkv, out, batch, tokens, seq_len, heads, hd, scale2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -118,7 +159,10 @@ int launch_plan(const void* qkv, void* out, int batch, int tokens, int seq_len, 
 
 // qkv [batch * tokens, 3 * heads * head_dim], out [batch * tokens, heads *
 // head_dim], bf16 (fp16 in the fp16 instance), 16-byte aligned; keys at
-// index >= seq_len are masked.
+// index >= seq_len are masked.  head_dim is a multiple of 8 from 16 to 128:
+// a multiple of 16 runs on its own instance, one 8 more than a multiple of
+// 16 on the next instance's padded form (88 on 96's: its eight extra
+// columns are zeros in shared memory and never stored).
 // The plan (ops/cuda/fused_encoder.py:attention_plan): `warps` (4 or 8)
 // 16-row query strips a block.
 extern "C" int EVT_EXPORT(evt_attention_rows)(const void* qkv, void* out, int batch, int tokens,
@@ -129,10 +173,24 @@ extern "C" int EVT_EXPORT(evt_attention_rows)(const void* qkv, void* out, int ba
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return launch_plan<16>(qkv, out, batch, tokens, seq_len, heads, scale2, warps, s);
-    case 32: return launch_plan<32>(qkv, out, batch, tokens, seq_len, heads, scale2, warps, s);
-    case 64: return launch_plan<64>(qkv, out, batch, tokens, seq_len, heads, scale2, warps, s);
-    case 128: return launch_plan<128>(qkv, out, batch, tokens, seq_len, heads, scale2, warps, s);
+#define EVT_ATTENTION_HD(N)                                                                  \
+    case N:                                                                                  \
+      return launch_plan<N, false>(qkv, out, batch, tokens, seq_len, heads, N, scale2, warps, \
+                                   s);                                                       \
+    case N - 8:                                                                              \
+      return launch_plan<N, true>(qkv, out, batch, tokens, seq_len, heads, N - 8, scale2,    \
+                                  warps, s);
+    case 16:
+      return launch_plan<16, false>(qkv, out, batch, tokens, seq_len, heads, 16, scale2, warps,
+                                    s);
+    EVT_ATTENTION_HD(32)
+    EVT_ATTENTION_HD(48)
+    EVT_ATTENTION_HD(64)
+    EVT_ATTENTION_HD(80)
+    EVT_ATTENTION_HD(96)
+    EVT_ATTENTION_HD(112)
+    EVT_ATTENTION_HD(128)
+#undef EVT_ATTENTION_HD
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -126,19 +126,22 @@ __device__ __forceinline__ void chunk_steps(float (&o)[HD / 8][4], float (&r)[2]
 }
 
 // Query rows [index * W * 16, + W * 16) of (image img, head) over the fused
-// qkv rows [b * tokens, 3 * heads * HD], written to the merged [b * tokens,
-// heads * HD]: `tid` is the thread's index in the strip's W warps, `bar`
+// qkv rows [b * tokens, 3 * heads * hd], written to the merged [b * tokens,
+// heads * hd]: `tid` is the thread's index in the strip's W warps, `bar`
 // their named barrier, `smem` their shared memory (smem_bytes<HD>(W,
-// STAGES)).  A tile's chunks go through the products STEP at a time (4, a
-// whole tile, in attention_rows.cu; fewer where registers are short): a
-// row's bits do not depend on STEP.  On return the warps may still read
+// STAGES)).  The operands' head_dim is HD, or with PAD hd, a multiple of 8
+// below HD: the rows land in shared memory HD wide, zero-filled past hd
+// (load_rows), so the scores are those of hd columns, and O's columns from
+// hd on are never stored.  A tile's chunks go through the products STEP at
+// a time (4, a whole tile, in attention_rows.cu; fewer where registers are
+// short): a row's bits do not depend on STEP.  On return the warps may still read
 // their Q rows: a caller that runs another strip on the same memory passes
 // the barrier first.
-template <int HD, int W, int STEP = 4, class T>
+template <int HD, int W, int STEP = 4, bool PAD = false, class T>
 __device__ __forceinline__ void strip(unsigned char* smem, const T* __restrict__ qkv,
                                       T* __restrict__ out, int tokens, int seq_len,
-                                      int heads, float scale2, int index, int img, int head,
-                                      int tid, int bar) {
+                                      int heads, int hd, float scale2, int index, int img,
+                                      int head, int tid, int bar) {
   constexpr int NT = W * 32, LD = row_ld(HD), STAGE = 2 * KT * LD;
   T* sQ = reinterpret_cast<T*>(smem);
   T* ring = sQ + W * 16 * LD;
@@ -146,11 +149,12 @@ __device__ __forceinline__ void strip(unsigned char* smem, const T* __restrict__
   const int warp = tid >> 5, lane = tid & 31;
   const int q0 = index * W * 16, row0 = q0 + warp * 16;
   const bool active = row0 < tokens;
-  const long long ld = 3LL * heads * HD, ldo = static_cast<long long>(heads) * HD;
-  const T* qp = qkv + static_cast<long long>(img) * tokens * ld + head * HD;
-  const T* kp = qp + heads * HD;
-  const T* vp = kp + heads * HD;
-  T* op = out + static_cast<long long>(img) * tokens * ldo + head * HD;
+  const int hdv = PAD ? hd : HD;  // the operands' head_dim
+  const long long ld = 3LL * heads * hdv, ldo = static_cast<long long>(heads) * hdv;
+  const T* qp = qkv + static_cast<long long>(img) * tokens * ld + head * hdv;
+  const T* kp = qp + heads * hdv;
+  const T* vp = kp + heads * hdv;
+  T* op = out + static_cast<long long>(img) * tokens * ldo + head * hdv;
   T* sQw = sQ + warp * 16 * LD;
 
   // the 16-key chunks that hold a key below seq_len, four to a 64-key tile
@@ -159,10 +163,10 @@ __device__ __forceinline__ void strip(unsigned char* smem, const T* __restrict__
   auto prefetch = [&](int t, bool v) {
     T* sK = ring + (t % STAGES) * STAGE;
     const int rows = min(KT, 16 * chunks - t * KT);
-    load_rows<HD, NT>(sK, kp, ld, t * KT, rows, tokens, tid);
-    if (v) load_rows<HD, NT>(sK + KT * LD, vp, ld, t * KT, rows, tokens, tid);
+    load_rows<HD, NT, PAD>(sK, kp, ld, t * KT, rows, tokens, tid, hdv);
+    if (v) load_rows<HD, NT, PAD>(sK + KT * LD, vp, ld, t * KT, rows, tokens, tid, hdv);
   };
-  load_rows<HD, NT>(sQ, qp, ld, q0, W * 16, tokens, tid);
+  load_rows<HD, NT, PAD>(sQ, qp, ld, q0, W * 16, tokens, tid, hdv);
   float m[2] = {-INFINITY, -INFINITY};
   if constexpr (Elem<T>::row_max) {
     // the first sweep: K alone, through the same ring, for the row max
@@ -229,7 +233,7 @@ __device__ __forceinline__ void strip(unsigned char* smem, const T* __restrict__
     o[j][2] = __fmul_rn(o[j][2], inv[1]);
     o[j][3] = __fmul_rn(o[j][3], inv[1]);
   }
-  store_rows<HD>(o, sQw, op, ldo, row0, tokens, lane);
+  store_rows<HD, PAD>(o, sQw, op, ldo, row0, tokens, lane, hdv);
 }
 
 }  // namespace arows

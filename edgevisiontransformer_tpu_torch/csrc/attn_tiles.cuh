@@ -40,15 +40,18 @@ __device__ __forceinline__ float quad_max(float v) {
 
 // Rows [r0, r0 + rows) of one (image, head) of a [.., n, HD] operand into
 // shared memory by cp.async from the NT threads of a block, zeros past token
-// n (not waited for).
-template <int HD, int NT, class T>
+// n (not waited for).  PAD: the operand's rows are cols (a multiple of 8
+// below HD) wide, and columns [cols, HD) are zero-filled: an instance of HD
+// serves a narrower head_dim, whose zero columns add nothing to Q K^T.
+template <int HD, int NT, bool PAD = false, class T>
 __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
-                                          long long stride_n, int r0, int rows, int n, int tid) {
+                                          long long stride_n, int r0, int rows, int n, int tid,
+                                          int cols = HD) {
   constexpr int CH = HD / 8;
   for (int i = tid; i < rows * CH; i += NT) {
     const int r = i / CH, c = (i % CH) * 8;
     const int t = r0 + r;
-    const bool ok = t < n;
+    const bool ok = t < n && (!PAD || c < cols);
     cp_async16(dst + r * row_ld(HD) + c, ok ? src + t * stride_n + c : src, ok);
   }
 }
@@ -146,11 +149,12 @@ __device__ __forceinline__ void pv(float (&o)[HD / 8][4], const float (&p)[NC][2
 }
 
 // T(O) through the warp's own 16 rows of the Q tile to out, 16-byte
-// stores, rows past n dropped.
-template <int HD, class T>
+// stores, rows past n dropped (with PAD, columns from cols on too: see
+// load_rows).
+template <int HD, bool PAD = false, class T>
 __device__ __forceinline__ void store_rows(const float (&o)[HD / 8][4], T* sQw,
                                            T* __restrict__ op, long long stride_n, int row0,
-                                           int n, int lane) {
+                                           int n, int lane, int cols = HD) {
   constexpr int LD = row_ld(HD), CH = HD / 8;
   const int g = lane >> 2, t = lane & 3;
   __syncwarp();
@@ -163,7 +167,7 @@ __device__ __forceinline__ void store_rows(const float (&o)[HD / 8][4], T* sQw,
   __syncwarp();
   for (int i = lane; i < 16 * CH; i += 32) {
     const int r = i / CH, c = (i % CH) * 8;
-    if (row0 + r < n)
+    if (row0 + r < n && (!PAD || c < cols))
       *reinterpret_cast<uint4*>(op + (row0 + r) * stride_n + c) =
           *reinterpret_cast<const uint4*>(sQw + r * LD + c);
   }

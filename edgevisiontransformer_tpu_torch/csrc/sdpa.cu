@@ -14,6 +14,11 @@
 //   rounded quotient, as __fdiv_rn gives it).  The sums run over the n real
 //   keys in another order than K13's, which adds the same numbers.
 //
+// Head dims: instances at the multiples of 16 from 16 to 128; a head_dim of
+// 8 more than one (24, ..., 120) runs on the next, its q, k and v rows
+// zero-filled to the instance's width in shared memory (the scores do not
+// change) and the extra O columns never stored.
+//
 // Operands: q, k, v and out are [b, h, n, d] with d contiguous and every
 // other stride a multiple of 8 elements, so a row is one run of 16-byte
 // vectors.  attention() hands the kernel views of the fused qkv activation
@@ -43,8 +48,8 @@
 //   shared memory.
 // - K and V arrive by cp.async, zero-filled past n (p = 0 times a NaN left in
 //   shared memory would be NaN), so the loads overlap the arithmetic.
-// - Resident form (n <= RES_KEYS: 256 keys, 128 at d = 128, where the O
-//   accumulators take 64 registers): all of K and V sit in shared memory, K
+// - Resident form (n <= RES_KEYS: 256 keys, 128 above d = 96, where the O
+//   accumulators take 56 or 64 registers): all of K and V sit in shared memory, K
 //   with Q in one commit group and V in a second, so V lands while Q K^T and
 //   the softmax run.  Each warp holds its 16 x n scores in registers: one
 //   Q K^T, one exp per score, one exact division, one PV.  The kernel is
@@ -89,8 +94,9 @@ template <int HD>
 struct Tile {
   static constexpr int LD = row_ld(HD);  // shared-memory row stride (elements)
   // The longest n of the resident form: its scores take RES_KEYS / 2
-  // registers a thread, beside HD / 2 of O accumulators.
-  static constexpr int RES_KEYS = HD == 128 ? 128 : 256;
+  // registers a thread, beside HD / 2 of O accumulators; above HD 96 the
+  // two would pass ptxas's 255 (chip_smoke.py phase 2 fails on a spill).
+  static constexpr int RES_KEYS = HD > 96 ? 128 : 256;
 };
 
 // The softmax's two costly steps, each in one place (bench/sdpa_ab.py
@@ -217,7 +223,7 @@ __device__ __forceinline__ void exp_rows(float (&s)[NC][2][4], const float m[2],
 template <int HD, int RC, class T>
 __global__ __launch_bounds__(THREADS) void sdpa_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, Strides st, int heads, int n, float scale) {
+    T* __restrict__ out, Strides st, int heads, int n, int hd, float scale) {
   constexpr int LD = Tile<HD>::LD;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -237,13 +243,13 @@ __global__ __launch_bounds__(THREADS) void sdpa_kernel(
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
 
-  load_rows<HD, THREADS>(sQ, qp, st.qn, q0, QT, n, tid);
+  load_rows<HD, THREADS, true>(sQ, qp, st.qn, q0, QT, n, tid, hd);
   if constexpr (RC > 0) {
     T* sK = sKV;
     T* sV = sKV + RC * 16 * LD;
-    load_rows<HD, THREADS>(sK, kp, st.kn, 0, RC * 16, n, tid);
+    load_rows<HD, THREADS, true>(sK, kp, st.kn, 0, RC * 16, n, tid, hd);
     cp_async_commit();  // group 0: q and k
-    load_rows<HD, THREADS>(sV, vp, st.vn, 0, RC * 16, n, tid);
+    load_rows<HD, THREADS, true>(sV, vp, st.vn, 0, RC * 16, n, tid, hd);
     cp_async_commit();  // group 1: v, landing while q k^T and the softmax run
     cp_async_wait<1>();
     __syncthreads();
@@ -269,8 +275,9 @@ __global__ __launch_bounds__(THREADS) void sdpa_kernel(
     auto prefetch = [&](int i) {
       T* sK = sKV + (i & 1) * 2 * KT * LD;
       const int t = i < tiles ? i : i - tiles;
-      load_rows<HD, THREADS>(sK, kp, st.kn, t * KT, KT, n, tid);
-      if (i >= tiles) load_rows<HD, THREADS>(sK + KT * LD, vp, st.vn, t * KT, KT, n, tid);
+      load_rows<HD, THREADS, true>(sK, kp, st.kn, t * KT, KT, n, tid, hd);
+      if (i >= tiles)
+        load_rows<HD, THREADS, true>(sK + KT * LD, vp, st.vn, t * KT, KT, n, tid, hd);
     };
     prefetch(0);
     cp_async_commit();  // group 0: q and the first k tile
@@ -318,12 +325,12 @@ __global__ __launch_bounds__(THREADS) void sdpa_kernel(
       __syncthreads();  // every warp is done with stage i % 2 before step i + 2 refills it
     }
   }
-  if (active) store_rows<HD>(o, sQw, op, st.on, q0 + wr, n, lane);
+  if (active) store_rows<HD, true>(o, sQw, op, st.on, q0 + wr, n, lane, hd);
 }
 
 template <int HD, int RC>
 int launch_form(const void* q, const void* k, const void* v, void* out, const Strides& st,
-                int bh, int heads, int n, float scale, cudaStream_t stream) {
+                int bh, int heads, int n, int hd, float scale, cudaStream_t stream) {
   constexpr int rows = RC > 0 ? QT + 2 * RC * 16 : QT + 2 * 2 * KT;  // q, then k and v
   constexpr int bytes = rows * Tile<HD>::LD * 2;
   static bool configured = false;
@@ -336,7 +343,7 @@ int launch_form(const void* q, const void* k, const void* v, void* out, const St
   const dim3 grid(bh, (n + QT - 1) / QT);
   sdpa_kernel<HD, RC, elem><<<grid, THREADS, bytes, stream>>>(
       static_cast<const elem*>(q), static_cast<const elem*>(k), static_cast<const elem*>(v),
-      static_cast<elem*>(out), st, heads, n, scale);
+      static_cast<elem*>(out), st, heads, n, hd, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -344,35 +351,46 @@ int launch_form(const void* q, const void* k, const void* v, void* out, const St
 // every registry ViT at 224^2), else the streamed form.
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, const Strides& st, int bh,
-           int heads, int n, float scale, cudaStream_t stream) {
+           int heads, int n, int hd, float scale, cudaStream_t stream) {
   const int nc = (n + 15) / 16;
-  if (nc <= 2) return launch_form<HD, 2>(q, k, v, out, st, bh, heads, n, scale, stream);
-  if (nc <= 4) return launch_form<HD, 4>(q, k, v, out, st, bh, heads, n, scale, stream);
-  if (nc <= 8) return launch_form<HD, 8>(q, k, v, out, st, bh, heads, n, scale, stream);
+  if (nc <= 2) return launch_form<HD, 2>(q, k, v, out, st, bh, heads, n, hd, scale, stream);
+  if (nc <= 4) return launch_form<HD, 4>(q, k, v, out, st, bh, heads, n, hd, scale, stream);
+  if (nc <= 8) return launch_form<HD, 8>(q, k, v, out, st, bh, heads, n, hd, scale, stream);
   if constexpr (Tile<HD>::RES_KEYS > 128) {
-    if (nc <= 13) return launch_form<HD, 13>(q, k, v, out, st, bh, heads, n, scale, stream);
-    if (nc <= 16) return launch_form<HD, 16>(q, k, v, out, st, bh, heads, n, scale, stream);
+    if (nc <= 13) return launch_form<HD, 13>(q, k, v, out, st, bh, heads, n, hd, scale, stream);
+    if (nc <= 16) return launch_form<HD, 16>(q, k, v, out, st, bh, heads, n, hd, scale, stream);
   }
-  return launch_form<HD, 0>(q, k, v, out, st, bh, heads, n, scale, stream);
+  return launch_form<HD, 0>(q, k, v, out, st, bh, heads, n, hd, scale, stream);
 }
 
 }  // namespace
 
 // strides: 12 element strides, (image, head, token) of q, k, v and out
-// (bf16, or fp16 in the fp16 instance).
+// (bf16, or fp16 in the fp16 instance).  head_dim is a multiple of 8 from 16
+// to 128: the instance of the next multiple of 16 runs it, its extra columns
+// zeros in shared memory and never stored.
 extern "C" int EVT_EXPORT(evt_sdpa)(const void* q, const void* k, const void* v, void* out,
                                     const long long* strides, int batch, int heads, int n,
                                     int head_dim, float scale, void* stream) {
   if (batch == 0 || heads == 0 || n == 0) return 0;
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],  strides[5],
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
+  if (head_dim < 16 || head_dim > 128 || head_dim % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int bh = batch * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return launch<16>(q, k, v, out, st, bh, heads, n, scale, s);
-    case 32: return launch<32>(q, k, v, out, st, bh, heads, n, scale, s);
-    case 64: return launch<64>(q, k, v, out, st, bh, heads, n, scale, s);
-    case 128: return launch<128>(q, k, v, out, st, bh, heads, n, scale, s);
+  switch ((head_dim + 15) / 16) {
+#define EVT_SDPA_HD(N) \
+    case N / 16: return launch<N>(q, k, v, out, st, bh, heads, n, head_dim, scale, s);
+    EVT_SDPA_HD(16)
+    EVT_SDPA_HD(32)
+    EVT_SDPA_HD(48)
+    EVT_SDPA_HD(64)
+    EVT_SDPA_HD(80)
+    EVT_SDPA_HD(96)
+    EVT_SDPA_HD(112)
+    EVT_SDPA_HD(128)
+#undef EVT_SDPA_HD
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -56,7 +56,10 @@
 //   the other's products.  At b1, where the small tiles leave the second
 //   block little to overlap, one block an SM with up to 255 registers a
 //   thread runs faster (bench/vit_full_ab.py; PERF.md section 6).  At
-//   head_dim 128 the strip needs ~174 registers: one block an SM.  In the
+//   head_dim 128 the strip needs ~174 registers: one block an SM.  Every
+//   other head_dim (ViT-H/14's 80 among them) runs on that instance's
+//   128-wide strip, its rows zero-filled past head_dim in shared memory
+//   (strip_head_dim), so no instance is added.  In the
 //   two-block instance every phase runs at the edge of the 128: linear's
 //   128 x 128 tile (64 accumulators) spilled here and lost to 128 x 96, a
 //   strip takes its 64-key tiles two 16-key chunks at a time (STRIP_CHUNKS),
@@ -70,8 +73,10 @@
 // wrapper allocates (x, h, qkv, att, hid); at b1 they stay in L2.  The
 // embedding's A operand is gathered straight from the NCHW image (fp32 or the
 // weights' type, rounded to it on load, as JAX's img.astype(dt)) through
-// registers; token 0 is a zero row; its epilogue adds embed_bias[row %
-// tokens].  The out-projection and fc2 epilogues read the residual (x, or h
+// registers; token 0 is a zero row, and the columns past K (3 * 14^2 = 588
+// at patch 14, not a multiple of the 64-deep K step) are zeros, as are
+// patch_w's rows past K (gemm_tile's W load masks them); its epilogue adds
+// embed_bias[row % tokens].  The out-projection and fc2 epilogues read the residual (x, or h
 // in the reference form) and write x: each element is read and written by the
 // same thread, so in place is safe.  The activations are read by cp.async
 // (L2) or plain loads, never through the read-only cache path, which must not
@@ -227,7 +232,8 @@ __device__ __forceinline__ void ln_phase(const T* x, const T* g, const T* b, T* 
 }
 
 // Every query strip of the attention phase on the block's groups of W warps.
-template <int HD, int W, class T>
+// PAD: head_dim is below HD, its rows zero-filled to HD (attention_strip.cuh).
+template <int HD, int W, bool PAD, class T>
 __device__ __forceinline__ void attention_groups(unsigned char* smem, const Params<T>& p) {
   constexpr int NT = W * 32, GROUPS = THREADS / NT;
   const int group = thread_index() / NT;
@@ -235,29 +241,38 @@ __device__ __forceinline__ void attention_groups(unsigned char* smem, const Para
   for (int u = blockIdx.x * GROUPS + group; u < units; u += gridDim.x * GROUPS) {
     arows::strip_sync<W>(1 + group);  // the group's previous strip is done with its memory
     const int bh = u / strips, tokens = opaque(p.tokens), heads = opaque(p.heads);
-    arows::strip<HD, W, STRIP_CHUNKS>(
+    arows::strip<HD, W, STRIP_CHUNKS, PAD>(
         smem + opaque(group * arows::smem_bytes<HD>(W, arows::STAGES)), p.qkv, p.att, tokens,
-        tokens, heads, p.scale2, u % strips, bh / heads, bh % heads, thread_index() % NT,
-        1 + group);
+        tokens, heads, p.head_dim, p.scale2, u % strips, bh / heads, bh % heads,
+        thread_index() % NT, 1 + group);
   }
 }
 
-template <int HD, class T>
+template <int HD, bool PAD, class T>
 __device__ __forceinline__ void attention_warps(unsigned char* smem, const Params<T>& p) {
-  if (p.attn_warps == 8) attention_groups<HD, 8>(smem, p);
-  else attention_groups<HD, 4>(smem, p);
+  if (p.attn_warps == 8) attention_groups<HD, 8, PAD>(smem, p);
+  else attention_groups<HD, 4, PAD>(smem, p);
 }
 
-// The head dims of an instance: 16, 32 and 64 (HD_MAX 64), or 128.
+// The strip width that serves a head_dim (a multiple of 8 from 16 to 128):
+// 16, 32 and 64 their own, in the HD_MAX 64 instance; every other one the
+// 128-wide strip of the HD_MAX 128 instance, its q, k and v rows
+// zero-filled past head_dim (attention_strip.cuh's PAD): the same scores
+// and output.  So the two-block instance compiles no padded strip.
+__host__ __device__ constexpr int strip_head_dim(int head_dim) {
+  return head_dim == 16 || head_dim == 32 || head_dim == 64 ? head_dim : 128;
+}
+
 template <int HD_MAX, class T>
 __device__ __forceinline__ void attention_phase(unsigned char* smem, const Params<T>& p) {
   if constexpr (HD_MAX == 128) {
-    attention_warps<128>(smem, p);
+    if (p.head_dim == 128) attention_warps<128, false>(smem, p);
+    else attention_warps<128, true>(smem, p);
   } else {
     switch (p.head_dim) {
-      case 16: attention_warps<16>(smem, p); break;
-      case 32: attention_warps<32>(smem, p); break;
-      default: attention_warps<64>(smem, p);
+      case 16: attention_warps<16, false>(smem, p); break;
+      case 32: attention_warps<32, false>(smem, p); break;
+      default: attention_warps<64, false>(smem, p);
     }
   }
 }
@@ -376,7 +391,8 @@ int smem_of(const Params<elem>& p) {
     const int c = p.tile[i];
     most = std::max(most, groups[c] * smem_bytes(rows[c], cols[c]));
   }
-  const int strip = (p.attn_warps * 16 + arows::STAGES * 2 * arows::KT) * row_ld(p.head_dim) * 2;
+  const int strip = (p.attn_warps * 16 + arows::STAGES * 2 * arows::KT) *
+                    row_ld(strip_head_dim(p.head_dim)) * 2;
   return std::max(most, THREADS / (p.attn_warps * 32) * strip);
 }
 
@@ -431,6 +447,16 @@ int launch_full(const Params<elem>& p, int grid_cap, int* grid_out, cudaStream_t
       cudaLaunchCooperativeKernel(kernel_of<HD_MAX, BLOCKS>(), grid, THREADS, args, smem, stream));
 }
 
+// The instance that runs `head_dim` (a multiple of 8 from 16 to 128) built
+// for `blocks` an SM: 1 and 2 are HD_MAX 64's one- and two-block builds
+// (head_dim 16, 32 or 64), 3 is HD_MAX 128's (every other head_dim, one
+// block); 0 for none.
+int instance(int head_dim, int blocks) {
+  if (head_dim < 16 || head_dim > 128 || head_dim % 8) return 0;
+  if (strip_head_dim(head_dim) < 128) return blocks == 1 || blocks == 2 ? blocks : 0;
+  return blocks == 1 ? 3 : 0;
+}
+
 }  // namespace
 
 // ptrs: img, patch_w, embed_bias, ln1_g, ln1_b, qkv_w, qkv_b, out_w, out_b,
@@ -441,9 +467,11 @@ int launch_full(const Params<elem>& p, int grid_cap, int* grid_out, cudaStream_t
 //   channels, img_f32, reference_residual, approx_gelu, final_norm; the plan
 //   (ops/cuda/fused_vit_full.py:vit_full_plan): the tile code of the embed,
 //   qkv, out, fc1 and fc2 phases, the attention strip's warps (4 or 8), the
-//   grid cap and the instance's blocks an SM (2, or 1; 1 at head_dim 128);
+//   grid cap and the instance's blocks an SM (2, or 1; 1 but at head_dim 16,
+//   32 and 64);
 //   ints[22] receives the grid size.  floats: eps, scale2 (head_dim^-1/2 *
-//   log2 e).  Every width a multiple of 8.
+//   log2 e).  Every width a multiple of 8; head_dim from 16 to 128 (the
+//   strip of strip_head_dim runs it); the patch's K (channels * patch^2) any.
 extern "C" int EVT_EXPORT(evt_vit_full)(void* const* ptrs, int* ints, const float* floats,
                                         void* stream) {
   Params<elem> p;
@@ -481,14 +509,10 @@ extern "C" int EVT_EXPORT(evt_vit_full)(void* const* ptrs, int* ints, const floa
   if (p.batch == 0) return 0;
   if (p.attn_warps != 4 && p.attn_warps != 8) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.head_dim * 4 + blocks) {
-    case 16 * 4 + 1:
-    case 32 * 4 + 1:
-    case 64 * 4 + 1: return launch_full<64, 1>(p, grid_cap, &ints[22], s);
-    case 16 * 4 + 2:
-    case 32 * 4 + 2:
-    case 64 * 4 + 2: return launch_full<64, 2>(p, grid_cap, &ints[22], s);
-    case 128 * 4 + 1: return launch_full<128, 1>(p, grid_cap, &ints[22], s);
+  switch (instance(p.head_dim, blocks)) {
+    case 1: return launch_full<64, 1>(p, grid_cap, &ints[22], s);
+    case 2: return launch_full<64, 2>(p, grid_cap, &ints[22], s);
+    case 3: return launch_full<128, 1>(p, grid_cap, &ints[22], s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -498,14 +522,10 @@ extern "C" int EVT_EXPORT(evt_vit_full)(void* const* ptrs, int* ints, const floa
 // *out.
 extern "C" int EVT_EXPORT(evt_vit_full_blocks_per_sm)(int head_dim, int blocks, int smem,
                                                       int* out) {
-  switch (head_dim * 4 + blocks) {
-    case 16 * 4 + 1:
-    case 32 * 4 + 1:
-    case 64 * 4 + 1: return blocks_per_sm<64, 1>(smem, out);
-    case 16 * 4 + 2:
-    case 32 * 4 + 2:
-    case 64 * 4 + 2: return blocks_per_sm<64, 2>(smem, out);
-    case 128 * 4 + 1: return blocks_per_sm<128, 1>(smem, out);
+  switch (instance(head_dim, blocks)) {
+    case 1: return blocks_per_sm<64, 1>(smem, out);
+    case 2: return blocks_per_sm<64, 2>(smem, out);
+    case 3: return blocks_per_sm<128, 1>(smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -25,12 +25,10 @@ import torch
 from ..attention import qkv_split
 from . import build
 from .common import no_backward
-from .fused_encoder import COMPUTE_DTYPES, _entry, _ptr, _stream
+from .fused_encoder import COMPUTE_DTYPES, _entry, _ptr, _stream, check_head_dim
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"sdpa": 0}
-
-HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reset_launches() -> None:
@@ -82,12 +80,14 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          scale: Optional[float] = None, *, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention ``[b, h, n, d] -> [b, h, n, d]``: K13 as
     one kernel (csrc/sdpa.cu), one thread block per (image * head, 64-query
-    tile), its scores in registers; up to 256 keys (128 at ``d`` = 128) it
+    tile), its scores in registers; up to 256 keys (128 above ``d`` = 96) it
     holds every key in shared memory, beyond that it streams 64-key tiles
     twice, so any ``n`` runs.  The operands are read through their strides,
     so views of a fused qkv activation need no copy; ``out``, when given, is
     the ``[b, h, n, d]`` view the result is written into (and returned).  On
-    the GPU all are bf16 or all fp16 and ``d`` is 16, 32, 64 or 128."""
+    the GPU all are bf16 or all fp16 and ``d`` is a multiple of 8 from 16 to
+    128 (``fused_encoder.ATTENTION_HEAD_DIMS``, each on the instance of the
+    next multiple of 16)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or (
@@ -98,8 +98,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cpu(*tensors):
         return sdpa_plain(q, k, v, scale, out=out)
     b, h, n, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"sdpa: head_dim must be one of {HEAD_DIMS}, got {d}")
+    check_head_dim("sdpa", d)
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:

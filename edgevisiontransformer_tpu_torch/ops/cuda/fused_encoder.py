@@ -284,12 +284,31 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-# csrc/attention_rows.cu: the head dims and the warps (16-row query strips)
-# a block it is compiled for
-ATTENTION_HEAD_DIMS = (16, 32, 64, 128)
+# csrc/attention_rows.cu, sdpa.cu and vit_full.cu: the head dims they take
+# (every multiple of 8 from 16 to 128: ViT-H/14's 80, ViT-g/14's 88 and
+# ViT-G/14's 104 among them), each run on the instance of the next multiple
+# of 16 (head_dim_instance); and the warps (16-row query strips) a block of
+# attention_rows.cu is compiled for
+ATTENTION_HEAD_DIMS = tuple(range(16, 129, 8))
 ATTENTION_WARPS = (4, 8)
 # 8-warp blocks from this many blocks an SM on (bench/attention_ab.py)
 ATTENTION_WIDE_BLOCKS_PER_SM = 1.5
+
+
+def head_dim_instance(head_dim: int) -> int:
+    """The head_dim of the kernel instance that runs ``head_dim`` (one of
+    :data:`ATTENTION_HEAD_DIMS`): the next multiple of 16.  Its q, k and v
+    rows are zero-filled to that width in shared memory, so the scores are
+    unchanged, and the extra output columns are never stored."""
+    return -(-head_dim // 16) * 16
+
+
+def check_head_dim(what: str, head_dim: int) -> None:
+    """Raise ``ValueError`` naming the limit unless a kernel instance runs
+    ``head_dim``."""
+    if head_dim not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim must be a multiple of 8 from 16 to 128, "
+                         f"got {head_dim}")
 
 
 def attention_plan(batch: int, heads: int, tokens: int, sms: int) -> int:
@@ -336,7 +355,8 @@ def attention_rows(qkv: torch.Tensor, *, heads: int, head_dim: int,
                    tokens: int, seq_len: int | None = None) -> torch.Tensor:
     """Attention of :func:`attention_rows_plain` (csrc/attention_rows.cu):
     blocks of 16-row query strips of one (image, head), as many a block as
-    :func:`attention_plan` picks.  ``head_dim`` 16, 32, 64 or 128.  An fp16
+    :func:`attention_plan` picks.  ``head_dim`` a multiple of 8 from 16 to
+    128 (:data:`ATTENTION_HEAD_DIMS`).  An fp16
     ``qkv`` takes the float16 softmax (the row max), as the twin does."""
     seq_len = tokens if seq_len is None else seq_len
     if _on_cpu("attention_rows", qkv):
@@ -347,8 +367,7 @@ def attention_rows(qkv: torch.Tensor, *, heads: int, head_dim: int,
         raise ValueError(f"attention_rows: qkv{tuple(qkv.shape)} does not fit "
                          f"heads={heads} head_dim={head_dim} tokens={tokens} "
                          f"seq_len={seq_len}")
-    if head_dim not in ATTENTION_HEAD_DIMS:
-        raise ValueError(f"attention_rows: head_dim must be 16, 32, 64 or 128, got {head_dim}")
+    check_head_dim("attention_rows", head_dim)
     out = torch.empty((rows, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     batch = rows // tokens
     warps = attention_plan(batch, heads, tokens, _sm_count(qkv.device.index or 0))

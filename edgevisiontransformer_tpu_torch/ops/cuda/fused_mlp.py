@@ -30,9 +30,11 @@ LAUNCHES = {"mlp": 0}
 
 # csrc/mlp.cu keeps a block's rows of x in shared memory beside its weight
 # rings, in at most 232,448 bytes (MAX_SMEM): 128 rows up to dim 512, 64
-# rows up to dim 1,152.
-MAX_DIM = 1152
+# rows up to dim 1,152, 32 rows up to dim 2,048 (ViT-H's 1,280, ViT-g's
+# 1,408 and ViT-G's 1,664 among them).
+MAX_DIM = 2048
 WIDE_ROWS_DIM = 512
+MID_ROWS_DIM = 1152
 MAX_SMEM = 232448
 # csrc/mlp.cu: the W1 ring's stages, the most rows of dim in a W1 slab, the
 # most blocks in a cluster, the output column tiles it is compiled for
@@ -71,7 +73,9 @@ def plan(m: int, dim: int, hidden: int, sms: int, *, rows: int | None = None,
 
     128 rows per block (each block streams all of its column tile's weights
     from L2, so more rows a block read them fewer times) where ``dim`` lets
-    them fit and the row blocks fill at least half the card, else 64.
+    them fit and the row blocks fill at least half the card, else 64, and
+    32 above ``dim`` 1,152, where 64 rows of x no longer fit beside the
+    rings.
     Columns in the fewest tiles of at most 256.  Where the blocks leave the
     card mostly idle (small ``m``), a cluster of up to 8 blocks splits the
     hidden chunks, and the column tiles narrow (to 64) until the clusters
@@ -82,6 +86,7 @@ def plan(m: int, dim: int, hidden: int, sms: int, *, rows: int | None = None,
     nt = -(-dim // -(-dim // TILE_WIDTHS[-1]) // 64) * 64  # fewest tiles, evenly wide
     if rows is None:
         rows = 128 if dim <= WIDE_ROWS_DIM and -(-m // 128) * -(-dim // nt) * 2 >= sms else 64
+        rows = rows if dim <= MID_ROWS_DIM else 32
     row_tiles = -(-m // rows)
     if split is None:
         most = min(MAX_SPLIT, -(-hidden // 32))
@@ -118,7 +123,7 @@ def mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     columns, and at small row counts clusters of blocks that split the
     hidden width.  On the GPU every tensor is bf16 (or every one fp16) and
     contiguous, ``x``
-    16-byte aligned, ``dim`` a multiple of 8 up to :data:`MAX_DIM`;
+    16-byte aligned, ``dim`` a multiple of 8 up to :data:`MAX_DIM` (2,048);
     ``hidden`` is any width."""
     dim = x.shape[-1]
     hidden = w1.shape[-1]

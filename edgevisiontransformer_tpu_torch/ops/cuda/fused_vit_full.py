@@ -35,9 +35,9 @@ import torch
 
 from . import build
 from .common import no_backward
-from .fused_encoder import (COMPUTE, _LOG2E, _entry, _linear_smem_bytes, _on_cpu, _sm_count,
-                            _stream,
-                            attention_plan, encoder_forward_plain, ln_rows_plain)
+from .fused_encoder import (ATTENTION_HEAD_DIMS, COMPUTE, _LOG2E, _entry, _linear_smem_bytes,
+                            _on_cpu, _sm_count, _stream, attention_plan, check_head_dim,
+                            encoder_forward_plain, ln_rows_plain)
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"vit_full": 0}
@@ -52,16 +52,28 @@ WEIGHT_KEYS = ("patch_w", "embed_bias", *STACK_KEYS, "fnorm_g", "fnorm_b", "head
 # plan's grid).
 LAST_GRID = {"blocks": 0}
 
-# csrc/vit_full.cu: threads a block, the head dims it is compiled for, the
+# csrc/vit_full.cu: threads a block, the head dims it takes (those of
+# attention_rows) and the strip widths that run them (strip_head_dim), the
 # GEMM tile shapes by code ((rows, cols, warp groups a block), in the
 # kernel's order) and the phases that take one
 VIT_FULL_THREADS = 256
-VIT_FULL_HEAD_DIMS = (16, 32, 64, 128)
+VIT_FULL_HEAD_DIMS = ATTENTION_HEAD_DIMS
+VIT_FULL_STRIP_HEAD_DIMS = (16, 32, 64, 128)
 VIT_FULL_TILES = ((128, 96, 1), (16, 32, 4))
 GEMM_PHASES = ("embed", "qkv", "out", "fc1", "fc2")
 # The H100's shared memory an SM (228 KB) and the runtime's reserve a block
 SM_SHARED_BYTES = 233472
 BLOCK_RESERVE_BYTES = 1024
+
+
+def strip_head_dim(head_dim: int) -> int:
+    """The width of the attention strip that runs ``head_dim`` in
+    csrc/vit_full.cu (``strip_head_dim``): 16, 32 and 64 their own (the
+    two-block instance's strips), every other head_dim the 128-wide strip of
+    the one-block instance, its q, k and v rows zero-filled past
+    ``head_dim`` in shared memory, so the result is the same."""
+    *own, widest = VIT_FULL_STRIP_HEAD_DIMS
+    return head_dim if head_dim in own else widest
 
 
 def barriers(depth: int) -> int:
@@ -130,18 +142,19 @@ def vit_full_plan(batch: int, tokens: int, dim: int, heads: int, head_dim: int, 
     lost to 128 x 96 (PERF.md section 6).  The attention strip takes
     ``attention_plan``'s warps: 8, or two strips of 4 a block.  The kernel
     instance holds two blocks an SM where a GEMM phase takes 128-row tiles
-    (serving batches) and head_dim is at most 64, else one with twice the
-    registers: at b1 it ran faster, at b128 slower, and at head_dim 128 the
-    strip needs ~174 registers (``bench/vit_full_ab.py``, PERF.md section
-    6).  The grid is the blocks the card holds at once capped by the phase
-    that fills the most; ``grid`` caps it further and ``rows`` and
+    (serving batches) and head_dim is 16, 32 or 64, else one with twice the
+    registers: at b1 it ran faster, at b128 slower, and every other head_dim
+    takes the 128-wide strip (:func:`strip_head_dim`), which needs ~174
+    registers (``bench/vit_full_ab.py``, PERF.md section 6).  The grid is
+    the blocks the card holds at once capped by the phase that fills the
+    most; ``grid`` caps it further and ``rows`` and
     ``blocks`` force a tile height and an instance (``bench/vit_full_ab.py``,
     the card tests).  No tile splits K and no strip splits the keys, so a
     row's output depends neither on the batch nor on the plan."""
     shapes = gemm_shapes(batch, tokens, dim, heads, head_dim, mlp)
     tiles = tuple(_gemm_tile(m, n, sms, rows) for m, n in shapes)
     if blocks is None:
-        blocks = 2 if head_dim <= 64 and 0 in tiles else 1
+        blocks = 2 if strip_head_dim(head_dim) <= 64 and 0 in tiles else 1
     plan = VitFullPlan(tiles, attention_plan(batch, heads, tokens, sms), 0, blocks)
     need = max(phase_blocks(plan, batch, tokens, dim, heads, head_dim, mlp, classes).values())
     cap = min(blocks * sms, need, grid or need)
@@ -153,12 +166,12 @@ def vit_full_smem_bytes(plan: VitFullPlan, head_dim: int, dim: int) -> int:
     ``smem_of``): the largest of its GEMM phases' rings (one per warp group,
     ``fused_encoder._linear_smem_bytes``), its attention strips' (Q rows and
     a 2-stage ring of 64-key K and V tiles at a row stride of head_dim + 8)
-    and the head's fp32 cls rows."""
+    and the head's fp32 cls rows; the strip is :func:`strip_head_dim` wide."""
     most = 8 * dim * 4
     for code in plan.tiles:
         rows, cols, groups = VIT_FULL_TILES[code]
         most = max(most, groups * _linear_smem_bytes(rows, cols))
-    strip = (plan.attn_warps * 16 + 2 * 2 * 64) * (head_dim + 8) * 2
+    strip = (plan.attn_warps * 16 + 2 * 2 * 64) * (strip_head_dim(head_dim) + 8) * 2
     return max(most, VIT_FULL_THREADS // (32 * plan.attn_warps) * strip)
 
 
@@ -227,7 +240,9 @@ def vit_full_forward(img: torch.Tensor, prepared: dict, *, heads: int, head_dim:
 
     On the GPU the weights are bf16 (or all fp16: the kernel's fp16
     instance), every width (dim, heads * head_dim, the
-    MLP's) a multiple of 8 and ``head_dim`` 16, 32, 64 or 128.  The launch
+    MLP's) a multiple of 8 and ``head_dim`` a multiple of 8 from 16 to 128
+    (:data:`VIT_FULL_HEAD_DIMS`); the patch's K (channels x patch^2, 588 at
+    ViT-H/14's patch 14) may be any.  The launch
     allocates its activation scratch with ``torch.empty`` and launches
     nothing else."""
     weights = [prepared[k] for k in WEIGHT_KEYS]
@@ -272,8 +287,7 @@ def launch(fn, img: torch.Tensor, prepared: dict, *, heads: int, head_dim: int, 
         if tuple(prepared[k].shape) != shape:
             raise ValueError(f"vit_full: {k}{tuple(prepared[k].shape)}, expected {shape} for "
                              f"heads={heads} head_dim={head_dim}")
-    if head_dim not in VIT_FULL_HEAD_DIMS:
-        raise ValueError(f"vit_full: head_dim must be 16, 32, 64 or 128, got {head_dim}")
+    check_head_dim("vit_full", head_dim)
     if dim % 8 or mlp % 8:
         raise ValueError(f"vit_full: dim ({dim}) and the MLP width ({mlp}) must be multiples "
                          f"of 8")

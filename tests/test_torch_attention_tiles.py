@@ -50,11 +50,14 @@ def kernel_tiles(qkv, *, heads, head_dim, tokens, seq_len):
     chunk."""
     dt, b = qkv.dtype, qkv.shape[0] // tokens
     q, k, v = qkv.float().reshape(b, tokens, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
+    # the instance's width (the next multiple of 16), zero-filled in shared memory
+    width = tfe.head_dim_instance(head_dim)
+    q, k, v = (F.pad(x, (0, width - head_dim)) for x in (q, k, v))
     chunks = -(-seq_len // CHUNK)  # the chunks that hold a key below seq_len
     k, v = (F.pad(x, (0, 0, 0, max(0, CHUNK * chunks - tokens)))[..., :CHUNK * chunks, :]
             for x in (k, v))
     scale2 = torch.tensor(head_dim ** -0.5 * tfe._LOG2E, dtype=torch.float32)
-    o = torch.zeros(b, heads, tokens, head_dim)
+    o = torch.zeros(b, heads, tokens, width)
     r = torch.zeros(b, heads, tokens, 1)
     for c in range(chunks):
         keys = slice(c * CHUNK, (c + 1) * CHUNK)
@@ -63,7 +66,7 @@ def kernel_tiles(qkv, *, heads, head_dim, tokens, seq_len):
         p = p.masked_fill(torch.arange(c * CHUNK, (c + 1) * CHUNK) >= seq_len, 0.0)
         r = r + p.sum(-1, keepdim=True)  # fp32, over the unrounded p
         o = o + p.to(dt).float() @ v[..., keys, :]
-    out = o * (1.0 / torch.clamp(r, min=1e-30))
+    out = (o * (1.0 / torch.clamp(r, min=1e-30)))[..., :head_dim]  # the stored columns
     return out.permute(0, 2, 1, 3).reshape(b * tokens, heads * head_dim).to(dt)
 
 
@@ -109,9 +112,10 @@ def _check(b, n, seq_len, heads, hd, dtype, **kw):
 # n = 1 and 5 (one chunk; the layerwise pruned config has 5 tokens), 65 (a
 # second tile of one chunk), 197 (13 chunks, every registry ViT at 224^2),
 # 200 tokens with seq_len 197 (the TPU's padding: keys 197-199 loaded and
-# masked)
+# masked); every instance's head_dim, and 88 (ViT-g/14: on 96's, eight
+# zero columns)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 88, 96, 112, 128])
 @pytest.mark.parametrize("n,seq_len", [(1, 1), (5, 5), (65, 65), (197, 197), (200, 197)])
 def test_kernel_tiles_match_jax_k1_and_the_twin(n, seq_len, hd, dtype):
     _check(2, n, seq_len, 2, hd, dtype)

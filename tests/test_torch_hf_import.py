@@ -135,8 +135,8 @@ def test_import_hf_swin_tree_equals_jax_and_logits_match_hf():
 
 def test_configs_the_card_refuses_are_imported():
     """A Swin window of 14 and a ViT width of 1536 import as JAX imports
-    them (the card path refuses them with its own error:
-    tests/test_torch_kernels_cuda.py)."""
+    them (on the card the window is refused with the kernels' own error and
+    the width runs on the module path: tests/test_torch_kernels_cuda.py)."""
     hf = _hf_swin(image_size=56, patch_size=2, window_size=14, depths=[2], num_heads=[2],
                   embed_dim=64)
     cfg = thi.swin_config_from_hf(hf.config)

@@ -160,14 +160,23 @@ def test_linear_kernel_writes_over_its_own_residual(dev, m, k, n):
             _close(y, ref)
 
 
+# The head dims of the kernels' instances at the multiples of 16 that no
+# registry model uses (48, 80, 96, 112) and of their padded forms (24, ...,
+# 120: ViT-g/14's 88 among them)
+NEW_HEAD_DIMS = (24, 40, 48, 56, 72, 80, 88, 96, 104, 112, 120)
+
 # deit_tiny, t2t_vit_14 (6 heads), the pruned model's one head, deit_base's
 # 12, head_dim 16 (the layerwise pruned config: 5 tokens, 2 or 3 heads) to
-# 128, padded and fully masked keys, and deit_base at 384 (ten 64-key tiles)
+# 128, padded and fully masked keys, deit_base at 384 (ten 64-key tiles),
+# and every new head_dim at ViT-H/14's 257 tokens (five 64-key tiles, the
+# last of one chunk) and with a padded, masked tail
 ATTENTION_CASES = [
     (2, 197, 197, 3, 64), (1, 5, 5, 2, 32), (3, 64, 64, 2, 128),
     (2, 200, 197, 2, 64), (1, 70, 0, 1, 64), (1, 197, 197, 6, 64), (1, 197, 197, 1, 64),
     (128, 197, 197, 1, 64), (8, 197, 197, 12, 64), (1, 5, 5, 2, 16), (1, 5, 5, 3, 16),
-    (4, 197, 197, 3, 16), (2, 200, 197, 4, 16), (1, 33, 0, 2, 16), (2, 577, 577, 12, 64)]
+    (4, 197, 197, 3, 16), (2, 200, 197, 4, 16), (1, 33, 0, 2, 16), (2, 577, 577, 12, 64),
+    *((2, 257, 257, 2, hd) for hd in NEW_HEAD_DIMS),
+    *((1, 200, 197, 2, hd) for hd in NEW_HEAD_DIMS)]
 
 
 # fp16 at every case but the fully masked rows (seq_len 0): there the twin's
@@ -194,7 +203,8 @@ def test_attention_rows_clamp60_rows_tie(dev):
 
 # A query row's output is the same bits alone (one image) and as image 0 of
 # 128, and under every plan: each warp walks all of its keys alone.
-@pytest.mark.parametrize("heads,hd", [(3, 64), (1, 64), (12, 64), (4, 16), (2, 128)])
+@pytest.mark.parametrize("heads,hd", [(3, 64), (1, 64), (12, 64), (4, 16), (2, 128), (16, 80),
+                                     (2, 88)])
 def test_attention_rows_are_bit_identical_alone_and_in_a_batch(dev, monkeypatch, heads, hd):
     tokens = 197
     qkv = _rnd(dev, 128 * tokens, 3 * heads * hd)
@@ -287,8 +297,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                   torch.zeros(8, device=dev, dtype=torch.bfloat16),
                   epilogue=fe.CAST_THEN_BIAS)
     with pytest.raises(ValueError, match="head_dim"):
-        fe.attention_rows(torch.zeros(10, 3 * 48, device=dev, dtype=torch.bfloat16),
-                          heads=1, head_dim=48, tokens=5)
+        fe.attention_rows(torch.zeros(10, 3 * 136, device=dev, dtype=torch.bfloat16),
+                          heads=1, head_dim=136, tokens=5)
 
 
 def _float16_calls(dev, w16=torch.float16):
@@ -1216,14 +1226,17 @@ def _qkv_views(dev, b, h, n, d, seed=0, dtype=torch.bfloat16):
     return parts[0], parts[1], parts[2]
 
 
-# Resident form up to 256 keys (128 at d = 128), streamed beyond: n = 256
+# Resident form up to 256 keys (128 above d = 96), streamed beyond: n = 256
 # and 257 straddle the switch, 577 and 1000 stream off the 64-key tile, and
-# d = 128 streams from 129 keys on.
+# d = 128 streams from 129 keys on; every new head_dim resident at 50 and 197
+# keys (streamed above 96) and streamed at ViT-H/14's 257.
 @pytest.mark.parametrize("b,h,n,d", [(1, 3, 197, 64), (128, 3, 197, 64), (1, 6, 197, 64),
                                      (2, 1, 197, 64), (2, 2, 50, 32), (1, 2, 577, 64),
                                      (2, 4, 65, 16), (1, 2, 100, 128), (1, 1, 1, 64),
                                      (1, 2, 256, 64), (2, 1, 257, 64), (1, 1, 1000, 64),
-                                     (1, 2, 197, 128)])
+                                     (1, 2, 197, 128),
+                                     *((b, h, n, d) for d in NEW_HEAD_DIMS
+                                       for b, h, n in ((1, 2, 197), (2, 2, 257), (1, 1, 50)))])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_sdpa_kernel_matches_twin_and_counts(dev, b, h, n, d, dtype):
     q, k, v = _qkv_views(dev, b, h, n, d, dtype=dtype)
@@ -1255,7 +1268,10 @@ def test_attention_writes_the_merged_heads_in_place(dev):
 @pytest.mark.parametrize("rows,dim,hidden", [(197, 192, 768), (25216, 192, 768),
                                              (1576, 768, 3072), (197, 192, 230),
                                              (197, 192, 537), (394, 384, 460), (3, 64, 13),
-                                             (1, 192, 768), (6304, 384, 1152), (197, 200, 768)])
+                                             (1, 192, 768), (6304, 384, 1152), (197, 200, 768),
+                                             (257, 1280, 5120), (2056, 1280, 5120),
+                                             (257, 1536, 6144), (257, 2048, 8192),
+                                             (100, 1408, 6144), (257, 1664, 8192)])
 @pytest.mark.parametrize("approx", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_mlp_kernel_matches_twin_and_counts(dev, rows, dim, hidden, approx, dtype):
@@ -1281,7 +1297,10 @@ def test_mlp_kernel_matches_twin_and_counts(dev, rows, dim, hidden, approx, dtyp
     (1576, 768, 3072, (64, 8, 192, 32)), (3, 64, 13, (64, 2, 64, 32)),
     (200, 1152, 96, (64, 1, 256, 32)), (130, 512, 200, (128, 4, 256, 32)),
     (197, 192, 537, (128, 1, 192, 64)), (300, 256, 768, (128, 3, 256, 64)),
-    (25216, 192, 768, (128, 1, 64, 64)), (70, 64, 13, (128, 1, 128, 64))])
+    (25216, 192, 768, (128, 1, 64, 64)), (70, 64, 13, (128, 1, 128, 64)),
+    (197, 192, 768, (32, 1, 192, 32)), (197, 192, 768, (32, 8, 64, 32)),
+    (257, 1280, 5120, (32, 1, 256, 32)), (257, 1280, 5120, (32, 4, 128, 32)),
+    (300, 2048, 100, (32, 2, 256, 32))])
 def test_mlp_kernel_every_plan_form_matches_twin(dev, monkeypatch, rows, dim, hidden, form):
     x = _rnd(dev, rows, dim, scale=2.0)
     w1, b1 = _rnd(dev, dim, hidden, scale=dim ** -0.5, seed=1), _rnd(dev, hidden, seed=2)
@@ -1339,7 +1358,7 @@ def test_pallas_wrappers_raise_on_the_card_rather_than_fall_back(dev):
     with pytest.raises(TypeError, match="bfloat16"):
         fa.sdpa(q.float(), k.float(), v.float())
     with pytest.raises(ValueError, match="head_dim"):
-        fa.sdpa(*_qkv_views(dev, 1, 2, 50, 48))
+        fa.sdpa(*_qkv_views(dev, 1, 2, 50, 136))
     odd = _rnd(dev, 1, 2, 50, 36)[..., :32]  # rows 36 values apart: not 16-byte vectors
     with pytest.raises(ValueError, match="strides"):
         fa.sdpa(odd, odd, odd)
@@ -1446,7 +1465,9 @@ def _full_args(model):
 # The whole forward against its twin under every plan form: b1 and b8 (16 x
 # 32 tiles, 4-warp strips), b128 (128-row tiles, 8-warp strips), deit_base
 # b8, both residual forms, no final norm, head_dim 16, 32 and 128 (the
-# one-block-an-SM instance); chip_smoke.py's bound, 0.01 + 2^-6 max|twin|
+# one-block-an-SM instance), and every new head_dim (two heads, dim 2 x
+# head_dim) at b2 and b64 on that instance's 128-wide strip, zero-filled;
+# chip_smoke.py's bound, 0.01 + 2^-6 max|twin|
 @pytest.mark.parametrize("size,batch,kw", [
     ("tiny", 1, dict()), ("tiny", 8, dict()), ("tiny", 128, dict()), ("base", 8, dict()),
     ("tiny", 2, dict(reference_residual=True, gelu_approx=True)),
@@ -1455,7 +1476,9 @@ def _full_args(model):
     ("tiny", 1, dict(dim=64, heads=4, mlp_dim=256)), ("tiny", 8, dict(dim=64, heads=4, mlp_dim=256)),
     ("tiny", 3, dict(dim=128, heads=4, mlp_dim=512)),
     ("tiny", 1, dict(dim=256, heads=2, mlp_dim=1024)),
-    ("tiny", 16, dict(dim=256, heads=2, mlp_dim=1024))])
+    ("tiny", 16, dict(dim=256, heads=2, mlp_dim=1024)),
+    *(("tiny", b, dict(dim=2 * hd, heads=2, mlp_dim=8 * hd)) for hd in NEW_HEAD_DIMS
+      for b in (2, 64))])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_vit_full_kernel_matches_twin_under_every_plan_form(dev, size, batch, kw, dtype):
     model, prep = _full_model(dev, size=size, dtype=dtype, **kw)
@@ -1470,6 +1493,30 @@ def test_vit_full_kernel_matches_twin_under_every_plan_form(dev, size, batch, kw
     assert got.dtype == dtype
     err = (got.float() - ref.float()).abs().max()
     assert err <= ATOL + RTOL * ref.float().abs().max(), err
+
+
+# ViT-H/14's head_dim 80 and patch 14 at narrow width: the embedding's K =
+# 3 x 14^2 = 588 ends inside a 64-deep K step; the twin at b1 and b8, and
+# the same bits under every grid, tile height and instance the plan allows
+@pytest.mark.parametrize("batch", [1, 8])
+def test_vit_full_patch_14_head_dim_80_matches_twin_under_every_plan(dev, batch):
+    model, prep = _full_model(dev, dim=160, heads=2, mlp_dim=640, patch_size=14)
+    assert prep["patch_w"].shape == (588, 160)
+    img = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(11)).to(dev)
+    cfg, fn = model.config, vf.build.load().evt_vit_full
+    args = (batch, 257, cfg.dim, cfg.heads, cfg.resolved_head_dim, cfg.mlp_dim, cfg.num_classes,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+    plans = [vf.vit_full_plan(*args), vf.vit_full_plan(*args, grid=5),
+             vf.vit_full_plan(*args, rows=128), vf.vit_full_plan(*args, rows=16)]
+    with torch.no_grad():
+        outs = [vf.launch(fn, img, prep, plan=p, **_full_args(model))[0] for p in plans]
+        ref = vf.vit_full_forward_plain(img, prep, **_full_args(model))
+    torch.cuda.synchronize()
+    assert all(p.blocks == 1 for p in plans)
+    err = (outs[0].float() - ref.float()).abs().max()
+    assert err <= ATOL + RTOL * ref.float().abs().max(), err
+    for logits in outs[1:]:
+        torch.testing.assert_close(logits, outs[0], rtol=0, atol=0)
 
 
 def test_vit_full_image_is_the_same_bits_alone_and_in_a_batch(dev):
@@ -1582,7 +1629,7 @@ def test_vit_full_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         tvit.fully_fused_vit_apply(model, img.transpose(2, 3), prepared=prep)
     with pytest.raises(ValueError, match="head_dim"):
-        vf.vit_full_forward(img, prep, heads=4, head_dim=48, eps=1e-6,
+        vf.vit_full_forward(img, prep, heads=1, head_dim=192, eps=1e-6,
                             reference_residual=False, approx_gelu=False, final_norm=True)
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         tvit.fully_fused_vit_apply(model, img.cpu(), prepared=prep)
@@ -1901,10 +1948,9 @@ def _chip_smoke():
     return chip_smoke
 
 
-# Checkpoint shapes the importer takes, as the JAX one does, and the card
+# A checkpoint shape the importer takes, as the JAX one does, and the card
 # path refuses: a Swin window of 14 (196 tokens, above the window kernels'
-# 144) and a ViT width of 1536 on the module path (above mlp's 1152).  The
-# card path raises its own error; no twin answers in its place.
+# 144).  The card path raises its own error; no twin answers in its place.
 def test_imported_swin_window_14_is_refused_on_the_card(dev):
     from types import SimpleNamespace
 
@@ -1930,7 +1976,10 @@ def test_imported_swin_window_14_is_refused_on_the_card(dev):
     assert sb.LAUNCHES["window_attention"] == 0 and ws.LAUNCHES["window_sdpa"] == 0
 
 
-def test_imported_vit_dim_1536_is_refused_on_the_module_path(dev):
+# An imported ViT of width 1536 (24 heads of 64, one layer, image 32) on the
+# module path: mlp at dim 1,536 (32-row blocks) and sdpa at head_dim 64, one
+# launch of each a layer; the logits against the twins.
+def test_imported_vit_dim_1536_runs_on_the_module_path(dev, monkeypatch):
     from types import SimpleNamespace
 
     from edgevisiontransformer_tpu_torch.utils import hf_import as hi
@@ -1944,10 +1993,42 @@ def test_imported_vit_dim_1536_is_refused_on_the_module_path(dev):
                             cfg)["params"]
     model = load_jax_params(ViT(cfg, device=dev), tree)
     img = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(3)).to(dev)
-    fm.reset_launches()
-    with torch.no_grad(), pytest.raises(ValueError, match="up to 1152, got 1536"):
-        model(img)
-    assert fm.LAUNCHES["mlp"] == 0
+    _reset_module_counts()
+    with torch.no_grad():
+        got = model(img)
+        counts = _module_counts()
+        monkeypatch.setattr(fa, "sdpa", fa.sdpa_plain)
+        monkeypatch.setattr(fm, "mlp", fm.mlp_plain)
+        ref = model(img)
+    torch.cuda.synchronize()
+    assert counts["mlp"] == counts["sdpa"] == 1 and sum(counts.values()) == 2
+    assert got.shape == (2, 1000) and torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
+
+
+# Past the widened limits: head_dim 136 (above 128), 20 (not a multiple of
+# 8) and an MLP dim of 2,056 (above 2,048) raise a ValueError that names the
+# limit, and nothing launches.  sdpa's rows of 20 values are not 16-byte
+# vectors: its stride check refuses them first.
+def test_head_dim_136_and_mlp_dim_2056_are_refused_without_a_launch(dev):
+    _reset_all()
+    for hd in (136, 20):
+        with pytest.raises(ValueError, match="multiple of 8 from 16 to 128"):
+            fe.attention_rows(_rnd(dev, 2 * 50, 3 * 2 * hd), heads=2, head_dim=hd, tokens=50)
+    with pytest.raises(ValueError, match="multiple of 8 from 16 to 128"):
+        fa.sdpa(*_qkv_views(dev, 1, 2, 50, 136))
+    with pytest.raises(ValueError, match="strides"):
+        fa.sdpa(*_qkv_views(dev, 1, 2, 50, 20))
+    model, prep = _full_model(dev, dim=272, heads=2, mlp_dim=544)  # head_dim 136
+    img = torch.randn(1, 3, 224, 224, device=dev)
+    with torch.no_grad(), pytest.raises(ValueError, match="multiple of 8 from 16 to 128"):
+        tvit.fully_fused_vit_apply(model, img, prepared=prep)
+    x = _rnd(dev, 8, 2056)
+    w1, b1 = _rnd(dev, 2056, 64, scale=0.02), _rnd(dev, 64)
+    w2, b2 = _rnd(dev, 64, 2056, scale=0.02), _rnd(dev, 2056)
+    with pytest.raises(ValueError, match="up to 2048, got 2056"):
+        fm.mlp(x, w1, b1, w2, b2)
+    assert not any(_all_counts().values())
 
 
 def test_cnn_on_the_card_matches_its_cpu_forward(dev):

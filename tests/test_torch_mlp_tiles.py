@@ -137,11 +137,17 @@ def test_kernel_tiles_match_jax_k14_and_the_twin(m, dim, hidden, split, hc, appr
 @pytest.mark.parametrize("m,dim,hidden", [(197, 192, 768), (25216, 192, 768), (1, 192, 768),
                                           (1576, 768, 3072), (197, 384, 1152),
                                           (6304, 384, 1152), (197, 192, 230), (3, 64, 13),
-                                          (197, 200, 768), (200, 1152, 4608)])
+                                          (197, 200, 768), (200, 1152, 4608),
+                                          (257, 1280, 5120), (8 * 257, 1280, 5120),
+                                          (257, 1408, 6144), (8 * 257, 1664, 8192),
+                                          (1, 2048, 8192), (25216, 2048, 8192)])
 def test_plan_covers_every_unit_once_within_the_kernel_limits(m, dim, hidden):
+    """Up to ViT-H/14's dim 1,280, ViT-g/14's 1,408, ViT-G/14's 1,664 and
+    the limit, 2,048 (32-row blocks above 1,152)."""
     p = tfm.plan(m, dim, hidden, H100_SMS)
-    assert p.rows in (64, 128) and p.nt in tfm.TILE_WIDTHS and p.hc in (32, 64)
-    assert p.rows == 64 or dim <= tfm.WIDE_ROWS_DIM
+    assert p.rows in (32, 64, 128) and p.nt in tfm.TILE_WIDTHS and p.hc in (32, 64)
+    assert p.rows == 64 or dim <= tfm.WIDE_ROWS_DIM or dim > tfm.MID_ROWS_DIM
+    assert (p.rows == 32) == (dim > tfm.MID_ROWS_DIM)
     assert p.hc == 32 or (p.rows == 128 and p.split == 1)  # the forms csrc/mlp.cu compiles
     assert tfm._smem_bytes(dim, p.rows, p.nt, p.hc) <= tfm.MAX_SMEM
     assert 1 <= p.split <= tfm.MAX_SPLIT and p.split <= -(-hidden // p.hc)
@@ -182,4 +188,11 @@ def test_smem_bytes_mirrors_the_kernel_layout():
     assert tfm._smem_bytes(192, 128, 192, 64) == x + w1 + w2
     x, w1, w2 = 64 * 1160 * 2, 3 * 192 * 40 * 2, 2 * 32 * 264 * 2
     assert tfm._smem_bytes(1152, 64, 256, 32) == x + w1 + w2 <= tfm.MAX_SMEM
+    # dim 1,280 (ViT-H): seven slabs of 192 rows, x 7 * 192 + 8 wide; 64 rows
+    # would not fit, 32 do; dim 2,048 (the wrapper's limit): eleven slabs
+    x, w1, w2 = 32 * 1352 * 2, 3 * 192 * 40 * 2, 2 * 32 * 264 * 2
+    assert tfm._smem_bytes(1280, 32, 256, 32) == x + w1 + w2 <= tfm.MAX_SMEM
+    assert tfm._smem_bytes(1280, 64, 256, 32) > tfm.MAX_SMEM
+    x = 32 * 2120 * 2
+    assert tfm._smem_bytes(2048, 32, 256, 32) == x + w1 + w2 <= tfm.MAX_SMEM
     assert tfm._smem_bytes(64, 128, 256, 32) == 128 * 260 * 4  # the fp32 partial tile

@@ -34,7 +34,9 @@ TOKENS = 197
 # (dim, mlp, classes) of the two DeiT widths the whole-model path serves
 MODELS = {"deit_tiny": (192, 768, 1000), "deit_base": (768, 3072, 1000)}
 BATCHES = (1, 8, 128)
-HEAD_DIMS = (16, 32, 64, 128)
+# the strip widths, and head dims run zero-filled on the 128-wide strip: 48,
+# 80 (ViT-H/14) and 88 (ViT-g/14)
+HEAD_DIMS = (16, 32, 48, 64, 80, 88, 128)
 
 
 def _plan(model, batch, head_dim, sms=H100_SMS, **kw):
@@ -101,8 +103,10 @@ def test_plan_covers_each_phase_once_within_the_kernel(model, batch, head_dim,
 
 
 def _compiled():
-    """The tile shapes, strip warps and head dims csrc/vit_full.cu compiles,
-    read from the committed source."""
+    """The tile shapes, strip warps and instances (the widest strip, blocks
+    an SM) csrc/vit_full.cu compiles, and the strip widths (``strip_head_dim``:
+    the head dims that run on a strip of their own width, and the widest, on
+    which every other runs), read from the committed source."""
     src = (build.CSRC / "vit_full.cu").read_text()
     shapes = re.findall(r"if \(tile == (0)\) gemm_groups<(\d+), (\d+), (\d+)>", src)
     shapes += re.findall(r"else (gemm)_groups<(\d+), (\d+), (\d+)>", src)
@@ -111,20 +115,28 @@ def _compiled():
         code = i
         wm, tm, tn = int(wm), int(tm), int(tn)
         tiles.append((int(code), (wm * tm, 2 * tn, tvf.VIT_FULL_THREADS // (wm * 2 * 32))))
-    warps = sorted({int(w) for w in re.findall(r"attention_groups<HD, (\d+)>", src)})
+    warps = sorted({int(w) for w in re.findall(r"attention_groups<HD, (\d+), PAD>", src)})
     instances = {(int(h), int(b)) for h, b in re.findall(
-        r"case (\d+) \* 4 \+ (\d):(?: return launch_full|\n)", src)}
-    return src, tiles, warps, instances
+        r"case \d: return launch_full<(\d+), (\d)>", src)}
+    body = re.search(r"constexpr int strip_head_dim\(int head_dim\) \{\n  return ([^;]*);", src)
+    own = [int(h) for h in re.findall(r"head_dim == (\d+)", body[1])]
+    widest = int(re.search(r"\? head_dim : (\d+)$", body[1])[1])
+    return src, tiles, warps, instances, (own, widest)
 
 
 def test_the_kernel_is_compiled_for_every_shape_of_the_plan():
-    src, tiles, warps, instances = _compiled()
+    src, tiles, warps, instances, (own, widest) = _compiled()
     assert tiles == list(enumerate(tvf.VIT_FULL_TILES))
     assert warps == sorted(tfe.ATTENTION_WARPS)
-    # every (head_dim, blocks an SM) a plan may name, and at head_dim 128 one block only
-    plans = {(hd, _plan(m, b, hd)[0].blocks) for m in MODELS for b in BATCHES for hd in HEAD_DIMS}
+    # the strip widths the kernel picks are the wrapper's mirror
+    assert own + [widest] == list(tvf.VIT_FULL_STRIP_HEAD_DIMS)
+    for hd in tvf.VIT_FULL_HEAD_DIMS:
+        assert tvf.strip_head_dim(hd) == (hd if hd in own else widest) >= hd
+    # every (instance, blocks an SM) a plan may name; on the 128-wide strip one block only
+    plans = {(max(64, tvf.strip_head_dim(hd)), _plan(m, b, hd)[0].blocks)
+             for m in MODELS for b in BATCHES for hd in tvf.VIT_FULL_HEAD_DIMS}
     assert plans <= instances
-    assert instances == {(hd, b) for hd in (16, 32, 64) for b in (1, 2)} | {(128, 1)}
+    assert instances == {(64, 1), (64, 2), (128, 1)}
     assert f"constexpr int TILE_CODES = {len(tvf.VIT_FULL_TILES)};" in src
     assert f"constexpr int THREADS = {tvf.VIT_FULL_THREADS};" in src
     for rows, cols, groups in tvf.VIT_FULL_TILES:  # each group a whole number of warp rows
@@ -142,8 +154,8 @@ def test_plan_takes_compiled_shapes_fits_shared_memory_and_two_blocks_an_sm(mode
     assert plan.attn_warps == tfe.attention_plan(b, heads, n_tok, H100_SMS)
     smem = tvf.vit_full_smem_bytes(plan, hd, dim)
     per_sm = plan.blocks
-    # two blocks an SM where a phase takes 128-row tiles at head_dim <= 64
-    assert per_sm == (2 if hd <= 64 and 0 in plan.tiles else 1)
+    # two blocks an SM where a phase takes 128-row tiles at head_dim 16, 32 or 64
+    assert per_sm == (2 if hd in (16, 32, 64) and 0 in plan.tiles else 1)
     assert per_sm * (smem + tvf.BLOCK_RESERVE_BYTES) <= tvf.SM_SHARED_BYTES
     need = tvf.phase_blocks(plan, b, n_tok, dim, heads, hd, mlp, classes)
     assert 1 <= plan.grid == min(per_sm * H100_SMS, max(need.values())) <= 2 * H100_SMS

@@ -149,10 +149,13 @@ def _mlp_inputs(rows, dim, hidden):
 
 
 @pytest.mark.parametrize("approx", [True, False])
-@pytest.mark.parametrize("rows,dim,hidden", [(197, 192, 768), (64, 128, 256), (197, 192, 230)])
+@pytest.mark.parametrize("rows,dim,hidden", [(197, 192, 768), (64, 128, 256), (197, 192, 230),
+                                             (20, 1280, 5120), (20, 1536, 256),
+                                             (20, 2048, 128)])
 def test_mlp_twin_matches_jax_kernel(rows, dim, hidden, approx):
     """fp32 at 1e-5 (erff against erf_poly stays far inside it); hidden 230
-    is a pruned ffn0.3 width."""
+    is a pruned ffn0.3 width; dim 1280 is ViT-H/14's (hidden 5120), 2048 the
+    card kernel's widest."""
     x, ws = _mlp_inputs(rows, dim, hidden)
     ref = jfm.mlp(x, *ws, approx_gelu=approx)
     got = tfm.mlp(torch.from_numpy(x), *map(torch.from_numpy, ws), approx_gelu=approx)
