@@ -30,9 +30,10 @@ Phases, in order; any failure exits non-zero before the last line:
    CUDA graph of both replayed twice equal to the eager call; and the
    widened kernels at the head dims and widths they took no instance for
    before: ``attention_rows`` and ``sdpa`` at ViT-H/14's head_dim 80 (257
-   tokens, b1 and b8), 88, 48 / 96 and 104 / 112, ``mlp`` at dim 1280 (b1,
-   b8), 1536 and 2048, ``vit_full`` at head_dim 48 and 88 and at ViT-H/14's
-   widths with patch 14 (b1, b8);
+   tokens, b1 and b8), 88, 48 / 96 and 104 / 112, ``mlp``'s wide form
+   (csrc/mlp_wide.cu) at dim 1280 (b1, b8), 1536, 2048 and 2304 in bf16 and
+   fp16, ``vit_full`` at head_dim 48 and 88 and at ViT-H/14's widths with
+   patch 14 (b1, b8);
 4. run the slices: ``build_model("deit_tiny")`` at full width and depth with
    seeded random weights through ``fused_vit_apply`` on the kernels — three
    b1 requests and one b128 in standard style, one b1 in reference style,
@@ -351,15 +352,17 @@ SDPA_SHAPES = {"deit_tiny b1": (1, 3, 197, 64), "deit_tiny b128": (128, 3, 197, 
                "head_dim 112 b2": (2, 4, 197, 112)}
 # mlp at (rows, dim, hidden): deit_tiny b1 and b128, deit_base b8,
 # t2t_vit_14 b1, the pruned widths 230 (ffn0.3) and 537 (ffn0.7), ViT-H/14
-# (dim 1280, hidden 5120: 32-row blocks) at b1 and b8, dims 1536 and 2048
-# (the limit); every b1 entry takes the kernel's cluster split of the hidden
-# width (fused_mlp.plan)
+# (dim 1280, hidden 5120) at b1 and b8, dims 1536, 2048 and 2304 at b1; up
+# to dim 1152 every b1 entry takes mlp.cu's cluster split of the hidden
+# width (fused_mlp.plan); every wider dim runs csrc/mlp_wide.cu
+# (fused_mlp.wide_plan), in bf16 and fp16
 MLP_SHAPES = {"deit_tiny b1": (197, 192, 768), "deit_tiny b128": (128 * 197, 192, 768),
               "deit_base b8": (8 * 197, 768, 3072), "t2t_vit_14 b1": (197, 384, 1152),
               "hidden 230 b1": (197, 192, 230), "hidden 230 b128": (128 * 197, 192, 230),
               "hidden 537 b1": (197, 192, 537),
               "ViT-H/14 b1": (257, 1280, 5120), "ViT-H/14 b8": (8 * 257, 1280, 5120),
-              "dim 1536 b1": (257, 1536, 6144), "dim 2048 b1": (257, 2048, 8192)}
+              "dim 1536 b1": (257, 1536, 6144), "dim 2048 b1": (257, 2048, 8192),
+              "dim 2304 b1": (257, 2304, 9216)}
 # attention_rows at (batch, tokens, seq_len, heads, head_dim) beyond SHAPES:
 # the pruned model's one head at b1 and b128, head_dim 16 (the layerwise
 # pruned config's 5 tokens at 2 and 3 heads, and 197 tokens), head_dim 128,
@@ -879,12 +882,14 @@ def phase_kernels_swin(torch, fe, sb, sm, ws, harness):
 def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
     """``sdpa`` (K13) and ``mlp`` (K14) against their twins at the module
     path's shapes (``SDPA_SHAPES``, q, k, v as views of a fused qkv, as
-    ``attention`` passes them; ``MLP_SHAPES``, both GELU forms) and
+    ``attention`` passes them; ``MLP_SHAPES``, both GELU forms, the wide
+    form (dim above 1152, csrc/mlp_wide.cu) in bf16 and fp16) and
     ``layer_norm`` (K15, one ``ln_rows`` launch) at ``[b, 197, 192]``;
-    ``mlp`` gives the same bits twice at deit_tiny b1 and b128; returns
-    ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} of one deit_tiny b128
-    layer's launch, and under ``"mlp b1"`` one deit_tiny b1 layer's, under
-    ``"sdpa ViT-H/14 b1"`` etc. one ViT-H/14 layer's at ``VIT_H_ROWS``)."""
+    ``mlp`` gives the same bits twice at deit_tiny b1 and b128 and at every
+    wide entry; returns ({kernel: max_abs_err} (the wide form's bf16 under
+    ``"mlp wide"``), {kernel: (ms, plain_ms)} of one deit_tiny b128 layer's
+    launch, and under ``"mlp b1"`` one deit_tiny b1 layer's, under ``"sdpa
+    ViT-H/14 b1"`` etc. one ViT-H/14 layer's at ``VIT_H_ROWS``)."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(11)
 
@@ -893,15 +898,18 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
 
     errs, layer_ms = {"sdpa": 0.0, "mlp": 0.0}, {}
 
-    def check(kname, label, shape_name, kern, plain, row=None):
+    def check(kname, label, shape_name, kern, plain, row=None, timed=True):
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
         err, ok = within(got, ref, KERNEL_RTOL, KERNEL_ATOL)
-        if not ok or not torch.isfinite(got.float()).all():
+        if not ok or not torch.isfinite(got.float()).all() or got.dtype != ref.dtype:
             fail(f"{label} at {shape_name}: max |kernel - twin| {err:.4g} "
                  f"over {KERNEL_ATOL} + {KERNEL_RTOL:.4g}|twin|")
         errs[kname] = max(errs.get(kname, 0.0), err)
+        if not timed:
+            print(f"  {shape_name:15s} {label:26s} max|err| {err:.3g}")
+            return
         times = time_pair(harness, shape_name, label, err, kern, plain)
         if row:
             layer_ms[row] = times
@@ -917,19 +925,32 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
         x = rnd(m, dim, scale=2.0)
         w1, b1 = rnd(dim, hid, scale=dim ** -0.5), rnd(hid)
         w2, b2 = rnd(hid, dim, scale=hid ** -0.5), rnd(dim)
-        for approx in (False, True):
-            check("mlp", f"mlp {'tanh' if approx else 'erf'}", shape_name,
-                  lambda: fm.mlp(x, w1, b1, w2, b2, approx_gelu=approx),
+        wide = dim > fm.MID_ROWS_DIM
+        for approx in (False, True):  # a wide entry's tanh form is checked, not timed
+            check("mlp wide" if wide else "mlp", f"mlp {'tanh' if approx else 'erf'}",
+                  shape_name, lambda: fm.mlp(x, w1, b1, w2, b2, approx_gelu=approx),
                   lambda: fm.mlp_plain(x, w1, b1, w2, b2, approx_gelu=approx),
                   row=None if approx else {"deit_tiny b128": "mlp", "deit_tiny b1": "mlp b1",
-                                           **{s: f"mlp {s}" for s in VIT_H_ROWS}}.get(shape_name))
-        if shape_name in ("deit_tiny b1", "deit_tiny b128"):
-            first, second = fm.mlp(x, w1, b1, w2, b2), fm.mlp(x, w1, b1, w2, b2)
-            torch.cuda.synchronize()
-            if not torch.equal(first, second):
-                fail(f"mlp at {shape_name}: two calls on the same inputs differ")
+                                           **{s: f"mlp {s}" for s in VIT_H_ROWS}}.get(shape_name),
+                  timed=not (wide and approx))
+        ops16 = [t.to(torch.float16) for t in (x, w1, b1, w2, b2)] if wide else []
+        for approx in ((False, True) if wide else ()):  # the wide form's fp16 instance
+            check("mlp wide fp16", f"mlp {'tanh' if approx else 'erf'} fp16", shape_name,
+                  lambda: fm.mlp(*ops16, approx_gelu=approx),
+                  lambda: fm.mlp_plain(*ops16, approx_gelu=approx), timed=False)
+        if shape_name in ("deit_tiny b1", "deit_tiny b128") or wide:
+            sms = fm._sm_count(0)
+            for ops in ((x, w1, b1, w2, b2), *([ops16] if wide else [])):
+                first, second = fm.mlp(*ops), fm.mlp(*ops)
+                torch.cuda.synchronize()
+                if not torch.equal(first, second):
+                    fail(f"mlp at {shape_name} ({ops[0].dtype}): two calls on the same inputs "
+                         f"differ")
+            wp = fm.wide_plan(m, dim, hid, sms) if wide else None
+            plan = (f"wide plan: split {wp.split}, grid {wp.grid}" if wide
+                    else f"plan {tuple(fm.plan(m, dim, hid, sms))}")
             print(f"  {shape_name:15s} mlp: two calls give the same bits "
-                  f"(plan {tuple(fm.plan(m, dim, hid, fm._sm_count(0)))})")
+                  f"({'bf16 and fp16, ' if wide else ''}{plan})")
     for b in (1, 128):
         x = rnd(b, 197, 192, scale=3.0)
         g, bb = rnd(192, scale=0.5) + 1, rnd(192, scale=0.5)
@@ -3789,6 +3810,10 @@ def phase_vit_huge(torch, counter, harness, base_b1_ms, fa, fm):
             print(f"  ViT-H/14 {label} b1 device p50 {d['p50_ms']:.4f} ms (std {d['std_ms']:.4f}); "
                   f"phase 5's deit_base fused_vit_apply b1 {base_b1_ms:.4f} ms; ratio "
                   f"{d['p50_ms'] / base_b1_ms:.3f}")
+        # the module at b8 too: its mlp (csrc/mlp_wide.cu) at 2056 rows
+        d = harness.measure_graph_time(lambda: module(images[8]), iters=5, repeats=5)
+        print(f"  ViT-H/14 module pallas b8 device p50 {d['p50_ms']:.4f} ms (std "
+              f"{d['std_ms']:.4f})")
     torch.cuda.synchronize()
     print(f"  ViT-H/14: {time.perf_counter() - t0:.1f} s, peak device memory "
           f"{harness.device_peak_mb():.1f} MiB (two models' fp32 parameters, the bf16, "
@@ -4834,7 +4859,8 @@ def main() -> int:
                   f"{kk / bk:.1f}")
         print(f"  K16, one t2t_vit_14 b{batch} tokenizer: both kernels {both:.4f} ms, the eager "
               f"performer chain {chains[tag]:.4f} ms")
-    for key, (bnd1, by1, lib1) in vit_huge_yardsticks(torch, harness).items():
+    vit_h_yard = vit_huge_yardsticks(torch, harness)
+    for key, (bnd1, by1, lib1) in vit_h_yard.items():
         k1, p1 = layer_ms[key]
         what = {"attention_rows": "SDPA with a key mask", "sdpa": "SDPA",
                 "mlp": "torch.addmm + F.gelu + torch.addmm"}[key.split()[0]]
@@ -4935,13 +4961,21 @@ def main() -> int:
           "forward; performer_reduce and performer_rows: one t2t_vit_14 b1 tokenizer's two "
           "performers); launches: the requests of phase 4; '<kernel> fp16': the kernel's fp16 "
           "instance (build.py's -DEVT_F16 object) on the same row's launches at fp16, its "
-          "launches those of phase 9's fp16 requests")
+          "launches those of phase 9's fp16 requests; 'mlp wide': mlp's wide form "
+          "(csrc/mlp_wide.cu, every dim above 1152) on one ViT-H/14 b1 module layer (dim "
+          "1280, exact GELU), max_abs_err its phase 3 bf16 entries', launches phase 10's "
+          "ViT-H/14 requests' (every mlp launch there is at dim 1280)")
     rows = [
         {"name": k, "route": "cuda", "source": f"{src}{source}", "replaces": replaces,
          "launches": launches[k], "max_abs_err": errs[k],
          "ms": layer_ms[k][0], "plain_ms": layer_ms[k][1], "bound_ms": yard[k][0],
          "bound_by": yard[k][1], "library_ms": yard[k][2]}
         for k, (source, replaces) in KERNELS.items()]
+    (k1, p1), (bnd1, by1, lib1) = layer_ms["mlp ViT-H/14 b1"], vit_h_yard["mlp ViT-H/14 b1"]
+    rows.append({"name": "mlp wide", "route": "cuda", "source": f"{src}mlp_wide.cu",
+                 "replaces": KERNELS["mlp"][1], "launches": launches_h["mlp"],
+                 "max_abs_err": errs["mlp wide"], "ms": k1, "plain_ms": p1, "bound_ms": bnd1,
+                 "bound_by": by1, "library_ms": lib1})
     rows += [
         {"name": f"{k} fp16", "route": "cuda", "source": f"{src}{source}", "replaces": replaces,
          "launches": launches16[k], "max_abs_err": errs16[k],

@@ -21,14 +21,14 @@
 // and the latency of each block's chain of loads and products bound it.
 //
 // Design (bench/mlp_ab.py times its choices; PERF.md section 6 has the numbers).
-// - Each warp owns 16 rows; a block has 8 warps (128 rows), 4 (64 rows) or
-//   2 (32 rows), as the host's plan says (ops/cuda/fused_mlp.py:plan).
-//   Every row block reads all of W1 and W2 for its column tile from L2, so
-//   128 rows halve that traffic (116 MB a deit_tiny b128 layer, 232 MB at 64
-//   rows); 128 rows are taken where the row blocks fill at least half the
-//   card and D is at most 512, 64 up to D = 1,152 and 32 above, up to 2,048
-//   (ViT-H's 1,280, ViT-g's 1,408, ViT-G's 1,664): the block's X rows stay
-//   in shared memory beside the rings.
+// - Each warp owns 16 rows; a block has 8 warps (128 rows) or 4 (64 rows),
+//   as the host's plan says (ops/cuda/fused_mlp.py:plan).  Every row block
+//   reads all of W1 and W2 for its column tile from L2, so 128 rows halve
+//   that traffic (116 MB a deit_tiny b128 layer, 232 MB at 64 rows); 128
+//   rows are taken where the row blocks fill at least half the card and D is
+//   at most 512, 64 up to D = 1,152: the block's X rows stay in shared
+//   memory beside the rings.  Wider D (ViT-H's 1,280 and up) runs
+//   mlp_wide.cu.
 // - Both products run on mma.sync.m16n8k16 (bf16 in, fp32 accumulators) fed
 //   by ldmatrix from tiles whose row stride is an odd multiple of 16 bytes
 //   (8 rows land in 8 distinct bank groups).  fc1's A fragments come from
@@ -407,12 +407,12 @@ int launch_nt(const void* x, const void* w1, const void* b1, const void* w2, con
 // x [M, dim] and y 16-byte aligned, dim % 8 == 0; w1 [dim, hidden], b1
 // [hidden], w2 [hidden, dim], b2 [dim] bf16 (fp16 in the fp16 instance) at
 // any alignment.  The plan
-// (ops/cuda/fused_mlp.py:plan): rows per block (32, 64 or 128), split (the
+// (ops/cuda/fused_mlp.py:plan): rows per block (64 or 128), split (the
 // blocks of a cluster sharing the hidden width, 1..8), nt (output columns
 // per block: 64, 128, 192 or 256) and hc (hidden units per chunk: 32, or
 // 64 at 128 rows).  The X rows of a block stay in shared memory: 128 rows
-// up to dim 512, 64 up to 1,152, 32 up to 2,048 (Layout over MAX_SMEM
-// refuses more).
+// up to dim 512, 64 up to 1,152 (Layout over MAX_SMEM refuses more; wider
+// dims run mlp_wide.cu).
 extern "C" int EVT_EXPORT(evt_mlp)(const void* x, const void* w1, const void* b1, const void* w2,
                                    const void* b2, void* y, int M, int dim, int hidden,
                                    int approx, int rows, int split, int nt, int hc,
@@ -430,7 +430,5 @@ extern "C" int EVT_EXPORT(evt_mlp)(const void* x, const void* w1, const void* b1
     return launch_nt<8, 32>(x, w1, b1, w2, b2, y, M, dim, hidden, approx, split, nt, v1, v2, s);
   if (rows == 64 && hc == 32)
     return launch_nt<4, 32>(x, w1, b1, w2, b2, y, M, dim, hidden, approx, split, nt, v1, v2, s);
-  if (rows == 32 && hc == 32)
-    return launch_nt<2, 32>(x, w1, b1, w2, b2, y, M, dim, hidden, approx, split, nt, v1, v2, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

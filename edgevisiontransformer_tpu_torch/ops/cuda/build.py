@@ -50,6 +50,7 @@ _SIGNATURES = (
     ("evt_window_sdpa", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     ("evt_sdpa", _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
     ("evt_mlp", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    ("evt_mlp_wide", _I, (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     ("evt_vit_full", _I, (_P, _P, _P, _P)),
     ("evt_vit_full_blocks_per_sm", _I, (_I, _I, _I, _P)),
     ("evt_vit_full_barrier_probe", _I, (_I, _I, _P)),

@@ -1271,7 +1271,9 @@ def test_attention_writes_the_merged_heads_in_place(dev):
                                              (1, 192, 768), (6304, 384, 1152), (197, 200, 768),
                                              (257, 1280, 5120), (2056, 1280, 5120),
                                              (257, 1536, 6144), (257, 2048, 8192),
-                                             (100, 1408, 6144), (257, 1664, 8192)])
+                                             (100, 1408, 6144), (257, 1664, 8192),
+                                             (257, 2056, 8192), (2056, 2304, 9216),
+                                             (257, 1408, 6150)])
 @pytest.mark.parametrize("approx", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_mlp_kernel_matches_twin_and_counts(dev, rows, dim, hidden, approx, dtype):
@@ -1289,7 +1291,9 @@ def test_mlp_kernel_matches_twin_and_counts(dev, rows, dim, hidden, approx, dtyp
 # Every form of csrc/mlp.cu's grid at shapes where the plan would not pick
 # it: 128 and 64 rows, the cluster split (S = 2, 3, 8; at hidden 13 more
 # splits than chunks), each column-tile width, chunks of 32 and 64 hidden
-# units; dim 1,152 at 64 rows.
+# units; dim 1,152 at 64 rows.  Above dim 1,152 csrc/mlp_wide.cu under
+# forced splits of fc2's K (("wide", S)): S = 1, 2 and 8 at ViT-H/14 b1
+# (the plan's is 5), a ragged hidden width, dim 1,160 at hidden 13.
 @pytest.mark.parametrize("rows,dim,hidden,form", [
     (197, 192, 768, (128, 1, 192, 32)), (197, 192, 768, (128, 8, 192, 32)),
     (300, 192, 230, (64, 3, 128, 32)), (25216, 192, 768, (64, 1, 64, 32)),
@@ -1298,15 +1302,19 @@ def test_mlp_kernel_matches_twin_and_counts(dev, rows, dim, hidden, approx, dtyp
     (200, 1152, 96, (64, 1, 256, 32)), (130, 512, 200, (128, 4, 256, 32)),
     (197, 192, 537, (128, 1, 192, 64)), (300, 256, 768, (128, 3, 256, 64)),
     (25216, 192, 768, (128, 1, 64, 64)), (70, 64, 13, (128, 1, 128, 64)),
-    (197, 192, 768, (32, 1, 192, 32)), (197, 192, 768, (32, 8, 64, 32)),
-    (257, 1280, 5120, (32, 1, 256, 32)), (257, 1280, 5120, (32, 4, 128, 32)),
-    (300, 2048, 100, (32, 2, 256, 32))])
+    (257, 1280, 5120, ("wide", 1)), (257, 1280, 5120, ("wide", 2)),
+    (257, 1280, 5120, ("wide", 8)), (300, 2048, 100, ("wide", 2)),
+    (40, 1160, 13, ("wide", 4))])
 def test_mlp_kernel_every_plan_form_matches_twin(dev, monkeypatch, rows, dim, hidden, form):
     x = _rnd(dev, rows, dim, scale=2.0)
     w1, b1 = _rnd(dev, dim, hidden, scale=dim ** -0.5, seed=1), _rnd(dev, hidden, seed=2)
     w2, b2 = _rnd(dev, hidden, dim, scale=hidden ** -0.5, seed=3), _rnd(dev, dim, seed=4)
-    r, split, nt, hc = form
-    monkeypatch.setattr(fm, "plan", lambda *a, **k: fm.Plan(r, split, nt, hc, -(-dim // nt)))
+    if form[0] == "wide":
+        wide_plan = fm.wide_plan
+        monkeypatch.setattr(fm, "wide_plan", lambda *a, **k: wide_plan(*a, **k, split=form[1]))
+    else:
+        r, split, nt, hc = form
+        monkeypatch.setattr(fm, "plan", lambda *a, **k: fm.Plan(r, split, nt, hc, -(-dim // nt)))
     fm.reset_launches()
     got = fm.mlp(x, w1, b1, w2, b2)
     assert fm.LAUNCHES["mlp"] == 1
@@ -1331,6 +1339,29 @@ def test_mlp_rows_alone_and_in_a_batch_agree_within_the_twin_bound(dev, approx):
     print(f"mlp {'tanh' if approx else 'erf'}: b1 against rows 0-196 of b128: max |diff| "
           f"{float(diff.max()):.6g}, {int((diff > 0).sum())} of {diff.numel()} values differ")
     _close(alone, batch)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,dim,hidden", [(257, 1280, 5120), (2056, 1280, 5120),
+                                             (257, 1408, 6150)])
+def test_mlp_wide_graph_replay_gives_the_eager_bits(dev, rows, dim, hidden, dtype):
+    """csrc/mlp_wide.cu captured in a CUDA graph (its workspaces allocated in
+    the graph's pool) and replayed twice gives the eager call's bits."""
+    x = _rnd(dev, rows, dim, scale=2.0, dtype=dtype)
+    w1 = _rnd(dev, dim, hidden, scale=dim ** -0.5, seed=1, dtype=dtype)
+    b1 = _rnd(dev, hidden, seed=2, dtype=dtype)
+    w2 = _rnd(dev, hidden, dim, scale=hidden ** -0.5, seed=3, dtype=dtype)
+    b2 = _rnd(dev, dim, seed=4, dtype=dtype)
+    eager = fm.mlp(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fm.mlp(x, w1, b1, w2, b2)
+    for _ in range(2):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
 
 
 @pytest.mark.parametrize("rows", [197, 25216])
@@ -1977,7 +2008,7 @@ def test_imported_swin_window_14_is_refused_on_the_card(dev):
 
 
 # An imported ViT of width 1536 (24 heads of 64, one layer, image 32) on the
-# module path: mlp at dim 1,536 (32-row blocks) and sdpa at head_dim 64, one
+# module path: mlp at dim 1,536 (csrc/mlp_wide.cu) and sdpa at head_dim 64, one
 # launch of each a layer; the logits against the twins.
 def test_imported_vit_dim_1536_runs_on_the_module_path(dev, monkeypatch):
     from types import SimpleNamespace
@@ -2006,11 +2037,12 @@ def test_imported_vit_dim_1536_runs_on_the_module_path(dev, monkeypatch):
     assert (got.float() - ref.float()).abs().max() <= 0.05 * ref.float().abs().max()
 
 
-# Past the widened limits: head_dim 136 (above 128), 20 (not a multiple of
-# 8) and an MLP dim of 2,056 (above 2,048) raise a ValueError that names the
-# limit, and nothing launches.  sdpa's rows of 20 values are not 16-byte
-# vectors: its stride check refuses them first.
-def test_head_dim_136_and_mlp_dim_2056_are_refused_without_a_launch(dev):
+# Past the widened limits: head_dim 136 (above 128) and 20 (not a multiple
+# of 8) raise a ValueError that names the limit, and nothing launches.
+# sdpa's rows of 20 values are not 16-byte vectors: its stride check refuses
+# them first.  The MLP has no width limit above 1,152 (csrc/mlp_wide.cu):
+# dim 2,056 runs, once, and matches the twin.
+def test_head_dim_136_is_refused_without_a_launch_and_mlp_dim_2056_runs(dev):
     _reset_all()
     for hd in (136, 20):
         with pytest.raises(ValueError, match="multiple of 8 from 16 to 128"):
@@ -2023,12 +2055,13 @@ def test_head_dim_136_and_mlp_dim_2056_are_refused_without_a_launch(dev):
     img = torch.randn(1, 3, 224, 224, device=dev)
     with torch.no_grad(), pytest.raises(ValueError, match="multiple of 8 from 16 to 128"):
         tvit.fully_fused_vit_apply(model, img, prepared=prep)
+    assert not any(_all_counts().values())
     x = _rnd(dev, 8, 2056)
     w1, b1 = _rnd(dev, 2056, 64, scale=0.02), _rnd(dev, 64)
     w2, b2 = _rnd(dev, 64, 2056, scale=0.02), _rnd(dev, 2056)
-    with pytest.raises(ValueError, match="up to 2048, got 2056"):
-        fm.mlp(x, w1, b1, w2, b2)
-    assert not any(_all_counts().values())
+    got = fm.mlp(x, w1, b1, w2, b2)
+    assert _all_counts() == {**{k: 0 for k in _all_counts()}, "mlp": 1}
+    _close(got, fm.mlp_plain(x, w1, b1, w2, b2))
 
 
 def test_cnn_on_the_card_matches_its_cpu_forward(dev):

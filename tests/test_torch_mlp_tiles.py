@@ -12,8 +12,9 @@ blocks, block s walks its contiguous share of the chunks and the S partials
 are summed in the order s = 0 .. S - 1 before ``+ f32(b2)`` and one round.
 This pins down the padding and the split's order where they can run;
 ``tests/test_torch_kernels_cuda.py`` holds the kernel itself to the twin on
-the card.  The plan that picks the kernel's grid (``fused_mlp.plan``) is
-checked here too.
+the card.  The plans that pick the kernels' grids (``fused_mlp.plan`` up
+to dim 1,152, ``fused_mlp.wide_plan`` for csrc/mlp_wide.cu above, whose
+arithmetic ``tests/test_torch_mlp_wide.py`` emulates) are checked here too.
 
 Inputs come from a numpy seed.
 """
@@ -140,14 +141,19 @@ def test_kernel_tiles_match_jax_k14_and_the_twin(m, dim, hidden, split, hc, appr
                                           (197, 200, 768), (200, 1152, 4608),
                                           (257, 1280, 5120), (8 * 257, 1280, 5120),
                                           (257, 1408, 6144), (8 * 257, 1664, 8192),
-                                          (1, 2048, 8192), (25216, 2048, 8192)])
+                                          (1, 2048, 8192), (25216, 2048, 8192),
+                                          (257, 2056, 8224), (8 * 257, 2304, 9216),
+                                          (3, 1160, 13), (257, 1408, 6150)])
 def test_plan_covers_every_unit_once_within_the_kernel_limits(m, dim, hidden):
-    """Up to ViT-H/14's dim 1,280, ViT-g/14's 1,408, ViT-G/14's 1,664 and
-    the limit, 2,048 (32-row blocks above 1,152)."""
+    """mlp.cu's plan up to dim 1,152; above (ViT-H/14's 1,280, ViT-g/14's
+    1,408, ViT-G/14's 1,664, 2,048, 2,056, 2,304 and ragged hidden widths)
+    the wide kernel's."""
+    if dim > tfm.MID_ROWS_DIM:
+        _check_wide_plan(m, dim, hidden)
+        return
     p = tfm.plan(m, dim, hidden, H100_SMS)
-    assert p.rows in (32, 64, 128) and p.nt in tfm.TILE_WIDTHS and p.hc in (32, 64)
-    assert p.rows == 64 or dim <= tfm.WIDE_ROWS_DIM or dim > tfm.MID_ROWS_DIM
-    assert (p.rows == 32) == (dim > tfm.MID_ROWS_DIM)
+    assert p.rows in (64, 128) and p.nt in tfm.TILE_WIDTHS and p.hc in (32, 64)
+    assert p.rows == 64 or dim <= tfm.WIDE_ROWS_DIM
     assert p.hc == 32 or (p.rows == 128 and p.split == 1)  # the forms csrc/mlp.cu compiles
     assert tfm._smem_bytes(dim, p.rows, p.nt, p.hc) <= tfm.MAX_SMEM
     assert 1 <= p.split <= tfm.MAX_SPLIT and p.split <= -(-hidden // p.hc)
@@ -157,6 +163,28 @@ def test_plan_covers_every_unit_once_within_the_kernel_limits(m, dim, hidden):
     covered = [u for c0, c1 in shares for u in range(c0 * p.hc, min(c1 * p.hc, hidden))]
     assert covered == list(range(hidden))  # each unit once, in split order
     assert all(c1 > c0 for c0, c1 in shares)  # no block of a cluster idles
+
+
+def _check_wide_plan(m, dim, hidden):
+    """csrc/mlp_wide.cu under wide_plan: every output element in exactly one
+    fc2 tile and every hidden unit in one fc1 tile and one share of fc2's K;
+    the grid one wave at one block an SM; the shared memory within the
+    card's limit."""
+    p = tfm.wide_plan(m, dim, hidden, H100_SMS)
+    assert (p.bm, p.bn, p.bk) == (tfm.WIDE_BM, tfm.WIDE_BN, tfm.WIDE_BK)
+    assert (p.row_tiles - 1) * p.bm < m <= p.row_tiles * p.bm
+    assert (p.dim_tiles - 1) * p.bn < dim <= p.dim_tiles * p.bn
+    assert p.hp == p.hidden_tiles * p.bn and p.hp - p.bn < hidden <= p.hp
+    shares = tfm.wide_shares(p.hp // p.bk, p.split)
+    covered = [u for s0, s1 in shares for u in range(s0 * p.bk, min(s1 * p.bk, hidden))]
+    assert covered == list(range(hidden))  # each unit once, in share order
+    assert all(s1 > s0 for s0, s1 in shares)  # no unit of fc2 idles
+    assert 1 <= p.split <= tfm.WIDE_MAX_SPLIT
+    assert 1 <= p.grid <= H100_SMS * tfm.WIDE_BLOCKS_PER_SM  # one wave: co-resident
+    assert p.grid == min(H100_SMS, max(p.row_tiles * p.hidden_tiles,
+                                       p.row_tiles * p.dim_tiles * p.split))
+    assert p.smem == tfm.wide_smem_bytes() <= tfm.MAX_SMEM
+    assert p.h_bytes == m * p.hp * 2 and p.part_bytes == (p.split > 1) * p.split * m * dim * 4
 
 
 def test_plan_splits_the_hidden_width_only_at_small_batches():
@@ -174,6 +202,14 @@ def test_mlp_ab_finds_its_anchor_in_the_committed_source():
     found = mlp_ab.variants(src)
     assert list(found) == ["committed", "no GELU (products only)"]
     assert found["committed"] == src and found["no GELU (products only)"] != src
+    wide = (build.CSRC / "mlp_wide.cu").read_text()
+    found = mlp_ab.wide_variants(wide)
+    assert list(found) == list(mlp_ab.WIDE_VARIANTS)
+    assert found["committed"] == wide
+    assert all(code != wide for name, code in found.items() if name != "committed")
+    assert mlp_ab.wide_plans(257, 1280, 5120, H100_SMS)["plan"].split == 5
+    assert [p.split for p in mlp_ab.wide_plans(2056, 1280, 5120, H100_SMS).values()] == [
+        1, 1, 2, 4]
     plans = mlp_ab.plans(197, 192, 768, H100_SMS)
     assert plans["plan"].split > 1 and plans["split 1"].split == 1
     assert plans["64 rows"].rows == 64 and plans["128 rows"].rows == 128
@@ -188,11 +224,11 @@ def test_smem_bytes_mirrors_the_kernel_layout():
     assert tfm._smem_bytes(192, 128, 192, 64) == x + w1 + w2
     x, w1, w2 = 64 * 1160 * 2, 3 * 192 * 40 * 2, 2 * 32 * 264 * 2
     assert tfm._smem_bytes(1152, 64, 256, 32) == x + w1 + w2 <= tfm.MAX_SMEM
-    # dim 1,280 (ViT-H): seven slabs of 192 rows, x 7 * 192 + 8 wide; 64 rows
-    # would not fit, 32 do; dim 2,048 (the wrapper's limit): eleven slabs
-    x, w1, w2 = 32 * 1352 * 2, 3 * 192 * 40 * 2, 2 * 32 * 264 * 2
-    assert tfm._smem_bytes(1280, 32, 256, 32) == x + w1 + w2 <= tfm.MAX_SMEM
+    # dim 1,280 (ViT-H): 64 rows of x would not fit beside the rings (mlp.cu
+    # takes no wider dim); csrc/mlp_wide.cu's ring of four steps, each A 64 x
+    # 64 and B 64 x 256, 1,024 bytes to align it and a full and an empty
+    # mbarrier a step, at every dim
     assert tfm._smem_bytes(1280, 64, 256, 32) > tfm.MAX_SMEM
-    x = 32 * 2120 * 2
-    assert tfm._smem_bytes(2048, 32, 256, 32) == x + w1 + w2 <= tfm.MAX_SMEM
+    a, b = 64 * 64 * 2, 64 * 256 * 2
+    assert tfm.wide_smem_bytes() == 4 * (a + b) + 1024 + 4 * 2 * 8 == 164928 <= tfm.MAX_SMEM
     assert tfm._smem_bytes(64, 128, 256, 32) == 128 * 260 * 4  # the fp32 partial tile

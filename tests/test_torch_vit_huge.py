@@ -221,10 +221,18 @@ def test_vit_full_plan_at_vit_h_b1_by_hand():
 
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("model", list(PUBLISHED))
-def test_mlp_plan_takes_32_row_blocks_within_shared_memory(model, batch):
+def test_mlp_wide_plan_fits_one_wave_within_shared_memory(model, batch):
+    """Every published dim above 1,152 runs csrc/mlp_wide.cu: one block an
+    SM, the ring within the card's shared memory, fc2's K split at b1; the
+    workspaces by hand at ViT-H/14."""
     dim, _, hidden = PUBLISHED[model]
-    p = tfm.plan(batch * TOKENS, dim, hidden, H100_SMS)
-    assert p.rows == 32 and p.hc == 32 and p.nt in tfm.TILE_WIDTHS
-    assert tfm._smem_bytes(dim, p.rows, p.nt, p.hc) <= tfm.MAX_SMEM
-    assert (p.split > 1) == (batch == 1)  # b1: a cluster splits the hidden width
-    assert p.col_tiles * p.nt >= dim > (p.col_tiles - 1) * p.nt
+    m = batch * TOKENS
+    assert dim > tfm.MID_ROWS_DIM
+    p = tfm.wide_plan(m, dim, hidden, H100_SMS)
+    assert 1 <= p.grid <= H100_SMS * tfm.WIDE_BLOCKS_PER_SM and p.smem <= tfm.MAX_SMEM
+    assert p.row_tiles * p.bm >= m and p.dim_tiles * p.bn >= dim and p.hp >= hidden
+    assert p.split > 1 or batch > 1  # at b1 the fc2 tiles are few: K is split
+    if model == "ViT-H/14":  # H [m, 5,120] bf16; the fp32 partials [S, m, 1,280]
+        assert p.h_bytes == m * 5120 * 2 and p.part_bytes == (p.split > 1) * p.split * m * 1280 * 4
+        assert (p.h_bytes, p.part_bytes) == ((2_631_680, 6_579_200) if batch == 1
+                                             else (21_053_440, 0))
