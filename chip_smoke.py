@@ -30,7 +30,10 @@ Phases, in order; any failure exits non-zero before the last line:
    CUDA graph of both replayed twice equal to the eager call; and the
    widened kernels at the head dims and widths they took no instance for
    before: ``attention_rows`` and ``sdpa`` at ViT-H/14's head_dim 80 (257
-   tokens, b1 and b8), 88, 48 / 96 and 104 / 112, ``mlp``'s wide form
+   tokens, b1 and b8), 88, 48 / 96 and 104 / 112, ``sdpa``'s
+   csrc/sdpa_long.cu (every ``SDPA_SHAPES`` entry past ``res_keys``: deit_base
+   at 384, ViT-H/14, head_dims 88 and 112) in bf16 and fp16, one launch a
+   call and the same bits twice, ``mlp``'s wide form
    (csrc/mlp_wide.cu) at dim 1280 (b1, b8), 1536, 2048 and 2304 in bf16 and
    fp16, ``vit_full`` at head_dim 48 and 88 and at ViT-H/14's widths with
    patch 14 (b1, b8);
@@ -82,7 +85,8 @@ Phases, in order; any failure exits non-zero before the last line:
    t2t_vit_14 tokenizer at b1 and at b32, beside the eager performer chain;
    ``stage1_kqv``'s rows at t2t_vit_14 b1 and b4; ``attention_rows``,
    ``sdpa`` and ``mlp`` at one ViT-H/14 layer at b1 and b8 (SDPA at head_dim
-   80; ``addmm`` + ``gelu`` + ``addmm`` at dim 1280);
+   80; ``addmm`` + ``gelu`` + ``addmm`` at dim 1280), and ``sdpa`` at one
+   deit_base 384 b8 layer (577 keys: csrc/sdpa_long.cu, beside SDPA);
 7. finetuning on the card and its result served on the kernels:
    deit_tiny (standard, full width and depth, fp32, seeded random weights)
    trained by SGD at b32 through ``parallel/train.make_train_step`` (plain
@@ -339,10 +343,11 @@ FULL_TIMES = (("deit_tiny", 1), ("deit_tiny", 128), ("deit_base", 1))
 PERFORMER_SHAPES = ((1, 3136), (4, 3136), (1, 784), (4, 784), (32, 3136), (32, 784), (2, 300),
                     (1, 50))
 # sdpa at the module path's shapes, [b, h, n, d]: deit_tiny b1 and b128,
-# t2t_vit_14 b1, pruned h1 b1 and b128, head_dim 32 (the kernel's resident
-# form), deit_base at 384 (n = 577, its streamed form), ViT-H/14 (head_dim
-# 80, 257 keys: streamed) at b1 and b8, head_dim 88 (on the 96 instance),
-# 96 (resident at 197 keys) and 112 (streamed at 197 keys)
+# t2t_vit_14 b1, pruned h1 b1 and b128, head_dim 32 (csrc/sdpa.cu's resident
+# form), deit_base at 384 (n = 577: csrc/sdpa_long.cu), ViT-H/14 (head_dim
+# 80, 257 keys: sdpa_long.cu) at b1 and b8, head_dim 88 (sdpa_long.cu at 257
+# keys), 96 (resident at 197 keys) and 112 (sdpa_long.cu at 197 keys); every
+# sdpa_long.cu entry is checked in bf16 and fp16
 SDPA_SHAPES = {"deit_tiny b1": (1, 3, 197, 64), "deit_tiny b128": (128, 3, 197, 64),
                "t2t_vit_14 b1": (1, 6, 197, 64), "pruned h1 b1": (1, 1, 197, 64),
                "pruned h1 b128": (128, 1, 197, 64), "head_dim 32 b8": (8, 6, 197, 32),
@@ -886,10 +891,13 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
     form (dim above 1152, csrc/mlp_wide.cu) in bf16 and fp16) and
     ``layer_norm`` (K15, one ``ln_rows`` launch) at ``[b, 197, 192]``;
     ``mlp`` gives the same bits twice at deit_tiny b1 and b128 and at every
-    wide entry; returns ({kernel: max_abs_err} (the wide form's bf16 under
-    ``"mlp wide"``), {kernel: (ms, plain_ms)} of one deit_tiny b128 layer's
-    launch, and under ``"mlp b1"`` one deit_tiny b1 layer's, under ``"sdpa
-    ViT-H/14 b1"`` etc. one ViT-H/14 layer's at ``VIT_H_ROWS``)."""
+    wide entry, ``sdpa`` at every entry past ``res_keys`` (csrc/sdpa_long.cu,
+    also held in fp16, one launch a call); returns ({kernel: max_abs_err}
+    (the wide form's bf16 under ``"mlp wide"``, sdpa_long.cu's under ``"sdpa
+    long"``), {kernel: (ms, plain_ms)} of one deit_tiny b128 layer's launch,
+    and under ``"mlp b1"`` one deit_tiny b1 layer's, under ``"sdpa ViT-H/14
+    b1"`` etc. one ViT-H/14 layer's at ``VIT_H_ROWS`` and under ``"sdpa
+    deit_base 384 b8"`` one such layer's)."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(11)
 
@@ -917,10 +925,30 @@ def phase_kernels_pallas(torch, fe, fa, fm, ln, harness):
     for shape_name, (b, h, n, d) in SDPA_SHAPES.items():
         qkv = rnd(b, n, 3 * h * d)
         q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
-        check("sdpa", "sdpa", shape_name, lambda: fa.sdpa(q, k, v),
+        long = n > fa.res_keys(d)
+        check("sdpa long" if long else "sdpa", "sdpa", shape_name, lambda: fa.sdpa(q, k, v),
               lambda: fa.sdpa_plain(q, k, v),
               row="sdpa" if shape_name == "deit_tiny b128" else (
-                  f"sdpa {shape_name}" if shape_name in VIT_H_ROWS else None))
+                  f"sdpa {shape_name}" if shape_name in (*VIT_H_ROWS, "deit_base 384 b8")
+                  else None))
+        if not long:
+            continue
+        q16, k16, v16 = (t.to(torch.float16) for t in (q, k, v))
+        check("sdpa long fp16", "sdpa fp16", shape_name, lambda: fa.sdpa(q16, k16, v16),
+              lambda: fa.sdpa_plain(q16, k16, v16), timed=False)
+        plan = fa.long_plan(b, h, n, d, fa._sm_count(0))
+        for ops in ((q, k, v), (q16, k16, v16)):
+            fa.reset_launches()
+            first, second = fa.sdpa(*ops), fa.sdpa(*ops)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES["sdpa"] != 2:
+                fail(f"sdpa at {shape_name}: {fa.LAUNCHES['sdpa']} launches for two calls")
+            if not torch.equal(first, second):
+                fail(f"sdpa at {shape_name} ({ops[0].dtype}): two calls on the same inputs "
+                     f"differ")
+        print(f"  {shape_name:15s} sdpa (csrc/sdpa_long.cu): one launch a call, two calls give "
+              f"the same bits (bf16 and fp16; plan {plan.rows} rows, {plan.stages} stages"
+              f"{', K and V resident' if plan.resident else ''}, grid {plan.grid})")
     for shape_name, (m, dim, hid) in MLP_SHAPES.items():
         x = rnd(m, dim, scale=2.0)
         w1, b1 = rnd(dim, hid, scale=dim ** -0.5), rnd(hid)
@@ -1891,8 +1919,9 @@ def vit_huge_yardsticks(torch, harness) -> dict:
     ``sdpa`` (library: SDPA on the same q, k, v views) and ``mlp`` (dim 1280,
     hidden 5120, exact GELU; library: ``torch.addmm`` + ``F.gelu`` +
     ``torch.addmm`` timed as one sum); bytes and operations counted as
-    :func:`phase_yardsticks` counts them.  Returns {"<kernel> ViT-H/14 b<n>":
-    (bound_ms, bound_by, library_ms)}."""
+    :func:`phase_yardsticks` counts them; and ``sdpa`` at one deit_base 384
+    b8 layer (12 heads of 64, 577 keys).  Returns {"<kernel> ViT-H/14 b<n>":
+    (bound_ms, bound_by, library_ms), "sdpa deit_base 384 b8": ...}."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=DEVICE).manual_seed(19)
@@ -1919,6 +1948,11 @@ def vit_huge_yardsticks(torch, harness) -> dict:
             *_bound(2 * (2 * m * dim + 2 * dim * hid + hid + dim), {"bf16": 4 * m * dim * hid}),
             lib(lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, x, w1)), w2)))
         del qkv, x, w1, w2
+    b, heads, n, hd = SDPA_SHAPES["deit_base 384 b8"]
+    qkv = rnd(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    out["sdpa deit_base 384 b8"] = (
+        *_bound(2 * 4 * b * n * heads * hd, {"bf16": 4 * b * heads * n * n * hd}),
+        lib(lambda: F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])))
     return out
 
 
@@ -4864,7 +4898,9 @@ def main() -> int:
         k1, p1 = layer_ms[key]
         what = {"attention_rows": "SDPA with a key mask", "sdpa": "SDPA",
                 "mlp": "torch.addmm + F.gelu + torch.addmm"}[key.split()[0]]
-        print(f"  {key}, one layer (16 heads of 80, dim 1280, MLP 5120): kernel {k1:.4f} ms, "
+        layer = ("12 heads of 64, 577 keys" if "deit_base" in key
+                 else "16 heads of 80, dim 1280, MLP 5120")
+        print(f"  {key}, one layer ({layer}): kernel {k1:.4f} ms, "
               f"twin {p1:.4f} ms, bound {bnd1:.4g} ms ({by1}), kernel / bound "
               f"{k1 / bnd1:.1f}, library ({what}) {lib1:.4f} ms")
     for tag, yt in (("deit_tiny b128", ""), ("deit_tiny b1", " b1")):
@@ -4964,7 +5000,10 @@ def main() -> int:
           "launches those of phase 9's fp16 requests; 'mlp wide': mlp's wide form "
           "(csrc/mlp_wide.cu, every dim above 1152) on one ViT-H/14 b1 module layer (dim "
           "1280, exact GELU), max_abs_err its phase 3 bf16 entries', launches phase 10's "
-          "ViT-H/14 requests' (every mlp launch there is at dim 1280)")
+          "ViT-H/14 requests' (every mlp launch there is at dim 1280); 'sdpa long': sdpa's "
+          "csrc/sdpa_long.cu (every n past res_keys) on one ViT-H/14 b1 module layer (16 "
+          "heads of 80, 257 keys), max_abs_err its phase 3 bf16 entries', launches phase 10's "
+          "ViT-H/14 requests' (every sdpa launch there is at 257 keys)")
     rows = [
         {"name": k, "route": "cuda", "source": f"{src}{source}", "replaces": replaces,
          "launches": launches[k], "max_abs_err": errs[k],
@@ -4975,6 +5014,11 @@ def main() -> int:
     rows.append({"name": "mlp wide", "route": "cuda", "source": f"{src}mlp_wide.cu",
                  "replaces": KERNELS["mlp"][1], "launches": launches_h["mlp"],
                  "max_abs_err": errs["mlp wide"], "ms": k1, "plain_ms": p1, "bound_ms": bnd1,
+                 "bound_by": by1, "library_ms": lib1})
+    (k1, p1), (bnd1, by1, lib1) = layer_ms["sdpa ViT-H/14 b1"], vit_h_yard["sdpa ViT-H/14 b1"]
+    rows.append({"name": "sdpa long", "route": "cuda", "source": f"{src}sdpa_long.cu",
+                 "replaces": KERNELS["sdpa"][1], "launches": launches_h["sdpa"],
+                 "max_abs_err": errs["sdpa long"], "ms": k1, "plain_ms": p1, "bound_ms": bnd1,
                  "bound_by": by1, "library_ms": lib1})
     rows += [
         {"name": f"{k} fp16", "route": "cuda", "source": f"{src}{source}", "replaces": replaces,

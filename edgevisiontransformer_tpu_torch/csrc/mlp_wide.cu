@@ -70,9 +70,9 @@
 //   A consumer warpgroup waits on `full`, issues the step's products, keeps
 //   them in flight (LAG = 1) while it waits for the next step, and releases
 //   a slot (one arrive a warpgroup on `empty`) once its products are done.
-//   The tensor maps (cuTensorMapEncodeTiled, fetched through
-//   cudaGetDriverEntryPoint: the library links no libcuda) are made on the
-//   host for each call and passed as __grid_constant__ parameters.  Against
+//   The tensor maps (hopper.cuh's make_map, which holds the descriptors,
+//   mbarrier and TMA routines sdpa_long.cu shares) are made on the host for
+//   each call and passed as __grid_constant__ parameters.  Against
 //   the first form of this kernel, whose 256 threads loaded every step by
 //   cp.async behind a block barrier, TMA took ViT-H/14 b1 from 59 to 40 us
 //   and b8 from 290-295 to 183-185 us (bench/mlp_ab.py, PERF.md section 6).
@@ -90,10 +90,8 @@
 //   4-byte stores to H (then fence.proxy.async.global: phase 2 reads H
 //   through the async proxy); + f32(b2), one round to Y, or fp32 pairs to P.
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cudaTypedefs.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -141,20 +139,8 @@ struct TmaParams {
   Params<T> q;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
 // Byte offset of 16-byte chunk c of 128-byte row r in the swizzled layout.
 __device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
-
-// A wgmma shared-memory descriptor: 128-byte swizzle, the start address and
-// the leading / stride byte offsets in 16-byte units.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | (1ull << 62);
-}
 
 // d[64] += A (64 x 16, K-major) @ B (16 x 128, N-contiguous: transpose-B).
 #define EVT_WGMMA_N128(TY)                                                                 \
@@ -317,51 +303,7 @@ __device__ __forceinline__ void sum_shares(const Params<T>& p, int threads) {
   }
 }
 
-// The ring, aligned to the swizzle's period in the dynamic shared memory.
-__device__ __forceinline__ unsigned char* ring_base() {
-  extern __shared__ unsigned char smem_raw[];
-  return smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-}
-
 // ---- The TMA form ----
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete; a wait that never ends
-// traps (a launch error) rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (spins > (1u << 26)) __trap();
-  }
-}
-
-// One 64 x 64 box of the tensor map at (column c, row r) into `dst`, its
-// bytes counted on `bar`; zeros past the tensor's edges.
-__device__ __forceinline__ void tma_box(unsigned char* dst, const CUtensorMap* map, int c, int r,
-                                        uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)), "l"(map), "r"(c), "r"(r),
-      "r"(smem_u32(bar)) : "memory");
-}
 
 // The producer's ring step g: A[m0 : m0 + BM, k0 : k0 + BK] and B[k0 : k0 +
 // BK, n0 : n0 + BN] into slot g % STAGES, once the consumers released it.
@@ -546,36 +488,12 @@ __global__ __launch_bounds__(CONSUMERS, 1) void mlp_wide_kernel(const Params<T> 
 
 // ---- The launch ----
 
-PFN_cuTensorMapEncodeTiled encoder() {
-  static PFN_cuTensorMapEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A [rows, cols] row-major tensor map of the element type in 64 x 64 boxes
-// with the 128-byte swizzle; false if cuTensorMapEncodeTiled is missing or
-// refuses it.
-bool make_map(CUtensorMap* map, const void* base, int rows, int cols) {
-  const PFN_cuTensorMapEncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  cuuint32_t box[2] = {64, 64}, elem_strides[2] = {1, 1};
-#ifdef EVT_F16
-  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-#else
-  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-#endif
-  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+// A [rows, cols] row-major tensor map in 64 x 64 boxes (hopper.cuh).
+bool make_map_2d(CUtensorMap* map, const void* base, int rows, int cols) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, 64};
+  return make_map<elem>(map, base, 2, dims, strides, box);
 }
 
 // One cooperative launch of `kernel` with `threads` threads a block; its
@@ -637,8 +555,8 @@ extern "C" int EVT_EXPORT(evt_mlp_wide)(const void* x, const void* w1, const voi
     static bool configured = false;
     TmaParams<elem> tp;
     tp.q = p;
-    if (!make_map(&tp.x, x, M, dim) || !make_map(&tp.w1, w1, dim, hidden) ||
-        !make_map(&tp.h, h, M, hp) || !make_map(&tp.w2, w2, hidden, dim))
+    if (!make_map_2d(&tp.x, x, M, dim) || !make_map_2d(&tp.w1, w1, dim, hidden) ||
+        !make_map_2d(&tp.h, h, M, hp) || !make_map_2d(&tp.w2, w2, hidden, dim))
       return static_cast<int>(cudaErrorInvalidValue);
     return launch(reinterpret_cast<const void*>(mlp_wide_tma_kernel<elem>), &tp, grid,
                   CONSUMERS + PRODUCER, &configured, s);

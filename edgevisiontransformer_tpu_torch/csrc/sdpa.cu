@@ -33,8 +33,8 @@
 // the two products on the tensor cores, and the latency of each block's
 // chain of loads, products and softmax decides how much of that overlaps.
 //
-// Design: one block of 4 warps per (image * head, 64-query tile); each warp
-// owns 16 query rows.
+// Design (n <= RES_KEYS): one block of 4 warps per (image * head, 64-query
+// tile); each warp owns 16 query rows.
 // - Products on mma.sync.m16n8k16 (bf16 in, fp32 accumulators), fed by
 //   ldmatrix from tiles of row stride d + 8 (the 16-byte skew spreads eight
 //   rows over all 32 banks).  Q's A fragments come from its rows, S = Q K^T's
@@ -58,12 +58,10 @@
 //   the compiler from running loads ahead of the products) and the scores
 //   take no more registers than n needs: at n = 197 (13 chunks, every
 //   registry ViT at 224^2) 168 registers, three blocks per SM.
-// - Streamed form (longer n): 64-key tiles of K (sweep 1) and then K and V
-//   (sweep 2) pass through a 2-stage cp.async ring.  Sweep 1 keeps a running
-//   row max and sum, l = l * exp(m_old - m_new) + sum exp(s - m_new); sweep 2
-//   recomputes S and takes p = exp(s - m) / l, rounds it to bf16 and runs PV.
-//   So p is normalised before PV, as K13 does; the online sum differs from a
-//   direct one only in the rounding of its fp32 additions.  Any n runs.
+// - Longer n (past RES_KEYS) runs on sdpa_long.cu: wgmma products fed by
+//   TMA, the same softmax (sdpa_softmax.cuh) in two passes over 64-key
+//   tiles.  This kernel refuses it (cudaErrorInvalidValue); the wrapper
+//   (ops/cuda/fused_attention.py:sdpa) sends each shape to one of the two.
 // - The exact division costs a reciprocal on the MUFU and about ten more
 //   operations a score as __fdiv_rn; normalise gives the same quotient in
 //   five FMA-pipe operations from one reciprocal per row, wherever the
@@ -76,14 +74,13 @@
 //   memory, then written to the strided out view as 16-byte vectors.
 // - The routines it shares with attention_rows.cu and window_sdpa.cu
 //   (load_rows, qk, pv, store_rows, quad_sum, quad_max) are in
-//   attn_tiles.cuh.
-#include <math.h>
-
-#include "attn_tiles.cuh"
+//   attn_tiles.cuh; the softmax it shares with sdpa_long.cu (scale_mask,
+//   row_max, exp_rows, exact_corrections, divide_rows) in sdpa_softmax.cuh.
+#include "sdpa_softmax.cuh"
 
 namespace {
 
-constexpr int QT = 64, KT = 64, WARPS = 4, THREADS = WARPS * 32;
+constexpr int QT = 64, WARPS = 4, THREADS = WARPS * 32;
 
 // Element strides of q, k, v and out over (image, head, token).
 struct Strides {
@@ -99,127 +96,7 @@ struct Tile {
   static constexpr int RES_KEYS = HD > 96 ? 128 : 256;
 };
 
-// The softmax's two costly steps, each in one place (bench/sdpa_ab.py
-// builds variants of them).
-__device__ __forceinline__ float exp_shifted(float s, float m) {
-  return expf(__fsub_rn(s, m));
-}
-
-// p = e / l correctly rounded, the value of __fdiv_rn(e, l), given y =
-// __frcp_rn(l) (one per row), for l >= 1 and e / l >= 2^-101 or e = 0.
-// q = RN(e y) lies within 1.5 ulp of e / l; one correction q + (e - l q) y
-// brings it within one ulp; then Markstein's theorem holds: with y within
-// half an ulp of 1/l and q within one ulp of e/l, the remainder r = e - l q
-// is exact in one FMA and RN(q + r y) = RN(e / l).  The bound on e / l keeps
-// r clear of underflow, which would break that (exact_corrections decides).
-// Five fp32 operations a score, where __fdiv_rn takes a reciprocal on the
-// MUFU and about ten more (tests/test_torch_sdpa_tiles.py checks this
-// arithmetic against the exact quotient).
-__device__ __forceinline__ float normalise(float e, float l, float y) {
-  float q = __fmul_rn(e, y);
-  q = __fmaf_rn(__fmaf_rn(-l, q, e), y, q);
-  return __fmaf_rn(__fmaf_rn(-l, q, e), y, q);
-}
-
-// p = e / l for the rows that normalise does not take.
-__device__ __forceinline__ float divide_ieee(float e, float l) {
-  return __fdiv_rn(e, l);
-}
-
-__device__ __forceinline__ float quad_min(float v) {
-  v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-// Whether normalise is exact for every score of the warp's rows: the least
-// unmasked score lo gives the least nonzero numerator exp(lo - m), which must
-// keep e / l >= 2^-101 (2^-100 here, a margin for expf's last ulps).  lo is
-// this thread's share (quad-reduced here); l is quad-reduced.  Warp-uniform,
-// so the division loops stay free of branches; a row whose scores span more
-// than ~65 takes __fdiv_rn.
-__device__ __forceinline__ bool exact_corrections(const float lo[2], const float m[2],
-                                                  const float l[2]) {
-  bool ok = true;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float least = exp_shifted(quad_min(lo[r]), m[r]);  // every lane shuffles
-    ok &= least >= 0x1p-100f * l[r];
-  }
-  return __all_sync(0xffffffffu, ok);
-}
-
-// s = f32(q . k) * scale, -inf for keys at or past n (key0: the first key
-// of chunk 0); lo[r] becomes the least unmasked score of row r in this
-// thread's share, if smaller.
-template <int NC>
-__device__ __forceinline__ void scale_mask(float (&s)[NC][2][4], int key0, int n, float scale,
-                                           int lane, float lo[2]) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int key = key0 + c * 16 + (e / 4) * 8 + 2 * (lane & 3) + (e & 1);
-      float& x = s[c][e / 4][e % 4];
-      x = key < n ? __fmul_rn(x, scale) : -INFINITY;
-      if (key < n) lo[(e % 4) / 2] = fminf(lo[(e % 4) / 2], x);
-    }
-}
-
-// In place, p = e / l: by normalise where exact_corrections holds, else by
-// the IEEE division.
-template <int NC>
-__device__ __forceinline__ void divide_rows(float (&s)[NC][2][4], const float l[2],
-                                            bool corrections) {
-  if (corrections) {
-    const float y[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        float& x = s[c][e / 4][e % 4];
-        x = normalise(x, l[(e % 4) / 2], y[(e % 4) / 2]);
-      }
-  } else {
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        float& x = s[c][e / 4][e % 4];
-        x = divide_ieee(x, l[(e % 4) / 2]);
-      }
-  }
-}
-
-// The row max of the scores (m[0]: row g, m[1]: row g + 8), quad-reduced.
-template <int NC>
-__device__ __forceinline__ void row_max(const float (&s)[NC][2][4], float m[2]) {
-  m[0] = m[1] = -INFINITY;
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) m[(e % 4) / 2] = fmaxf(m[(e % 4) / 2], s[c][e / 4][e % 4]);
-  m[0] = quad_max(m[0]);
-  m[1] = quad_max(m[1]);
-}
-
-// In place, s becomes exp(s - m) (0 for a masked key); returns this
-// thread's share of each row's sum in l (not quad-reduced).
-template <int NC>
-__device__ __forceinline__ void exp_rows(float (&s)[NC][2][4], const float m[2], float l[2]) {
-  l[0] = l[1] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float& x = s[c][e / 4][e % 4];
-      const int r = (e % 4) / 2;
-      x = x == -INFINITY ? 0.0f : exp_shifted(x, m[r]);
-      l[r] = __fadd_rn(l[r], x);
-    }
-}
-
-// RC > 0: the resident form over RC 16-key chunks (n <= 16 RC); RC == 0:
-// the streamed form.
+// The resident form over RC 16-key chunks (n <= 16 RC).
 template <int HD, int RC, class T>
 __global__ __launch_bounds__(THREADS) void sdpa_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -227,7 +104,8 @@ __global__ __launch_bounds__(THREADS) void sdpa_kernel(
   constexpr int LD = Tile<HD>::LD;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
-  T* sKV = sQ + QT * LD;
+  T* sK = sQ + QT * LD;
+  T* sV = sK + RC * 16 * LD;
 
   const int img = blockIdx.x / heads, head = blockIdx.x % heads;
   const int q0 = blockIdx.y * QT;
@@ -244,95 +122,33 @@ __global__ __launch_bounds__(THREADS) void sdpa_kernel(
   for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
 
   load_rows<HD, THREADS, true>(sQ, qp, st.qn, q0, QT, n, tid, hd);
-  if constexpr (RC > 0) {
-    T* sK = sKV;
-    T* sV = sKV + RC * 16 * LD;
-    load_rows<HD, THREADS, true>(sK, kp, st.kn, 0, RC * 16, n, tid, hd);
-    cp_async_commit();  // group 0: q and k
-    load_rows<HD, THREADS, true>(sV, vp, st.vn, 0, RC * 16, n, tid, hd);
-    cp_async_commit();  // group 1: v, landing while q k^T and the softmax run
-    cp_async_wait<1>();
-    __syncthreads();
-    float s[RC][2][4];
-    if (active) {
-      qk<HD, RC>(s, sQw, sK, lane);
-      float m[2], l[2], lo[2] = {INFINITY, INFINITY};
-      scale_mask<RC>(s, 0, n, scale, lane, lo);
-      row_max<RC>(s, m);
-      exp_rows<RC>(s, m, l);
-      l[0] = quad_sum(l[0]);
-      l[1] = quad_sum(l[1]);
-      divide_rows<RC>(s, l, exact_corrections(lo, m, l));
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    if (active) pv<HD, RC>(o, s, sV, lane);
-  } else {
-    constexpr int NC = KT / 16;
-    const int tiles = (n + KT - 1) / KT, steps = 2 * tiles;
-    // Step i < tiles: k tile i (sweep 1); step i >= tiles: k and v tile
-    // i - tiles (sweep 2); stage i % 2 of the ring holds a k and a v tile.
-    auto prefetch = [&](int i) {
-      T* sK = sKV + (i & 1) * 2 * KT * LD;
-      const int t = i < tiles ? i : i - tiles;
-      load_rows<HD, THREADS, true>(sK, kp, st.kn, t * KT, KT, n, tid, hd);
-      if (i >= tiles)
-        load_rows<HD, THREADS, true>(sK + KT * LD, vp, st.vn, t * KT, KT, n, tid, hd);
-    };
-    prefetch(0);
-    cp_async_commit();  // group 0: q and the first k tile
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, lo[2] = {INFINITY, INFINITY};
-    bool corrections = true;
-    for (int i = 0; i < steps; ++i) {
-      if (i + 1 < steps) prefetch(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();  // step i landed
-      if (active) {
-        const T* sK = sKV + (i & 1) * 2 * KT * LD;
-        const int t = i < tiles ? i : i - tiles;
-        float s[NC][2][4];
-        qk<HD, NC>(s, sQw, sK, lane);
-        scale_mask<NC>(s, t * KT, n, scale, lane, lo);
-        if (i < tiles) {
-          float mt[2], lt[2];
-          row_max<NC>(s, mt);
-#pragma unroll
-          for (int r = 0; r < 2; ++r) mt[r] = fmaxf(mt[r], m[r]);
-          exp_rows<NC>(s, mt, lt);
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            l[r] = __fadd_rn(__fmul_rn(l[r], exp_shifted(m[r], mt[r])), lt[r]);
-            m[r] = mt[r];
-          }
-        } else {
-          if (i == tiles) {
-            l[0] = quad_sum(l[0]);
-            l[1] = quad_sum(l[1]);
-            corrections = exact_corrections(lo, m, l);
-          }
-#pragma unroll
-          for (int c = 0; c < NC; ++c)
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              float& x = s[c][e / 4][e % 4];
-              x = x == -INFINITY ? 0.0f : exp_shifted(x, m[(e % 4) / 2]);
-            }
-          divide_rows<NC>(s, l, corrections);
-          pv<HD, NC>(o, s, sK + KT * LD, lane);
-        }
-      }
-      __syncthreads();  // every warp is done with stage i % 2 before step i + 2 refills it
-    }
+  load_rows<HD, THREADS, true>(sK, kp, st.kn, 0, RC * 16, n, tid, hd);
+  cp_async_commit();  // group 0: q and k
+  load_rows<HD, THREADS, true>(sV, vp, st.vn, 0, RC * 16, n, tid, hd);
+  cp_async_commit();  // group 1: v, landing while q k^T and the softmax run
+  cp_async_wait<1>();
+  __syncthreads();
+  float s[RC][2][4];
+  if (active) {
+    qk<HD, RC>(s, sQw, sK, lane);
+    float m[2], l[2], lo[2] = {INFINITY, INFINITY};
+    scale_mask<RC>(s, 0, n, scale, lane, lo);
+    row_max<RC>(s, m);
+    exp_rows<RC>(s, m, l);
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+    divide_rows<RC>(s, l, exact_corrections(lo, m, l));
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (active) pv<HD, RC>(o, s, sV, lane);
   if (active) store_rows<HD, true>(o, sQw, op, st.on, q0 + wr, n, lane, hd);
 }
 
 template <int HD, int RC>
 int launch_form(const void* q, const void* k, const void* v, void* out, const Strides& st,
                 int bh, int heads, int n, int hd, float scale, cudaStream_t stream) {
-  constexpr int rows = RC > 0 ? QT + 2 * RC * 16 : QT + 2 * 2 * KT;  // q, then k and v
-  constexpr int bytes = rows * Tile<HD>::LD * 2;
+  constexpr int bytes = (QT + 2 * RC * 16) * Tile<HD>::LD * 2;  // q, then k and v
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -348,7 +164,7 @@ int launch_form(const void* q, const void* k, const void* v, void* out, const St
 }
 
 // The resident form at the fewest chunks that hold n (13 chunks: n = 197,
-// every registry ViT at 224^2), else the streamed form.
+// every registry ViT at 224^2); a longer n is sdpa_long.cu's.
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, const Strides& st, int bh,
            int heads, int n, int hd, float scale, cudaStream_t stream) {
@@ -360,7 +176,7 @@ int launch(const void* q, const void* k, const void* v, void* out, const Strides
     if (nc <= 13) return launch_form<HD, 13>(q, k, v, out, st, bh, heads, n, hd, scale, stream);
     if (nc <= 16) return launch_form<HD, 16>(q, k, v, out, st, bh, heads, n, hd, scale, stream);
   }
-  return launch_form<HD, 0>(q, k, v, out, st, bh, heads, n, hd, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -368,7 +184,8 @@ int launch(const void* q, const void* k, const void* v, void* out, const Strides
 // strides: 12 element strides, (image, head, token) of q, k, v and out
 // (bf16, or fp16 in the fp16 instance).  head_dim is a multiple of 8 from 16
 // to 128: the instance of the next multiple of 16 runs it, its extra columns
-// zeros in shared memory and never stored.
+// zeros in shared memory and never stored.  n at most RES_KEYS of that
+// instance (256, or 128 above head_dim 96); cudaErrorInvalidValue beyond.
 extern "C" int EVT_EXPORT(evt_sdpa)(const void* q, const void* k, const void* v, void* out,
                                     const long long* strides, int batch, int heads, int n,
                                     int head_dim, float scale, void* stream) {

@@ -49,6 +49,7 @@ _SIGNATURES = (
     ("evt_swin_merge", _I, (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     ("evt_window_sdpa", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     ("evt_sdpa", _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+    ("evt_sdpa_long", _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P)),
     ("evt_mlp", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     ("evt_mlp_wide", _I, (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     ("evt_vit_full", _I, (_P, _P, _P, _P)),

@@ -1226,10 +1226,11 @@ def _qkv_views(dev, b, h, n, d, seed=0, dtype=torch.bfloat16):
     return parts[0], parts[1], parts[2]
 
 
-# Resident form up to 256 keys (128 above d = 96), streamed beyond: n = 256
-# and 257 straddle the switch, 577 and 1000 stream off the 64-key tile, and
-# d = 128 streams from 129 keys on; every new head_dim resident at 50 and 197
-# keys (streamed above 96) and streamed at ViT-H/14's 257.
+# csrc/sdpa.cu's resident form up to 256 keys (128 above d = 96),
+# csrc/sdpa_long.cu beyond: n = 256 and 257 straddle the switch, 577 and 1000
+# run off the 64-key tile, and d = 128 leaves sdpa.cu from 129 keys on; every
+# new head_dim resident at 50 and 197 keys (sdpa_long.cu above 96) and on
+# sdpa_long.cu at ViT-H/14's 257.
 @pytest.mark.parametrize("b,h,n,d", [(1, 3, 197, 64), (128, 3, 197, 64), (1, 6, 197, 64),
                                      (2, 1, 197, 64), (2, 2, 50, 32), (1, 2, 577, 64),
                                      (2, 4, 65, 16), (1, 2, 100, 128), (1, 1, 1, 64),
@@ -1250,6 +1251,93 @@ def test_sdpa_large_scores_subtract_the_row_max(dev):
     q, k, v = _qkv_views(dev, 1, 2, 197, 64)
     q, k = q * 12, k * 12  # exp of the raw scores would overflow
     _close(fa.sdpa(q, k, v), fa.sdpa_plain(q, k, v))
+
+
+# csrc/sdpa_long.cu: n on both sides of res_keys(d) (129 is resident up to d =
+# 96) and on and off the 64-key tile, at the head dims of deit (64), ViT-H/14
+# (80), ViT-g/14 (88, on 2 panels), ViT-G/14 (104) and 112 / 128 (resident
+# only to 128 keys)
+@pytest.mark.parametrize("n", [129, 257, 300, 577, 1000])
+@pytest.mark.parametrize("d", [64, 80, 88, 104, 112, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sdpa_long_matches_twin_and_counts(dev, n, d, dtype):
+    q, k, v = _qkv_views(dev, 2, 3, n, d, seed=n + d, dtype=dtype)
+    fa.reset_launches()
+    got = fa.sdpa(q, k, v)
+    assert fa.LAUNCHES["sdpa"] == 1 and got.is_contiguous()
+    _close(got, fa.sdpa_plain(q, k, v))
+
+
+@pytest.mark.parametrize("n,d", [(257, 80), (577, 64)])
+def test_sdpa_long_large_scores_subtract_the_row_max(dev, n, d):
+    q, k, v = _qkv_views(dev, 1, 2, n, d, seed=5)
+    q, k = q * 12, k * 12  # exp of the raw scores would overflow
+    assert n > fa.res_keys(d)
+    _close(fa.sdpa(q, k, v), fa.sdpa_plain(q, k, v))
+
+
+@pytest.mark.parametrize("b,h,n,d", [(8, 16, 257, 80), (8, 4, 577, 64), (8, 2, 300, 128)])
+def test_sdpa_long_rows_alone_in_a_batch_and_twice_give_the_same_bits(dev, b, h, n, d):
+    """An image alone and inside the batch (another plan: K and V resident
+    against a ring of two tiles at ViT-H/14), and two calls, give the same
+    bits."""
+    sms = fe._sm_count(0)
+    q, k, v = _qkv_views(dev, b, h, n, d, seed=7)
+    batch, again = fa.sdpa(q, k, v), fa.sdpa(q, k, v)
+    alone = [fa.sdpa(q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in (0, b - 1)]
+    torch.cuda.synchronize()
+    assert torch.equal(batch, again)
+    assert torch.equal(alone[0], batch[:1]) and torch.equal(alone[1], batch[b - 1:])
+    if (n, d) == (257, 80):
+        alone_plan, batch_plan = fa.long_plan(1, h, n, d, sms), fa.long_plan(b, h, n, d, sms)
+        assert alone_plan.resident != batch_plan.resident
+
+
+def _forced(b, h, n, d, rows, stages):
+    tiles = -(-n // fa.LONG_KEYS)
+    return fa.LongPlan(rows, stages, stages >= 2 * tiles, tiles,
+                       fa.long_smem_bytes(rows, d, stages), (b * h, -(-n // rows)))
+
+
+# Every form of csrc/sdpa_long.cu's plan, forced: 64, 128 and 192 query rows,
+# K and V resident or streamed through the ring, rings of 2 and 3 tiles (the
+# least it takes), and the plan's own streamed ring at d = 128 (577 keys do
+# not fit resident); 257 and 577 keys end in a one-chunk tail, 300 does not
+@pytest.mark.parametrize("b,h,n,d,form", [
+    *((2, 16, 257, 80, (rows, res)) for rows in (64, 128, 192) for res in (True, False)),
+    *((1, 2, 577, 64, (rows, res)) for rows in (64, 128, 192) for res in (True, False)),
+    (1, 2, 300, 88, ("ring", 2)), (1, 2, 300, 88, ("ring", 3)),
+    (2, 2, 577, 128, None)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sdpa_long_every_plan_form_matches_twin(dev, monkeypatch, b, h, n, d, form, dtype):
+    long_plan = fa.long_plan
+    if form is not None and form[0] == "ring":
+        monkeypatch.setattr(fa, "long_plan", lambda *a, **k: _forced(b, h, n, d, 64, form[1]))
+    elif form is not None:
+        monkeypatch.setattr(fa, "long_plan",
+                            lambda *a, **k: long_plan(*a, **k, rows=form[0], resident=form[1]))
+    else:
+        assert not long_plan(b, h, n, d, fe._sm_count(0)).resident
+    q, k, v = _qkv_views(dev, b, h, n, d, seed=3, dtype=dtype)
+    fa.reset_launches()
+    got = fa.sdpa(q, k, v)
+    assert fa.LAUNCHES["sdpa"] == 1
+    _close(got, fa.sdpa_plain(q, k, v))
+    monkeypatch.undo()
+    assert torch.equal(got, fa.sdpa(q, k, v))  # the plan moves no bits
+
+
+def test_sdpa_long_refuses_a_plan_it_cannot_run(dev, monkeypatch):
+    """A plan csrc/sdpa_long.cu refuses (rows not 64, 128 or 192, a ring of
+    one tile, shared memory past the card's) raises, and counts no launch."""
+    q, k, v = _qkv_views(dev, 1, 2, 300, 64)
+    for rows, stages in ((32, 4), (256, 4), (64, 1), (64, 40)):
+        monkeypatch.setattr(fa, "long_plan", lambda *a, r=rows, s=stages, **k: _forced(
+            1, 2, 300, 64, r, s))
+        fa.reset_launches()
+        with pytest.raises(RuntimeError, match="sdpa launch failed"):
+            fa.sdpa(q, k, v)
+        assert fa.LAUNCHES["sdpa"] == 0
 
 
 def test_attention_writes_the_merged_heads_in_place(dev):
@@ -1393,6 +1481,16 @@ def test_pallas_wrappers_raise_on_the_card_rather_than_fall_back(dev):
     odd = _rnd(dev, 1, 2, 50, 36)[..., :32]  # rows 36 values apart: not 16-byte vectors
     with pytest.raises(ValueError, match="strides"):
         fa.sdpa(odd, odd, odd)
+    fa.reset_launches()  # the same refusals past res_keys (csrc/sdpa_long.cu's shapes)
+    q, k, v = _qkv_views(dev, 1, 2, 300, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.sdpa(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.sdpa(*_qkv_views(dev, 1, 2, 300, 136))
+    odd = _rnd(dev, 1, 2, 300, 36)[..., :32]
+    with pytest.raises(ValueError, match="strides"):
+        fa.sdpa(odd, odd, odd)
+    assert fa.LAUNCHES["sdpa"] == 0
     x, w1, w2 = _rnd(dev, 8, 64), _rnd(dev, 64, 96), _rnd(dev, 96, 64)
     b1, b2 = _rnd(dev, 96), _rnd(dev, 64)
     with pytest.raises(TypeError, match="bfloat16"):
